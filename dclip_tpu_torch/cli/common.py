@@ -1,0 +1,63 @@
+"""Shared CLI plumbing (counterpart of `dclip_tpu/cli/common.py`).
+
+Every entry point takes the same flags as the JAX package's:
+  --model_preset   vit-b-32 | vit-b-16 | vit-l-14 | tiny
+  --clip_weights   local HF snapshot dir / .bin / .safetensors, or 'random'
+                   (seeded N(0, 0.02) weights; there is no download path)
+  --tokenizer_dir  dir containing vocab.json + merges.txt, or 'hash'
+plus `--device` (default `cuda`; `cpu` only when asked for).
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Tuple, Union
+
+import torch
+
+from dclip_tpu.core.config import CLIPConfig
+from dclip_tpu_torch.core.device import resolve_device, resolve_dtype
+from dclip_tpu_torch.models.clip import CLIPModule
+
+
+def add_model_args(p: argparse.ArgumentParser, default_preset: str = "vit-b-16") -> None:
+    p.add_argument("--model_preset", default=default_preset,
+                   help="CLIP preset: vit-b-32|vit-b-16|vit-l-14|tiny or HF id alias")
+    p.add_argument("--clip_weights", default="random",
+                   help="local HF snapshot dir / weight file, or 'random'")
+    p.add_argument("--tokenizer_dir", default="hash",
+                   help="dir with vocab.json+merges.txt, or 'hash' (test tokenizer)")
+    p.add_argument("--seed", type=int, default=42)
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
+
+
+def load_clip(
+    preset: str, weights: str, seed: int = 0, compute_dtype: str = "float32",
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[CLIPConfig, CLIPModule]:
+    """Build a CLIPModule on `device` from a preset and a weights source.
+
+    compute_dtype: "auto" = bfloat16 on CUDA, float32 on the CPU. Params
+    are stored float32; the dtype sets the activations (and the image
+    tower's packed kernel weights)."""
+    from dclip_tpu_torch.models.weights import load_state_dict_file, random_state_dict
+
+    device = resolve_device(device)
+    cfg = CLIPConfig.from_name(preset)
+    sd = random_state_dict(cfg, seed) if weights == "random" else load_state_dict_file(weights)
+    model = CLIPModule(cfg, dtype=resolve_dtype(compute_dtype, device), device="meta")
+    model.load_state_dict(sd, strict=True, assign=True)
+    return cfg, model.to(device).eval()
+
+
+def load_tokenizer(tokenizer_dir: str, max_length: int = 77):
+    if tokenizer_dir == "hash":
+        from dclip_tpu_torch.data.tokenizer import HashTokenizer
+
+        return HashTokenizer(vocab_size=1000, max_length=max_length)
+    from dclip_tpu_torch.data.tokenizer import CLIPTokenizer
+
+    return CLIPTokenizer.from_pretrained_dir(tokenizer_dir, max_length=max_length)

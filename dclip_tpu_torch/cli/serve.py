@@ -1,0 +1,350 @@
+"""Local HTTP serving endpoint for CLIP embeddings + retrieval, on PyTorch.
+
+    python -m dclip_tpu_torch.cli.serve --model_preset vit-b-16 \
+        --clip_weights /path/to/hf_snapshot --tokenizer_dir /path/to/tok \
+        --port 8900 --index_dim 512
+
+Counterpart of `dclip_tpu/cli/serve.py`, with the same routes and JSON
+(stdlib http.server, threaded; concurrent requests are merged into device
+batches by serve.DynamicBatcher):
+
+  POST /v1/embeddings/text   {"texts": ["a dog", ...]}
+  POST /v1/embeddings/image  {"images_b64": ["<base64 PNG/JPEG>", ...]}
+                          or {"paths": ["/abs/img.jpg", ...]}
+  POST /v1/index/add         {"ids": [...], "images_b64"/"paths"/"embeddings"}
+  POST /v1/search            {"texts": [...], "k": 5}
+  GET  /healthz              -> {"ok": true}
+  GET  /v1/stats             -> batcher + service counters
+
+`--selftest` answers one request per route on an ephemeral port and exits
+0/1; `--bench` prints one JSON line per (modality, concurrency).
+"""
+from __future__ import annotations
+
+import argparse
+import base64
+import io
+import json
+import sys
+import threading
+import time
+from typing import Sequence
+
+import numpy as np
+
+
+def build_service(args):
+    from dclip_tpu_torch.cli.common import load_clip, load_tokenizer
+    from dclip_tpu_torch.serve import ClipService
+
+    if args.export_dir:
+        raise NotImplementedError(
+            "--export_dir: the serving artifact is not ported yet (ROADMAP "
+            "Queue 1, serving item: serve/export.py)"
+        )
+    cfg, model = load_clip(
+        args.model_preset, args.clip_weights, seed=args.seed,
+        compute_dtype="auto", device=args.device,
+    )
+    tokenizer = load_tokenizer(args.tokenizer_dir, max_length=cfg.text.max_length)
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    index = None
+    if args.index_path:
+        from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+
+        index = EmbeddingStore.load(args.index_path)
+        print(f"loaded index: {len(index)} entries, dim {index.dim}", flush=True)
+    return ClipService(
+        model, cfg, tokenizer=tokenizer, buckets=buckets,
+        index_dim=args.index_dim if args.index_dim > 0 else None,
+        quantize=args.quantize or None,
+        mesh=args.mesh_data if args.mesh_data != 1 else None,
+        index=index, device=model.logit_scale.device,
+    )
+
+
+def _decode_images(payload):
+    from PIL import Image
+
+    images = []
+    if "images_b64" in payload:
+        for s in payload["images_b64"]:
+            im = Image.open(io.BytesIO(base64.b64decode(s))).convert("RGB")
+            images.append(np.asarray(im, np.uint8))
+    elif "paths" in payload:
+        for p in payload["paths"]:
+            with Image.open(p) as im:
+                images.append(np.asarray(im.convert("RGB"), np.uint8))
+    else:
+        raise ValueError("expected 'images_b64' or 'paths'")
+    return images
+
+
+def make_handler(service, text_batcher, image_batcher):
+    """HTTP handler class closed over the service + request batchers."""
+    from http.server import BaseHTTPRequestHandler
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *a):  # quiet by default
+            pass
+
+        def _send(self, code: int, obj) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 (http.server API)
+            if self.path == "/healthz":
+                self._send(200, {"ok": True})
+            elif self.path == "/v1/stats":
+                self._send(200, {
+                    "service": service.stats(),
+                    "text_batcher": text_batcher.stats(),
+                    "image_batcher": image_batcher.stats(),
+                })
+            else:
+                self._send(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):  # noqa: N802
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                payload = json.loads(self.rfile.read(n) or b"{}")
+                if self.path == "/v1/embeddings/text":
+                    embs = text_batcher.submit_many(payload["texts"])
+                    self._send(200, {"embeddings": [e.tolist() for e in embs]})
+                elif self.path == "/v1/embeddings/image":
+                    embs = image_batcher.submit_many(_decode_images(payload))
+                    self._send(200, {"embeddings": [e.tolist() for e in embs]})
+                elif self.path == "/v1/index/add":
+                    ids = payload["ids"]
+                    if "embeddings" in payload:
+                        service.add_to_index(
+                            ids, np.asarray(payload["embeddings"], np.float32)
+                        )
+                    else:
+                        service.index_images(ids, _decode_images(payload))
+                    self._send(200, {"ok": True, "index_size": service.index_size})
+                elif self.path == "/v1/search":
+                    hits = service.search_texts(
+                        payload["texts"], k=int(payload.get("k", 5))
+                    )
+                    self._send(200, {
+                        "results": [
+                            [{"id": i, "score": s} for i, s in row]
+                            for row in hits
+                        ]
+                    })
+                else:
+                    self._send(404, {"error": f"no route {self.path}"})
+            except Exception as e:  # noqa: BLE001 — HTTP boundary
+                self._send(400, {"error": f"{type(e).__name__}: {e}"})
+
+    return Handler
+
+
+def _batchers(service, args):
+    from dclip_tpu_torch.serve import DynamicBatcher
+
+    wait = args.max_wait_ms / 1e3
+    return (
+        DynamicBatcher(service.encode_texts, max_batch=args.max_batch,
+                       max_wait_s=wait, name="text"),
+        DynamicBatcher(service.encode_images, max_batch=args.max_batch,
+                       max_wait_s=wait, name="image"),
+    )
+
+
+def _embeddings_ok(embs, dim: int) -> bool:
+    a = np.asarray(embs, np.float32)
+    return (a.ndim == 2 and a.shape[1] == dim and bool(np.isfinite(a).all())
+            and bool(np.allclose(np.linalg.norm(a, axis=-1), 1.0, atol=1e-3)))
+
+
+def selftest(service, args) -> int:
+    """One request per route against a live ephemeral-port server. Checks
+    that embeddings have the projection width, are finite and unit-norm,
+    and that a search finds the probe it just indexed."""
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    text_batcher, image_batcher = _batchers(service, args)
+    srv = ThreadingHTTPServer(
+        (args.host, 0), make_handler(service, text_batcher, image_batcher))
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def get(route):
+        with urllib.request.urlopen(f"http://{args.host}:{port}{route}", timeout=300) as r:
+            return r.read().decode()
+
+    def post(route, payload):
+        req = urllib.request.Request(
+            f"http://{args.host}:{port}{route}",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    dim = service.cfg.projection_dim
+    ok = True
+    try:
+        print("healthz:", get("/healthz"))
+        out = post("/v1/embeddings/text", {"texts": ["a dog", "a red car"]})
+        print(f"text embeddings: {len(out['embeddings'])} x {len(out['embeddings'][0])}")
+        ok &= _embeddings_ok(out["embeddings"], dim)
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(np.zeros((48, 64, 3), np.uint8)).save(buf, format="PNG")
+        out = post("/v1/embeddings/image",
+                   {"images_b64": [base64.b64encode(buf.getvalue()).decode()]})
+        print(f"image embeddings: 1 x {len(out['embeddings'][0])}")
+        ok &= _embeddings_ok(out["embeddings"], dim)
+        if service.index_size == 0 and args.index_dim > 0:
+            post("/v1/index/add", {"ids": ["probe"], "embeddings": out["embeddings"]})
+            hits = post("/v1/search", {"texts": ["anything"], "k": 1})
+            print("search:", json.dumps(hits))
+            ok &= hits["results"][0][0]["id"] == "probe"
+        print("stats:", get("/v1/stats"))
+    except Exception as e:  # noqa: BLE001 — smoke-check boundary
+        print(f"SELFTEST FAILED: {type(e).__name__}: {e}")
+        ok = False
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+        text_batcher.close()
+        image_batcher.close()
+    print("SELFTEST", "OK" if ok else "FAILED")
+    return 0 if ok else 1
+
+
+def bench(service, args, concurrencies: Sequence[int] = (1, 8, 32)) -> int:
+    """Concurrent-load measurement of the serving path.
+
+    K client threads each fire single-item requests back-to-back through
+    the DynamicBatcher (the HTTP layer is excluded). One JSON line per
+    (modality, concurrency): requests/s, p50/p99 latency, mean batch size
+    the batcher achieved, and the device the service runs on."""
+    import torch
+
+    from dclip_tpu_torch.serve import DynamicBatcher
+
+    print("warming up:", json.dumps(service.warmup()), flush=True)
+    device = (torch.cuda.get_device_name(service.device)
+              if service.device.type == "cuda" else "cpu")
+    size = service.cfg.vision.image_size
+    rng = np.random.RandomState(0)
+    image = rng.randint(0, 255, (size, size, 3), np.uint8)
+    text = "a photo of a dog catching a red frisbee in the park"
+    workloads = {
+        "text": (text, service.encode_texts),
+        "image": (image, service.encode_images),
+    }
+    for modality, (item, encode) in workloads.items():
+        for conc in concurrencies:
+            per_thread = max(4, 64 // conc)
+            with DynamicBatcher(encode, max_batch=args.max_batch,
+                                max_wait_s=args.max_wait_ms / 1e3, name=modality) as b:
+                b.submit(item)  # one warm pass through this batcher
+                lat: list = []
+                lock = threading.Lock()
+
+                def client():
+                    mine = []
+                    for _ in range(per_thread):
+                        t0 = time.perf_counter()
+                        b.submit(item)
+                        mine.append(time.perf_counter() - t0)
+                    with lock:
+                        lat.extend(mine)
+
+                threads = [threading.Thread(target=client) for _ in range(conc)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                wall = time.perf_counter() - t0
+                s = b.stats()
+            lat_ms = sorted(x * 1e3 for x in lat)
+            n = len(lat_ms)
+            print(json.dumps({
+                "modality": modality,
+                "concurrency": conc,
+                "requests": n,
+                "requests_per_sec": n / wall,
+                "p50_ms": lat_ms[n // 2],
+                "p99_ms": lat_ms[min(n - 1, int(n * 0.99))],
+                "mean_batch": s["mean_batch_size"],
+                "device": device,
+            }), flush=True)
+    return 0
+
+
+def parse_args(argv=None):
+    from dclip_tpu_torch.cli.common import add_device_arg, add_model_args
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_model_args(p)
+    add_device_arg(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8900)
+    p.add_argument("--buckets", default="1,4,16,64",
+                   help="comma-separated serving batch buckets")
+    p.add_argument("--max_batch", type=int, default=64)
+    p.add_argument("--max_wait_ms", type=float, default=5.0,
+                   help="linger for batching once a request is queued")
+    p.add_argument("--index_dim", type=int, default=0,
+                   help=">0 enables the retrieval index endpoints")
+    p.add_argument("--index_path", default="",
+                   help="preload a saved EmbeddingStore (.npz or .dcs)")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="not ported yet: any value but 1 raises")
+    p.add_argument("--quantize", default="", choices=["", "int8"],
+                   help="not ported yet: int8 raises")
+    p.add_argument("--export_dir", default="",
+                   help="not ported yet: raises")
+    p.add_argument("--no_warmup", action="store_true")
+    p.add_argument("--selftest", action="store_true",
+                   help="start on an ephemeral port, run one request per "
+                        "endpoint in-process, print the results, and exit 0/1")
+    p.add_argument("--bench", action="store_true",
+                   help="measure the serving path (batcher -> bucketed "
+                        "encoder) under concurrent load and exit")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    service = build_service(args)
+    if args.selftest:
+        return selftest(service, args)
+    if args.bench:
+        return bench(service, args)
+    if not args.no_warmup:
+        print("warming up:", json.dumps(service.warmup()), flush=True)
+    from http.server import ThreadingHTTPServer
+
+    text_batcher, image_batcher = _batchers(service, args)
+    srv = ThreadingHTTPServer(
+        (args.host, args.port), make_handler(service, text_batcher, image_batcher))
+    print(f"serving on http://{args.host}:{srv.server_address[1]}", flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+        text_batcher.close()
+        image_batcher.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,170 @@
+"""Append-only embedding store with npz and `.dcs` persistence.
+
+A copy of `dclip_tpu/data/embedding_store.py` without `device_arrays`
+(the JAX device put): the serving path moves `keys` to its device per
+search, as the JAX service does. It is copied, not imported, because
+`dclip_tpu/data/__init__.py` imports jax. `.dcs` files go through the
+JAX-free `dclip_tpu.native` runtime, so both packages read each other's
+stores.
+
+The store replaces the reference's FAISS `IndexFlatIP(512)` + JSON
+sidecars: one `[N, D]` float32 key matrix (+ values and positions), keys
+L2-normalized on add; persistence is one atomic npz (no pickle) or the
+native mmap KV store.
+"""
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+class EmbeddingStore:
+    """Append-only store of (key embedding, value embedding, position, id)."""
+
+    def __init__(self, dim: int = 512):
+        self.dim = dim
+        self._keys: List[np.ndarray] = []
+        self._values: List[np.ndarray] = []
+        self._positions: List[np.ndarray] = []
+        self._ids: List[str] = []
+        self._packed: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+
+    def __len__(self) -> int:
+        return len(self._ids)
+
+    def add(
+        self,
+        patch_id: str,
+        key: np.ndarray,
+        value: Optional[np.ndarray] = None,
+        position: Optional[Sequence[float]] = None,
+    ) -> None:
+        """Add one entry; key is L2-normalized like compute_faiss.py:44-48."""
+        key = np.asarray(key, np.float32).reshape(-1)
+        if key.shape[0] != self.dim:
+            raise ValueError(f"key dim {key.shape[0]} != store dim {self.dim}")
+        norm = np.linalg.norm(key)
+        key = key / max(norm, 1e-12)
+        self._keys.append(key)
+        self._values.append(
+            key if value is None else np.asarray(value, np.float32).reshape(-1)
+        )
+        self._positions.append(
+            np.zeros(4, np.float32)
+            if position is None
+            else np.asarray(position, np.float32).reshape(4)
+        )
+        self._ids.append(patch_id)
+        self._packed = None
+
+    def add_batch(
+        self,
+        ids: Sequence[str],
+        keys: np.ndarray,
+        values: Optional[np.ndarray] = None,
+        positions: Optional[np.ndarray] = None,
+    ) -> None:
+        for i, pid in enumerate(ids):
+            self.add(
+                pid,
+                keys[i],
+                None if values is None else values[i],
+                None if positions is None else positions[i],
+            )
+
+    # -- packed views ---------------------------------------------------------
+
+    def _pack(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        if self._packed is None:
+            if self._ids:
+                self._packed = (
+                    np.stack(self._keys),
+                    np.stack(self._values),
+                    np.stack(self._positions),
+                )
+            else:
+                z = np.zeros((0, self.dim), np.float32)
+                self._packed = (z, z.copy(), np.zeros((0, 4), np.float32))
+        return self._packed
+
+    @property
+    def keys(self) -> np.ndarray:
+        return self._pack()[0]
+
+    @property
+    def values(self) -> np.ndarray:
+        return self._pack()[1]
+
+    @property
+    def positions(self) -> np.ndarray:
+        return self._pack()[2]
+
+    @property
+    def ids(self) -> List[str]:
+        return list(self._ids)
+
+    # -- persistence ------------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        keys, values, positions = self._pack()
+        if path.endswith(".dcs"):
+            from dclip_tpu import native
+
+            os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+            with native.NativeKVStore(path, writable=True) as s:
+                s.put("dim", str(self.dim).encode())
+                s.put("ids", json.dumps(self._ids).encode())
+                s.put_array("keys", keys)
+                s.put_array("values", values)
+                s.put_array("positions", positions)
+            return
+        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)) or ".")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez_compressed(
+                    f,
+                    dim=np.int64(self.dim),
+                    keys=keys,
+                    values=values,
+                    positions=positions,
+                    ids=json.dumps(self._ids),
+                )
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+
+    @classmethod
+    def load(cls, path: str) -> "EmbeddingStore":
+        if path.endswith(".dcs"):
+            from dclip_tpu import native
+
+            s = native.NativeKVStore(path)
+            try:
+                store = cls(dim=int(s.get("dim").decode()))
+                ids = json.loads(s.get("ids").decode())
+                keys = s.get_array("keys")
+                values = s.get_array("values")
+                positions = s.get_array("positions")
+            finally:
+                s.close()
+            store._keys = [k for k in keys]
+            store._values = [v for v in values]
+            store._positions = [p for p in positions]
+            store._ids = ids
+            return store
+        with np.load(path, allow_pickle=False) as z:
+            store = cls(dim=int(z["dim"]))
+            ids = json.loads(str(z["ids"]))
+            keys, values, positions = z["keys"], z["values"], z["positions"]
+        store._keys = [k for k in keys]
+        store._values = [v for v in values]
+        store._positions = [p for p in positions]
+        store._ids = ids
+        return store

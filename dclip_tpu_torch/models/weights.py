@@ -1,0 +1,127 @@
+"""The weight bridge: Flax params or random init -> the port's state dict.
+
+The port's `CLIPModule` names its parameters the way HF `CLIPModel`'s
+state dict does, so three sources meet in one layout:
+
+- `state_dict_from_jax`: the JAX package's `variables["params"]` (nested
+  dict of arrays) -> HF names and torch layouts. The mapping is the one
+  `dclip_tpu/models/hf_export.py` `export_state_dict` writes: Flax Dense
+  kernel [in, out] -> Linear weight [out, in]; patch conv HWIO
+  [ph, pw, 3, D] -> OIHW (the inverse of `hf_import.py:88-91`); LayerNorm
+  `scale` -> `weight`; `logit_scale` comes across.
+- `random_state_dict`: the value rule of `dclip_tpu/cli/common.py`
+  `host_random_variables` (LayerNorm scale 1, biases 0, every other float
+  N(0, 0.02)) drawn from `np.random.RandomState(seed)`. The draw order is
+  the port's parameter order, not JAX's tree order.
+- `load_state_dict_file`: a local HF snapshot dir, `pytorch_model.bin` or
+  `model.safetensors`.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def layer_state_dict_from_jax(layer: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """One Flax `EncoderLayer` param dict -> HF names under `prefix`."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def dense(name, p):
+        sd[f"{prefix}{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+        sd[f"{prefix}{name}.bias"] = _t(p["bias"])
+
+    def ln(name, p):
+        sd[f"{prefix}{name}.weight"] = _t(p["scale"])
+        sd[f"{prefix}{name}.bias"] = _t(p["bias"])
+
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        dense(f"self_attn.{proj}", layer["self_attn"][proj])
+    ln("layer_norm1", layer["layer_norm1"])
+    dense("mlp.fc1", layer["mlp"]["fc1"])
+    dense("mlp.fc2", layer["mlp"]["fc2"])
+    ln("layer_norm2", layer["layer_norm2"])
+    return sd
+
+
+def state_dict_from_jax(flax_params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX `CLIPModule` params -> the port's (HF `CLIPModel`) state dict,
+    f32 CPU tensors."""
+    sd: Dict[str, torch.Tensor] = {}
+    t = flax_params["text_model"]
+    sd["text_model.embeddings.token_embedding.weight"] = _t(t["token_embedding"]["embedding"])
+    sd["text_model.embeddings.position_embedding.weight"] = _t(t["position_embedding"])
+    for i in range(cfg.text.num_layers):
+        sd.update(layer_state_dict_from_jax(
+            t["encoder"][f"layers_{i}"], f"text_model.encoder.layers.{i}."))
+    sd["text_model.final_layer_norm.weight"] = _t(t["final_layer_norm"]["scale"])
+    sd["text_model.final_layer_norm.bias"] = _t(t["final_layer_norm"]["bias"])
+
+    v = flax_params["vision_model"]
+    sd["vision_model.embeddings.class_embedding"] = _t(v["class_embedding"])
+    sd["vision_model.embeddings.patch_embedding.weight"] = _t(
+        np.asarray(v["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1))
+    sd["vision_model.embeddings.position_embedding.weight"] = _t(v["position_embedding"])
+    # HF's checkpoint key keeps the "pre_layrnorm" spelling.
+    sd["vision_model.pre_layrnorm.weight"] = _t(v["pre_layernorm"]["scale"])
+    sd["vision_model.pre_layrnorm.bias"] = _t(v["pre_layernorm"]["bias"])
+    for i in range(cfg.vision.num_layers):
+        sd.update(layer_state_dict_from_jax(
+            v["encoder"][f"layers_{i}"], f"vision_model.encoder.layers.{i}."))
+    sd["vision_model.post_layernorm.weight"] = _t(v["post_layernorm"]["scale"])
+    sd["vision_model.post_layernorm.bias"] = _t(v["post_layernorm"]["bias"])
+
+    sd["text_projection.weight"] = _t(np.asarray(flax_params["text_projection"]["kernel"]).T)
+    sd["visual_projection.weight"] = _t(np.asarray(flax_params["visual_projection"]["kernel"]).T)
+    sd["logit_scale"] = _t(flax_params["logit_scale"]).reshape(())
+    return sd
+
+
+def random_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random weights by the JAX CLI's `--clip_weights random` rule:
+    LayerNorm scales 1, biases 0, everything else N(0, 0.02), f32."""
+    from dclip_tpu_torch.models.clip import CLIPModule
+
+    shapes = CLIPModule(cfg, device="meta")  # names and shapes, no memory
+    ln_scales = {
+        f"{name}.weight" for name, m in shapes.named_modules()
+        if isinstance(m, torch.nn.LayerNorm)
+    }
+    rng = np.random.RandomState(seed)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in shapes.state_dict().items():
+        if name in ln_scales:
+            sd[name] = torch.ones(p.shape)
+        elif name.endswith("bias"):
+            sd[name] = torch.zeros(p.shape)
+        else:
+            sd[name] = torch.from_numpy(
+                np.asarray(rng.standard_normal(tuple(p.shape)) * 0.02, np.float32))
+    return sd
+
+
+def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """A local HF snapshot dir / `pytorch_model.bin` / `model.safetensors`
+    -> state dict (CPU tensors). No network path exists."""
+    if os.path.isdir(path):
+        for name in ("model.safetensors", "pytorch_model.bin"):
+            if os.path.exists(os.path.join(path, name)):
+                path = os.path.join(path, name)
+                break
+        else:
+            raise FileNotFoundError(f"no model.safetensors or pytorch_model.bin in {path}")
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        sd = load_file(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    # Older HF checkpoints carry the `position_ids` buffers; they are not
+    # parameters of the model.
+    return {k: v for k, v in sd.items() if not k.endswith("position_ids")}

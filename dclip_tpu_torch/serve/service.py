@@ -1,0 +1,248 @@
+"""Bucket-padded CLIP encoding service on one device.
+
+Counterpart of `dclip_tpu/serve/service.py`. Requests are padded up to a
+small set of batch buckets. PyTorch does not recompile per shape, but the
+buckets keep the set of shapes the kernels see bounded and keep the
+service's padding-invariance contract: a request's embedding does not
+depend on what else shares its batch.
+
+Text requests go raw string -> tokenizer -> [B, 77] ids; image requests
+take uint8 RGB arrays, resize/crop them on the host in uint8 and ship the
+uint8 bytes to the device, where rescale and CLIP normalization run. The
+image tower runs `kernels.vit_block.fused_image_features` over weights
+packed once at construction: the hand-written CUDA block kernels on a CUDA
+device, their plain twins on the CPU. Embeddings come back f32 and
+L2-normalized.
+
+An optional in-memory retrieval index (`data.embedding_store
+.EmbeddingStore` + `ops.knn.knn_search` on the device) turns the service
+into a text->image search endpoint.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from dclip_tpu_torch.core.device import resolve_device
+from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+from dclip_tpu_torch.kernels.vit_block import fused_image_features
+from dclip_tpu_torch.ops.image_ops import normalize as clip_normalize
+from dclip_tpu_torch.ops.knn import knn_search
+
+DEFAULT_BUCKETS = (1, 4, 16, 64)
+
+
+def pad_to_bucket(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= n; callers chunk by max(buckets) first."""
+    if n < 1:
+        raise ValueError(f"batch must be >= 1, got {n}")
+    for b in sorted(buckets):
+        if n <= b:
+            return b
+    raise ValueError(f"batch {n} exceeds the largest bucket {max(buckets)}")
+
+
+class ClipService:
+    def __init__(
+        self,
+        model,
+        cfg,
+        tokenizer=None,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        normalize: bool = True,
+        index_dim: Optional[int] = None,
+        quantize: Optional[str] = None,
+        mesh=None,
+        index: Optional[EmbeddingStore] = None,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        """`model`: a `models.clip.CLIPModule` holding its weights (its
+        `dtype` is the compute dtype). It is moved to `device` once, here,
+        and the image tower's weights are packed for the kernels once."""
+        if quantize is not None:
+            raise NotImplementedError(
+                "quantize: int8 serving is not ported yet (ROADMAP Queue 1, "
+                "serving item: --quantize int8, serve/quant.py)"
+            )
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-device serving is not ported yet (ROADMAP Queue 1, "
+                "serving item: --mesh_data)"
+            )
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.buckets = tuple(sorted(buckets))
+        self.normalize = normalize
+        self.quantize = quantize
+        self._lock = threading.Lock()  # encode calls + index mutations
+        with torch.no_grad():
+            self._image_weights = self.model.pack_image_weights()
+
+        self._index = None
+        if index is not None:
+            if index_dim is not None and index.dim != index_dim:
+                raise ValueError(f"index dim {index.dim} != index_dim {index_dim}")
+            if index_dim is None and index.dim != cfg.projection_dim:
+                raise ValueError(
+                    f"preloaded index dim {index.dim} != model projection "
+                    f"dim {cfg.projection_dim}; was it built with a "
+                    f"different preset?"
+                )
+            self._index = index
+        elif index_dim is not None:
+            self._index = EmbeddingStore(dim=index_dim)
+
+    def _maybe_normalize(self, emb: torch.Tensor) -> torch.Tensor:
+        emb = emb.float()
+        if not self.normalize:
+            return emb
+        return emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+    # -- encoding ----------------------------------------------------------
+    # inference_mode sits inside these methods: grad mode is thread-local,
+    # and DynamicBatcher calls them from its worker thread.
+
+    def _text_batch(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            ids_t = torch.from_numpy(ids).to(self.device)
+            mask_t = torch.from_numpy(mask).to(self.device)
+            emb = self.model.get_text_features(ids_t, mask_t)
+            return self._maybe_normalize(emb).cpu().numpy()
+
+    def _image_batch(self, pixels_u8: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            px = torch.from_numpy(pixels_u8).to(self.device)
+            px = clip_normalize(px.float() / 255.0)
+            emb = fused_image_features(self.cfg, self._image_weights, px)
+            return self._maybe_normalize(emb).cpu().numpy()
+
+    def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
+        """[N] strings -> [N, projection_dim] (L2-normalized by default)."""
+        if self.tokenizer is None:
+            raise RuntimeError("ClipService built without a tokenizer")
+        if len(texts) == 0:
+            return np.zeros((0, self.cfg.projection_dim), np.float32)
+        ids, mask = self.tokenizer.encode_batch(
+            list(texts), max_length=self.cfg.text.max_length
+        )
+        return self._run_bucketed(
+            len(texts),
+            lambda lo, hi, b: self._text_batch(
+                _pad_rows(ids[lo:hi], b), _pad_rows(mask[lo:hi], b)
+            ),
+        )
+
+    def encode_images(self, images: Sequence[np.ndarray]) -> np.ndarray:
+        """[N] uint8 RGB HWC arrays (any sizes) -> [N, projection_dim]."""
+        if len(images) == 0:
+            return np.zeros((0, self.cfg.projection_dim), np.float32)
+        from dclip_tpu_torch.data.pipeline import resize_crop_uint8
+
+        size = self.cfg.vision.image_size
+
+        def _prep(im):
+            im = np.asarray(im, np.uint8)
+            if im.shape == (size, size, 3):
+                return im  # already target geometry — no PIL round-trip
+            from PIL import Image
+
+            return resize_crop_uint8(Image.fromarray(im), size)
+
+        pixels = np.stack([_prep(im) for im in images])
+        return self._run_bucketed(
+            len(images),
+            lambda lo, hi, b: self._image_batch(_pad_rows(pixels[lo:hi], b)),
+        )
+
+    def _run_bucketed(self, n: int, run_chunk) -> np.ndarray:
+        """Chunk [0, n) by the largest bucket, pad each chunk up to its
+        bucket, run, and strip the padding."""
+        out = []
+        step = max(self.buckets)
+        with self._lock:
+            for lo in range(0, n, step):
+                hi = min(lo + step, n)
+                b = pad_to_bucket(hi - lo, self.buckets)
+                out.append(run_chunk(lo, hi, b)[: hi - lo])
+        return np.concatenate(out, axis=0)
+
+    def warmup(self) -> Dict[str, float]:
+        """Run every bucket once for both modalities; returns seconds per
+        (modality, bucket), each ending in a device-to-host copy."""
+        timings = {}
+        size = self.cfg.vision.image_size
+        for b in self.buckets:
+            t0 = time.perf_counter()
+            ids = np.full((b, self.cfg.text.max_length), 1, np.int32)
+            mask = np.ones((b, self.cfg.text.max_length), np.int32)
+            with self._lock:
+                self._text_batch(ids, mask)
+            timings[f"text/{b}"] = round(time.perf_counter() - t0, 3)
+            t0 = time.perf_counter()
+            with self._lock:
+                self._image_batch(np.zeros((b, size, size, 3), np.uint8))
+            timings[f"image/{b}"] = round(time.perf_counter() - t0, 3)
+        return timings
+
+    # -- retrieval index ---------------------------------------------------
+
+    @property
+    def index_size(self) -> int:
+        return 0 if self._index is None else len(self._index)
+
+    def add_to_index(self, ids: Sequence[str], embeddings: np.ndarray) -> None:
+        if self._index is None:
+            raise RuntimeError("ClipService built without index_dim")
+        with self._lock:
+            self._index.add_batch(list(ids), np.asarray(embeddings))
+
+    def index_images(self, ids: Sequence[str], images: Sequence[np.ndarray]) -> None:
+        self.add_to_index(ids, self.encode_images(images))
+
+    def search_texts(self, texts: Sequence[str], k: int = 5) -> List[List[Tuple[str, float]]]:
+        """Text queries -> top-k (id, score) over the image index."""
+        return self.search(self.encode_texts(texts), k)
+
+    def search(self, queries: np.ndarray, k: int = 5) -> List[List[Tuple[str, float]]]:
+        if self._index is None:
+            raise RuntimeError("ClipService built without index_dim")
+        # Snapshot under the lock: the packed key matrix is rebuilt lazily,
+        # and a concurrent add must not be lost behind a stale pack.
+        with self._lock:
+            if len(self._index) == 0:
+                return [[] for _ in range(len(queries))]
+            keys = self._index.keys
+            ids = self._index.ids
+        if len(queries) == 0:
+            return []
+        with torch.inference_mode():
+            q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
+            scores, idx = knn_search(q, torch.as_tensor(keys, device=self.device),
+                                     min(k, keys.shape[0]))
+            scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        return [
+            [(ids[j], float(s)) for j, s in zip(row_i, row_s)]
+            for row_i, row_s in zip(idx, scores)
+        ]
+
+    def stats(self) -> dict:
+        return {
+            "buckets": list(self.buckets),
+            "index_size": self.index_size,
+            "projection_dim": self.cfg.projection_dim,
+            "quantize": self.quantize,
+            "device": str(self.device),
+        }
+
+
+def _pad_rows(a: np.ndarray, b: int) -> np.ndarray:
+    if a.shape[0] == b:
+        return a
+    pad = np.zeros((b - a.shape[0],) + a.shape[1:], a.dtype)
+    return np.concatenate([a, pad], axis=0)

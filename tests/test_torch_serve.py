@@ -1,0 +1,199 @@
+"""The port's serving stack (dclip_tpu_torch.serve, .data, .cli.serve)
+against the JAX package's on the CPU at the tiny config: ClipService
+encodings, bucket-padding invariance and search, the copied host code
+(tokenizers, store, batcher, resize/crop), and the CLI selftest."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dclip_tpu.core.config import CLIPConfig
+from dclip_tpu.data.tokenizer import CLIPTokenizer as JaxCLIPTokenizer
+from dclip_tpu.data.tokenizer import HashTokenizer as JaxHashTokenizer
+from dclip_tpu.serve import ClipService as JaxClipService
+from dclip_tpu_torch.data.tokenizer import CLIPTokenizer, HashTokenizer
+from dclip_tpu_torch.serve import ClipService, DynamicBatcher, pad_to_bucket
+
+import torch_parity
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TEXTS = ["a photo of a dog", "two cats", "red car on a street", "a",
+         "mountain lake at dawn"]  # n=5 spans chunks 4 + 1 at buckets (1, 2, 4)
+# L2-normalized embeddings after a 2-layer tower at f32 (different sum
+# orders in the two frameworks).
+EMB_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def services():
+    cfg = CLIPConfig.tiny_test()
+    model, params = torch_parity.jax_clip(cfg, seed=0)
+    tok = HashTokenizer(vocab_size=cfg.text.vocab_size, max_length=cfg.text.max_length)
+    jax_tok = JaxHashTokenizer(vocab_size=cfg.text.vocab_size,
+                               max_length=cfg.text.max_length)
+    jax_svc = JaxClipService(model, {"params": params}, cfg, tokenizer=jax_tok,
+                             buckets=(1, 2, 4), index_dim=cfg.projection_dim)
+    port_svc = ClipService(torch_parity.port_clip(cfg, params), cfg, tokenizer=tok,
+                           buckets=(1, 2, 4), index_dim=cfg.projection_dim, device="cpu")
+    return cfg, jax_svc, port_svc
+
+
+def _images(n, seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, (40 + 3 * i, 37, 3), np.uint8) for i in range(n)]
+
+
+def test_encode_texts_matches_jax_service(services):
+    cfg, jax_svc, port_svc = services
+    got = port_svc.encode_texts(TEXTS)
+    assert got.shape == (5, cfg.projection_dim) and got.dtype == np.float32
+    np.testing.assert_allclose(got, jax_svc.encode_texts(TEXTS), **EMB_TOL)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+
+
+def test_encode_images_matches_jax_service(services):
+    cfg, jax_svc, port_svc = services
+    images = _images(3) + [np.random.RandomState(1).randint(
+        0, 256, (cfg.vision.image_size,) * 2 + (3,), np.uint8)]
+    got = port_svc.encode_images(images)
+    assert got.shape == (4, cfg.projection_dim)
+    np.testing.assert_allclose(got, jax_svc.encode_images(images), **EMB_TOL)
+
+
+def test_padding_invariance_across_buckets(services):
+    """A request's embedding does not depend on its batch: 5 items in
+    chunks of 4 + 1 equal the items encoded one by one (bucket 1) and as
+    a pair padded to 2 rows."""
+    _, _, port_svc = services
+    batch = port_svc.encode_texts(TEXTS)
+    single = np.concatenate([port_svc.encode_texts([t]) for t in TEXTS])
+    np.testing.assert_allclose(batch, single, rtol=1e-5, atol=1e-6)
+    images = _images(5, seed=2)
+    batch = port_svc.encode_images(images)
+    single = np.concatenate([port_svc.encode_images([im]) for im in images])
+    np.testing.assert_allclose(batch, single, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(port_svc.encode_images(images[:3])[:3], batch[:3],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_search_matches_jax_service(services):
+    cfg, jax_svc, port_svc = services
+    images = _images(6, seed=3)
+    embs = port_svc.encode_images(images)
+    ids = [f"img{i}" for i in range(6)]
+    port_svc.add_to_index(ids, embs)
+    jax_svc.add_to_index(ids, embs)
+    got = port_svc.search_texts(TEXTS, k=3)
+    want = jax_svc.search_texts(TEXTS, k=3)
+    assert [r[0][0] for r in got] == [r[0][0] for r in want]
+    np.testing.assert_allclose([[s for _, s in r] for r in got],
+                               [[s for _, s in r] for r in want], **EMB_TOL)
+    self_hits = port_svc.search(embs, k=1)
+    assert [r[0][0] for r in self_hits] == ids
+    assert self_hits[0][0][1] == pytest.approx(1.0, abs=1e-5)
+    assert port_svc.search(np.zeros((0, cfg.projection_dim)), k=2) == []
+
+
+def test_service_refuses_what_is_not_ported():
+    cfg = CLIPConfig.tiny_test()
+    _, params = torch_parity.jax_clip(cfg, seed=0)
+    model = torch_parity.port_clip(cfg, params)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ClipService(model, cfg, quantize="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ClipService(model, cfg, mesh=2, device="cpu")
+
+
+def test_pad_to_bucket():
+    assert [pad_to_bucket(n, (1, 4, 16)) for n in (1, 3, 16)] == [1, 4, 16]
+    for n in (0, 17):
+        with pytest.raises(ValueError):
+            pad_to_bucket(n, (1, 4, 16))
+
+
+def test_tokenizers_match_jax(tmp_path):
+    texts = TEXTS + ["the cat and the dog run in the park", "  extra   whitespace \t "]
+    a = HashTokenizer(vocab_size=1000, max_length=16).encode_batch(texts)
+    b = JaxHashTokenizer(vocab_size=1000, max_length=16).encode_batch(texts)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    import json
+
+    from dclip_tpu_torch.data.tokenizer import bytes_to_unicode
+
+    base = list(bytes_to_unicode().values())
+    vocab = {ch: i for i, ch in enumerate(base + [c + "</w>" for c in base])}
+    merges = [("t", "h"), ("th", "e</w>"), ("c", "a"), ("ca", "t</w>")]
+    for m in merges:
+        vocab.setdefault("".join(m), len(vocab))
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n")
+    a = CLIPTokenizer.from_pretrained_dir(str(tmp_path), 16).encode_batch(texts)
+    b = JaxCLIPTokenizer.from_pretrained_dir(str(tmp_path), 16).encode_batch(texts)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("suffix", [".npz", ".dcs"])
+def test_embedding_store_round_trip_and_jax_interop(tmp_path, suffix):
+    from dclip_tpu.data.embedding_store import EmbeddingStore as JaxStore
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+
+    rng = np.random.RandomState(4)
+    keys = rng.standard_normal((5, 8)).astype(np.float32)
+    store = EmbeddingStore(dim=8)
+    store.add_batch([f"k{i}" for i in range(5)], keys)
+    np.testing.assert_allclose(np.linalg.norm(store.keys, axis=-1), 1.0, rtol=1e-6)
+    path = str(tmp_path / f"store{suffix}")
+    store.save(path)
+    for loaded in (EmbeddingStore.load(path), JaxStore.load(path)):
+        assert loaded.ids == store.ids and loaded.dim == 8
+        np.testing.assert_array_equal(loaded.keys, store.keys)
+    with pytest.raises(ValueError, match="dim"):
+        store.add("bad", np.ones(3))
+
+
+def test_batcher_merges_and_keeps_order():
+    with DynamicBatcher(lambda xs: [x * 10 for x in xs], max_batch=4,
+                        max_wait_s=0.01) as b:
+        assert b.submit_many(list(range(10))) == [x * 10 for x in range(10)]
+        s = b.stats()
+    assert s["items"] == 10 and s["batches"] >= 3 and s["mean_batch_size"] <= 4
+
+
+def test_resize_crop_matches_jax_pipeline():
+    from PIL import Image
+
+    from dclip_tpu.data.pipeline import resize_crop_uint8 as jax_resize_crop
+    from dclip_tpu_torch.data.pipeline import resize_crop_uint8
+
+    for im in _images(3, seed=5):
+        pil = Image.fromarray(im)
+        np.testing.assert_array_equal(resize_crop_uint8(pil, 32), jax_resize_crop(pil, 32))
+
+
+def test_cli_selftest_subprocess():
+    out = subprocess.run(
+        [sys.executable, "-m", "dclip_tpu_torch.cli.serve", "--device", "cpu",
+         "--model_preset", "tiny", "--selftest", "--index_dim", "16"],
+        capture_output=True, text=True, timeout=240, cwd=REPO,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "SELFTEST OK" in out.stdout
+    assert '"id": "probe"' in out.stdout
+
+
+def test_cli_refuses_export_and_default_cuda_without_card(monkeypatch):
+    from dclip_tpu_torch.cli import serve as cli_serve
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli_serve.main(["--device", "cpu", "--model_preset", "tiny", "--export_dir", "x"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli_serve.main(["--model_preset", "tiny", "--selftest"])

@@ -1,0 +1,87 @@
+"""Shared inputs for the JAX-vs-PyTorch parity tests (tests/test_torch_*.py).
+
+Weights and inputs are drawn with numpy from a seed and handed to both
+packages, so the two sides compute on identical values; the port's weights
+come across through `dclip_tpu_torch.models.weights.state_dict_from_jax`.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from dclip_tpu.models.clip import CLIPModule as JaxCLIPModule
+from dclip_tpu_torch.models.clip import CLIPModule
+from dclip_tpu_torch.models.weights import state_dict_from_jax
+
+
+def _normal(rng, shape, scale):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def layer_params(rng, d: int, mlp: int):
+    """One Flax `EncoderLayer` param dict with 1/sqrt(fan_in) matrices (so
+    attention is far from uniform), non-zero biases and LN affines."""
+    def dense(i, o):
+        return {"kernel": _normal(rng, (i, o), i**-0.5), "bias": _normal(rng, (o,), 0.1)}
+
+    def ln():
+        return {"scale": 1.0 + _normal(rng, (d,), 0.1), "bias": _normal(rng, (d,), 0.1)}
+
+    return {
+        "self_attn": {p: dense(d, d) for p in ("q_proj", "k_proj", "v_proj", "out_proj")},
+        "layer_norm1": ln(),
+        "layer_norm2": ln(),
+        "mlp": {"fc1": dense(d, mlp), "fc2": dense(mlp, d)},
+    }
+
+
+def jax_clip(cfg, seed: int = 0):
+    """(JAX CLIPModule, params): the module's param tree filled from numpy —
+    LN scales 1 + N(0, 0.1), biases N(0, 0.02), other floats N(0, 0.02)."""
+    model = JaxCLIPModule(cfg)
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0),
+        jnp.zeros((1, cfg.text.max_length), jnp.int32),
+        jnp.zeros((1, cfg.vision.image_size, cfg.vision.image_size, 3)),
+    ))["params"]
+    rng = np.random.RandomState(seed)
+
+    def fill(path, s):
+        name = str(path[-1].key)
+        if name == "logit_scale":
+            return np.asarray(cfg.logit_scale_init, np.float32)
+        if name == "scale":
+            return 1.0 + _normal(rng, s.shape, 0.1)
+        return _normal(rng, s.shape, 0.02)
+
+    return model, jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def port_clip(cfg, params, dtype=torch.float32) -> CLIPModule:
+    """The port's CLIPModule on the CPU holding the same weights."""
+    model = CLIPModule(cfg, dtype=dtype, device="meta")
+    model.load_state_dict(state_dict_from_jax(params, cfg), strict=True, assign=True)
+    return model.eval()
+
+
+def text_batch(cfg, seed: int = 0):
+    """[5, T] ids + mask: padded captions of several lengths (EOS closes
+    each) and a last row of full length that holds no EOS id, which pools
+    at the last position."""
+    rng = np.random.RandomState(seed)
+    t, eos = cfg.text.max_length, cfg.text.eos_token_id
+    ids = rng.randint(1, eos - 2, size=(5, t)).astype(np.int32)
+    mask = np.ones((5, t), np.int32)
+    for row, n in enumerate((3, 6, t // 2, t)):
+        ids[row, n - 1] = eos
+        ids[row, n:] = 0
+        mask[row, n:] = 0
+    return ids, mask
+
+
+def pixels(cfg, n: int, seed: int = 0) -> np.ndarray:
+    rng = np.random.RandomState(seed)
+    s = cfg.vision.image_size
+    return rng.standard_normal((n, s, s, 3)).astype(np.float32)
