@@ -8,9 +8,12 @@ module layout so each counterpart is found under the same path:
              first use) behind Python wrappers with plain PyTorch twins
   models/    CLIP dual encoder with HF `CLIPModel` parameter names, and
              the weight bridge from Flax params / random init
-  ops/       CLIP pixel normalization, exact k-NN search
+  ops/       CLIP pixel normalization, exact k-NN search, losses,
+             caption packing
   data/      tokenizers, embedding store, serving image resize/crop
   serve/     dynamic request batcher, bucket-padded ClipService
+  train/     the cache-warm distillation step: DistillTrainer (student
+             half), masked AdamW, teacher-target caches, epoch loop
   cli/       `python -m dclip_tpu_torch.cli.serve`
 
 This package imports `torch` and never `jax`; the only `dclip_tpu`

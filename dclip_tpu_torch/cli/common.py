@@ -53,6 +53,38 @@ def load_clip(
     return cfg, model.to(device).eval()
 
 
+def synthetic_distill_batch(clip_cfg, teacher_cfg, batch: int, rng=None):
+    """Host-numpy distillation batch with the pipeline's field set and
+    shapes, copied from `dclip_tpu/cli/common.py:35-74` (same draws from
+    the same RandomState): caption spans of 8-24 tokens (a fixed 6 for
+    max_length < 26), pixels, teacher pixels, boxes, conf, box_mask."""
+    import numpy as np
+
+    rng = rng or np.random.RandomState(0)
+    t = clip_cfg.text.max_length
+    s = clip_cfg.vision.image_size
+    p = teacher_cfg.max_patches
+    ids = rng.randint(1, clip_cfg.text.vocab_size - 2, size=(batch, t)).astype(np.int32)
+    mask = np.zeros((batch, t), np.int32)
+    lengths = rng.randint(8, 25, size=batch) if t >= 26 else np.full(batch, 6)
+    for b in range(batch):
+        n = int(lengths[b])
+        ids[b, n - 1] = clip_cfg.text.eos_token_id
+        ids[b, n:] = 0
+        mask[b, :n] = 1
+    boxes = rng.rand(batch, p, 4).astype(np.float32) * (s / 2)
+    boxes[..., 2:] += boxes[..., :2] + 2
+    return {
+        "pixel_values": rng.randn(batch, s, s, 3).astype(np.float32) * 0.1,
+        "input_ids": ids,
+        "attention_mask": mask,
+        "teacher_pixels": rng.rand(batch, s, s, 3).astype(np.float32),
+        "boxes": boxes,
+        "conf": rng.rand(batch, p).astype(np.float32),
+        "box_mask": np.ones((batch, p), np.float32),
+    }
+
+
 def load_tokenizer(tokenizer_dir: str, max_length: int = 77):
     if tokenizer_dir == "hash":
         from dclip_tpu_torch.data.tokenizer import HashTokenizer

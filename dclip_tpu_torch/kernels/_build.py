@@ -1,11 +1,13 @@
 """Build-on-first-use for the CUDA kernels in `csrc/`, loaded with ctypes.
 
 Counterpart of `dclip_tpu/native/__init__.py`'s build-on-demand pattern,
-with nvcc in place of g++. All `csrc/*.cu` compile into one shared library
-with a plain C interface:
+with nvcc in place of g++. Every `csrc/*.cu` compiles to an object file,
+one nvcc process per source, all started together; one more nvcc call
+links them into one shared library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libdclip_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o _build/obj/<name>.o csrc/<name>.cu   # each
+    nvcc -shared -o _build/libdclip_torch_kernels.so _build/obj/*.o
 
 The library is rebuilt when the SHA-256 of the sources (`*.cu`, `*.cuh`)
 differs from the stamp written beside it. A missing nvcc or a failed
@@ -39,10 +41,25 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, scale, bias, y, rows, d, eps, stream
     "dclip_layernorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
-    # a, w, bias, residual (nullable), c, m, n, k, gelu, stream
-    "dclip_gemm_bias_act_residual_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, g, dh, scale, dx, rows, d, eps, stream
+    "dclip_layernorm_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # a, w, bias, residual, aux_in, aux_out (the last four nullable), c,
+    # m, n, k, epilogue, out_f32, stream
+    "dclip_gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qkv, out, b, s, heads, stream
     "dclip_attention_bf16": [_P, _P, _I, _I, _I, _P],
+    # q, k, v, ldq, ldk, ldv, out, pad, seg, m, rinv (the last four
+    # nullable), b, s, heads, causal, stream
+    "dclip_attention_fwd_bf16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _P],
+    # q, k, v, ldq, ldk, ldv, g, o, m, rinv, pad, seg (nullable), delta,
+    # dq, dk, dv, lddq, lddk, lddv, b, s, heads, causal, stream
+    "dclip_attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # si, st, ti, tt, part, out, b, d, temperature, weight, stream
+    "dclip_distill_loss_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # si, st, ti, tt, part, cts, dsi, dst, b, d, temperature, stream
+    "dclip_distill_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
 }
 
 
@@ -71,6 +88,22 @@ def find_nvcc() -> str:
     )
 
 
+def _run_all(cmds: List[List[str]]) -> List[subprocess.CompletedProcess]:
+    """Start every command at once and wait for all of them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    out = []
+    for cmd, proc in zip(cmds, procs):
+        try:
+            text, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise
+        out.append(subprocess.CompletedProcess(cmd, proc.returncode, text, ""))
+    return out
+
+
 def build(force: bool = False) -> float:
     """Compile `csrc/*.cu` into LIB_PATH unless the stamp matches the
     sources. Returns the seconds spent compiling (0.0 when up to date).
@@ -81,22 +114,32 @@ def build(force: bool = False) -> float:
         with open(_STAMP_PATH) as f:
             if f.read().strip() == digest:
                 return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    obj_dir = os.path.join(BUILD_DIR, f"obj.{os.getpid()}")
+    os.makedirs(obj_dir, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f"{LIB_PATH}.tmp.{os.getpid()}"
-    cmd = [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, *_sources()]
+    objs, cmds = [], []
+    for src in _sources():
+        obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
+        objs.append(obj)
+        cmds.append([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                     "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, src])
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    results = _run_all(cmds)
+    if all(r.returncode == 0 for r in results):
+        results += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                              "-o", tmp, *objs]])
     seconds = time.perf_counter() - t0
     with open(LOG_PATH, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+        for r in results:
+            f.write(" ".join(r.args) + "\n" + r.stdout)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    failed = [r for r in results if r.returncode != 0]
+    if failed:
         if os.path.exists(tmp):
             os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"(exit {r.returncode}) {' '.join(r.args)}\n{r.stdout}" for r in failed))
     # Atomic publish: a concurrent loader only ever sees a complete library.
     os.replace(tmp, LIB_PATH)
     with open(f"{_STAMP_PATH}.tmp.{os.getpid()}", "w") as f:

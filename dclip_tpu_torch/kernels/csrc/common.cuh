@@ -14,6 +14,10 @@
 namespace dclip {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+// The TPU kernels' finite mask value (`_NEG` in kernels/vit_attention.py):
+// exp2(kNegBig - m) is 0 against any real row max and 1 in a row whose
+// every key is masked, never NaN.
+constexpr float kNegBig = -1e30f;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -59,6 +63,24 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return v;
+}
+
+// Rows [r0, r0 + 64) x 64 bf16 columns of `src` (already offset to its
+// first column; row stride `ld` elements) into a [64, ldd] shared tile,
+// by NT threads in 16-byte vectors; rows >= rows_valid are zero.
+template <int NT>
+__device__ __forceinline__ void load_tile64(__nv_bfloat16* dst, int ldd,
+                                            const __nv_bfloat16* __restrict__ src,
+                                            int r0, int rows_valid, int ld) {
+#pragma unroll
+  for (int i = 0; i < (64 * 8) / NT; ++i) {
+    const int c = threadIdx.x + i * NT;
+    const int row = c >> 3, c8 = (c & 7) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + row < rows_valid)
+      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + row) * ld + c8);
+    *reinterpret_cast<uint4*>(dst + row * ldd + c8) = v;
+  }
 }
 
 }  // namespace dclip

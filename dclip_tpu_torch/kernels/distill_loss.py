@@ -1,0 +1,154 @@
+"""The fused distillation loss with its closed-form backward, on Hopper.
+
+Counterpart of `dclip_tpu/kernels/distill_loss.py` (K11):
+
+    L = mean(1 - cos(s_img, t_img)) + mean(1 - cos(s_txt, t_txt))
+        + w * InfoNCE(s_img, s_txt; temperature)
+
+`distill_loss_fwd` returns the four parts [li, lt, lc, total] as one f32
+tensor on the device (no host sync); `distill_loss_bwd` takes the
+cotangent weights (c_li, c_lt, c_lc) as a device tensor and returns the
+student gradients (dsi, dst). Teacher targets get no gradient. The CUDA
+kernels (`csrc/distill_loss.cu`) compute in f32 from bf16 student rows and
+f32 teacher rows; the backward recomputes the log-sum-exps and saves no
+[B, B] residual, as the TPU kernel does. The port has no batch bound
+(`MAX_FUSED_BATCH` is the TPU's VMEM limit): the kernels stream the rows.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from dclip_tpu_torch.kernels._build import check, load_library
+from dclip_tpu_torch.kernels.vit_block import _on_cpu, _require, _stream
+
+EPS = 1e-12
+PARTS = ("image_distill_loss", "text_distill_loss", "contrastive_loss", "loss")
+
+LAUNCHES: Dict[str, int] = {"distill_loss_fwd": 0, "distill_loss_bwd": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _norm_rows(x: torch.Tensor):
+    inv = torch.rsqrt(torch.clamp((x * x).sum(-1, keepdim=True), min=EPS * EPS))
+    return x * inv, inv
+
+
+def distill_loss_fwd_reference(si, st, ti, tt, temperature: float = 0.05,
+                               weight: float = 1.0) -> torch.Tensor:
+    """`_fwd_kernel` in f32: [li, lt, lc, total]."""
+    si, _ = _norm_rows(si.float())
+    st, _ = _norm_rows(st.float())
+    ti, _ = _norm_rows(ti.float())
+    tt, _ = _norm_rows(tt.float())
+    li = 1.0 - (si * ti).sum(-1).mean()
+    lt = 1.0 - (st * tt).sum(-1).mean()
+    z = (si @ st.T) / temperature
+    mean_diag = (si * st).sum(-1).mean() / temperature
+    lc = 0.5 * (torch.logsumexp(z, 1).mean() + torch.logsumexp(z, 0).mean()) - mean_diag
+    return torch.stack([li, lt, lc, li + lt + weight * lc])
+
+
+def distill_loss_bwd_reference(si, st, ti, tt, cts, temperature: float = 0.05):
+    """`_bwd_kernel` in f32: (dsi, dst) in the dtypes of si, st."""
+    si_n, inv_i = _norm_rows(si.float())
+    st_n, inv_t = _norm_rows(st.float())
+    ti_n, _ = _norm_rows(ti.float())
+    tt_n, _ = _norm_rows(tt.float())
+    b = si.shape[0]
+    c_li, c_lt, c_lc = cts.float()
+    g_si = -(c_li / b) * ti_n
+    g_st = -(c_lt / b) * tt_n
+    z = (si_n @ st_n.T) / temperature
+    eye = torch.eye(b, device=z.device)
+    g_z = c_lc * ((torch.softmax(z, 1) - eye) + (torch.softmax(z, 0) - eye)) / (
+        2.0 * b * temperature)
+    g_si = g_si + g_z @ st_n
+    g_st = g_st + g_z.T @ si_n
+    dsi = (g_si - (g_si * si_n).sum(-1, keepdim=True) * si_n) * inv_i
+    dst = (g_st - (g_st * st_n).sum(-1, keepdim=True) * st_n) * inv_t
+    return dsi.to(si.dtype), dst.to(st.dtype)
+
+
+def _check(si, st, ti, tt):
+    _require(si, "student_image", torch.bfloat16, 2)
+    _require(st, "student_text", torch.bfloat16, 2)
+    _require(ti, "teacher_image", torch.float32, 2)
+    _require(tt, "teacher_text", torch.float32, 2)
+    b, d = si.shape
+    if any(t.shape != (b, d) for t in (st, ti, tt)) or d % 8 or d > 1024 or b == 0:
+        raise ValueError(f"distill_loss: four [B, D] inputs with D % 8 == 0 and D <= 1024, "
+                         f"got {[tuple(t.shape) for t in (si, st, ti, tt)]}")
+    return b, d
+
+
+def distill_loss_fwd(si, st, ti, tt, temperature: float = 0.05,
+                     weight: float = 1.0) -> torch.Tensor:
+    """[li, lt, lc, total] f32. CUDA: student rows bf16, teacher rows f32."""
+    if _on_cpu(si, st, ti, tt):
+        return distill_loss_fwd_reference(si, st, ti, tt, temperature, weight)
+    b, d = _check(si, st, ti, tt)
+    lib = load_library()
+    part = torch.empty((5, b), dtype=torch.float32, device=si.device)
+    out = torch.empty(4, dtype=torch.float32, device=si.device)
+    with torch.cuda.device(si.device):
+        code = lib.dclip_distill_loss_fwd(si.data_ptr(), st.data_ptr(), ti.data_ptr(),
+                                          tt.data_ptr(), part.data_ptr(), out.data_ptr(), b, d,
+                                          float(temperature), float(weight), _stream(si))
+    check(lib, code, "distill_loss_fwd")
+    LAUNCHES["distill_loss_fwd"] += 1
+    return out
+
+
+def distill_loss_bwd(si, st, ti, tt, cts, temperature: float = 0.05):
+    """(dsi, dst) for cotangent weights cts = [c_li, c_lt, c_lc] (f32)."""
+    if _on_cpu(si, st, ti, tt, cts):
+        return distill_loss_bwd_reference(si, st, ti, tt, cts, temperature)
+    b, d = _check(si, st, ti, tt)
+    cts = cts.to(torch.float32).contiguous()
+    if cts.shape != (3,):
+        raise ValueError(f"cts: expected [3], got {tuple(cts.shape)}")
+    lib = load_library()
+    part = torch.empty((5, b), dtype=torch.float32, device=si.device)
+    dsi, dst = torch.empty_like(si), torch.empty_like(st)
+    with torch.cuda.device(si.device):
+        code = lib.dclip_distill_loss_bwd(si.data_ptr(), st.data_ptr(), ti.data_ptr(),
+                                          tt.data_ptr(), part.data_ptr(), cts.data_ptr(),
+                                          dsi.data_ptr(), dst.data_ptr(), b, d,
+                                          float(temperature), _stream(si))
+    check(lib, code, "distill_loss_bwd")
+    LAUNCHES["distill_loss_bwd"] += 1
+    return dsi, dst
+
+
+class _FusedDistillLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, si, st, ti, tt, temperature, weight):
+        ctx.save_for_backward(si, st, ti, tt)
+        ctx.temperature, ctx.weight = temperature, weight
+        return distill_loss_fwd(si, st, ti, tt, temperature, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        si, st, ti, tt = ctx.saved_tensors
+        # The cotangent weighting of distill_loss.py:179-186, on the device.
+        cts = torch.stack([g[0] + g[3], g[1] + g[3], g[2] + ctx.weight * g[3]])
+        dsi, dst = distill_loss_bwd(si, st, ti.contiguous(), tt.contiguous(), cts,
+                                    ctx.temperature)
+        return dsi, dst, None, None, None, None
+
+
+def fused_distillation_loss(student_image, student_text, teacher_image, teacher_text,
+                            temperature: float = 0.05, contrastive_weight: float = 1.0
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Drop-in twin of `ops.losses.distillation_loss`: (total, parts)."""
+    out = _FusedDistillLoss.apply(student_image.contiguous(), student_text.contiguous(),
+                                  teacher_image.contiguous(), teacher_text.contiguous(),
+                                  temperature, contrastive_weight)
+    parts = dict(zip(PARTS, out.unbind(0)))
+    return parts["loss"], parts

@@ -15,6 +15,8 @@ short sequence of tiled CUDA kernels from `csrc/`:
   gemm_bias_act_residual  QKV (one GEMM over the concatenated [D, 3D]
                           weight), out_proj + residual, fc1 + quick-GELU,
                           fc2 + residual; bf16 tensor cores, f32 accumulate
+                          (its pre-activation save, quick-GELU' and f32
+                          output epilogues serve `kernels.mlp_frozen`)
   attention               log2-domain softmax(q k^T / sqrt(64)) v per
                           (image, head, query tile), reading q/k/v from the
                           fused QKV buffer by stride
@@ -130,48 +132,82 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 # -- GEMM + bias + activation + residual ---------------------------------------
 
 
-def gemm_bias_act_residual_reference(a, w, bias, residual=None, gelu: bool = False):
-    y = a.float() @ w.float() + bias.float()
+def quick_gelu_grad(a: torch.Tensor) -> torch.Tensor:
+    """d/da quick_gelu(a) = s + 1.702 a s (1 - s), s = sigmoid(1.702 a)."""
+    s = torch.sigmoid(1.702 * a)
+    return s + 1.702 * a * s * (1.0 - s)
+
+
+def gemm_bias_act_residual_reference(a, w, bias=None, residual=None, gelu: bool = False,
+                                     save_preact: bool = False, dgelu_of=None,
+                                     out_dtype: Optional[torch.dtype] = None):
+    y = a.float() @ w.float()
+    if bias is not None:
+        y = y + bias.float()
+    pre = y
     if gelu:
         y = quick_gelu(y)
+    if dgelu_of is not None:
+        y = y * quick_gelu_grad(dgelu_of.float())
     if residual is not None:
         y = y + residual.float()
-    return y.to(a.dtype)
+    y = y.to(out_dtype or a.dtype)
+    return (y, pre.to(a.dtype)) if save_preact else y
 
 
-def gemm_bias_act_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def gemm_bias_act_residual(a: torch.Tensor, w: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None,
                            residual: Optional[torch.Tensor] = None,
-                           gelu: bool = False) -> torch.Tensor:
-    """a [..., K] @ w [K, N] + bias [N], then quick-GELU if `gelu`, then
-    + residual [..., N]. CUDA: a, w, residual bf16; bias f32; K % 32 == 0,
-    N % 8 == 0; returns bf16 [..., N]."""
-    if _on_cpu(a, w, bias, residual):
-        return gemm_bias_act_residual_reference(a, w, bias, residual, gelu)
+                           gelu: bool = False, save_preact: bool = False,
+                           dgelu_of: Optional[torch.Tensor] = None,
+                           out_dtype: Optional[torch.dtype] = None):
+    """a [..., K] @ w [K, N] (+ bias [N]), then quick-GELU if `gelu` or a
+    multiply by quick-GELU'(dgelu_of [..., N]), then + residual [..., N].
+    `save_preact=True` also returns the pre-activation (a @ w + bias) in
+    a's dtype: (out, preact). CUDA: a, w, residual, dgelu_of bf16; bias
+    f32; K % 32 == 0, N % 8 == 0; out bf16, or f32 with out_dtype."""
+    if _on_cpu(a, w, bias, residual, dgelu_of):
+        return gemm_bias_act_residual_reference(a, w, bias, residual, gelu, save_preact,
+                                                dgelu_of, out_dtype)
     k, n = w.shape
     _require(a, "a", torch.bfloat16, a.dim())
     _require(w, "w", torch.bfloat16, 2)
-    _require(bias, "bias", torch.float32, 1)
     out_shape = a.shape[:-1] + (n,)
-    if residual is not None:
-        _require(residual, "residual", torch.bfloat16, residual.dim())
-        if residual.shape != out_shape:
-            raise ValueError(f"residual shape {tuple(residual.shape)} != {tuple(out_shape)}")
-    if a.shape[-1] != k or bias.shape[0] != n or k % 32 or n % 8 or a.numel() == 0:
+    if bias is not None:
+        _require(bias, "bias", torch.float32, 1)
+        if bias.shape[0] != n:
+            raise ValueError(f"gemm: bias {tuple(bias.shape)} for N = {n}")
+    for name, t in (("residual", residual), ("dgelu_of", dgelu_of)):
+        if t is not None:
+            _require(t, name, torch.bfloat16, t.dim())
+            if t.shape != out_shape:
+                raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(out_shape)}")
+    if gelu and dgelu_of is not None:
+        raise ValueError("gemm: gelu and dgelu_of exclude each other")
+    if out_dtype not in (None, torch.bfloat16, torch.float32):
+        raise TypeError(f"gemm: the CUDA kernel writes bf16 or f32, not {out_dtype}")
+    if a.shape[-1] != k or k % 32 or n % 8 or a.numel() == 0:
         raise ValueError(
-            f"gemm: bad shapes a {tuple(a.shape)}, w {tuple(w.shape)}, bias "
-            f"{tuple(bias.shape)} (need K % 32 == 0, N % 8 == 0)"
+            f"gemm: bad shapes a {tuple(a.shape)}, w {tuple(w.shape)} "
+            "(need K % 32 == 0, N % 8 == 0)"
         )
     lib = load_library()
-    c = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    c = torch.empty(out_shape, dtype=out_dtype or a.dtype, device=a.device)
+    pre = torch.empty(out_shape, dtype=a.dtype, device=a.device) if save_preact else None
+    epilogue = 1 if gelu else (2 if dgelu_of is not None else 0)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(a.device):
-        code = lib.dclip_gemm_bias_act_residual_bf16(
-            a.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            None if residual is None else residual.data_ptr(), c.data_ptr(),
-            a.numel() // k, n, k, int(gelu), _stream(a),
+        code = lib.dclip_gemm_bf16(
+            a.data_ptr(), w.data_ptr(), ptr(bias), ptr(residual), ptr(dgelu_of), ptr(pre),
+            c.data_ptr(), a.numel() // k, n, k, epilogue, int(c.dtype == torch.float32),
+            _stream(a),
         )
     check(lib, code, "gemm_bias_act_residual")
     LAUNCHES["gemm_bias_act_residual"] += 1
-    return c
+    return (c, pre) if save_preact else c
 
 
 # -- attention core ------------------------------------------------------------
@@ -180,22 +216,16 @@ def gemm_bias_act_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 def attention_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """The TPU kernel's algebra in f32: log2-domain logits (scale folded
     with log2 e), exp2, normalisation after the PV product."""
-    b, s, three_d = qkv.shape
-    d = three_d // 3
-    hd = d // num_heads
-    q, k, v = (
-        t.reshape(b, s, num_heads, hd).transpose(1, 2)
-        for t in qkv.float().split(d, dim=-1)
-    )
-    logits = (q * (hd**-0.5 * LOG2E)) @ k.transpose(-1, -2)
-    e = torch.exp2(logits - logits.amax(-1, keepdim=True))
-    out = (e @ v) / e.sum(-1, keepdim=True)
-    return out.transpose(1, 2).reshape(b, s, d).to(qkv.dtype)
+    from dclip_tpu_torch.kernels.vit_attention import attention_reference as masked
+
+    d = qkv.shape[-1] // 3
+    return masked(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], num_heads)
 
 
 def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Unmasked MHA core over the fused buffer qkv [B, S, 3D] -> [B, S, D].
-    CUDA: bf16, head_dim 64 only."""
+    CUDA: bf16, head_dim 64 only. The kernel is `csrc/attention.cu`, the
+    one `kernels.vit_attention` drives with masks and statistics."""
     if _on_cpu(qkv):
         return attention_reference(qkv, num_heads)
     _require(qkv, "qkv", torch.bfloat16, 3)

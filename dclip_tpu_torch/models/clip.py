@@ -10,15 +10,23 @@ Parameters are stored f32; `dtype` is the compute dtype (bf16 on CUDA),
 as in the Flax module: activations run in it, LayerNorm statistics and
 attention logits / softmax run in f32.
 
-- Text tower: plain torch attention with the causal and key-padding masks
-  (additive f32 min, `clip.py:88-123`), EOS pooling with the fall-back to
-  the last position when a row holds no EOS id (`clip.py:381-386`).
-- Image tower: `get_image_features` runs `kernels.vit_block
-  .fused_image_features` over the weights packed once by
-  `pack_image_weights` — the hand-written CUDA block kernels for CUDA
-  tensors, their plain twins for CPU tensors. The vision modules here hold
-  the parameters; the patch embedding is a patch reshape plus a matmul in
-  the (ph, pw, c) order of the JAX HWIO kernel, never `F.conv2d`.
+- Text tower: causal attention with the key-padding mask, EOS pooling
+  with the fall-back to the last position when a row holds no EOS id
+  (`clip.py:381-386`); packed mode (`segment_ids` + `positions`,
+  ops/packing.py) with `get_packed_text_features`.
+- Image tower, two forwards: `get_image_features` (serving, frozen) runs
+  `kernels.vit_block.fused_image_features` over the weights packed once by
+  `pack_image_weights`; `image_features` is the differentiable module path
+  the trainer uses. The patch embedding is a patch reshape plus a matmul
+  in the (ph, pw, c) order of the JAX HWIO kernel, never `F.conv2d`.
+- `fused_attention=True` (both towers) runs attention through
+  `kernels.vit_attention` (K3/K4/K5, masks in-kernel); otherwise plain
+  torch attention with additive f32 masks built from the same causal /
+  padding / segment-id arguments (`clip.py:88-123`).
+  `fused_frozen_mlp=True` (vision only) runs LN2 + MLP through
+  `kernels.mlp_frozen` (K6), valid only while those weights are frozen
+  (`pack_frozen_vision_mlp` casts them once).
+On CPU tensors every kernel wrapper runs its plain f32 twin.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dclip_tpu.core.config import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
-from dclip_tpu_torch.kernels import vit_block
+from dclip_tpu_torch.kernels import mlp_frozen, vit_attention, vit_block
 from dclip_tpu_torch.kernels.vit_block import quick_gelu
 
 
@@ -59,18 +67,44 @@ class MLP(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention with HF CLIP parameterization."""
 
-    def __init__(self, hidden: int, heads: int, device=None):
+    def __init__(self, hidden: int, heads: int, device=None, fused: bool = False,
+                 causal: bool = False):
         super().__init__()
         self.heads = heads
+        self.fused = fused
+        self.causal = causal
         self.q_proj = nn.Linear(hidden, hidden, device=device)
         self.k_proj = nn.Linear(hidden, hidden, device=device)
         self.v_proj = nn.Linear(hidden, hidden, device=device)
         self.out_proj = nn.Linear(hidden, hidden, device=device)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [B, S, D]; mask: additive f32 [B or 1, 1, S, S] or None."""
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, S, D]; padding_mask [B, S] (1 = valid key); segment_ids
+        [B, S] int (packed captions: attention within a segment)."""
         b, s, d = x.shape
+        if self.fused:
+            qkv = F.linear(
+                x,
+                torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight]).to(x.dtype),
+                torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias]).to(x.dtype),
+            )
+            out = vit_attention.self_attention_qkv(qkv, self.heads, padding_mask,
+                                                   self.causal, segment_ids)
+            return _linear(out, self.out_proj)
+
         hd = d // self.heads
+        neg = torch.finfo(torch.float32).min
+        mask = None
+        if self.causal:
+            mask = torch.triu(torch.full((s, s), neg, device=x.device), diagonal=1)[None, None]
+        if padding_mask is not None:
+            pad = torch.where(padding_mask[:, None, None, :] > 0, 0.0, neg)
+            mask = pad if mask is None else mask + pad
+        if segment_ids is not None:
+            same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+            seg = torch.where(same, 0.0, neg)
+            mask = seg if mask is None else mask + seg
 
         def split(t):
             return t.reshape(b, s, self.heads, hd).transpose(1, 2)
@@ -88,29 +122,48 @@ class Attention(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, hidden: int, heads: int, mlp_dim: int, eps: float, device=None):
+    def __init__(self, hidden: int, heads: int, mlp_dim: int, eps: float, device=None,
+                 fused: bool = False, causal: bool = False, fused_frozen_mlp: bool = False):
         super().__init__()
-        self.self_attn = Attention(hidden, heads, device)
+        self.self_attn = Attention(hidden, heads, device, fused, causal)
         self.layer_norm1 = nn.LayerNorm(hidden, eps=eps, device=device)
         self.mlp = MLP(hidden, mlp_dim, device)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=eps, device=device)
+        self.fused_frozen_mlp = fused_frozen_mlp
+        self.frozen_mlp_weights: Optional[dict] = None  # set by pack_frozen_mlp
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.self_attn(_layer_norm(x, self.layer_norm1), mask)
+    def pack_frozen_mlp(self, dtype: torch.dtype) -> None:
+        """Cast LN2 + MLP once into `kernels.mlp_frozen`'s operands."""
+        ln, mlp = self.layer_norm2, self.mlp
+        self.frozen_mlp_weights = mlp_frozen.pack_frozen_mlp(
+            ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias,
+            dtype)
+
+    def forward(self, x: torch.Tensor, padding_mask=None, segment_ids=None) -> torch.Tensor:
+        x = x + self.self_attn(_layer_norm(x, self.layer_norm1), padding_mask, segment_ids)
+        if self.fused_frozen_mlp:
+            if self.frozen_mlp_weights is None:
+                raise RuntimeError("fused_frozen_mlp: call pack_frozen_mlp(dtype) first")
+            ln, mlp = self.layer_norm2, self.mlp
+            return mlp_frozen.mlp_block_frozen(
+                x, ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+                mlp.fc2.bias, ln.eps, packed=self.frozen_mlp_weights)
         return x + self.mlp(_layer_norm(x, self.layer_norm2))
 
 
 class Encoder(nn.Module):
     def __init__(self, num_layers: int, hidden: int, heads: int, mlp_dim: int,
-                 eps: float, device=None):
+                 eps: float, device=None, fused: bool = False, causal: bool = False,
+                 fused_frozen_mlp: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(hidden, heads, mlp_dim, eps, device) for _ in range(num_layers)
+            EncoderLayer(hidden, heads, mlp_dim, eps, device, fused, causal, fused_frozen_mlp)
+            for _ in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding_mask=None, segment_ids=None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, mask)
+            x = layer(x, padding_mask, segment_ids)
         return x
 
 
@@ -122,31 +175,44 @@ class CLIPTextEmbeddings(nn.Module):
 
 
 class CLIPTextEncoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, cfg: CLIPTextConfig, dtype: torch.dtype = torch.float32, device=None,
+                 fused_attention: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.fused_attention = fused_attention
         self.embeddings = CLIPTextEmbeddings(cfg, device)
         self.encoder = Encoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                               cfg.mlp_dim, cfg.layer_norm_eps, device)
+                               cfg.mlp_dim, cfg.layer_norm_eps, device,
+                               fused=fused_attention, causal=True)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                              device=device)
 
     def forward(self, input_ids: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
+                attention_mask: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """input_ids, attention_mask: [B, S] int. Returns (hidden [B, S, D],
-        EOS-pooled [B, D]) in the compute dtype."""
+        EOS-pooled [B, D]) in the compute dtype.
+
+        Packed mode (`segment_ids` + `positions`, ops/packing.py): several
+        captions share a row, attention is within-segment causal, position
+        embeddings index per-caption positions, and pooling is the
+        caller's job: the returned `pooled` is the row head."""
         b, s = input_ids.shape
         emb = self.embeddings
-        x = (emb.token_embedding.weight.to(self.dtype)[input_ids]
-             + emb.position_embedding.weight[:s].to(self.dtype)[None])
-        neg = torch.finfo(torch.float32).min
-        mask = torch.triu(torch.full((s, s), neg, device=x.device), diagonal=1)[None, None]
-        if attention_mask is not None:
-            pad = torch.where(attention_mask[:, None, None, :] > 0, 0.0, neg)
-            mask = mask + pad
-        x = _layer_norm(self.encoder(x, mask), self.final_layer_norm)
+        tok = emb.token_embedding.weight.to(self.dtype)[input_ids.long()]
+        pos = emb.position_embedding.weight.to(self.dtype)
+        if segment_ids is not None:
+            x = tok + pos[positions.long()]
+            attention_mask = None  # the segment ids mask padding (segment 0)
+        else:
+            x = tok + pos[:s][None]
+        x = self.encoder(x, attention_mask, segment_ids)
+        x = _layer_norm(x, self.final_layer_norm)
+        if segment_ids is not None:
+            return x, x[:, 0]
         # Pool at the first EOS id; rows without one pool the last position.
         is_eos = (input_ids == self.cfg.eos_token_id).to(torch.int32)
         eos_idx = torch.where(is_eos.sum(-1) > 0, is_eos.argmax(-1),
@@ -173,19 +239,33 @@ class CLIPVisionEmbeddings(nn.Module):
 
 
 class CLIPVisionEncoder(nn.Module):
-    """The image tower's parameters. Its forward is
-    `kernels.vit_block.fused_image_features` (see `CLIPModule
-    .get_image_features`), which reads them packed for the kernels."""
+    """The image tower. Its module forward (`forward`, differentiable) runs
+    the encoder layers; the serving path instead reads the parameters
+    packed for `kernels.vit_block.fused_image_features`."""
 
-    def __init__(self, cfg: CLIPVisionConfig, device=None):
+    def __init__(self, cfg: CLIPVisionConfig, device=None, dtype: torch.dtype = torch.float32,
+                 fused_attention: bool = False, fused_frozen_mlp: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         self.embeddings = CLIPVisionEmbeddings(cfg, device)
         self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, device=device)
         self.encoder = Encoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                               cfg.mlp_dim, cfg.layer_norm_eps, device)
+                               cfg.mlp_dim, cfg.layer_norm_eps, device,
+                               fused=fused_attention, fused_frozen_mlp=fused_frozen_mlp)
         self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                            device=device)
+
+    def forward(self, pixel_values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pixel_values NHWC [B, H, W, 3] -> (hidden [B, S, D], pooled [B, D])."""
+        c, dt = self.cfg, self.dtype
+        emb = self.embeddings
+        patch_w = emb.patch_embedding.weight.permute(2, 3, 1, 0).reshape(-1, c.hidden_size)
+        x = vit_block.patchify(pixel_values.to(dt), c.patch_size) @ patch_w.to(dt)
+        cls = emb.class_embedding.to(dt).reshape(1, 1, -1).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + emb.position_embedding.weight.to(dt)[None]
+        x = self.encoder(_layer_norm(x, self.pre_layrnorm))
+        return x, _layer_norm(x[:, 0], self.post_layernorm)
 
 
 class CLIPModule(nn.Module):
@@ -194,12 +274,14 @@ class CLIPModule(nn.Module):
     Build with `device="meta"` and `load_state_dict(sd, assign=True)` to
     take a state dict without a throw-away init."""
 
-    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32, device=None,
+                 fused_attention: bool = False, fused_frozen_mlp: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.text_model = CLIPTextEncoder(cfg.text, dtype, device)
-        self.vision_model = CLIPVisionEncoder(cfg.vision, device)
+        self.text_model = CLIPTextEncoder(cfg.text, dtype, device, fused_attention)
+        self.vision_model = CLIPVisionEncoder(cfg.vision, device, dtype, fused_attention,
+                                              fused_frozen_mlp)
         self.text_projection = nn.Linear(cfg.text.hidden_size, cfg.projection_dim,
                                          bias=False, device=device)
         self.visual_projection = nn.Linear(cfg.vision.hidden_size, cfg.projection_dim,
@@ -212,6 +294,26 @@ class CLIPModule(nn.Module):
         _, pooled = self.text_model(input_ids, attention_mask)
         return _linear(pooled, self.text_projection)
 
+    def get_packed_text_features(self, packed_ids, packed_segments, packed_positions,
+                                 packed_eos_rows, packed_eos_cols) -> torch.Tensor:
+        """get_text_features over a packed batch (ops.packing.pack_captions):
+        encode R dense rows, then gather each caption's EOS state, in the
+        original caption order."""
+        hidden, _ = self.text_model(packed_ids, None, segment_ids=packed_segments,
+                                    positions=packed_positions)
+        pooled = hidden[packed_eos_rows.long(), packed_eos_cols.long()]
+        return _linear(pooled, self.text_projection)
+
+    def image_features(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """The differentiable image tower (module forward): NHWC -> [B, P]."""
+        _, pooled = self.vision_model(pixel_values)
+        return _linear(pooled, self.visual_projection)
+
+    def pack_frozen_vision_mlp(self) -> None:
+        """Cast every vision layer's LN2 + MLP once for `fused_frozen_mlp`."""
+        for layer in self.vision_model.encoder.layers:
+            layer.pack_frozen_mlp(self.dtype)
+
     def pack_image_weights(self) -> dict:
         """The image tower's weights in the block kernels' layouts and the
         compute dtype, on the parameters' device. Pack once and pass the
@@ -220,7 +322,8 @@ class CLIPModule(nn.Module):
 
     def get_image_features(self, pixel_values: torch.Tensor,
                            weights: Optional[dict] = None) -> torch.Tensor:
-        """pixel_values: NHWC [B, H, W, 3], CLIP-normalized -> [B, P]."""
+        """The frozen serving path: pixel_values NHWC [B, H, W, 3],
+        CLIP-normalized -> [B, P] through the fused block kernels."""
         if weights is None:
             weights = self.pack_image_weights()
         return vit_block.fused_image_features(self.cfg, weights, pixel_values)

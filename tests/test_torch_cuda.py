@@ -6,10 +6,15 @@ machine with a card and no jax it runs without the conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-`chip_smoke.py` covers the same ground at the serving path's full shapes.
-Tolerance, as there: bf16 keeps 8 significant bits and the kernels round
-their outputs and bf16 intermediates where the f32 twins do not, so
-max |kernel - twin| <= 2^-6 * max(1, max |twin|).
+`chip_smoke.py` covers the same ground at the serving path's and the
+training step's full shapes. Tolerance, as there: bf16 keeps 8 significant
+bits and the kernels round their outputs and bf16 intermediates where the
+f32 twins do not, so max |kernel - twin| <= 2^-6 * max(1, max |twin|) for
+forward outputs and 2^-5 * max(1, max |twin|) for gradients (two more
+bf16 roundings, and the twin runs from f32 statistics). The distillation
+loss computes in f32 on the same inputs as its twin, so it is held to
+rtol 1e-5 on its parts and one bf16 ulp (2^-7 * max |twin|) on its
+gradients.
 """
 import numpy as np
 import pytest
@@ -110,7 +115,7 @@ def test_kernels_reject_unsupported_inputs(cuda_device):
 
 @pytest.mark.requires_cuda
 def test_image_features_match_f32_twin(cuda_device):
-    from dclip_tpu.core.config import CLIPConfig
+    from dclip_tpu_torch.core import CLIPConfig
     from dclip_tpu_torch.models.clip import CLIPModule
     from dclip_tpu_torch.models.weights import random_state_dict
 
@@ -126,3 +131,150 @@ def test_image_features_match_f32_twin(cuda_device):
         want = vb.fused_image_features_reference(cfg, w32, px)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     assert cos.min().item() >= 0.99, cos
+
+
+# -- the training kernels (K3/K4/K5, K6, K11) ------------------------------------
+
+
+def _close_rel(got, want, tol=REL_TOL, what=""):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert torch.isfinite(got.float()).all(), what
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), (what, err)
+
+
+def _attn_case(rng, device, b, s, d, masks):
+    from dclip_tpu_torch.kernels import vit_attention as va
+
+    qkv = _bf16(rng, device, b, s, 3 * d)
+    kw = {}
+    if "causal" in masks:
+        kw["causal"] = True
+    if "pad" in masks:
+        lengths = rng.randint(1, s + 1, size=b)
+        kw["padding_mask"] = torch.from_numpy(
+            (np.arange(s)[None] < lengths[:, None]).astype(np.float32)).to(device)
+    if "seg" in masks:
+        seg = np.zeros((b, s), np.int32)
+        for r in range(b):
+            cuts = np.sort(rng.choice(np.arange(1, s), size=3, replace=False))
+            seg[r] = np.searchsorted(cuts, np.arange(s), side="right") + 1
+            seg[r, cuts[-1]:] = 0  # trailing padding segment
+        kw["segment_ids"] = torch.from_numpy(seg).to(device)
+    return va, qkv, kw
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s,d,heads,masks", [
+    (2, 197, 768, 12, ()), (3, 77, 512, 8, ("causal", "pad")),
+    (3, 77, 512, 8, ("causal", "seg")), (1, 50, 128, 2, ("pad",)),
+    (2, 130, 256, 4, ("seg",)),
+])
+def test_attention_fwd_bwd_match_twins(cuda_device, b, s, d, heads, masks):
+    rng = np.random.RandomState(s + d)
+    va, qkv, kw = _attn_case(rng, cuda_device, b, s, d, masks)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    va.reset_launches()
+    o, m, r = va.self_attention_fwd_stats(q, k, v, heads, **kw)
+    o_ref, m_ref, r_ref = va.attention_reference(q, k, v, heads, stats=True, **kw)
+    _close_rel(o, o_ref, what="o")
+    # m: the max of bf16-operand logits (f32 accumulate); rinv from the
+    # bf16-rounded P: relative bounds in f32 terms of bf16 inputs.
+    _close_rel(m, m_ref, what="m")
+    torch.testing.assert_close(r, r_ref, rtol=2.0**-6, atol=0)
+    o3 = va.self_attention_fused(q, k, v, heads, **kw)
+    torch.testing.assert_close(o3, o, rtol=0, atol=0)  # same kernel, stats off
+    g = _bf16(rng, cuda_device, b, s, d)
+    grads = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw)
+    # Held against the f32 twin run from the f32 stats (ROADMAP Queue 3).
+    want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, **kw)
+    for name, got_t, want_t in zip(("dq", "dk", "dv"), grads, want):
+        _close_rel(got_t, want_t, tol=2.0**-5, what=name)
+    assert va.LAUNCHES == {"self_attention_fused": 1, "self_attention_fwd_stats": 1,
+                           "self_attention_bwd_stats": 1}
+
+
+@pytest.mark.requires_cuda
+def test_attention_autograd_writes_one_qkv_gradient(cuda_device):
+    rng = np.random.RandomState(7)
+    va, qkv, kw = _attn_case(rng, cuda_device, 2, 77, 512, ("causal", "seg"))
+    qkv.requires_grad_()
+    g = _bf16(rng, cuda_device, 2, 77, 512)
+    out = va.self_attention_qkv(qkv, 8, **kw)
+    out.backward(g)
+    ref = qkv.detach().float().requires_grad_()
+    want = va.attention_reference(ref[..., :512], ref[..., 512:1024], ref[..., 1024:], 8, **kw)
+    want.backward(g.float())
+    _close_rel(out, want, what="o")
+    _close_rel(qkv.grad, ref.grad, tol=2.0**-5, what="dqkv")
+    with torch.no_grad():
+        va.reset_launches()
+        va.self_attention_qkv(qkv, 8, **kw)
+        assert va.LAUNCHES["self_attention_fused"] == 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s", [(2, 197), (1, 50)])
+def test_mlp_frozen_fwd_bwd_match_twins(cuda_device, b, s):
+    from dclip_tpu_torch.kernels import mlp_frozen as mf
+
+    rng = np.random.RandomState(b * 31 + s)
+    lay = _layer(rng, cuda_device)
+    p = mf.pack_frozen_mlp(lay["ln2_scale"], lay["ln2_bias"], lay["fc1_w"].t(), lay["fc1_b"],
+                           lay["fc2_w"].t(), lay["fc2_b"], torch.bfloat16)
+    x = _bf16(rng, cuda_device, b, s, 768)
+    g = _bf16(rng, cuda_device, b, s, 768)
+    y, a1 = mf.mlp_frozen_fwd(x, p)
+    y_ref, a1_ref = mf.mlp_frozen_fwd_reference(x, p)
+    _close_rel(y, y_ref, what="y")
+    _close_rel(a1, a1_ref, what="a1")
+    _close_rel(y, vb.mlp_block_fused(x, p), tol=0.0, what="y vs the serving block")
+    dx = mf.mlp_frozen_bwd(x, g, a1, p)
+    _close_rel(dx, mf.mlp_frozen_bwd_reference(x, g, a1_ref, p), tol=2.0**-5, what="dx")
+    dh = torch.from_numpy(rng.standard_normal((b, s, 768)).astype(np.float32)).to(cuda_device)
+    _close_rel(mf.layernorm_bwd(x, g, dh, p["ln2_scale"]),
+               mf.layernorm_bwd_reference(x, g, dh, p["ln2_scale"]), what="ln_bwd")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,d", [(256, 512), (5, 64), (33, 1024)])
+def test_distill_loss_matches_twin(cuda_device, b, d):
+    from dclip_tpu_torch.kernels import distill_loss as dl
+
+    rng = np.random.RandomState(b + d)
+    si, st = _bf16(rng, cuda_device, b, d), _bf16(rng, cuda_device, b, d)
+    # Targets correlated with the student rows, so li and lt sit far from 1.
+    ti, tt = (x.float() + 0.5 * torch.from_numpy(
+        rng.standard_normal((b, d)).astype(np.float32)).to(cuda_device) for x in (si, st))
+    parts = dl.distill_loss_fwd(si, st, ti, tt)
+    want = dl.distill_loss_fwd_reference(si, st, ti, tt)
+    assert want[0] < 0.5 and want[1] < 0.5, want
+    # f32 throughout on the same inputs: only the summation order differs.
+    torch.testing.assert_close(parts, want, rtol=1e-5, atol=0)
+    cts = torch.tensor([0.7, 1.3, 0.9], device=cuda_device)
+    for got, want in zip(dl.distill_loss_bwd(si, st, ti, tt, cts),
+                         dl.distill_loss_bwd_reference(si, st, ti, tt, cts)):
+        # Both round the f32 gradient to bf16 at the end: one ulp at most.
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0**-7 * want.float().abs().max().item(), err
+
+
+@pytest.mark.requires_cuda
+def test_gemm_epilogue_modes(cuda_device):
+    rng = np.random.RandomState(11)
+    a = _bf16(rng, cuda_device, 3, 70, 256)
+    w = _bf16(rng, cuda_device, 256, 136) * 0.1
+    bias = torch.from_numpy(rng.standard_normal(136).astype(np.float32)).to(cuda_device)
+    aux = _bf16(rng, cuda_device, 3, 70, 136)
+    got, pre = vb.gemm_bias_act_residual(a, w, bias, gelu=True, save_preact=True)
+    want, want_pre = vb.gemm_bias_act_residual_reference(a, w, bias, gelu=True, save_preact=True)
+    _close_rel(got, want, what="gelu")
+    _close_rel(pre, want_pre, what="preact")
+    _close_rel(vb.gemm_bias_act_residual(a, w, dgelu_of=aux),
+               vb.gemm_bias_act_residual_reference(a, w, dgelu_of=aux), what="dgelu")
+    f32 = vb.gemm_bias_act_residual(a, w, out_dtype=torch.float32)
+    assert f32.dtype == torch.float32
+    _close_rel(f32, vb.gemm_bias_act_residual_reference(a, w, out_dtype=torch.float32),
+               what="f32 out")
