@@ -7,8 +7,10 @@ Phases; each one passes or raises, and any failure exits non-zero:
 
 1. Device: requires `torch.cuda.is_available()`; prints the card's
    `nvidia-smi --query-gpu=name,power.limit` line.
-2. Build: compiles `dclip_tpu_torch/kernels/csrc/*.cu` with nvcc from the
-   checkout and prints the build time and ptxas resource lines.
+2. Build and load: compiles `dclip_tpu_torch/kernels/csrc/*.cu` with nvcc
+   from the checkout, prints the build time and ptxas resource lines, then
+   loads the library, which runs its self-check (one x2 launch on an
+   [8, 128] f32 buffer, compared exactly) and prints the result.
 3. Kernels: at ViT-B/16 shapes (B=64, S=197, D=768, 12 heads, MLP 3072,
    bf16) holds every CUDA kernel (layernorm, the four GEMM epilogues,
    attention) and both blocks (attention, MLP) against their plain
@@ -30,18 +32,47 @@ Phases; each one passes or raises, and any failure exits non-zero:
    LayerNorm backward, and the distillation loss (parts; dsi, dst) at
    B=256 against their plain twins, plus a ragged small case of each, with
    CUDA-event times in turns.
-7. Training slice: the port's `DistillTrainer` at ViT-B/16 (student =
-   teacher CLIP, random weights from seed 0, bf16, kernels on, packed
-   text, B=256, accumulate 1) on the synthetic batch (seed 0) with its full
-   teacher targets in an in-memory `TeacherTargetCache` (seeded unit
-   vectors): 3 warm-up and 10 timed steps on the cache-warm path, finite
-   and falling loss, launch counters at exactly 13 x the per-step count,
-   then one no-grad packed text encode on the stats-free attention; a
-   torch.profiler window of 2 steps for the device busy share and the
-   time by kernel; ms per step and cache-warm images/s.
-8. Gradient agreement: one step's trainable gradients at full width and
-   depth, B=8, bf16 kernels on the card vs the same step in f32 on the
-   CPU through the twins: global cosine >= 0.99, every tensor >= 0.95.
+7. Cross-attention kernels (K10): at the teacher tail's shapes (B=256, 77
+   text tokens with the synthetic batch's content-token masks, 8 boxes with
+   two all-invalid rows and random others, D=512, 8 heads, f32 inputs)
+   holds the fused cross-attention, its attention core and its add +
+   LayerNorm pass against their twins, and times them; times the loader's
+   self-check kernel.
+8. Training slice, cache-warm: the port's `DistillTrainer` at ViT-B/16
+   (student = teacher CLIP, random weights from seed 0, bf16, kernels on,
+   packed text, B=256, accumulate 1) on the synthetic batch (seed 0) with
+   its full teacher targets in an in-memory `TeacherTargetCache` (seeded
+   unit vectors): 2 warm-up and 5 timed steps, finite and falling loss,
+   launch counters at exactly 7 x the per-step count, one no-grad packed
+   text encode on the stats-free attention, a torch.profiler window of 2
+   steps, ms per step and cache-warm images/s.
+9. Training slice, uncached (the main path of this slice): the same trainer
+   with the meta-teacher `TeacherConfig(512, 8 heads, 8 boxes, 77 tokens)`
+   (random weights from seed 0) and no teacher cache, as bench.py runs it:
+   every step crops the 2,048 boxes, runs the teacher ViT over them (K1 /
+   K2), the teacher text tower (K3) and the cross-attention (K10), then the
+   student step. 2 warm-up and 5 timed steps: ms per step, images/s, peak
+   device memory, exact launch counts (7 x the per-step count), a
+   torch.profiler breakdown of one step by stage and by kernel.
+10. Cache levels: a `TeacherTargetCache`; the first step misses and fills
+   every level, a repeat hits the device full-target level (no K1 / K2 /
+   K10 launch), the same images with resampled captions hit the device
+   patch-embedding level (no K1 / K2 launch, one K10).
+11. Teacher-target agreement: B=2, 8 boxes (3 invalid), full width and
+   depth: the bf16 kernels on the card vs the port's f32 plain path (the
+   modules, no kernel) on the CPU on the same weights; per-row cosine
+   >= 0.99 for the image and the text target.
+12. Gradient agreement: one cache-warm step's trainable gradients at full
+   width and depth, B=8, bf16 kernels on the card vs the same step in f32
+   on the CPU through the twins: global cosine >= 0.99, every tensor >= 0.95.
+
+Every kernel's entry in the `kernels` line carries its bound: the larger
+of its operations over the card's peak for their type (989 TFLOP/s bf16
+tensor cores, 67 TFLOP/s f32 CUDA cores) and the bytes it must move (each
+input read once, each output written once) over 3.35 TB/s, from the
+shapes of this run; and `library_ms`, the time of one PyTorch call that
+computes the same function, where there is one
+(`scaled_dot_product_attention` and its backward), else null.
 
 The second-to-last line is `{"kernels": [...]}` and the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -78,6 +109,9 @@ DL_BWD_TOL = 2.0**-7
 # rounding on random weights; every image's cosine must reach this.
 COS_BOUND = 0.99
 
+# The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W).
+BF16_PEAK, F32_PEAK, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+
 SRC = "dclip_tpu_torch/kernels/csrc/"
 TPU = "dclip_tpu/kernels/vit_block.py"
 KERNELS = {  # wrapper -> (source, TPU kernel it replaces)
@@ -101,12 +135,25 @@ TRAIN_KERNELS = {
     "distill_loss_fwd": (SRC + "distill_loss.cu", "dclip_tpu/kernels/distill_loss.py:47"),
     "distill_loss_bwd": (SRC + "distill_loss.cu", "dclip_tpu/kernels/distill_loss.py:73"),
 }
+# The uncached step's new kernels: K10 and its two CUDA kernels, and the
+# loader's self-check (K13).
+XATTN = "dclip_tpu/kernels/cross_attention.py:74"
+TEACHER_KERNELS = {
+    "cross_attention": ("dclip_tpu_torch/kernels/cross_attention.py", XATTN),
+    "cross_attention_core": (SRC + "cross_attention.cu", XATTN),
+    "add_layernorm_f32": (SRC + "cross_attention.cu", XATTN),
+    "loader_self_check": (SRC + "status.cu", "dclip_tpu/kernels/__init__.py:39"),
+}
 TRAIN_B, TEXT_S, TEXT_D, TEXT_HEADS = 256, 77, 512, 8
-WARMUP_STEPS, TIMED_STEPS = 3, 10
+WARMUP_STEPS, TIMED_STEPS = 2, 5
 GRAD_B, GRAD_COS_GLOBAL, GRAD_COS_TENSOR = 8, 0.99, 0.95
 # k_proj.bias gradients are rounding noise (see grad_agreement_phase); their
 # norm must stay below this share of the layer's q_proj.bias gradient.
 GRAD_NOISE_RATIO = 0.1
+# bench.py's teacher: TeacherConfig(embed_dim=512, num_heads=8,
+# max_patches=8, max_text_tokens=77).
+TEACHER_P = 8
+AGREE_B, TARGET_COS = 2, 0.99
 
 
 def card_line() -> str:
@@ -115,6 +162,133 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def gpu_state() -> str:
+    """The card's SM clock, power draw and temperature, now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True)
+    return "sm clock, power, temperature: " + out.stdout.strip().splitlines()[0]
+
+
+def import_port_modules():
+    """The port modules the phases use (each phase imports its own lazily,
+    so that the script fails fast, and cleanly, without a card)."""
+    import importlib
+
+    for name in ("dclip_tpu_torch.cli.serve", "dclip_tpu_torch.cli.common",
+                 "dclip_tpu_torch.kernels._build", "dclip_tpu_torch.kernels.vit_block",
+                 "dclip_tpu_torch.kernels.vit_attention", "dclip_tpu_torch.kernels.mlp_frozen",
+                 "dclip_tpu_torch.kernels.distill_loss",
+                 "dclip_tpu_torch.kernels.cross_attention", "dclip_tpu_torch.models.weights",
+                 "dclip_tpu_torch.train.distill_trainer", "dclip_tpu_torch.ops.image_ops",
+                 "dclip_tpu_torch.ops.packing"):
+        importlib.import_module(name)
+
+
+# -- the kernel table: errors, times, bounds --------------------------------------
+
+
+class KernelTable:
+    """Per kernel: the largest error against its twin, and summed over the
+    timed cases its time, its twin's, its bound and its library call's."""
+
+    def __init__(self, names):
+        self.rows = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                         "library_ms": None, "_ops_ms": 0.0, "_bytes_ms": 0.0} for n in names}
+
+    def error(self, name, err):
+        r = self.rows[name]
+        r["max_abs_err"] = max(r["max_abs_err"], float(err))
+
+    def timed(self, name, ms, plain_ms, bound, library_ms=None):
+        """`bound` = (operations ms, bytes ms) of the timed call."""
+        r = self.rows[name]
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += max(bound)
+        r["_ops_ms"] += bound[0]
+        r["_bytes_ms"] += bound[1]
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+
+    def entry(self, name):
+        r = dict(self.rows[name])
+        r["bound_by"] = "operations" if r.pop("_ops_ms") >= r.pop("_bytes_ms") else "bytes"
+        return r
+
+
+def work(bf16_flops=0.0, f32_flops=0.0, nbytes=0.0):
+    """(ms at the operations' peaks, ms at the memory rate)."""
+    return (1e3 * (bf16_flops / BF16_PEAK + f32_flops / F32_PEAK),
+            1e3 * nbytes / HBM_BYTES_PER_S)
+
+
+def gemm_work(m, k, n, extra_mn=0):
+    """A bf16 GEMM [m, k] @ [k, n] + bias, bf16 out; `extra_mn` more bf16
+    [m, n] tensors moved (residual, saved pre-activation)."""
+    return work(bf16_flops=2.0 * m * k * n,
+                nbytes=2.0 * (m * k + k * n + m * n * (1 + extra_mn)) + 4.0 * n)
+
+
+def time_pair(torch, kernel_fn, plain_fn, iters: int):
+    """Mean ms per call of kernel and twin, in turns plain, kernel, kernel,
+    plain, after one warm call of each."""
+    kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    ms = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel_fn if which == "kernel" else plain_fn
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        ms[which].append(start.elapsed_time(end) / iters)
+    return sum(ms["kernel"]) / 2, sum(ms["plain"]) / 2
+
+
+def time_one(torch, fn, iters: int) -> float:
+    """Mean ms per call over two windows after a warm call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    return sum(out) / 2
+
+
+def sdpa_calls(torch, q, k, v, heads, keep, g=None):
+    """`scaled_dot_product_attention` on the same q, k, v ([B, S, D] views)
+    with the same boolean mask `keep` [B, S, S] (None: unmasked): the
+    forward, and with `g` the backward of that call."""
+    F = torch.nn.functional
+    b, s, d = q.shape
+
+    def h(t):
+        return t.reshape(b, s, heads, d // heads).transpose(1, 2)
+
+    mask = None
+    if keep is not None:  # a 16-aligned row stride, as the fused backends want
+        store = torch.zeros((b, 1, s, (s + 15) // 16 * 16), dtype=torch.bool, device=q.device)
+        store[..., :s] = keep[:, None]
+        mask = store[..., :s]
+    if g is None:
+        return lambda: F.scaled_dot_product_attention(h(q), h(k), h(v), attn_mask=mask)
+    qg, kg, vg = (h(t).detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    g4 = h(g)
+    return lambda: torch.autograd.grad(o, (qg, kg, vg), g4, retain_graph=True)
 
 
 def layer_weights(rng, torch, device):
@@ -138,65 +312,54 @@ def layer_weights(rng, torch, device):
     }
 
 
-def time_pair(torch, kernel_fn, plain_fn, iters: int):
-    """Mean ms per call of kernel and twin, in turns plain, kernel, kernel,
-    plain, after one warm call of each."""
-    kernel_fn(), plain_fn()
-    torch.cuda.synchronize()
-    ms = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = kernel_fn if which == "kernel" else plain_fn
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        ms[which].append(start.elapsed_time(end) / iters)
-    return sum(ms["kernel"]) / 2, sum(ms["plain"]) / 2
-
-
-def kernel_phase(torch, vb, card: str):
+def kernel_phase(torch, vb, card: str, table: KernelTable):
     import numpy as np
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
     p = layer_weights(rng, torch, dev)
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for name in KERNELS}
 
     def randn(*shape, scale=1.0):
         return (torch.from_numpy(rng.standard_normal(shape).astype("float32") * scale)
                 .to(dev).to(torch.bfloat16))
 
     for b in (B, 1):
+        m = b * S
         x = randn(b, S, D)
         h = randn(b, S, D)
         a = randn(b, S, D)
         g = randn(b, S, MLP)
         qkv = randn(b, S, 3 * D)
-        cases = [
+        attn_flops = 4.0 * b * HEADS * S * S * (D // HEADS)
+        cases = [  # name, variant, (kernel, twin), args, kwargs, bound, library call
             ("layernorm", "ln", (vb.layernorm, vb.layernorm_reference),
-             (x, p["ln1_scale"], p["ln1_bias"], EPS), {}),
+             (x, p["ln1_scale"], p["ln1_bias"], EPS), {},
+             work(f32_flops=8.0 * m * D, nbytes=4.0 * m * D + 8.0 * D), None),
             ("gemm_bias_act_residual", "qkv",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (h, p["qkv_w"], p["qkv_b"]), {}),
+             (h, p["qkv_w"], p["qkv_b"]), {}, gemm_work(m, D, 3 * D), None),
             ("gemm_bias_act_residual", "out_proj+residual",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (a, p["out_w"], p["out_b"]), {"residual": x}),
+             (a, p["out_w"], p["out_b"]), {"residual": x}, gemm_work(m, D, D, 1), None),
             ("gemm_bias_act_residual", "fc1+gelu",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (h, p["fc1_w"], p["fc1_b"]), {"gelu": True}),
+             (h, p["fc1_w"], p["fc1_b"]), {"gelu": True}, gemm_work(m, D, MLP), None),
             ("gemm_bias_act_residual", "fc2+residual",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (g, p["fc2_w"], p["fc2_b"]), {"residual": x}),
-            ("attention", "core", (vb.attention, vb.attention_reference), (qkv, HEADS), {}),
+             (g, p["fc2_w"], p["fc2_b"]), {"residual": x}, gemm_work(m, MLP, D, 1), None),
+            ("attention", "core", (vb.attention, vb.attention_reference), (qkv, HEADS), {},
+             work(bf16_flops=attn_flops, nbytes=2.0 * m * 4 * D),
+             sdpa_calls(torch, qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], HEADS, None)),
             ("attention_block", "block",
-             (vb.attention_block_fused, vb.attention_block_reference), (x, p, HEADS, EPS), {}),
+             (vb.attention_block_fused, vb.attention_block_reference), (x, p, HEADS, EPS), {},
+             work(bf16_flops=2.0 * m * D * 4 * D + attn_flops,
+                  nbytes=4.0 * m * D + 8.0 * D * D + 4.0 * 6 * D), None),
             ("mlp_block", "block", (vb.mlp_block_fused, vb.mlp_block_reference),
-             (x, p, EPS), {}),
+             (x, p, EPS), {},
+             work(bf16_flops=4.0 * m * D * MLP,
+                  nbytes=4.0 * m * D + 4.0 * D * MLP + 4.0 * (MLP + 3 * D)), None),
         ]
-        for name, variant, (kernel, twin), args, kwargs in cases:
+        for name, variant, (kernel, twin), args, kwargs, bound, library in cases:
             got = kernel(*args, **kwargs)
             want = twin(*args, **kwargs)
             torch.cuda.synchronize()
@@ -205,22 +368,20 @@ def kernel_phase(torch, vb, card: str):
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{name}[{variant}] B={b}: non-finite output")
             err = (got.float() - want.float()).abs().max().item()
-            bound = REL_TOL * max(1.0, want.float().abs().max().item())
-            print(f"kernel {name}[{variant}] B={b}: max_abs_err {err} bound {bound}", flush=True)
-            if not err <= bound:
-                raise AssertionError(f"{name}[{variant}] B={b}: max_abs_err {err} > {bound}")
-            r = results[name]
-            r["max_abs_err"] = max(r["max_abs_err"], err)
+            tol = REL_TOL * max(1.0, want.float().abs().max().item())
+            print(f"kernel {name}[{variant}] B={b}: max_abs_err {err} bound {tol}", flush=True)
+            if not err <= tol:
+                raise AssertionError(f"{name}[{variant}] B={b}: max_abs_err {err} > {tol}")
+            table.error(name, err)
             if b == B:
                 iters = 10 if name.endswith("block") else 20
                 ms, plain_ms = time_pair(
                     torch, lambda: kernel(*args, **kwargs), lambda: twin(*args, **kwargs), iters)
-                print(f"time {name}[{variant}] B={b}: kernel {ms} ms, plain {plain_ms} ms "
-                      f"({card})", flush=True)
+                lib_ms = None if library is None else time_one(torch, library, iters)
+                print(f"time {name}[{variant}] B={b}: kernel {ms} ms, plain {plain_ms} ms, "
+                      f"bound {max(bound)} ms, library {lib_ms} ms ({card})", flush=True)
                 # The GEMM entry sums its four epilogues: one layer's GEMMs.
-                r["ms"] += ms
-                r["plain_ms"] += plain_ms
-    return results
+                table.timed(name, ms, plain_ms, bound, lib_ms)
 
 
 def slice_phase(torch, np, vb, cli_serve, card: str):
@@ -313,10 +474,26 @@ def _text_masks(torch, np, dev):
     packed = pack_captions(batch["input_ids"], batch["attention_mask"], cfg.text.eos_token_id)
     seg = torch.from_numpy(packed["packed_segments"]).to(dev)
     pad = torch.from_numpy(batch["attention_mask"]).to(dev)
-    return seg, pad
+    return seg, pad, batch
 
 
-def train_kernel_phase(torch, np, card: str):
+def _keep(torch, b, s, dev, kw):
+    """The boolean [B, S, S] of the (query, key) pairs the masks keep, or
+    None without masks."""
+    if not kw:
+        return None
+    keep = torch.ones((b, s, s), dtype=torch.bool, device=dev)
+    if kw.get("causal"):
+        keep &= torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    if kw.get("segment_ids") is not None:
+        seg = kw["segment_ids"]
+        keep &= seg[:, :, None] == seg[:, None, :]
+    if kw.get("padding_mask") is not None:
+        keep &= kw["padding_mask"][:, None, :] > 0
+    return keep
+
+
+def train_kernel_phase(torch, np, card: str, table: KernelTable):
     """The training kernels against their twins at the cache-warm step's
     shapes, plus a ragged small case of each; CUDA-event times."""
     from dclip_tpu_torch.kernels import distill_loss as dl
@@ -325,23 +502,22 @@ def train_kernel_phase(torch, np, card: str):
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(1)
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for name in TRAIN_KERNELS}
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.from_numpy(rng.standard_normal(shape).astype("float32") * scale)
                 .to(dev).to(dtype))
 
-    def record(name, err, timed, kernel_fn=None, plain_fn=None, iters=10, variant=""):
-        r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+    def record(name, err, timed, kernel_fn=None, plain_fn=None, iters=10, variant="",
+               bound=(0.0, 0.0), library_fn=None):
+        table.error(name, err)
         if timed:
             ms, plain_ms = time_pair(torch, kernel_fn, plain_fn, iters)
-            print(f"time {name}[{variant}]: kernel {ms} ms, plain {plain_ms} ms ({card})",
-                  flush=True)
-            r["ms"] += ms
-            r["plain_ms"] += plain_ms
+            lib_ms = None if library_fn is None else time_one(torch, library_fn, iters)
+            print(f"time {name}[{variant}]: kernel {ms} ms, plain {plain_ms} ms, bound "
+                  f"{max(bound)} ms, library {lib_ms} ms ({card})", flush=True)
+            table.timed(name, ms, plain_ms, bound, lib_ms)
 
-    seg, pad = _text_masks(torch, np, dev)
+    seg, pad, _ = _text_masks(torch, np, dev)
     attn_cases = [  # (variant, b, s, d, heads, masks, timed)
         ("vision", TRAIN_B, S, D, HEADS, {}, True),
         ("text_packed", seg.shape[0], TEXT_S, TEXT_D, TEXT_HEADS,
@@ -356,6 +532,17 @@ def train_kernel_phase(torch, np, card: str):
         qkv = randn(b, s, 3 * d)
         q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
         g = randn(b, s, d)
+        keep = _keep(torch, b, s, dev, kw)
+        pairs = float(b * s * s if keep is None else keep.sum().item())
+        hd = d // heads
+        mask_bytes = 4.0 * b * s if kw.get("padding_mask") is not None \
+            or kw.get("segment_ids") is not None else 0.0
+        io = 2.0 * b * s * d  # one bf16 [B, S, D] tensor
+        stats = 8.0 * b * s * heads
+        fwd_bound = work(bf16_flops=4.0 * hd * heads * pairs, nbytes=4 * io + mask_bytes + stats)
+        fused_bound = work(bf16_flops=4.0 * hd * heads * pairs, nbytes=4 * io + mask_bytes)
+        bwd_bound = work(bf16_flops=10.0 * hd * heads * pairs,
+                         nbytes=8 * io + stats + mask_bytes)
         o, m, r = va.self_attention_fwd_stats(q, k, v, heads, **kw)
         o_ref, m_ref, r_ref = va.attention_reference(q, k, v, heads, stats=True, **kw)
         err = max(_bound_check(torch, f"attention_fwd[{variant}] o", o, o_ref, REL_TOL),
@@ -366,14 +553,17 @@ def train_kernel_phase(torch, np, card: str):
               flush=True)
         if not rel <= REL_TOL:
             raise AssertionError(f"rinv[{variant}] relative error {rel} > {REL_TOL}")
+        lib_fwd = sdpa_calls(torch, q, k, v, heads, keep) if timed else None
         record("self_attention_fwd_stats", err, timed,
                lambda: va.self_attention_fwd_stats(q, k, v, heads, **kw),
-               lambda: va.attention_reference(q, k, v, heads, stats=True, **kw), 10, variant)
+               lambda: va.attention_reference(q, k, v, heads, stats=True, **kw), 10, variant,
+               fwd_bound, lib_fwd)
         o3 = va.self_attention_fused(q, k, v, heads, **kw)
         err3 = _bound_check(torch, f"attention_fused[{variant}]", o3, o_ref, REL_TOL)
         record("self_attention_fused", err3, timed,
                lambda: va.self_attention_fused(q, k, v, heads, **kw),
-               lambda: va.attention_reference(q, k, v, heads, **kw), 10, variant)
+               lambda: va.attention_reference(q, k, v, heads, **kw), 10, variant,
+               fused_bound, lib_fwd)
         grads = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw)
         want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, **kw)
         errb = max(_bound_check(torch, f"attention_bwd[{variant}] {n}", a, w, BWD_TOL)
@@ -381,10 +571,12 @@ def train_kernel_phase(torch, np, card: str):
         record("self_attention_bwd_stats", errb, timed,
                lambda: va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw),
                lambda: va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, **kw),
-               5, variant)
-        del qkv, q, k, v, g, o, m, r, o_ref, m_ref, r_ref, grads, want
+               5, variant, bwd_bound,
+               sdpa_calls(torch, q, k, v, heads, keep, g) if timed else None)
+        del qkv, q, k, v, g, o, m, r, o_ref, m_ref, r_ref, grads, want, lib_fwd
 
     for variant, b, timed in (("vision", TRAIN_B, True), ("ragged", 1, False)):
+        mrows = b * S
         lw = layer_weights(rng, torch, dev)
         p = mf.pack_frozen_mlp(lw["ln2_scale"], lw["ln2_bias"], lw["fc1_w"].t(), lw["fc1_b"],
                                lw["fc2_w"].t(), lw["fc2_b"], torch.bfloat16)
@@ -393,27 +585,34 @@ def train_kernel_phase(torch, np, card: str):
         y_ref, a1_ref = mf.mlp_frozen_fwd_reference(x, p)
         err = max(_bound_check(torch, f"mlp_frozen_fwd[{variant}] y", y, y_ref, REL_TOL),
                   _bound_check(torch, f"mlp_frozen_fwd[{variant}] a1", a1, a1_ref, REL_TOL))
+        weights = 4.0 * D * MLP + 4.0 * (MLP + 3 * D)
         record("mlp_frozen_fwd", err, timed, lambda: mf.mlp_frozen_fwd(x, p),
-               lambda: mf.mlp_frozen_fwd_reference(x, p), 5, variant)
+               lambda: mf.mlp_frozen_fwd_reference(x, p), 5, variant,
+               work(bf16_flops=4.0 * mrows * D * MLP,
+                    nbytes=4.0 * mrows * D + 2.0 * mrows * MLP + weights))
         dx = mf.mlp_frozen_bwd(x, g, a1, p)
         errb = _bound_check(torch, f"mlp_frozen_bwd[{variant}] dx", dx,
                             mf.mlp_frozen_bwd_reference(x, g, a1_ref, p), BWD_TOL)
         record("mlp_frozen_bwd", errb, timed, lambda: mf.mlp_frozen_bwd(x, g, a1, p),
-               lambda: mf.mlp_frozen_bwd_reference(x, g, a1_ref, p), 5, variant)
+               lambda: mf.mlp_frozen_bwd_reference(x, g, a1_ref, p), 5, variant,
+               work(bf16_flops=4.0 * mrows * D * MLP,
+                    nbytes=6.0 * mrows * D + 2.0 * mrows * MLP + 4.0 * D * MLP + 4.0 * D))
         dh = randn(b, S, D, dtype=torch.float32)
         errl = _bound_check(torch, f"layernorm_bwd[{variant}]",
                             mf.layernorm_bwd(x, g, dh, p["ln2_scale"]),
                             mf.layernorm_bwd_reference(x, g, dh, p["ln2_scale"]), REL_TOL)
         record("layernorm_bwd", errl, timed, lambda: mf.layernorm_bwd(x, g, dh, p["ln2_scale"]),
-               lambda: mf.layernorm_bwd_reference(x, g, dh, p["ln2_scale"]), 20, variant)
+               lambda: mf.layernorm_bwd_reference(x, g, dh, p["ln2_scale"]), 20, variant,
+               work(f32_flops=12.0 * mrows * D, nbytes=10.0 * mrows * D + 4.0 * D))
         del x, g, y, a1, y_ref, a1_ref, dx, dh
 
     for variant, b, timed in (("b256", TRAIN_B, True), ("ragged", 5, False)):
-        si, st = randn(b, 512), randn(b, 512)
+        d = 512
+        si, st = randn(b, d), randn(b, d)
         # Targets correlated with the student rows (cosine ~0.9), so li and
         # lt sit far from 1 and a dropped cosine term moves them.
-        ti = si.float() + randn(b, 512, scale=0.5, dtype=torch.float32)
-        tt = st.float() + randn(b, 512, scale=0.5, dtype=torch.float32)
+        ti = si.float() + randn(b, d, scale=0.5, dtype=torch.float32)
+        tt = st.float() + randn(b, d, scale=0.5, dtype=torch.float32)
         parts = dl.distill_loss_fwd(si, st, ti, tt)
         want = dl.distill_loss_fwd_reference(si, st, ti, tt)
         torch.cuda.synchronize()
@@ -428,8 +627,10 @@ def train_kernel_phase(torch, np, card: str):
         if parts.shape != want.shape or not all(r <= DL_RTOL for r in rel):
             raise AssertionError(f"distill_loss_fwd[{variant}]: rel_err {rel} > {DL_RTOL}")
         err = (parts - want).abs().max().item()
+        inputs = 4.0 * b * d + 8.0 * b * d
         record("distill_loss_fwd", err, timed, lambda: dl.distill_loss_fwd(si, st, ti, tt),
-               lambda: dl.distill_loss_fwd_reference(si, st, ti, tt), 20, variant)
+               lambda: dl.distill_loss_fwd_reference(si, st, ti, tt), 20, variant,
+               work(f32_flops=2.0 * b * b * d + 10.0 * b * d, nbytes=inputs + 16.0))
         cts = torch.tensor([1.0, 1.0, 1.0], device=dev)
         got = dl.distill_loss_bwd(si, st, ti, tt, cts)
         want = dl.distill_loss_bwd_reference(si, st, ti, tt, cts)
@@ -437,96 +638,268 @@ def train_kernel_phase(torch, np, card: str):
                                 with_one=False)
                    for n, a, w in zip(("dsi", "dst"), got, want))
         record("distill_loss_bwd", errb, timed, lambda: dl.distill_loss_bwd(si, st, ti, tt, cts),
-               lambda: dl.distill_loss_bwd_reference(si, st, ti, tt, cts), 20, variant)
+               lambda: dl.distill_loss_bwd_reference(si, st, ti, tt, cts), 20, variant,
+               work(f32_flops=6.0 * b * b * d + 20.0 * b * d,
+                    nbytes=inputs + 12.0 + 4.0 * b * d))
     torch.cuda.empty_cache()
-    return results
+
+
+def _teacher_sd(rng, torch, d, device):
+    """Cross-attention weights with 1/sqrt(D) matrices (attention far from
+    uniform), non-zero biases and LN affines, in the teacher's names."""
+    def n(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype("float32"))
+
+    sd = {}
+    for direction in ("text_to_image", "image_to_text"):
+        pre = f"cross_modal_attention.{direction}."
+        sd[pre + "in_proj_weight"] = n(3 * d, d, scale=d**-0.5)
+        sd[pre + "in_proj_bias"] = n(3 * d, scale=0.1)
+        sd[pre + "out_proj.weight"] = n(d, d, scale=d**-0.5)
+        sd[pre + "out_proj.bias"] = n(d, scale=0.1)
+    for norm in ("norm_text", "norm_image"):
+        sd[f"cross_modal_attention.{norm}.weight"] = 1.0 + n(d, scale=0.1)
+        sd[f"cross_modal_attention.{norm}.bias"] = n(d, scale=0.1)
+    return {k: v.to(device) for k, v in sd.items()}
+
+
+def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
+    """K10 at the teacher tail's shapes, its two CUDA kernels, and the
+    loader's self-check kernel, against their twins; CUDA-event times."""
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.kernels import _build
+    from dclip_tpu_torch.kernels import cross_attention as xa
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(3)
+    b, t, p, d, heads = TRAIN_B, TEXT_S, TEACHER_P, TEXT_D, TEXT_HEADS
+    w = xa.pack_cross_attention(_teacher_sd(rng, torch, d, dev), torch.bfloat16)
+    _, _, batch = _text_masks(torch, np, dev)
+    ids, am = batch["input_ids"], batch["attention_mask"]
+    # The content-token mask of encode_tokens: valid, not BOS, not EOS.
+    eos = CLIPConfig.vit_b_16().text.eos_token_id
+    tmask_np = (am > 0) & (np.arange(t)[None] > 0) & (ids != eos)
+    tmask = torch.from_numpy(tmask_np.astype("float32")).to(dev)
+    imask_np = (rng.rand(b, p) > 0.25).astype("float32")
+    imask_np[:2] = 0.0  # two images with no valid box
+    imask = torch.from_numpy(imask_np).to(dev)
+    # bf16-valued f32 inputs zeroed at masked slots, as the trainer gives them.
+    text = (torch.from_numpy(rng.standard_normal((b, t, d)).astype("float32")).to(dev)
+            .bfloat16().float() * tmask[..., None])
+    image = (torch.from_numpy(rng.standard_normal((b, p, d)).astype("float32")).to(dev)
+             .bfloat16().float() * imask[..., None])
+    rows = b * (t + p)
+
+    got = xa.cross_attention_fused(w, text, image, tmask, imask, heads)
+    want = xa.cross_attention_reference(w, text, image, tmask, imask, heads)
+    err = max(_bound_check(torch, f"cross_attention[{name}]", g, r, REL_TOL)
+              for name, g, r in zip(("text", "image"), got, want))
+    if got[0].dtype != torch.float32:
+        raise AssertionError(f"cross_attention: f32 inputs gave {got[0].dtype}")
+    # The two boxless rows: every text query averages the image values.
+    table.error("cross_attention", err)
+    gemm_flops = 2.0 * b * (t + p) * d * 3 * d + 2.0 * rows * d * d
+    core_flops = 8.0 * b * t * p * d
+    bound = work(bf16_flops=gemm_flops, f32_flops=core_flops + 10.0 * rows * d,
+                 nbytes=8.0 * rows * d + 4.0 * rows + 2.0 * 8 * d * d + 4.0 * 12 * d)
+    ms, plain_ms = time_pair(torch, lambda: xa.cross_attention_fused(w, text, image, tmask,
+                                                                      imask, heads),
+                             lambda: xa.cross_attention_reference(w, text, image, tmask, imask,
+                                                                  heads), 20)
+    print(f"time cross_attention: kernel {ms} ms, plain {plain_ms} ms, bound {max(bound)} ms "
+          f"({card})", flush=True)
+    table.timed("cross_attention", ms, plain_ms, bound)
+
+    qkv_t = (text.bfloat16() @ w["w_text"]).float() + w["b_text"]
+    qkv_i = (image.bfloat16() @ w["w_image"]).float() + w["b_image"]
+    out = xa.cross_attention_core(qkv_t, qkv_i, tmask, imask, heads)
+    ref = xa.cross_attention_core_reference(qkv_t, qkv_i, tmask, imask, heads)
+    err = max(_bound_check(torch, f"cross_attention_core[{name}]", g, r, REL_TOL)
+              for name, g, r in zip(("text", "image"), out, ref))
+    boxless = ref[0][:2]
+    uniform = qkv_i[:2, :, 2 * d:].mean(1, keepdim=True).expand_as(boxless)
+    _bound_check(torch, "cross_attention_core[boxless rows: uniform average]", out[0][:2],
+                 uniform, REL_TOL)
+    table.error("cross_attention_core", err)
+    bound = work(f32_flops=core_flops, nbytes=12.0 * rows * d + 4.0 * rows + 2.0 * rows * d)
+    ms, plain_ms = time_pair(
+        torch, lambda: xa.cross_attention_core(qkv_t, qkv_i, tmask, imask, heads),
+        lambda: xa.cross_attention_core_reference(qkv_t, qkv_i, tmask, imask, heads), 20)
+    print(f"time cross_attention_core: kernel {ms} ms, plain {plain_ms} ms, bound "
+          f"{max(bound)} ms ({card})", flush=True)
+    table.timed("cross_attention_core", ms, plain_ms, bound)
+
+    a_t = torch.from_numpy(rng.standard_normal((b, t, d)).astype("float32")).to(dev)
+    a_i = torch.from_numpy(rng.standard_normal((b, p, d)).astype("float32")).to(dev)
+    streams = ((text, a_t), (image, a_i))
+    scales, biases = (w["lnt_scale"], w["lni_scale"]), (w["lnt_bias"], w["lni_bias"])
+    out = xa.add_layernorm_f32(streams, scales, biases)
+    err = max(_bound_check(torch, f"add_layernorm_f32[{i}]", g,
+                           xa.add_layernorm_reference(x, a, s, bb), REL_TOL)
+              for i, (g, (x, a), s, bb) in enumerate(zip(out, streams, scales, biases)))
+    table.error("add_layernorm_f32", err)
+    bound = work(f32_flops=10.0 * rows * d, nbytes=12.0 * rows * d + 16.0 * d)
+    ms, plain_ms = time_pair(
+        torch, lambda: xa.add_layernorm_f32(streams, scales, biases),
+        lambda: [xa.add_layernorm_reference(x, a, s, bb)
+                 for (x, a), s, bb in zip(streams, scales, biases)], 20)
+    print(f"time add_layernorm_f32: kernel {ms} ms, plain {plain_ms} ms, bound {max(bound)} ms "
+          f"({card})", flush=True)
+    table.timed("add_layernorm_f32", ms, plain_ms, bound)
+
+    x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128) * 0.25 - 7.0
+    err = (_build.probe_x2(x) - _build.probe_x2_reference(x)).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"loader self-check kernel: max_abs_err {err}")
+    table.error("loader_self_check", err)
+    bound = work(f32_flops=1024.0, nbytes=8.0 * 1024)
+    ms, plain_ms = time_pair(torch, lambda: _build.probe_x2(x),
+                             lambda: _build.probe_x2_reference(x), 50)
+    print(f"time loader_self_check: kernel {ms} ms, plain {plain_ms} ms, bound {max(bound)} ms "
+          f"({card})", flush=True)
+    table.timed("loader_self_check", ms, plain_ms, bound)
+    torch.cuda.empty_cache()
+
+
+# -- the training slices --------------------------------------------------------------
+
+
+def _all_modules():
+    from dclip_tpu_torch.kernels import (
+        _build,
+        cross_attention,
+        distill_loss,
+        mlp_frozen,
+        vit_attention,
+        vit_block,
+    )
+
+    return (vit_block, vit_attention, mlp_frozen, distill_loss, cross_attention, _build)
 
 
 def _reset_all_launches():
-    from dclip_tpu_torch.kernels import distill_loss, mlp_frozen, vit_attention, vit_block
-
-    for mod in (vit_block, vit_attention, mlp_frozen, distill_loss):
+    for mod in _all_modules():
         mod.reset_launches()
 
 
 def _all_launches():
-    from dclip_tpu_torch.kernels import distill_loss, mlp_frozen, vit_attention, vit_block
-
     out = {}
-    for mod in (vit_block, vit_attention, mlp_frozen, distill_loss):
+    for mod in _all_modules():
         out.update(mod.LAUNCHES)
     return out
 
 
-def _distill_trainer(torch, np, sd, device, batch_size, **changes):
-    """The port's DistillTrainer at ViT-B/16 with the batch's full teacher
-    targets (seeded unit vectors) in an in-memory cache."""
+def _teacher_config():
+    from dclip_tpu_torch.core import TeacherConfig
+
+    return TeacherConfig(embed_dim=512, num_heads=TEXT_HEADS, max_patches=TEACHER_P,
+                         max_text_tokens=TEXT_S)
+
+
+def _distill_config(batch_size, **changes):
     import dataclasses
 
+    from dclip_tpu_torch.core import DistillConfig
+
+    return dataclasses.replace(
+        DistillConfig(train_batch_size=batch_size, accumulate_grad_batches=1,
+                      learning_rate=1e-4, student_model="vit-b-16",
+                      teacher_clip_model="vit-b-16", packed_text=True,
+                      teacher=_teacher_config()), **changes)
+
+
+def _batch(np, batch_size):
     from dclip_tpu_torch.cli.common import synthetic_distill_batch
-    from dclip_tpu_torch.core import CLIPConfig, DistillConfig
+    from dclip_tpu_torch.core import CLIPConfig
+
+    batch = synthetic_distill_batch(CLIPConfig.vit_b_16(), _teacher_config(), batch_size,
+                                    np.random.RandomState(0))
+    batch["index"] = np.arange(batch_size, dtype=np.int64)
+    return batch
+
+
+def _distill_trainer(torch, np, sd, tsd, device, batch_size, **changes):
+    """The port's DistillTrainer at ViT-B/16 with the batch's full teacher
+    targets (seeded unit vectors) in an in-memory cache."""
+    from dclip_tpu_torch.core import CLIPConfig
     from dclip_tpu_torch.train.distill_trainer import DistillTrainer, TeacherTargetCache
 
     cfg = CLIPConfig.vit_b_16()
-    dcfg = dataclasses.replace(
-        DistillConfig(train_batch_size=batch_size, accumulate_grad_batches=1,
-                      learning_rate=1e-4, student_model="vit-b-16",
-                      teacher_clip_model="vit-b-16", packed_text=True), **changes)
-    batch = synthetic_distill_batch(cfg, dcfg.teacher, batch_size, np.random.RandomState(0))
-    batch["index"] = np.arange(batch_size, dtype=np.int64)
+    batch = _batch(np, batch_size)
     targets = np.random.RandomState(2).standard_normal(
         (batch_size, 2, cfg.projection_dim)).astype(np.float32)
     targets /= np.linalg.norm(targets, axis=-1, keepdims=True)
     cache = TeacherTargetCache(salt="chip-smoke")  # a salt: no teacher fingerprint pass
-    trainer = DistillTrainer(dcfg, sd, sd, None, cfg, cfg, device=device, teacher_cache=cache)
+    trainer = DistillTrainer(_distill_config(batch_size, **changes), sd, sd, tsd, cfg, cfg,
+                             device=device, teacher_cache=cache)
     cache.put_batch(cache.keys_for(batch), targets)
     return trainer, batch
 
 
-def train_slice_phase(torch, np, sd, card: str):
-    """The cache-warm B/16 training step at B=256 on the card."""
-    trainer, batch = _distill_trainer(torch, np, sd, "cuda", TRAIN_B)
-    student = trainer.student
-    if student.dtype != torch.bfloat16 or not trainer._use_kernels or not trainer._packed_text:
-        raise AssertionError("expected bf16, kernels on and packed text on CUDA")
-    _reset_all_launches()
+def _student_per_step(trainer):
+    v, t = trainer.student_config.vision.num_layers, trainer.student_config.text.num_layers
+    return {"layernorm": v, "gemm_bias_act_residual": 4 * v,
+            "self_attention_fwd_stats": v + t, "self_attention_bwd_stats": v + t,
+            "mlp_frozen_fwd": v, "mlp_frozen_bwd": v, "layernorm_bwd": v,
+            "distill_loss_fwd": 1, "distill_loss_bwd": 1}
+
+
+def _expected(per_step, steps):
+    names = _all_launches()
+    return {k: per_step.get(k, 0) * steps for k in names}
+
+
+def _run_steps(torch, np, trainer, batch, what, card):
+    """Warm-up steps, then timed steps on the host clock ending in a
+    synchronize; CUDA events between steps give each step's span on the
+    device clock without a host synchronize."""
     losses = []
     for _ in range(WARMUP_STEPS):
         losses.append(trainer.train_step_on_batch(batch)["loss"])
     torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    marks[0].record()
+    for i in range(TIMED_STEPS):
         losses.append(trainer.train_step_on_batch(batch)["loss"])
+        marks[i + 1].record()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _all_launches()
+    per_step = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    print(f"{what}: per-step ms (device clock between steps) {json.dumps(per_step)}; "
+          f"{gpu_state()}", flush=True)
     losses = [float(x) for x in losses]
-    steps = WARMUP_STEPS + TIMED_STEPS
-    print("train: losses", json.dumps(losses), flush=True)
+    print(f"{what}: losses", json.dumps(losses), flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss not finite and falling: {losses}")
+        raise AssertionError(f"{what}: training loss not finite and falling: {losses}")
+    ms = 1000.0 * seconds / TIMED_STEPS
+    print(f"{what}: step {ms} ms, {TRAIN_B * TIMED_STEPS / seconds} images/s (B={TRAIN_B}, "
+          f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; {card})", flush=True)
+    return ms
+
+
+def train_slice_phase(torch, np, sd, tsd, card: str):
+    """The cache-warm B/16 training step at B=256 on the card."""
+    trainer, batch = _distill_trainer(torch, np, sd, tsd, "cuda", TRAIN_B)
+    student = trainer.student
+    if student.dtype != torch.bfloat16 or not trainer._use_kernels or not trainer._packed_text:
+        raise AssertionError("expected bf16, kernels on and packed text on CUDA")
+    steps = WARMUP_STEPS + TIMED_STEPS
+    _reset_all_launches()
+    ms = _run_steps(torch, np, trainer, batch, "train cache-warm", card)
+    launches = _all_launches()
     if trainer._dev_full.hits != steps - 1:
         raise AssertionError(f"device target cache hits {trainer._dev_full.hits}, "
                              f"expected {steps - 1} (the first step hits the host cache)")
-    v, t = trainer.student_config.vision.num_layers, trainer.student_config.text.num_layers
-    per_step = {
-        "layernorm": v, "gemm_bias_act_residual": 4 * v, "attention": 0,
-        "attention_block": 0, "mlp_block": 0, "encoder_forward": 0, "image_features": 0,
-        "self_attention_fused": 0, "self_attention_fwd_stats": v + t,
-        "self_attention_bwd_stats": v + t, "mlp_frozen_fwd": v, "mlp_frozen_bwd": v,
-        "layernorm_bwd": v, "distill_loss_fwd": 1, "distill_loss_bwd": 1,
-    }
-    expected = {k: n * steps for k, n in per_step.items()}
+    expected = _expected(_student_per_step(trainer), steps)
     print("train: launches", json.dumps(launches), "expected", json.dumps(expected), flush=True)
     if launches != expected:
         raise AssertionError(f"training launch counts {launches} != {expected}")
-    ms = 1000.0 * seconds / TIMED_STEPS
-    print(f"train: cache-warm step {ms} ms, {TRAIN_B * TIMED_STEPS / seconds} images/s "
-          f"(B={TRAIN_B}, {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; {card})", flush=True)
     print(f"train: peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB",
           flush=True)
 
     # One no-grad packed text encode: the stats-free attention mode.
+    t = trainer.student_config.text.num_layers
     sb = trainer._maybe_pack_text(batch, {})
     keys = ("packed_ids", "packed_segments", "packed_positions", "packed_eos_rows",
             "packed_eos_cols")
@@ -548,8 +921,125 @@ def train_slice_phase(torch, np, sd, card: str):
     return launches, ms
 
 
-def profile_steps(torch, trainer, batch, card: str, steps: int = 2):
-    """Device busy share and device time by kernel over `steps` steps."""
+def _uncached_per_step(trainer):
+    """Launches of one uncached step: the region encode over B x P crops
+    (12 layers of K1 + K2), the teacher text tower (K3 x 12), K10 (4
+    GEMMs, its core, its add + LayerNorm), then the student step."""
+    v = trainer.teacher_clip_config.vision.num_layers
+    t = trainer.teacher_clip_config.text.num_layers
+    per = _student_per_step(trainer)
+    per.update({
+        "layernorm": per["layernorm"] + 2 * v,
+        "gemm_bias_act_residual": per["gemm_bias_act_residual"] + 4 * v + 4,
+        "attention": v, "attention_block": v, "mlp_block": v,
+        "encoder_forward": 1, "image_features": 1,
+        "self_attention_fused": t,
+        "cross_attention_core": 1, "add_layernorm_f32": 1, "cross_attention": 1,
+    })
+    return per
+
+
+def uncached_slice_phase(torch, np, sd, tsd, card: str):
+    """The uncached B/16 step at B=256, P=8 on the card: the main path."""
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.train.distill_trainer import DistillTrainer
+
+    cfg = CLIPConfig.vit_b_16()
+    trainer = DistillTrainer(_distill_config(TRAIN_B), sd, sd, tsd, cfg, cfg, device="cuda",
+                             teacher_cache=None)
+    if trainer._xattn is None or trainer._teacher_image_features is None \
+            or not trainer._compact:
+        raise AssertionError("expected the teacher kernels and crop compaction on CUDA")
+    batch = _batch(np, TRAIN_B)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    ms = _run_steps(torch, np, trainer, batch, "uncached", card)
+    launches = _all_launches()
+    expected = _expected(_uncached_per_step(trainer), steps)
+    print("uncached: launches", json.dumps(launches), "expected", json.dumps(expected),
+          flush=True)
+    if launches != expected:
+        raise AssertionError(f"uncached launch counts {launches} != {expected}")
+    print(f"uncached: peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB "
+          f"({card})", flush=True)
+    profile_steps(torch, trainer, batch, card, steps=1,
+                  spans=("dclip.h2d", "dclip.crop", "dclip.region_encode", "dclip.teacher_text",
+                         "dclip.cross_attention", "dclip.student_step"))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def cache_levels_phase(torch, np, sd, tsd, card: str):
+    """A teacher cache's three levels, told apart by their launches."""
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.train.distill_trainer import DistillTrainer, TeacherTargetCache
+
+    cfg = CLIPConfig.vit_b_16()
+    cache = TeacherTargetCache()
+    trainer = DistillTrainer(_distill_config(TRAIN_B), sd, sd, tsd, cfg, cfg, device="cuda",
+                             teacher_cache=cache)
+    batch = _batch(np, TRAIN_B)
+    resampled = dict(batch, input_ids=np.roll(batch["input_ids"], 1, axis=0),
+                     attention_mask=np.roll(batch["attention_mask"], 1, axis=0))
+    t = cfg.text.num_layers
+    cases = [  # what, batch, attention_block, self_attention_fused, cross_attention
+        ("miss: every level filled", batch, cfg.vision.num_layers, t, 1),
+        ("repeat: device full-target hit", batch, 0, 0, 0),
+        ("resampled captions: device pe hit", resampled, 0, t, 1),
+    ]
+    for what, b, k1, k3, k10 in cases:
+        _reset_all_launches()
+        loss = trainer.train_step_on_batch(b)["loss"]
+        torch.cuda.synchronize()
+        n = _all_launches()
+        got = (n["attention_block"], n["mlp_block"], n["self_attention_fused"],
+               n["cross_attention"])
+        print(f"levels: {what}: K1 {got[0]}, K2 {got[1]}, K3 {got[2]}, K10 {got[3]}, loss "
+              f"{float(loss)}, device full hits {trainer._dev_full.hits}, pe hits "
+              f"{trainer._dev_pe.hits}", flush=True)
+        if got != (k1, k1, k3, k10) or not np.isfinite(float(loss)):
+            raise AssertionError(f"cache level '{what}': launches {got} != {(k1, k1, k3, k10)}")
+    if trainer._dev_full.hits != 1 or trainer._dev_pe.hits != 1:
+        raise AssertionError(f"cache hits: full {trainer._dev_full.hits}, pe "
+                             f"{trainer._dev_pe.hits}; expected 1 and 1")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def target_agreement_phase(torch, np, sd, tsd):
+    """Teacher targets at B=2, full width and depth: bf16 kernels on the card
+    vs the f32 modules on the CPU, on the same weights."""
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.train.distill_trainer import DistillTrainer
+
+    cfg = CLIPConfig.vit_b_16()
+    batch = _batch(np, AGREE_B)
+    batch["box_mask"][1, 5:] = 0.0
+    targets = {}
+    for device, changes in (("cuda", {}),
+                            ("cpu", {"use_pallas": False, "compute_dtype": "float32"})):
+        trainer = DistillTrainer(_distill_config(AGREE_B, **changes), sd, sd, tsd, cfg, cfg,
+                                 device=device)
+        t0 = time.perf_counter()
+        got = trainer._teacher_targets(trainer._device_batch(batch))
+        targets[device] = [x.double().cpu() for x in got]
+        print(f"targets: {device} ({'kernels, bf16' if device == 'cuda' else 'modules, f32'}) "
+              f"{time.perf_counter() - t0} s", flush=True)
+        del trainer
+    for name, a, b in zip(("teacher_img", "teacher_txt"), targets["cuda"], targets["cpu"]):
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+        print(f"targets: {name} per-row cosine {cos.tolist()} bound {TARGET_COS}", flush=True)
+        if not torch.isfinite(a).all() or not cos.min().item() >= TARGET_COS:
+            raise AssertionError(f"{name}: cosine {cos.tolist()} < {TARGET_COS}")
+    torch.cuda.empty_cache()
+
+
+def profile_steps(torch, trainer, batch, card: str, steps: int = 2, spans=()):
+    """Device busy share and device time by kernel over `steps` steps, and
+    the device time under each of `spans` (torch.profiler ranges)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -559,28 +1049,40 @@ def profile_steps(torch, trainer, batch, card: str, steps: int = 2):
             trainer.train_step_on_batch(batch)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
     # Device-side events only (kernels, copies): the host-side rows of
-    # key_averages() also carry their children's device time.
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    # key_averages() also carry their children's device time, and the
+    # device-side rows of the `dclip.*` ranges span their kernels.
+    rows = [(e.key, e.self_device_time_total, e.count) for e in events
+            if e.device_type == cuda and e.self_device_time_total > 0
+            and not e.key.startswith("dclip.")]
     device_us = sum(r[1] for r in rows)
     if device_us == 0:
         print("profile: key_averages() show no device time", flush=True)
         return
     print(f"profile: {steps} steps, wall {wall_us / 1e3} ms, device {device_us / 1e3} ms, "
           f"busy {100.0 * device_us / wall_us}% ({card})", flush=True)
+    for name in spans:
+        dev = [e for e in events if e.key == name and e.device_type == cuda]
+        host = [e for e in events if e.key == name and e.device_type != cuda]
+        dev_ms = sum(e.device_time_total for e in dev) / 1e3 / steps
+        host_ms = sum(e.cpu_time_total for e in host) / 1e3 / steps
+        print(f"profile: stage {name}: device span {dev_ms} ms/step "
+              f"({100.0 * dev_ms * steps * 1e3 / wall_us:.2f}% of the wall), host "
+              f"{host_ms} ms/step", flush=True)
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:20]:
         print(f"profile: {100.0 * us / device_us:6.2f}% {us / 1e3 / steps:9.3f} ms/step "
               f"x{count // steps:<5d} {key[:110]}", flush=True)
 
 
-def grad_agreement_phase(torch, np, sd):
+def grad_agreement_phase(torch, np, sd, tsd):
     """One step's trainable gradients, B=8: bf16 kernels on the card vs
     f32 twins on the CPU."""
     grads = {}
     for device, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
-        trainer, batch = _distill_trainer(torch, np, sd, device, GRAD_B, compute_dtype=dtype,
-                                          use_pallas=True)
+        trainer, batch = _distill_trainer(torch, np, sd, tsd, device, GRAD_B,
+                                          compute_dtype=dtype, use_pallas=True)
         t0 = time.perf_counter()
         trainer.train_step_on_batch(batch)
         if device == "cuda":
@@ -637,42 +1139,53 @@ def main() -> int:
     from dclip_tpu_torch.kernels import _build
     from dclip_tpu_torch.kernels import vit_block as vb
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
 
     seconds = _build.build(force=True)
-    _build.load_library()
     print(f"build: {seconds} s", flush=True)
     with open(_build.LOG_PATH) as f:
         for line in f:
             if "ptxas info" in line and ("Used" in line or "spill" in line or "Compiling" in line):
                 print("build:", line.strip(), flush=True)
+    # The loader's path: the first load runs the self-check launch.
+    _build.reset_launches()
+    _build.load_library()
+    loader_launches = dict(_build.LAUNCHES)
+    print(f"load: self-check {json.dumps(_build.SELF_CHECK)}, launches "
+          f"{json.dumps(loader_launches)}", flush=True)
 
-    results = kernel_phase(torch, vb, card)
+    table = KernelTable(list(KERNELS) + list(TRAIN_KERNELS) + list(TEACHER_KERNELS))
+    kernel_phase(torch, vb, card, table)
     service, args, launches = slice_phase(torch, np, vb, cli_serve, card)
     cli_serve.bench(service, args, concurrencies=(1, 32))
     del service
     torch.cuda.empty_cache()
 
-    train_results = train_kernel_phase(torch, np, card)
+    train_kernel_phase(torch, np, card, table)
+    xattn_kernel_phase(torch, np, card, table)
     from dclip_tpu_torch.core import CLIPConfig
-    from dclip_tpu_torch.models.weights import random_state_dict
+    from dclip_tpu_torch.models.weights import random_state_dict, random_teacher_state_dict
 
     sd = random_state_dict(CLIPConfig.vit_b_16(), seed=0)
-    train_launches, _ = train_slice_phase(torch, np, sd, card)
-    grad_agreement_phase(torch, np, sd)
+    tsd = random_teacher_state_dict(_teacher_config(), seed=0)
+    train_launches, _ = train_slice_phase(torch, np, sd, tsd, card)
+    uncached_launches, _ = uncached_slice_phase(torch, np, sd, tsd, card)
+    cache_levels_phase(torch, np, sd, tsd, card)
+    target_agreement_phase(torch, np, sd, tsd)
+    grad_agreement_phase(torch, np, sd, tsd)
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name]}
-        for name, (src, rep) in KERNELS.items()
-    ] + [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": train_launches[name], **train_results[name]}
-        for name, (src, rep) in TRAIN_KERNELS.items()
-    ]
+    counts = {**{n: launches[n] for n in KERNELS}, **{n: train_launches[n] for n in TRAIN_KERNELS},
+              **{n: uncached_launches[n] for n in TEACHER_KERNELS if n in uncached_launches},
+              "loader_self_check": loader_launches["loader_self_check"]}
+    sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS}
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": counts[name], **table.entry(name)}
+               for name, (src, rep) in sources.items()]
+    print(f"chip_smoke: {time.perf_counter() - t_start} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

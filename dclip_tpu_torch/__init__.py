@@ -3,22 +3,26 @@
 The JAX package `dclip_tpu` stays the reference; this package mirrors its
 module layout so each counterpart is found under the same path:
 
-  core/      device resolution; re-exports the shared CLIP presets
+  core/      the config dataclasses (the port's copy), device and
+             fast-path resolution
   kernels/   hand-written CUDA kernels (csrc/*.cu, built with nvcc at
              first use) behind Python wrappers with plain PyTorch twins
-  models/    CLIP dual encoder with HF `CLIPModel` parameter names, and
-             the weight bridge from Flax params / random init
-  ops/       CLIP pixel normalization, exact k-NN search, losses,
-             caption packing
+  models/    CLIP dual encoder with HF `CLIPModel` parameter names, the
+             meta-teacher (cross-modal attention, region and token
+             encoders), and the weight bridge from Flax params / random init
+  ops/       CLIP pixel normalization and region crop-resize, teacher
+             aggregation, exact k-NN search and its gate, losses, caption
+             packing
   data/      tokenizers, embedding store, serving image resize/crop
   serve/     dynamic request batcher, bucket-padded ClipService
-  train/     the cache-warm distillation step: DistillTrainer (student
-             half), masked AdamW, teacher-target caches, epoch loop
+  train/     the distillation step: DistillTrainer (teacher targets with
+             their caches, student step), masked AdamW, epoch loop
+  native/    the `.dcs` KV store and host top-k (C++, built with g++)
   cli/       `python -m dclip_tpu_torch.cli.serve`
 
-This package imports `torch` and never `jax`; the only `dclip_tpu`
-modules it uses are the JAX-free `dclip_tpu.core.config` (presets) and
-`dclip_tpu.native` (the `.dcs` store).
+This package imports `torch` and never `jax`, and nothing of the JAX
+package `dclip_tpu`: what it needs of it (the config dataclasses, the
+native store) it keeps as its own copies.
 """
 from dclip_tpu_torch.core import CLIPConfig, from_name
 

@@ -14,7 +14,7 @@ from typing import Tuple, Union
 
 import torch
 
-from dclip_tpu.core.config import CLIPConfig
+from dclip_tpu_torch.core.config import CLIPConfig
 from dclip_tpu_torch.core.device import resolve_device, resolve_dtype
 from dclip_tpu_torch.models.clip import CLIPModule
 

@@ -1,7 +1,6 @@
-"""Shared configuration: the CLIP presets and the distillation settings live
-in `dclip_tpu.core.config` (JAX-free), so both packages read one source of
-truth."""
-from dclip_tpu.core.config import (
+"""Shared configuration: the CLIP presets and the distillation settings
+(`core/config.py`, the port's copy of the JAX package's dataclasses)."""
+from dclip_tpu_torch.core.config import (
     CLIPConfig,
     CLIPTextConfig,
     CLIPVisionConfig,

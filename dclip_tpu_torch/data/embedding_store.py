@@ -4,8 +4,8 @@ A copy of `dclip_tpu/data/embedding_store.py` without `device_arrays`
 (the JAX device put): the serving path moves `keys` to its device per
 search, as the JAX service does. It is copied, not imported, because
 `dclip_tpu/data/__init__.py` imports jax. `.dcs` files go through the
-JAX-free `dclip_tpu.native` runtime, so both packages read each other's
-stores.
+port's copy of the native runtime (`dclip_tpu_torch.native`), which keeps
+the JAX package's file layout, so both packages read each other's stores.
 
 The store replaces the reference's FAISS `IndexFlatIP(512)` + JSON
 sidecars: one `[N, D]` float32 key matrix (+ values and positions), keys
@@ -112,7 +112,7 @@ class EmbeddingStore:
     def save(self, path: str) -> None:
         keys, values, positions = self._pack()
         if path.endswith(".dcs"):
-            from dclip_tpu import native
+            from dclip_tpu_torch import native
 
             os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
             with native.NativeKVStore(path, writable=True) as s:
@@ -143,7 +143,7 @@ class EmbeddingStore:
     @classmethod
     def load(cls, path: str) -> "EmbeddingStore":
         if path.endswith(".dcs"):
-            from dclip_tpu import native
+            from dclip_tpu_torch import native
 
             s = native.NativeKVStore(path)
             try:

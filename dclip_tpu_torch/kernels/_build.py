@@ -13,6 +13,12 @@ The library is rebuilt when the SHA-256 of the sources (`*.cu`, `*.cuh`)
 differs from the stamp written beside it. A missing nvcc or a failed
 compile raises with nvcc's output; there is no fallback. nvcc is taken
 from `$CUDA_HOME/bin`, `/usr/local/cuda/bin` or `PATH`, in that order.
+
+Before the library is handed out, `load_library` runs its self-check
+once per process (the counterpart of the JAX package's Pallas probe,
+`dclip_tpu/kernels/__init__.py:32-46`, K13): one launch of
+`csrc/status.cu`'s x2 kernel on an [8, 128] f32 buffer, compared exactly
+with 2 x; a mismatch raises. There is no watchdog, memo or retry.
 """
 from __future__ import annotations
 
@@ -60,7 +66,18 @@ _SIGNATURES = {
     "dclip_distill_loss_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     # si, st, ti, tt, part, cts, dsi, dst, b, d, temperature, stream
     "dclip_distill_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # qkv_t, qkv_i, text_mask, image_mask (nullable), out_t, out_i, b, t, p,
+    # d, heads, stream
+    "dclip_cross_attention_core": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x0, a0, s0, b0, y0, rows0, x1, a1, s1, b1, y1, rows1, d, eps, stream
+    "dclip_add_layernorm_f32": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F,
+                                _P],
+    # x, y, n, stream
+    "dclip_probe_x2": [_P, _P, _I, _P],
 }
+LAUNCHES = {"loader_self_check": 0}
+# The self-check's outcome in this process: device name and max |y - 2x|.
+SELF_CHECK: dict = {}
 
 
 def _sources() -> List[str]:
@@ -161,8 +178,46 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.dclip_error_string.argtypes = [ctypes.c_int]
             lib.dclip_error_string.restype = ctypes.c_char_p
+            _self_check(lib)
             _lib = lib
         return _lib
+
+
+def reset_launches() -> None:
+    LAUNCHES["loader_self_check"] = 0
+
+
+def probe_x2_reference(x):
+    return 2.0 * x
+
+
+def probe_x2(x, lib: Optional[ctypes.CDLL] = None):
+    """y = 2 x (the self-check's kernel). CUDA: x f32, contiguous."""
+    import torch
+
+    if x.device.type == "cpu":
+        return probe_x2_reference(x)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("probe_x2: the CUDA kernel takes a contiguous f32 tensor")
+    lib = lib or load_library()
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = lib.dclip_probe_x2(x.data_ptr(), y.data_ptr(), x.numel(),
+                                  torch.cuda.current_stream(x.device).cuda_stream)
+    check(lib, code, "loader self-check (probe_x2)")
+    LAUNCHES["loader_self_check"] += 1
+    return y
+
+
+def _self_check(lib: ctypes.CDLL) -> None:
+    import torch
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    x = torch.arange(8 * 128, dtype=torch.float32, device=device).reshape(8, 128) * 0.5 - 100.25
+    err = (probe_x2(x, lib) - 2.0 * x).abs().max().item()
+    SELF_CHECK.update(device=torch.cuda.get_device_name(device), max_abs_err=err)
+    if err != 0.0:
+        raise RuntimeError(f"kernel library self-check failed: max |y - 2x| = {err}")
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dclip_tpu.core.config import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
+from dclip_tpu_torch.core.config import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
 from dclip_tpu_torch.kernels import mlp_frozen, vit_attention, vit_block
 from dclip_tpu_torch.kernels.vit_block import quick_gelu
 
@@ -293,6 +293,21 @@ class CLIPModule(nn.Module):
                           attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         _, pooled = self.text_model(input_ids, attention_mask)
         return _linear(pooled, self.text_projection)
+
+    def get_token_features(self, input_ids: torch.Tensor,
+                           attention_mask: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Token-level text features: `text_projection` of every final-LN'd
+        token [B, S, P], and of the pooled token [B, P] (`clip.py:517-521`)."""
+        hidden, pooled = self.text_model(input_ids, attention_mask)
+        return _linear(hidden, self.text_projection), _linear(pooled, self.text_projection)
+
+    def get_patch_features(self, pixel_values: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`visual_projection` of every patch state (before the post-LN)
+        [B, S, P], and of the pooled CLS state [B, P] (`clip.py:527-530`)."""
+        hidden, pooled = self.vision_model(pixel_values)
+        return _linear(hidden, self.visual_projection), _linear(pooled, self.visual_projection)
 
     def get_packed_text_features(self, packed_ids, packed_segments, packed_positions,
                                  packed_eos_rows, packed_eos_cols) -> torch.Tensor:

@@ -15,6 +15,13 @@ state dict does, so three sources meet in one layout:
   the port's parameter order, not JAX's tree order.
 - `load_state_dict_file`: a local HF snapshot dir, `pytorch_model.bin` or
   `model.safetensors`.
+
+The meta-teacher's weights (`models.teacher.PatchTextAggregation`, torch
+`nn.MultiheadAttention` names under `cross_modal_attention.`) come from
+`teacher_state_dict_from_jax` (the inverse of the JAX package's
+`import_torch_cross_modal`) or `random_teacher_state_dict`, which draws
+them by the same value rule in the JAX tree's order, so it equals the
+bridge of the JAX package's random teacher of the same seed.
 """
 from __future__ import annotations
 
@@ -125,3 +132,49 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     # Older HF checkpoints carry the `position_ids` buffers; they are not
     # parameters of the model.
     return {k: v for k, v in sd.items() if not k.endswith("position_ids")}
+
+
+_TEACHER_DIRECTIONS = ("image_to_text", "text_to_image")  # JAX tree (sorted) order
+_TEACHER_NORMS = ("norm_image", "norm_text")
+
+
+def teacher_state_dict_from_jax(teacher_params: Mapping[str, Any],
+                                prefix: str = "cross_modal_attention.") -> Dict[str, torch.Tensor]:
+    """The JAX teacher's params `{"cross_modal_attention": {...}}` (Flax
+    Dense kernels [in, out]) -> the port's teacher state dict: per
+    direction `in_proj_weight` [3D, D] (q, k, v rows), `in_proj_bias`,
+    `out_proj.weight` / `.bias`, and `norm_*.weight` / `.bias`."""
+    cm = teacher_params["cross_modal_attention"]
+    sd: Dict[str, torch.Tensor] = {}
+    for direction in _TEACHER_DIRECTIONS:
+        p = cm[direction]
+        qkv = ("q_proj", "k_proj", "v_proj")
+        sd[f"{prefix}{direction}.in_proj_weight"] = _t(
+            np.concatenate([np.asarray(p[n]["kernel"]).T for n in qkv]))
+        sd[f"{prefix}{direction}.in_proj_bias"] = _t(
+            np.concatenate([np.asarray(p[n]["bias"]) for n in qkv]))
+        sd[f"{prefix}{direction}.out_proj.weight"] = _t(np.asarray(p["out_proj"]["kernel"]).T)
+        sd[f"{prefix}{direction}.out_proj.bias"] = _t(p["out_proj"]["bias"])
+    for norm in _TEACHER_NORMS:
+        sd[f"{prefix}{norm}.weight"] = _t(cm[norm]["scale"])
+        sd[f"{prefix}{norm}.bias"] = _t(cm[norm]["bias"])
+    return sd
+
+
+def random_teacher_state_dict(teacher_cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random teacher weights by the `host_random_variables` rule (LayerNorm
+    scale 1, biases 0, kernels N(0, 0.02)), drawn from
+    `np.random.RandomState(seed)` in the JAX tree's order: per direction
+    (image_to_text, then text_to_image) the k, out, q, v kernels, [in, out]."""
+    d = teacher_cfg.embed_dim
+    rng = np.random.RandomState(seed)
+    cm: Dict[str, Any] = {}
+    for direction in _TEACHER_DIRECTIONS:
+        cm[direction] = {
+            name: {"kernel": np.asarray(rng.standard_normal((d, d)) * 0.02, np.float32),
+                   "bias": np.zeros(d, np.float32)}
+            for name in ("k_proj", "out_proj", "q_proj", "v_proj")
+        }
+    for norm in _TEACHER_NORMS:
+        cm[norm] = {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
+    return teacher_state_dict_from_jax({"cross_modal_attention": cm})

@@ -1,14 +1,30 @@
-"""Exact inner-product k-NN (counterpart of `dclip_tpu/ops/knn.py:42-56`).
+"""Exact inner-product k-NN and the k-NN gate of the teacher's patch
+embeddings (counterpart of `dclip_tpu/ops/knn.py:42-56, 95-140`).
 
-On the JAX side this is an XLA einsum plus `top_k` (no Pallas kernel), so
-here it is plain torch: one f32 matmul and `torch.topk` on the device the
-tensors live on.
+On the JAX side these are XLA einsums plus `top_k` (no Pallas kernel), so
+here they are plain torch on the device the tensors live on. Gate
+semantics, per query:
+  top-1 score >= threshold -> the stored neighbour's value   (source 0)
+  else                     -> the raw normalized query       (source 2)
+(source 1, the projection head's output, waits for ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from dclip_tpu_torch.ops.losses import l2_normalize
+
+SOURCE_KNN = 0
+SOURCE_PROJECTION = 1
+SOURCE_CLIP = 2
+
+
+class KNNResult(NamedTuple):
+    embeddings: torch.Tensor  # [Q, D] selected embedding per query
+    source: torch.Tensor  # [Q] int32 in {0: knn, 1: projection, 2: clip}
+    similarity: torch.Tensor  # [Q] top-1 score, 0 where not knn
 
 
 def knn_search(queries: torch.Tensor, store_keys: torch.Tensor,
@@ -18,3 +34,27 @@ def knn_search(queries: torch.Tensor, store_keys: torch.Tensor,
     scores = queries.float() @ store_keys.float().T
     return torch.topk(scores, min(k, store_keys.shape[0]), dim=-1,
                       largest=True, sorted=True)
+
+
+def knn_or_projection(queries: torch.Tensor, store_keys: Optional[torch.Tensor],
+                      store_values: Optional[torch.Tensor], similarity_threshold: float = 0.85,
+                      k: int = 3) -> KNNResult:
+    """queries [Q, D] CLIP embeddings; store_keys / store_values [N, D]. The
+    projection branch (source 1) waits for `models/projections.py` (ROADMAP
+    Queue 1 item 9): a miss falls back to the raw normalized query."""
+    q = l2_normalize(queries.float())
+    qn = q.shape[0]
+    if store_keys is None or store_keys.shape[0] == 0:
+        return KNNResult(q, torch.full((qn,), SOURCE_CLIP, dtype=torch.int32, device=q.device),
+                         torch.zeros((qn,), dtype=torch.float32, device=q.device))
+    if store_values is None:
+        store_values = store_keys
+    scores, idx = knn_search(q, store_keys, k)
+    top1_score, top1_idx = scores[:, 0], idx[:, 0]
+    hit = top1_score >= similarity_threshold
+    retrieved = store_values[top1_idx].float()
+    return KNNResult(
+        torch.where(hit[:, None], retrieved, q),
+        torch.where(hit, SOURCE_KNN, SOURCE_CLIP).to(torch.int32),
+        torch.where(hit, top1_score, torch.zeros_like(top1_score)),
+    )

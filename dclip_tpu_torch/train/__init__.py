@@ -1,4 +1,6 @@
-"""Trainers of the port: the student half of the distillation trainer
-(`distill_trainer.DistillTrainer`), its masked AdamW (`optim`), the
+"""Trainers of the port: the distillation trainer
+(`distill_trainer.DistillTrainer`: teacher targets through three cache
+levels, the student step, the eval loss), its masked AdamW (`optim`), the
 teacher-target caches (`distill_trainer.TeacherTargetCache`,
-`device_cache.DeviceTargetCache`) and the epoch loop (`base`)."""
+`device_cache.DeviceTargetCache`), and the epoch loop, the k-NN gate and the
+budgeted patch encode (`base`)."""

@@ -1,8 +1,10 @@
-"""Shared trainer scaffolding: device transfer, epoch loop, fit
-(counterpart of `dclip_tpu/train/base.py:206-311`).
+"""Shared trainer scaffolding: device transfer, epoch loop, fit, the k-NN
+gate of the teacher's patch embeddings and the budgeted patch encode
+(counterpart of `dclip_tpu/train/base.py:18-200, 206-311`).
 
 Checkpoints, resume and preemption wait for the port's full trainer
-(ROADMAP Queue 1 items 5 and 10); asking for them raises.
+(ROADMAP Queue 1 items 5 and 10); asking for them raises. The budgeted
+patch encode is the single-device branch (dp > 1 is Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -11,6 +13,41 @@ from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
+
+
+def apply_knn_gate(pe: torch.Tensor, store_keys, store_values, threshold: float,
+                   patch_mask: torch.Tensor) -> torch.Tensor:
+    """Route patch embeddings pe [B, P, D] through the k-NN / raw-CLIP gate
+    (`ops.knn.knn_or_projection`); masked slots stay zero."""
+    from dclip_tpu_torch.ops.knn import knn_or_projection
+
+    b, p, d = pe.shape
+    res = knn_or_projection(pe.reshape(b * p, d), store_keys, store_values, threshold)
+    return res.embeddings.reshape(b, p, d) * patch_mask[..., None]
+
+
+def budgeted_patch_encode(clip_model, clip_config, raw_batch, device_batch, compact: bool,
+                          image_features_fn=None) -> torch.Tensor:
+    """The teacher's patch encode with optional crop compaction: when the
+    host-resident box mask leaves slots empty, only the smallest of four
+    buckets of slots that covers the valid boxes runs through the ViT
+    (`models.teacher.patch_budget`). A mask already on the device is not
+    read back (that would stall the step), and the dense encode runs."""
+    from dclip_tpu_torch.models.teacher import encode_patches, encode_patches_compact, patch_budget
+
+    budget = 0
+    if compact:
+        d = raw_batch.as_dict() if hasattr(raw_batch, "as_dict") else raw_batch
+        mask = d["box_mask"]
+        if isinstance(mask, np.ndarray):
+            b = patch_budget(int(mask.sum()), mask.size)
+            if b < mask.size:
+                budget = b
+    args = (clip_model, device_batch["teacher_pixels"], device_batch["boxes"],
+            device_batch["box_mask"], clip_config.vision.image_size)
+    if budget <= 0:
+        return encode_patches(*args, image_features_fn=image_features_fn)
+    return encode_patches_compact(*args, budget=budget, image_features_fn=image_features_fn)
 
 
 def fingerprint_objects(*objects) -> str:

@@ -1,21 +1,40 @@
-"""Student distillation trainer, the student half (counterpart of
-`dclip_tpu/train/distill_trainer.py:56-180, 446-955`).
+"""Student distillation trainer (counterpart of
+`dclip_tpu/train/distill_trainer.py:56-180, 183-955`).
 
-The cache-warm distillation step: on a full-target hit of the teacher
-cache (epochs >= 1, `distill_trainer.py:921-936`), only the student runs:
-its image tower and (packed) caption tower forward and backward, the
-cos-distill(img) + cos-distill(txt) + InfoNCE loss, and the masked AdamW
-update. With the kernels on (`use_pallas`, auto on CUDA) the towers run
-the hand-written attention (K3/K4/K5) and frozen-MLP (K6) kernels and the
-loss runs the fused distillation-loss kernel (K11).
+One training step: teacher targets for the batch, then the student update.
 
-What waits, each raising NotImplementedError that names its ROADMAP item:
-a teacher-target cache miss (computing the targets; Queue 1 item 4; the
-trainer takes `teacher_clip_state_dict` and `teacher_params` as the JAX one
-does, and only fingerprints them), `eval_loss_on_batch`, checkpoints,
-resume, the unfreeze schedule and `remat` (item 5), the fused text MLP
-(K8, Queue 2 item 7) and fused attention block (K9, Queue 2 item 8), and
-a mesh with dp or mp > 1 or `dp_equivalent` (Queue 1 item 10).
+- Teacher targets, with a three-level cache. Full (img, txt) targets come
+  from the device or host cache (keyed by item and caption); else the
+  caption-independent patch embeddings come from the device level, then
+  the host level (keyed by item and boxes); else the region encode runs:
+  every box is cropped and squash-resized (`ops.image_ops`) and the
+  frozen teacher ViT encodes the B x P crops (K1 / K2,
+  `kernels.vit_block`), with crop compaction when boxes are missing. Then
+  the tail: the teacher text tower's token features (K3 with causal and
+  padding masks), the bidirectional cross-attention (K10,
+  `kernels.cross_attention`), the temperature aggregation and fusion
+  (`models.teacher`); every level takes the new rows. On a miss the
+  teacher-only fields (`teacher_pixels`, `boxes`, `box_mask`) cross to the
+  device; on a full hit they stay on the host.
+- Student step: its image tower and (packed) caption tower forward and
+  backward (K3 / K4 / K5 attention, K6 frozen MLP), the cos-distill(img) +
+  cos-distill(txt) + InfoNCE loss (K11), the masked AdamW update.
+
+With the kernels on (`use_pallas`, auto on CUDA) the kernels run; on the
+CPU, asked for explicitly, their plain twins. The teacher tail computes
+in f32 whether its patch embeddings were just encoded or come from a
+cache (the JAX trainer runs it in bf16 after a host pe-cache hit,
+ROADMAP Queue 3). `eval_loss_on_batch` runs the teacher and the student
+loss without the caches and without gradients. The stages run under
+`torch.profiler` ranges (`dclip.h2d`, `dclip.cross_attention`,
+`dclip.student_step`, and those of `models.teacher`) for a profile's
+breakdown of a step; outside a profile they cost a few microseconds.
+
+What waits, each raising NotImplementedError that names its ROADMAP
+item: checkpoints, resume, the unfreeze schedule and `remat` (Queue 1
+item 5), the projection head of the k-NN gate (item 9), the fused text MLP
+(K8, Queue 2 item 7) and fused attention block (K9, Queue 2 item 8), and a
+mesh with dp or mp > 1 or `dp_equivalent` (Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -23,15 +42,29 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from dclip_tpu.core.config import CLIPConfig, DistillConfig
+from dclip_tpu_torch.core.config import CLIPConfig, DistillConfig
 from dclip_tpu_torch.core.device import resolve_device, resolve_dtype
 from dclip_tpu_torch.core.fast_paths import resolve_fast_paths
+from dclip_tpu_torch.kernels import vit_block
+from dclip_tpu_torch.kernels.cross_attention import cross_attention_fused, pack_cross_attention
 from dclip_tpu_torch.kernels.distill_loss import fused_distillation_loss
 from dclip_tpu_torch.models.clip import CLIPModule
+from dclip_tpu_torch.models.teacher import (
+    PatchTextAggregation,
+    aggregate_attended,
+    encode_patches,
+    encode_tokens,
+)
 from dclip_tpu_torch.ops.losses import distillation_loss
 from dclip_tpu_torch.ops.packing import pack_captions_sharded
-from dclip_tpu_torch.train.base import BaseTrainer, fingerprint_objects
+from dclip_tpu_torch.train.base import (
+    BaseTrainer,
+    apply_knn_gate,
+    budgeted_patch_encode,
+    fingerprint_objects,
+)
 from dclip_tpu_torch.train.device_cache import DeviceTargetCache, resolve_device_cache
 from dclip_tpu_torch.train.optim import (
     count_trainable,
@@ -72,7 +105,7 @@ class TeacherTargetCache:
         # must never serve targets computed by a DIFFERENT teacher.
         self.salt = salt
         if path is not None:
-            from dclip_tpu import native
+            from dclip_tpu_torch import native
 
             if native.available():
                 self._store = native.NativeKVStore(path, writable=True)
@@ -174,16 +207,18 @@ class TeacherTargetCache:
 
 
 class DistillTrainer(BaseTrainer):
-    # Fields the student step consumes; the teacher-only fields stay on
-    # the host on a cache hit (they are most of the batch bytes).
+    # Fields the student step consumes, and those only the teacher reads:
+    # the latter stay on the host on a cache hit (they are most of the
+    # batch bytes).
     _STUDENT_FIELDS = ("pixel_values", "input_ids", "attention_mask")
+    _TEACHER_FIELDS = ("teacher_pixels", "boxes", "box_mask")
 
     def __init__(
         self,
         cfg: DistillConfig,
         student_state_dict: Dict[str, torch.Tensor],
         teacher_clip_state_dict: Dict[str, torch.Tensor],
-        teacher_params: Any,
+        teacher_state_dict: Dict[str, torch.Tensor],
         student_config: Optional[CLIPConfig] = None,
         teacher_clip_config: Optional[CLIPConfig] = None,
         device="cuda",
@@ -193,8 +228,11 @@ class DistillTrainer(BaseTrainer):
         dp_equivalent: bool = False,
     ):
         """`student_state_dict` / `teacher_clip_state_dict`: HF-named CLIP
-        state dicts (`models.weights`); the trainer copies the student's
-        to `device` in f32."""
+        state dicts (`models.weights.state_dict_from_jax` /
+        `random_state_dict`); `teacher_state_dict`: the meta-teacher's
+        `cross_modal_attention.*` state dict (`teacher_state_dict_from_jax` /
+        `random_teacher_state_dict`). The trainer copies all three to
+        `device` in f32; `knn_store`: an `EmbeddingStore` for the k-NN gate."""
         self.cfg = cfg
         self.student_config = student_config or CLIPConfig.from_name(cfg.student_model)
         self.teacher_clip_config = teacher_clip_config or CLIPConfig.from_name(
@@ -212,8 +250,9 @@ class DistillTrainer(BaseTrainer):
             )
         if dp_equivalent or cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.model_parallel != 1:
             raise _waits("a mesh with dp or mp > 1 (and dp_equivalent)", "Queue 1 item 10")
-        if knn_store is not None or projection_params is not None:
-            raise _waits("the k-NN / projection gate of the teacher targets", "Queue 1 item 4")
+        if projection_params is not None:
+            raise _waits("the projection head of the k-NN gate (models/projections.py)",
+                         "Queue 1 item 9")
         self.device = resolve_device(device)
         cfg = self.cfg = resolve_fast_paths(cfg, self.device)
         for on, what, where in (
@@ -235,17 +274,23 @@ class DistillTrainer(BaseTrainer):
         self.student = self._make_student(student_state_dict)
         self._build_optimizer()
         self.teacher_clip_state_dict = teacher_clip_state_dict
-        self.teacher_params = teacher_params
+        self.teacher_state_dict = teacher_state_dict
+        self._make_teacher(teacher_clip_state_dict, teacher_state_dict)
+        self._init_knn_gate(knn_store)
         self.step = 0
         self.teacher_cache = teacher_cache
         # Device-resident level 0 in front of the host cache: a hit costs
-        # one [B] index upload. Full keys go stale as captions resample,
-        # so that level evicts FIFO (train/device_cache.py).
-        self._dev_full = None
+        # one [B] index upload. Patch embeddings take 3/4 of the budget
+        # (P x D rows, and their keys survive caption resampling); full
+        # keys go stale as captions resample, so that level evicts FIFO.
+        self._dev_full = self._dev_pe = None
         if resolve_device_cache(cfg.device_target_cache, teacher_cache):
-            self._dev_full = DeviceTargetCache(
-                (2, cfg.teacher.embed_dim), torch.float32,
-                cfg.device_cache_mb * (1 << 20) // 4, self.device, evict=True)
+            budget, d = cfg.device_cache_mb * (1 << 20), cfg.teacher.embed_dim
+            self._dev_full = DeviceTargetCache((2, d), torch.float32, budget // 4, self.device,
+                                               evict=True)
+            self._dev_pe = DeviceTargetCache((cfg.teacher.max_patches, d), self._student_dtype,
+                                             3 * budget // 4, self.device)
+        self._compact = bool(cfg.compact_patches)
         self._packed_text = bool(cfg.packed_text)
         if teacher_cache is not None and not teacher_cache.salt:
             teacher_cache.salt = self._teacher_fingerprint()
@@ -261,6 +306,10 @@ class DistillTrainer(BaseTrainer):
             if name.startswith("vision_model.") and (".mlp." in name or "layer_norm2" in name)
         )
 
+    def _on_device(self, state_dict) -> Dict[str, torch.Tensor]:
+        return {k: v.detach().to(self.device, torch.float32, copy=True)
+                for k, v in state_dict.items()}
+
     def _make_student(self, state_dict) -> CLIPModule:
         """The student on the device, f32 parameters with requires_grad from
         the mask. With the kernels on, attention is fused in both towers and
@@ -269,15 +318,45 @@ class DistillTrainer(BaseTrainer):
         fused_frozen = self._use_kernels and self._vision_mlp_frozen()
         model = CLIPModule(self.student_config, dtype=self._student_dtype, device="meta",
                            fused_attention=self._use_kernels, fused_frozen_mlp=fused_frozen)
-        model.load_state_dict(
-            {k: v.detach().to(self.device, torch.float32, copy=True)
-             for k, v in state_dict.items()},
-            strict=True, assign=True)
+        model.load_state_dict(self._on_device(state_dict), strict=True, assign=True)
         for name, p in model.named_parameters():
             p.requires_grad_(self._trainable_mask[name])
         if fused_frozen:
             model.pack_frozen_vision_mlp()
         return model
+
+    def _make_teacher(self, clip_state_dict, teacher_state_dict) -> None:
+        """The frozen teacher on the device: its CLIP (text tower on the
+        fused attention with the kernels on) and the meta-teacher module.
+        With the kernels on, the teacher ViT's weights are packed once for
+        the block kernels (`_teacher_image_features`, the region encode) and
+        the cross-attention weights once for K10 (`_xattn`)."""
+        clip_sd = self._on_device(clip_state_dict)
+        self.teacher_clip = CLIPModule(self.teacher_clip_config, dtype=self._student_dtype,
+                                       device="meta", fused_attention=self._use_kernels)
+        self.teacher_clip.load_state_dict(clip_sd, strict=True, assign=True)
+        self.teacher = PatchTextAggregation(self.cfg.teacher, device="meta")
+        teacher_sd = self._on_device(teacher_state_dict)
+        self.teacher.load_state_dict(teacher_sd, strict=True, assign=True)
+        for module in (self.teacher_clip, self.teacher):
+            module.requires_grad_(False).eval()
+        self._teacher_image_features = self._xattn = None
+        if self._use_kernels:
+            packed = vit_block.pack_vision_weights(self.teacher_clip_config, clip_sd,
+                                                   self._student_dtype)
+            cfg = self.teacher_clip_config
+            self._teacher_image_features = (
+                lambda px: vit_block.fused_image_features(cfg, packed, px))
+            self._xattn = pack_cross_attention(teacher_sd, self._student_dtype)
+
+    def _init_knn_gate(self, knn_store) -> None:
+        """Optional k-NN gate over the raw patch embeddings: an
+        `EmbeddingStore` of (key, value) rows on the device."""
+        self._knn_keys = self._knn_values = None
+        if knn_store is not None and len(knn_store) > 0:
+            self._knn_keys = torch.as_tensor(knn_store.keys, dtype=torch.float32).to(self.device)
+            self._knn_values = torch.as_tensor(knn_store.values,
+                                               dtype=torch.float32).to(self.device)
 
     def _build_optimizer(self) -> None:
         n_train, n_total = count_trainable(self._trainable_mask)
@@ -291,9 +370,95 @@ class DistillTrainer(BaseTrainer):
 
     def _teacher_fingerprint(self) -> str:
         """Digest of everything that determines teacher targets: teacher
-        config, CLIP preset, and every weight byte."""
+        config, CLIP preset, every weight byte, and the k-NN store."""
         return fingerprint_objects(repr(self.cfg.teacher), self.cfg.teacher_clip_model,
-                                   self.teacher_params, self.teacher_clip_state_dict)
+                                   self.teacher_state_dict, self.teacher_clip_state_dict,
+                                   self._knn_keys, self._knn_values)
+
+    # -- teacher forward (frozen) ---------------------------------------------
+
+    def _maybe_knn_gate(self, pe: torch.Tensor, batch) -> torch.Tensor:
+        if self._knn_keys is None:
+            return pe
+        return apply_knn_gate(pe, self._knn_keys, self._knn_values,
+                              self.cfg.teacher.similarity_threshold, batch["box_mask"])
+
+    def _encode_patches_only(self, batch) -> torch.Tensor:
+        """Image side of the teacher: caption-independent, so cacheable per
+        image even when captions are resampled every epoch."""
+        return encode_patches(self.teacher_clip, batch["teacher_pixels"], batch["boxes"],
+                              batch["box_mask"], self.teacher_clip_config.vision.image_size,
+                              self._teacher_image_features)
+
+    def _encode_patches_budgeted(self, raw_batch, device_batch) -> torch.Tensor:
+        pe = budgeted_patch_encode(self.teacher_clip, self.teacher_clip_config, raw_batch,
+                                   device_batch, self._compact, self._teacher_image_features)
+        return self._maybe_knn_gate(pe, device_batch)
+
+    def _teacher_tail(self, pe: torch.Tensor, batch):
+        """Text encode + cross-attention + aggregation, given patch
+        embeddings; f32 targets (global embedding, mean content token)."""
+        te, tmask = encode_tokens(self.teacher_clip, batch["input_ids"], batch["attention_mask"],
+                                  self.teacher_clip_config.text.eos_token_id)
+        pe = pe.float()
+        box_mask = batch["box_mask"]
+        with record_function("dclip.cross_attention"):
+            if self._xattn is not None:
+                use_masks = self.cfg.teacher.mask_padding
+                at, ai = cross_attention_fused(self._xattn, te, pe,
+                                               tmask if use_masks else None,
+                                               box_mask if use_masks else None,
+                                               self.cfg.teacher.num_heads)
+                out = aggregate_attended(self.cfg.teacher, at, ai, tmask, box_mask)
+            else:
+                out = self.teacher(te, pe, tmask, box_mask)
+        # aggregate_text per caption: the mean over content tokens.
+        denom = torch.clamp(tmask.sum(1, keepdim=True), min=1.0)
+        teacher_text = (te * tmask[..., None]).sum(1) / denom
+        return out.global_embedding.float(), teacher_text.float()
+
+    @torch.no_grad()
+    def _teacher_targets(self, batch):
+        """The targets from scratch, without compaction or caches (eval)."""
+        pe = self._maybe_knn_gate(self._encode_patches_only(batch), batch)
+        return self._teacher_tail(pe, batch)
+
+    @torch.no_grad()
+    def _get_teacher_targets(self, raw_batch, device_batch, keys=None, probe_full: bool = True):
+        """Teacher targets through the cache levels (module docstring)."""
+        patch_keys = None
+        if self.teacher_cache is not None and self._cacheable(raw_batch):
+            if keys is None:
+                keys = self.teacher_cache.keys_for(raw_batch)
+            if probe_full:
+                cached = self.teacher_cache.get_batch(keys)
+                if cached is not None:
+                    t = torch.from_numpy(np.asarray(cached, np.float32)).to(self.device)
+                    return t[:, 0], t[:, 1]
+            patch_keys = self.teacher_cache.pe_keys_for(raw_batch)
+        pe = None
+        if patch_keys is not None and self._dev_pe is not None:
+            pe = self._dev_pe.get(patch_keys)
+        if pe is None and patch_keys is not None:
+            cached_pe = self.teacher_cache.get_batch(patch_keys)
+            if cached_pe is not None:
+                pe = torch.from_numpy(np.asarray(cached_pe, np.float32)).to(
+                    self.device, self._student_dtype)
+                if self._dev_pe is not None:
+                    self._dev_pe.put(patch_keys, pe)
+        if pe is None:
+            pe = self._encode_patches_budgeted(raw_batch, device_batch)
+            if patch_keys is not None:
+                self.teacher_cache.put_batch(patch_keys, pe.float().cpu().numpy())
+                if self._dev_pe is not None:
+                    self._dev_pe.put(patch_keys, pe)
+        teacher_img, teacher_txt = self._teacher_tail(pe, device_batch)
+        if keys is not None:
+            targets = torch.stack([teacher_img, teacher_txt], 1)
+            self.teacher_cache.put_batch(keys, targets.cpu().numpy())
+            if self._dev_full is not None:
+                self._dev_full.put(keys, targets)
+        return teacher_img, teacher_txt
 
     # -- the student step -----------------------------------------------------
 
@@ -352,9 +517,10 @@ class DistillTrainer(BaseTrainer):
         return out
 
     def train_step_on_batch(self, batch):
-        """One cache-warm training step: teacher targets from the device or
-        host cache, then the student update. Returns the loss parts as
-        device scalars (computed before the update)."""
+        """One training step: teacher targets (the caches first; on a full
+        hit only the student fields cross to the device), then the student
+        update. Returns the loss parts as device scalars (computed before
+        the update)."""
         d = batch.as_dict() if hasattr(batch, "as_dict") else dict(batch)
         cached = keys = dev_hit = None
         if self.teacher_cache is not None and self._cacheable(d):
@@ -363,18 +529,25 @@ class DistillTrainer(BaseTrainer):
                 dev_hit = self._dev_full.get(keys)
             if dev_hit is None:
                 cached = self.teacher_cache.get_batch(keys)
-        if dev_hit is not None:
-            targets = dev_hit
-        elif cached is not None:
-            targets = torch.from_numpy(np.asarray(cached, np.float32)).to(self.device)
-            if self._dev_full is not None:  # promote: later epochs stay on device
-                self._dev_full.put(keys, targets)
+        if dev_hit is not None or cached is not None:
+            with record_function("dclip.h2d"):
+                device_batch = self._device_batch(d, self._STUDENT_FIELDS)
+            if dev_hit is not None:
+                targets = dev_hit
+            else:
+                targets = torch.from_numpy(np.asarray(cached, np.float32)).to(self.device)
+                if self._dev_full is not None:  # promote: later epochs stay on device
+                    self._dev_full.put(keys, targets)
+            teacher_img, teacher_txt = targets[:, 0], targets[:, 1]
         else:
-            raise _waits("a teacher-target cache miss (computing the targets: crops, "
-                         "teacher ViT and text encode, cross-attention, aggregation)",
-                         "Queue 1 item 4")
-        student_batch = self._maybe_pack_text(d, self._device_batch(d, self._STUDENT_FIELDS))
-        metrics = self._train_step(targets[:, 0].float(), targets[:, 1].float(), student_batch)
+            with record_function("dclip.h2d"):
+                device_batch = self._device_batch(d, self._STUDENT_FIELDS + self._TEACHER_FIELDS)
+            teacher_img, teacher_txt = self._get_teacher_targets(d, device_batch, keys=keys,
+                                                                 probe_full=False)
+        student_batch = {k: device_batch[k] for k in self._STUDENT_FIELDS}
+        student_batch = self._maybe_pack_text(d, student_batch)
+        with record_function("dclip.student_step"):
+            metrics = self._train_step(teacher_img.float(), teacher_txt.float(), student_batch)
         self.step += 1
         return metrics
 
@@ -384,7 +557,13 @@ class DistillTrainer(BaseTrainer):
         return self.cfg.phase1_epochs
 
     def eval_loss_on_batch(self, batch) -> float:
-        raise _waits("eval_loss_on_batch (it runs the teacher targets)", "Queue 1 items 4 and 5")
+        """The teacher and the student loss in one pass, no caches, no
+        gradients (`distill_trainer.py:733-739, 1012-1019`)."""
+        device_batch = self._device_batch(batch)
+        teacher_img, teacher_txt = self._teacher_targets(device_batch)
+        with torch.no_grad():
+            loss, _ = self._student_loss(teacher_img, teacher_txt, device_batch)
+        return float(loss)
 
     def resume(self, checkpoints) -> int:
         raise _waits("resume", "Queue 1 item 5")

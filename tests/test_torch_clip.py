@@ -146,13 +146,18 @@ def test_random_state_dict_value_rule():
     assert not torch.equal(sd["visual_projection.weight"], other["visual_projection.weight"])
 
 
+# Top-level names the port and chip_smoke.py must never import: JAX, its
+# libraries, and the JAX package itself (even its JAX-free modules).
+_FORBIDDEN = "('jax', 'flax', 'optax', 'dclip_tpu')"
+
+
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import dclip_tpu_torch\n"
         "for m in pkgutil.walk_packages(dclip_tpu_torch.__path__, 'dclip_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'optax'))\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {_FORBIDDEN})\n"
         "assert not bad, bad\n"
         "print('modules', len([k for k in sys.modules if k.startswith('dclip_tpu_torch')]))\n"
     )
@@ -160,6 +165,25 @@ def test_port_never_imports_jax():
                          timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_chip_smoke_never_imports_jax():
+    """chip_smoke.py, imported without running main, and the port modules
+    its phases import, pull in nothing of JAX or the JAX package."""
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "mod.import_port_modules()\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {_FORBIDDEN})\n"
+        "assert not bad, bad\n"
+        "print('modules', len([k for k in sys.modules if k.startswith('dclip_tpu_torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 10
 
 
 def test_resolve_device_never_falls_back_to_cpu(monkeypatch):

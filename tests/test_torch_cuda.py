@@ -278,3 +278,87 @@ def test_gemm_epilogue_modes(cuda_device):
     assert f32.dtype == torch.float32
     _close_rel(f32, vb.gemm_bias_act_residual_reference(a, w, out_dtype=torch.float32),
                what="f32 out")
+
+
+# -- the teacher's cross-attention (K10) and the loader's self-check (K13) --------
+
+
+def _teacher_sd(rng, d, device):
+    """A `cross_modal_attention.*` state dict with 1/sqrt(D) matrices,
+    non-zero biases and LN affines (torch nn.MultiheadAttention names)."""
+    def n(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+
+    sd = {}
+    for direction in ("text_to_image", "image_to_text"):
+        pre = f"cross_modal_attention.{direction}."
+        sd[pre + "in_proj_weight"] = n(3 * d, d, scale=d**-0.5)
+        sd[pre + "in_proj_bias"] = n(3 * d, scale=0.1)
+        sd[pre + "out_proj.weight"] = n(d, d, scale=d**-0.5)
+        sd[pre + "out_proj.bias"] = n(d, scale=0.1)
+    for norm in ("norm_text", "norm_image"):
+        sd[f"cross_modal_attention.{norm}.weight"] = 1.0 + n(d, scale=0.1)
+        sd[f"cross_modal_attention.{norm}.bias"] = n(d, scale=0.1)
+    return {k: v.to(device) for k, v in sd.items()}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,t,p,d,heads,masks", [
+    (4, 77, 8, 512, 8, "both"), (3, 77, 32, 512, 8, "text"), (2, 5, 3, 256, 4, "image"),
+    (2, 20, 77, 768, 8, "none"), (3, 128, 128, 256, 2, "both"),
+])
+def test_cross_attention_matches_twin(cuda_device, b, t, p, d, heads, masks):
+    """K10 against its f32 twin on the same bf16-packed weights: f32 and
+    bf16 inputs, single-sided masks, and an image row with no valid box
+    (uniform average of the text values, never NaN)."""
+    from dclip_tpu_torch.kernels import cross_attention as xa
+
+    rng = np.random.RandomState(t * 7 + p)
+    w = xa.pack_cross_attention(_teacher_sd(rng, d, cuda_device), torch.bfloat16)
+    # bf16-valued f32 inputs, as the trainer's (bf16 features x 0/1 masks).
+    text = _bf16(rng, cuda_device, b, t, d).float()
+    image = _bf16(rng, cuda_device, b, p, d).float()
+    tmask = torch.from_numpy((np.arange(t)[None] < rng.randint(1, t + 1, (b, 1)))
+                             .astype(np.float32)).to(cuda_device)
+    imask = torch.from_numpy((rng.rand(b, p) > 0.3).astype(np.float32)).to(cuda_device)
+    imask[0] = 0.0
+    kw = {"both": (tmask, imask), "text": (tmask, None), "image": (None, imask),
+          "none": (None, None)}[masks]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, y = text.to(dtype), image.to(dtype)
+        xa.reset_launches()
+        got = xa.cross_attention_fused(w, x, y, *kw, num_heads=heads)
+        want = xa.cross_attention_reference(w, x, y, *kw, num_heads=heads)
+        assert xa.LAUNCHES == {"cross_attention_core": 1, "add_layernorm_f32": 1,
+                               "cross_attention": 1}
+        for name, g, r in zip(("text", "image"), got, want):
+            assert g.dtype == dtype
+            _close_rel(g, r, what=f"{name} {dtype}")
+
+
+@pytest.mark.requires_cuda
+def test_cross_attention_core_all_masked_rows(cuda_device):
+    """Rows whose every key is masked average the values, as on the TPU."""
+    from dclip_tpu_torch.kernels import cross_attention as xa
+
+    rng = np.random.RandomState(3)
+    b, t, p, d = 2, 9, 4, 128
+    qkv_t = torch.from_numpy(rng.standard_normal((b, t, 3 * d)).astype(np.float32)).to(cuda_device)
+    qkv_i = torch.from_numpy(rng.standard_normal((b, p, 3 * d)).astype(np.float32)).to(cuda_device)
+    tmask = torch.ones(b, t, device=cuda_device)
+    imask = torch.zeros(b, p, device=cuda_device)
+    out_t, out_i = xa.cross_attention_core(qkv_t, qkv_i, tmask, imask, 2)
+    v_mean = qkv_i[..., 2 * d:].mean(1, keepdim=True).expand(b, t, d)
+    _close_rel(out_t, v_mean, what="uniform average")
+    want_t, want_i = xa.cross_attention_core_reference(qkv_t, qkv_i, tmask, imask, 2)
+    _close_rel(out_i, want_i, what="image queries")
+
+
+@pytest.mark.requires_cuda
+def test_loader_self_check(cuda_device):
+    from dclip_tpu_torch.kernels import _build
+
+    _build.load_library()
+    assert _build.SELF_CHECK["max_abs_err"] == 0.0
+    x = torch.randn(8, 128, device=cuda_device)
+    torch.testing.assert_close(_build.probe_x2(x), 2.0 * x, rtol=0, atol=0)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from dclip_tpu.core.config import CLIPConfig, DistillConfig, MeshConfig, TeacherConfig
-from dclip_tpu_torch.models.weights import state_dict_from_jax
+from dclip_tpu_torch.models.weights import state_dict_from_jax, teacher_state_dict_from_jax
 from dclip_tpu_torch.train import optim
 from dclip_tpu_torch.train.device_cache import DeviceTargetCache
 from dclip_tpu_torch.train.distill_trainer import DistillTrainer, TeacherTargetCache
@@ -89,16 +89,17 @@ def setup():
     # Host copy of the initial state, and its shardings: putting it back as
     # it was placed keeps the trainer's jitted step from retracing.
     init_state = (jax.device_get(jt.state), jax.tree_util.tree_map(lambda a: a.sharding, jt.state))
-    return dict(cfg=cfg, params=params, dcfg=dcfg, batches=batches, targets=targets, jt=jt,
-                init_state=init_state)
+    return dict(cfg=cfg, params=params, tparams=tparams, dcfg=dcfg, batches=batches,
+                targets=targets, jt=jt, init_state=init_state)
 
 
 def _port_trainer(setup, **changes):
     cfg = setup["cfg"]
     sd = state_dict_from_jax(setup["params"], cfg)
     cache = TeacherTargetCache()
-    tr = DistillTrainer(dataclasses.replace(setup["dcfg"], **changes), sd, sd, None, cfg, cfg,
-                        device="cpu", teacher_cache=cache)
+    tr = DistillTrainer(dataclasses.replace(setup["dcfg"], **changes), sd, sd,
+                        teacher_state_dict_from_jax(setup["tparams"]), cfg, cfg, device="cpu",
+                        teacher_cache=cache)
     for b, tg in zip(setup["batches"], setup["targets"]):
         cache.put_batch(cache.keys_for(b), tg)
     return tr
@@ -169,13 +170,32 @@ def test_student_steps_match_jax_trainer(setup, packed):
 
 
 def test_cache_miss_raises_not_implemented(setup):
-    tr = _port_trainer(setup)
-    other = dict(setup["batches"][0], index=np.arange(B, dtype=np.int64) + 7000)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tr.train_step_on_batch(other)
-    no_ids = {k: v for k, v in setup["batches"][0].items() if k != "index"}
-    with pytest.raises(NotImplementedError, match="cache miss"):
-        tr.train_step_on_batch(no_ids)
+    """A cache miss no longer raises: it computes the teacher targets (those
+    of the JAX trainer's miss path, tests/test_torch_teacher.py), with or
+    without cache keys. What still waits on the miss path raises: the
+    projection head of the k-NN gate."""
+    cfg = setup["cfg"]
+    s = cfg.vision.image_size
+    rng = np.random.RandomState(9)
+    boxes = rng.rand(B, P, 4).astype(np.float32) * (s / 2)
+    boxes[..., 2:] += boxes[..., :2] + 2
+    teacher = dict(teacher_pixels=rng.rand(B, s, s, 3).astype(np.float32), boxes=boxes,
+                   box_mask=np.ones((B, P), np.float32))
+    other = dict(setup["batches"][0], index=np.arange(B, dtype=np.int64) + 7000, **teacher)
+    no_ids = {k: v for k, v in other.items() if k != "index"}
+    cached = []
+    for batch in (other, no_ids):
+        tr = _port_trainer(setup)
+        metrics = tr.train_step_on_batch(batch)
+        assert tr.step == 1 and all(np.isfinite(v.item()) for v in metrics.values())
+        cached.append(len(tr.teacher_cache._mem))
+    # `other` filled B full targets and B patch-embedding rows (on top of the
+    # 2 B rows `_port_trainer` puts); `no_ids` has no keys and put nothing.
+    assert cached == [4 * B, 2 * B]
+    sd = state_dict_from_jax(setup["params"], cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        DistillTrainer(setup["dcfg"], sd, sd, teacher_state_dict_from_jax(setup["tparams"]),
+                       cfg, cfg, device="cpu", projection_params={})
 
 
 @pytest.mark.parametrize("change,match", [
@@ -192,8 +212,6 @@ def test_waiting_options_raise(setup, change, match):
 
 def test_waiting_entry_points_raise(setup):
     tr = _port_trainer(setup)
-    with pytest.raises(NotImplementedError, match="item"):
-        tr.eval_loss_on_batch(setup["batches"][0])
     with pytest.raises(NotImplementedError, match="item 5"):
         tr.resume(None)
     with pytest.raises(NotImplementedError, match="item 5"):
@@ -201,7 +219,8 @@ def test_waiting_entry_points_raise(setup):
     cfg = setup["cfg"]
     sd = state_dict_from_jax(setup["params"], cfg)
     with pytest.raises(NotImplementedError, match="item 10"):
-        DistillTrainer(setup["dcfg"], sd, sd, None, cfg, cfg, device="cpu", dp_equivalent=True)
+        DistillTrainer(setup["dcfg"], sd, sd, teacher_state_dict_from_jax(setup["tparams"]), cfg,
+                       cfg, device="cpu", dp_equivalent=True)
 
 
 def test_fit_runs_the_epochs(setup):

@@ -85,3 +85,20 @@ def pixels(cfg, n: int, seed: int = 0) -> np.ndarray:
     rng = np.random.RandomState(seed)
     s = cfg.vision.image_size
     return rng.standard_normal((n, s, s, 3)).astype(np.float32)
+
+
+def jax_teacher_params(d: int, seed: int = 0):
+    """A JAX `PatchTextAggregation` param tree ({"cross_modal_attention":
+    ...}) filled from numpy: 1/sqrt(D) kernels (attention far from
+    uniform), biases N(0, 0.1), LN scales 1 + N(0, 0.1)."""
+    rng = np.random.RandomState(seed)
+
+    def mha():
+        return {n: {"kernel": _normal(rng, (d, d), d**-0.5), "bias": _normal(rng, (d,), 0.1)}
+                for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+    def ln():
+        return {"scale": 1.0 + _normal(rng, (d,), 0.1), "bias": _normal(rng, (d,), 0.1)}
+
+    return {"cross_modal_attention": {"text_to_image": mha(), "image_to_text": mha(),
+                                      "norm_text": ln(), "norm_image": ln()}}
