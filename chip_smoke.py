@@ -65,6 +65,29 @@ Phases; each one passes or raises, and any failure exits non-zero:
 12. Gradient agreement: one cache-warm step's trainable gradients at full
    width and depth, B=8, bf16 kernels on the card vs the same step in f32
    on the CPU through the twins: global cosine >= 0.99, every tensor >= 0.95.
+13. Trainable-block kernels (K8, K9): at the fused step's shapes (the
+   packed text rows [R, 77, 512], mlp 2048; vision [256, 197, 768], 12
+   heads) holds K8's forward (y, a1) and its seven gradients, K9's forward
+   (o, q, k, v, attn, m, rinv) and its eleven gradients, and their CUDA
+   parts (the GEMM's NT and TN modes, the column sums, the LayerNorm
+   weight-gradient backward) against their twins, plus a ragged small case
+   of each, with CUDA-event times in turns.
+14. K7 at ViT-L/14 widths: the frozen-MLP pair (K6, which K7 folds into)
+   forward and dx at [32, 257, 1024], mlp 4096, against its twin, timed.
+15. Training slice, fused cache-warm: the slice of phase 8 with
+   `fused_text_mlp` (K8) and `fused_attn_block` (K9): 2 warm-up and 5 timed
+   steps, exact launch counts by the blocks' skip rules, peak memory, a
+   profile, printed beside phase 8's numbers.
+16. Gradient agreement in the fused configuration, as phase 12, with the
+   vision LN1 unfrozen at epoch 0 so that K9's LayerNorm weight gradients
+   are held too.
+17. Fit: `DistillTrainer.fit` at B=32 in the fused configuration, 2 epochs
+   of 2 steps, `UnfreezeStage(epoch=1, patterns=("mlp", "layer_norm"))`, a
+   `CheckpointManager` in a temporary directory: K6 runs in epoch 0 only,
+   K9 in both, the vision LN1 / MLP gradients are non-zero in epoch 1; a
+   fresh trainer's `resume` restores step, parameters and optimizer state
+   bit for bit and replays the stage, and its next update equals the
+   uninterrupted trainer's bit for bit (no kernel sums with atomics).
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type (989 TFLOP/s bf16
@@ -144,7 +167,30 @@ TEACHER_KERNELS = {
     "add_layernorm_f32": (SRC + "cross_attention.cu", XATTN),
     "loader_self_check": (SRC + "status.cu", "dclip_tpu/kernels/__init__.py:39"),
 }
-TRAIN_B, TEXT_S, TEXT_D, TEXT_HEADS = 256, 77, 512, 8
+# The fused-trainable step's kernels: K8, K9 and the GEMM modes and row
+# reductions they add.
+K8 = "dclip_tpu/kernels/mlp_trainable.py"
+K9 = "dclip_tpu/kernels/attn_block_trainable.py"
+TRAINABLE_KERNELS = {
+    "mlp_trainable_fwd": ("dclip_tpu_torch/kernels/mlp_trainable.py",
+                          "dclip_tpu/kernels/mlp_frozen.py:135"),
+    "mlp_trainable_bwd": ("dclip_tpu_torch/kernels/mlp_trainable.py", K8 + ":82,134"),
+    "attn_block_trainable_fwd": ("dclip_tpu_torch/kernels/attn_block_trainable.py", K9 + ":78"),
+    "attn_block_trainable_bwd": ("dclip_tpu_torch/kernels/attn_block_trainable.py",
+                                 K9 + ":224"),
+    "gemm_nt": (SRC + "gemm.cu", K9 + ":78"),
+    "gemm_tn": (SRC + "gemm.cu", K8 + ":82,134"),
+    "colsum": (SRC + "reduce.cu", K8 + ":82,134"),
+    "layernorm_bwd_wgrad": (SRC + "layernorm.cu", K8 + ":82"),
+}
+TRAIN_B, TEXT_S, TEXT_D, TEXT_HEADS, TEXT_MLP = 256, 77, 512, 8, 2048
+# A weight or bias gradient, kernel vs twin on the same bf16 operands: f32
+# sums of the same products in another order, within 1e-4 of the largest
+# |twin| (csrc/gemm.cu TN mode, csrc/reduce.cu, the LayerNorm sums).
+SUM_TOL = 1e-4
+# K7 at ViT-L/14 widths (CLIPConfig.vit_l_14().vision, B=32).
+L14_B, L14_S, L14_D, L14_MLP = 32, 257, 1024, 4096
+FIT_B, FIT_EPOCHS, FIT_STEPS = 32, 2, 2
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 GRAD_B, GRAD_COS_GLOBAL, GRAD_COS_TENSOR = 8, 0.99, 0.95
 # k_proj.bias gradients are rounding noise (see grad_agreement_phase); their
@@ -182,6 +228,9 @@ def import_port_modules():
                  "dclip_tpu_torch.kernels.vit_attention", "dclip_tpu_torch.kernels.mlp_frozen",
                  "dclip_tpu_torch.kernels.distill_loss",
                  "dclip_tpu_torch.kernels.cross_attention", "dclip_tpu_torch.models.weights",
+                 "dclip_tpu_torch.kernels.mlp_trainable",
+                 "dclip_tpu_torch.kernels.attn_block_trainable",
+                 "dclip_tpu_torch.kernels.trainable_ops", "dclip_tpu_torch.train.checkpoint",
                  "dclip_tpu_torch.train.distill_trainer", "dclip_tpu_torch.ops.image_ops",
                  "dclip_tpu_torch.ops.packing"):
         importlib.import_module(name)
@@ -767,14 +816,18 @@ def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
 def _all_modules():
     from dclip_tpu_torch.kernels import (
         _build,
+        attn_block_trainable,
         cross_attention,
         distill_loss,
         mlp_frozen,
+        mlp_trainable,
+        trainable_ops,
         vit_attention,
         vit_block,
     )
 
-    return (vit_block, vit_attention, mlp_frozen, distill_loss, cross_attention, _build)
+    return (vit_block, vit_attention, mlp_frozen, distill_loss, cross_attention, _build,
+            mlp_trainable, attn_block_trainable, trainable_ops)
 
 
 def _reset_all_launches():
@@ -1076,18 +1129,21 @@ def profile_steps(torch, trainer, batch, card: str, steps: int = 2, spans=()):
               f"x{count // steps:<5d} {key[:110]}", flush=True)
 
 
-def grad_agreement_phase(torch, np, sd, tsd):
+def grad_agreement_phase(torch, np, sd, tsd, what="grads", must_hold=(), **changes):
     """One step's trainable gradients, B=8: bf16 kernels on the card vs
-    f32 twins on the CPU."""
+    f32 twins on the CPU. `changes` go to the DistillConfig; the trainer
+    enters epoch 0 first (its unfreeze stages at epoch 0 apply); each of
+    `must_hold` must name some held tensor."""
     grads = {}
     for device, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
         trainer, batch = _distill_trainer(torch, np, sd, tsd, device, GRAD_B,
-                                          compute_dtype=dtype, use_pallas=True)
+                                          compute_dtype=dtype, use_pallas=True, **changes)
+        trainer._on_epoch_start(0)
         t0 = time.perf_counter()
         trainer.train_step_on_batch(batch)
         if device == "cuda":
             torch.cuda.synchronize()
-        print(f"grads: {device} {dtype} step {time.perf_counter() - t0} s", flush=True)
+        print(f"{what}: {device} {dtype} step {time.perf_counter() - t0} s", flush=True)
         grads[device] = {n: (torch.zeros_like(p) if p.grad is None else p.grad).double().cpu()
                          for n, p in trainer.student.named_parameters() if p.requires_grad}
         del trainer
@@ -1113,15 +1169,423 @@ def grad_agreement_phase(torch, np, sd, tsd):
     ratio = max(float(grads[d][n].norm() / grads[d][n.replace("k_proj", "q_proj")].norm())
                 for n in noise for d in ("cuda", "cpu"))
     lowest = sorted(held.items(), key=lambda kv: kv[1])[:5]
-    print(f"grads: {len(grads['cuda'])} trainable tensors, global cosine {glob}, min cosine "
+    for pattern in must_hold:
+        if not any(pattern in n for n in held):
+            raise AssertionError(f"{what}: no held gradient matches {pattern!r}")
+    print(f"{what}: {len(grads['cuda'])} trainable tensors, global cosine {glob}, min cosine "
           f"{held[worst_name]} ({worst_name}); lowest {json.dumps(lowest)}; "
           f"{len(held)} held, {len(noise)} k_proj.bias (max |g| / |g q_proj.bias| {ratio}), "
           f"{len(grads['cuda']) - len(cos)} all-zero (logit_scale); bounds {GRAD_COS_GLOBAL} / "
           f"{GRAD_COS_TENSOR}, noise ratio {GRAD_NOISE_RATIO}", flush=True)
     if not (glob >= GRAD_COS_GLOBAL and held[worst_name] >= GRAD_COS_TENSOR
             and ratio < GRAD_NOISE_RATIO):
-        raise AssertionError(f"gradient agreement: global {glob}, min {held[worst_name]} "
+        raise AssertionError(f"{what} agreement: global {glob}, min {held[worst_name]} "
                              f"({worst_name}), k_proj.bias noise ratio {ratio}")
+
+
+# -- the fused-trainable configuration (K8, K9), K7 at L/14, fit and resume -------------
+
+
+def trainable_kernel_phase(torch, np, card: str, table: KernelTable):
+    """K8 and K9 at the fused step's shapes and a ragged small case, their
+    CUDA parts, against their f32 twins; CUDA-event times in turns."""
+    from dclip_tpu_torch.kernels import attn_block_trainable as ab
+    from dclip_tpu_torch.kernels import mlp_trainable as mt
+    from dclip_tpu_torch.kernels import trainable_ops as to
+    from dclip_tpu_torch.kernels import vit_attention as va
+    from dclip_tpu_torch.kernels import vit_block as vb
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(4)
+    F = torch.nn.functional
+
+    def randn(*shape, base=0.0, scale=1.0, dtype=torch.bfloat16):
+        t = base + scale * rng.standard_normal(shape).astype("float32")
+        return torch.from_numpy(t.astype("float32")).to(dev).to(dtype)
+
+    def f32(*shape, base=0.0, scale=1.0):
+        return randn(*shape, base=base, scale=scale, dtype=torch.float32)
+
+    def timed(name, variant, kernel_fn, plain_fn, iters, bound, library_fn=None, lib_note=""):
+        ms, plain_ms = time_pair(torch, kernel_fn, plain_fn, iters)
+        lib_ms = None if library_fn is None else time_one(torch, library_fn, iters)
+        print(f"time {name}[{variant}]: kernel {ms} ms, plain {plain_ms} ms, bound {max(bound)} "
+              f"ms, library {lib_ms} ms{lib_note} ({card})", flush=True)
+        table.timed(name, ms, plain_ms, bound, lib_ms)
+
+    def sum_check(name, got, want):
+        return _bound_check(torch, name, got, want, SUM_TOL)
+
+    def tn_work(rows, p, q):
+        return work(bf16_flops=2.0 * rows * p * q, nbytes=2.0 * rows * (p + q) + 4.0 * p * q)
+
+    def colsum_work(rows, n):
+        return work(f32_flops=1.0 * rows * n, nbytes=2.0 * rows * n + 4.0 * n)
+
+    def lnw_work(rows, d):
+        return work(f32_flops=14.0 * rows * d, nbytes=10.0 * rows * d + 12.0 * d)
+
+    seg, _, _ = _text_masks(torch, np, dev)
+    text_rows = seg.shape[0]
+    for variant, (b, s, d, mlp), timed_case in (
+            ("text_packed", (text_rows, TEXT_S, TEXT_D, TEXT_MLP), True),
+            ("ragged", (3, 50, 128, 256), False)):
+        m = b * s
+        weights = [f32(d, base=1.0, scale=0.1), f32(d, scale=0.1), f32(mlp, d, scale=d**-0.5),
+                   f32(mlp, scale=0.1), f32(d, mlp, scale=mlp**-0.5), f32(d, scale=0.1)]
+        x, g = randn(b, s, d), randn(b, s, d)
+        p = mt.pack_trainable_mlp(*weights, dtype=torch.bfloat16)
+        y, a1, h, act = mt.mlp_trainable_fwd(x, p)
+        y_ref, a1_ref = mt.mlp_trainable_fwd_reference(x, *weights)
+        table.error("mlp_trainable_fwd", max(
+            _bound_check(torch, f"mlp_trainable_fwd[{variant}] y", y, y_ref, REL_TOL),
+            _bound_check(torch, f"mlp_trainable_fwd[{variant}] a1", a1, a1_ref, REL_TOL)))
+        grads = mt.mlp_trainable_bwd(x, g, a1, h, act, p)
+        want = mt.mlp_trainable_bwd_reference(x, g, a1_ref, *weights)
+        names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+        table.error("mlp_trainable_bwd", max(
+            _bound_check(torch, f"mlp_trainable_bwd[{variant}] {n}", a, w, BWD_TOL)
+            for n, a, w in zip(names, grads, want)))
+        # Its CUDA parts on the same operands.
+        nt_cases = [("fc1+gelu", (h, p["w1"], p["b1"]), {"gelu": True, "save_preact": True},
+                     gemm_work(m, d, mlp, 1)),
+                    ("fc2+residual", (act, p["w2"], p["b2"]), {"residual": x},
+                     gemm_work(m, mlp, d, 1))]
+        da1 = vb.gemm_bias_act_residual(g, p["w2"], dgelu_of=a1)
+        dh = f32(b, s, d)
+        tn_cases = [("dw2", (g, act), tn_work(m, d, mlp)), ("dw1", (da1, h), tn_work(m, mlp, d))]
+        cs_cases = [("db2", g, colsum_work(m, d)), ("db1", da1, colsum_work(m, mlp))]
+        _trainable_parts(torch, to, table, timed, sum_check, variant, timed_case, nt_cases,
+                         tn_cases, cs_cases, (x, g, dh, p["ln_scale"]), lnw_work(m, d))
+        if timed_case:
+            w_bytes = 8.0 * d * mlp + 4.0 * (mlp + 3 * d)
+            timed("mlp_trainable_fwd", variant, lambda: mt.mlp_trainable_fwd(x, p),
+                  lambda: mt.mlp_trainable_fwd_reference(x, *weights), 5,
+                  work(bf16_flops=4.0 * m * d * mlp,
+                       nbytes=4.0 * m * d + 2.0 * m * mlp + w_bytes))
+            timed("mlp_trainable_bwd", variant, lambda: mt.mlp_trainable_bwd(x, g, a1, h, act, p),
+                  lambda: mt.mlp_trainable_bwd_reference(x, g, a1_ref, *weights), 5,
+                  work(bf16_flops=8.0 * m * d * mlp,
+                       nbytes=6.0 * m * d + 2.0 * m * mlp + 2 * w_bytes))
+        del x, g, y, a1, h, act, y_ref, a1_ref, grads, want, da1, dh
+
+    for variant, (b, s, d, heads), timed_case in (("vision", (TRAIN_B, S, D, HEADS), True),
+                                                  ("ragged", (3, 50, 128, 2), False)):
+        m = b * s
+        weights = [f32(d, base=1.0, scale=0.1), f32(d, scale=0.1)]
+        for _ in range(4):
+            weights += [f32(d, d, scale=d**-0.5), f32(d, scale=0.1)]
+        x, g = randn(b, s, d), randn(b, s, d)
+        p = ab.pack_trainable_attn(*weights, dtype=torch.bfloat16)
+        o, h, qkv, attn, mx, r = ab.attention_block_trainable_fwd(x, p, heads)
+        want = ab.attention_block_trainable_fwd_reference(x, *weights, heads)
+        err = max(_bound_check(torch, f"attn_block_trainable_fwd[{variant}] {n}", a, w, REL_TOL)
+                  for n, a, w in zip(("o", "q", "k", "v", "attn", "m"),
+                                     (o, *qkv.split(d, -1), attn, mx), want))
+        # rinv: its logits come from bf16 q and k here and from f32 ones in
+        # the twin, and a logit's rounding error grows with its size: held
+        # relative to the twin's at the backward bound.
+        rel = ((r - want[6]).abs() / want[6].abs()).max().item()
+        print(f"kernel attn_block_trainable_fwd[{variant}] rinv: max_rel_err {rel} bound "
+              f"{BWD_TOL}", flush=True)
+        if not rel <= BWD_TOL:
+            raise AssertionError(f"attn_block_trainable_fwd[{variant}] rinv: {rel} > {BWD_TOL}")
+        table.error("attn_block_trainable_fwd", err)
+        grads = ab.attention_block_trainable_bwd(x, g, h, qkv, attn, mx, r, p, heads)
+        wgrads = ab.attention_block_trainable_bwd_reference(x, g, *want[1:], *weights, heads)
+        names = ("dx", "dln_scale", "dln_bias", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo",
+                 "dbo")
+        errs = []
+        for n, a, w in zip(names, grads, wgrads):
+            if n == "dbk":
+                # 0 in exact arithmetic (softmax ignores a per-row shift):
+                # both sides hold rounding noise of the row sum, held to the
+                # backward bound on the scale of its sibling dbq.
+                e = (a - w).abs().max().item()
+                bound = BWD_TOL * wgrads[4].abs().max().item()
+                print(f"kernel attn_block_trainable_bwd[{variant}] dbk: max_abs_err {e} bound "
+                      f"{bound} (scale of dbq)", flush=True)
+                if not e <= bound:
+                    raise AssertionError(f"attn_block_trainable_bwd[{variant}] dbk: {e} > {bound}")
+            else:
+                errs.append(_bound_check(torch, f"attn_block_trainable_bwd[{variant}] {n}", a, w,
+                                         BWD_TOL))
+        table.error("attn_block_trainable_bwd", max(errs))
+        ga = vb.gemm_bias_act_residual(g, p["wo"])
+        dqkv = torch.empty_like(qkv)
+        va.self_attention_bwd_stats(*qkv.split(d, -1), ga, attn, mx, r, heads,
+                                    out=dqkv.split(d, -1))
+        dh = f32(b, s, d)
+        nt_cases = [("qkv", (h, p["wqkv"], p["bqkv"]), {}, gemm_work(m, d, 3 * d)),
+                    ("out_proj+residual", (attn, p["wo"], p["bo"]), {"residual": x},
+                     gemm_work(m, d, d, 1))]
+        tn_cases = [("dwqkv", (dqkv, h), tn_work(m, 3 * d, d)), ("dwo", (g, attn), tn_work(m, d, d))]
+        cs_cases = [("dbqkv", dqkv, colsum_work(m, 3 * d)), ("dbo", g, colsum_work(m, d))]
+        _trainable_parts(torch, to, table, timed, sum_check, variant, timed_case, nt_cases,
+                         tn_cases, cs_cases, (x, g, dh, p["ln_scale"]), lnw_work(m, d))
+        if timed_case:
+            h2 = h.reshape(m, d)
+            bias = p["bqkv"].to(torch.bfloat16)
+            lib = time_one(torch, lambda: F.linear(h2, p["wqkv"], bias), 10)
+            print(f"time gemm_nt[qkv] yardstick: F.linear on the same operands (bf16 bias) "
+                  f"{lib} ms ({card})", flush=True)
+            attn_flops = 4.0 * b * heads * s * s * (d // heads)
+            w_bytes = 16.0 * d * d + 24.0 * d
+            timed("attn_block_trainable_fwd", variant,
+                  lambda: ab.attention_block_trainable_fwd(x, p, heads),
+                  lambda: ab.attention_block_trainable_fwd_reference(x, *weights, heads), 3,
+                  work(bf16_flops=8.0 * m * d * d + attn_flops,
+                       nbytes=12.0 * m * d + 8.0 * m * heads + w_bytes))
+            timed("attn_block_trainable_bwd", variant,
+                  lambda: ab.attention_block_trainable_bwd(x, g, h, qkv, attn, mx, r, p, heads),
+                  lambda: ab.attention_block_trainable_bwd_reference(x, g, *want[1:], *weights,
+                                                                     heads), 2,
+                  work(bf16_flops=16.0 * m * d * d + 2.5 * attn_flops,
+                       nbytes=14.0 * m * d + 8.0 * m * heads + 2 * w_bytes))
+        del x, g, o, h, qkv, attn, mx, r, want, grads, wgrads, ga, dqkv, dh
+    torch.cuda.empty_cache()
+
+
+def _trainable_parts(torch, to, table, timed, sum_check, variant, timed_case, nt_cases, tn_cases,
+                     cs_cases, ln_args, ln_bound):
+    """The GEMM's NT and TN modes, the column sums and the LayerNorm
+    weight-gradient backward on one block's operands, against their twins."""
+    for what, args, kw, bound in nt_cases:
+        got, want = to.gemm_nt(*args, **kw), to.gemm_nt_reference(*args, **kw)
+        pairs = zip(got, want) if kw.get("save_preact") else ((got, want),)
+        table.error("gemm_nt", max(_bound_check(torch, f"gemm_nt[{variant} {what}]", a, w,
+                                                REL_TOL) for a, w in pairs))
+        if timed_case:
+            timed("gemm_nt", f"{variant} {what}", lambda: to.gemm_nt(*args, **kw),
+                  lambda: to.gemm_nt_reference(*args, **kw), 10, bound)
+    for what, (xa, ya), bound in tn_cases:
+        got = to.gemm_tn(xa, ya)
+        table.error("gemm_tn", sum_check(f"gemm_tn[{variant} {what}]", got,
+                                         to.gemm_tn_reference(xa, ya)))
+        if not torch.equal(got, to.gemm_tn(xa, ya)):
+            raise AssertionError(f"gemm_tn[{variant} {what}]: two runs differ")
+        if timed_case:
+            x2, y2 = xa.reshape(-1, xa.shape[-1]), ya.reshape(-1, ya.shape[-1])
+            timed("gemm_tn", f"{variant} {what}", lambda: to.gemm_tn(xa, ya),
+                  lambda: to.gemm_tn_reference(xa, ya), 10, bound,
+                  lambda: torch.matmul(x2.t(), y2), " (torch.matmul, bf16 out)")
+    for what, xa, bound in cs_cases:
+        table.error("colsum", sum_check(f"colsum[{variant} {what}]", to.colsum(xa),
+                                        to.colsum_reference(xa)))
+        if timed_case:
+            x2 = xa.reshape(-1, xa.shape[-1])
+            timed("colsum", f"{variant} {what}", lambda: to.colsum(xa),
+                  lambda: to.colsum_reference(xa), 20, bound,
+                  lambda: x2.sum(0, dtype=torch.float32), " (Tensor.sum)")
+    x, g, dh, scale = ln_args
+    got = to.layernorm_bwd_wgrad(x, g, dh, scale)
+    want = to.layernorm_bwd_wgrad_reference(x, g, dh, scale)
+    err = max(_bound_check(torch, f"layernorm_bwd_wgrad[{variant}] dx", got[0], want[0], REL_TOL),
+              sum_check(f"layernorm_bwd_wgrad[{variant}] dscale", got[1], want[1]),
+              sum_check(f"layernorm_bwd_wgrad[{variant}] dbias", got[2], want[2]))
+    table.error("layernorm_bwd_wgrad", err)
+    if timed_case:
+        timed("layernorm_bwd_wgrad", variant, lambda: to.layernorm_bwd_wgrad(x, g, dh, scale),
+              lambda: to.layernorm_bwd_wgrad_reference(x, g, dh, scale), 20, ln_bound)
+
+
+def l14_frozen_mlp_phase(torch, np, card: str):
+    """K7's proof: the port's K6 (its GEMMs tile at every width) at ViT-L/14
+    widths, forward (y, a1) and dx against the twin, timed with its bound.
+    Printed only: L/14 is not on this slice's path, so it adds nothing to
+    the kernel table's K6 rows."""
+    from dclip_tpu_torch.kernels import mlp_frozen as mf
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(14)
+    b, s, d, mlp = L14_B, L14_S, L14_D, L14_MLP
+
+    def randn(*shape, base=0.0, scale=1.0, dtype=torch.float32):
+        t = (base + scale * rng.standard_normal(shape)).astype("float32")
+        return torch.from_numpy(t).to(dev).to(dtype)
+
+    p = mf.pack_frozen_mlp(randn(d, base=1.0, scale=0.1), randn(d, scale=0.1),
+                           randn(mlp, d, scale=d**-0.5), randn(mlp, scale=0.1),
+                           randn(d, mlp, scale=mlp**-0.5), randn(d, scale=0.1), torch.bfloat16)
+    x, g = randn(b, s, d, dtype=torch.bfloat16), randn(b, s, d, dtype=torch.bfloat16)
+    y, a1 = mf.mlp_frozen_fwd(x, p)
+    y_ref, a1_ref = mf.mlp_frozen_fwd_reference(x, p)
+    _bound_check(torch, "k7_l14 mlp_frozen_fwd y", y, y_ref, REL_TOL)
+    _bound_check(torch, "k7_l14 mlp_frozen_fwd a1", a1, a1_ref, REL_TOL)
+    dx = mf.mlp_frozen_bwd(x, g, a1, p)
+    _bound_check(torch, "k7_l14 mlp_frozen_bwd dx", dx, mf.mlp_frozen_bwd_reference(x, g, a1_ref, p),
+                 BWD_TOL)
+    m = b * s
+    weights = 4.0 * d * mlp + 4.0 * (mlp + 3 * d)
+    for name, kernel_fn, plain_fn, bound in (
+            ("mlp_frozen_fwd", lambda: mf.mlp_frozen_fwd(x, p),
+             lambda: mf.mlp_frozen_fwd_reference(x, p),
+             work(bf16_flops=4.0 * m * d * mlp, nbytes=4.0 * m * d + 2.0 * m * mlp + weights)),
+            ("mlp_frozen_bwd", lambda: mf.mlp_frozen_bwd(x, g, a1, p),
+             lambda: mf.mlp_frozen_bwd_reference(x, g, a1_ref, p),
+             work(bf16_flops=4.0 * m * d * mlp,
+                  nbytes=6.0 * m * d + 2.0 * m * mlp + 4.0 * d * mlp + 4.0 * d))):
+        ms, plain_ms = time_pair(torch, kernel_fn, plain_fn, 5)
+        print(f"time k7_l14 {name}[{b}x{s}x{d}, mlp {mlp}]: kernel {ms} ms, plain {plain_ms} ms, "
+              f"bound {max(bound)} ms ({'operations' if bound[0] >= bound[1] else 'bytes'}) "
+              f"({card})", flush=True)
+    del x, g, y, a1, y_ref, a1_ref, dx, p
+    torch.cuda.empty_cache()
+
+
+def _fused_changes(**more):
+    return dict(fused_text_mlp=True, fused_attn_block=True, **more)
+
+
+def _fused_per_step(trainer):
+    """Launches of one fused step by the skip rules of
+    `kernels/{mlp_trainable,attn_block_trainable}.py`, read off the
+    student's current flags and trainable mask: a weight that needs no
+    gradient gets no weight-gradient launch, and a block whose input and
+    LayerNorm need none (the first vision layer, behind frozen embeddings)
+    runs neither its dh product nor its LayerNorm backward."""
+    per: dict = {"distill_loss_fwd": 1, "distill_loss_bwd": 1}
+
+    def add(name, n=1):
+        per[name] = per.get(name, 0) + n
+
+    def trains(*params):
+        return any(p.requires_grad for p in params)
+
+    vision = trainer.student.vision_model
+    x_grad = trains(*vision.embeddings.parameters(), *vision.pre_layrnorm.parameters())
+    for layer in vision.encoder.layers:
+        attn, ln1 = layer.self_attn, layer.layer_norm1
+        if not layer.fused_trainable_attn_block:
+            raise AssertionError("fused configuration: a vision layer without K9")
+        add("layernorm"), add("gemm_nt", 2), add("self_attention_fwd_stats")
+        add("attn_block_trainable_fwd"), add("attn_block_trainable_bwd")
+        add("gemm_bias_act_residual"), add("self_attention_bwd_stats")  # g Wo, K5
+        add("gemm_tn", trains(attn.out_proj.weight)), add("colsum", trains(attn.out_proj.bias))
+        add("gemm_tn", trains(*(getattr(attn, n).weight for n in ("q_proj", "k_proj", "v_proj"))))
+        add("colsum", trains(*(getattr(attn, n).bias for n in ("q_proj", "k_proj", "v_proj"))))
+        if x_grad or trains(*ln1.parameters()):
+            add("gemm_bias_act_residual")
+            add("layernorm_bwd_wgrad" if trains(*ln1.parameters()) else "layernorm_bwd")
+        if layer.fused_frozen_mlp:  # K6
+            add("layernorm"), add("gemm_bias_act_residual", 4), add("layernorm_bwd")
+            add("mlp_frozen_fwd"), add("mlp_frozen_bwd")
+        x_grad = x_grad or trains(*layer.parameters())
+    text = trainer.student.text_model
+    for layer in text.encoder.layers:
+        if not layer.fused_trainable_mlp:
+            raise AssertionError("fused configuration: a text layer without K8")
+        ln2, mlp = layer.layer_norm2, layer.mlp
+        add("self_attention_fwd_stats"), add("self_attention_bwd_stats")
+        add("layernorm"), add("gemm_nt", 2), add("mlp_trainable_fwd"), add("mlp_trainable_bwd")
+        add("gemm_bias_act_residual", 2)  # da1, dh (the text input always trains here)
+        add("layernorm_bwd_wgrad" if trains(*ln2.parameters()) else "layernorm_bwd")
+        add("gemm_tn", trains(mlp.fc1.weight) + trains(mlp.fc2.weight))
+        add("colsum", trains(mlp.fc1.bias) + trains(mlp.fc2.bias))
+    return per
+
+
+def fused_slice_phase(torch, np, sd, tsd, card: str, default_ms: float):
+    """The cache-warm B/16 step at B=256 with K8 and K9 on, beside the
+    default configuration's step of phase 8."""
+    trainer, batch = _distill_trainer(torch, np, sd, tsd, "cuda", TRAIN_B, **_fused_changes())
+    steps = WARMUP_STEPS + TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    ms = _run_steps(torch, np, trainer, batch, "fused cache-warm", card)
+    launches = _all_launches()
+    expected = _expected(_fused_per_step(trainer), steps)
+    print("fused: launches", json.dumps(launches), "expected", json.dumps(expected), flush=True)
+    if launches != expected:
+        raise AssertionError(f"fused launch counts {launches} != {expected}")
+    print(f"fused: peak device memory {torch.cuda.max_memory_allocated() / 2**30} GiB ({card})",
+          flush=True)
+    print(f"fused: step {ms} ms vs the default configuration's {default_ms} ms in this run "
+          f"({TRAIN_B * 1000.0 / ms} vs {TRAIN_B * 1000.0 / default_ms} images/s; {card})",
+          flush=True)
+    profile_steps(torch, trainer, batch, card)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fit_phase(torch, np, sd, tsd, card: str):
+    """fit across an unfreeze stage with checkpoints, then resume."""
+    import shutil
+    import tempfile
+
+    from dclip_tpu_torch.core.config import UnfreezeStage
+    from dclip_tpu_torch.train.checkpoint import CheckpointManager
+
+    changes = _fused_changes(phase1_epochs=FIT_EPOCHS, unfreeze_schedule=(
+        UnfreezeStage(epoch=1, patterns=("mlp", "layer_norm")),))
+    trainer, batch = _distill_trainer(torch, np, sd, tsd, "cuda", FIT_B, **changes)
+    log = []
+
+    class Pipeline:
+        def epoch(self, epoch):
+            expected = _expected(_fused_per_step(trainer), FIT_STEPS)
+            _reset_all_launches()
+            for _ in range(FIT_STEPS):
+                yield batch
+            torch.cuda.synchronize()
+            layers = trainer.student.vision_model.encoder.layers
+            grads = [float(p.grad.abs().max()) if p.grad is not None else 0.0
+                     for lay in layers for p in (lay.mlp.fc1.weight, lay.layer_norm1.weight)]
+            log.append((epoch, _all_launches(), expected, min(grads)))
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpts = CheckpointManager(directory, save_top_k=2)
+        t0 = time.perf_counter()
+        history = trainer.fit(Pipeline(), checkpoints=ckpts)
+        print(f"fit: {FIT_EPOCHS} epochs x {FIT_STEPS} steps at B={FIT_B} with checkpoints in "
+              f"{time.perf_counter() - t0} s, losses {json.dumps(history['train_loss'])}",
+              flush=True)
+        layers = trainer.student.vision_model.encoder.layers
+        for epoch, got, expected, min_grad in log:
+            k6, k9 = got["mlp_frozen_fwd"], got["attn_block_trainable_fwd"]
+            print(f"fit: epoch {epoch}: K6 {k6} + {got['mlp_frozen_bwd']}, K9 {k9} + "
+                  f"{got['attn_block_trainable_bwd']}, K8 {got['mlp_trainable_fwd']}, min over "
+                  f"vision layers of max |grad| of fc1 / LN1 {min_grad}", flush=True)
+            if got != expected:
+                raise AssertionError(f"fit epoch {epoch}: launches {got} != {expected}")
+            n = len(layers) * FIT_STEPS
+            want_k6 = n if epoch == 0 else 0
+            if k6 != want_k6 or got["mlp_frozen_bwd"] != want_k6 or k9 != n \
+                    or got["attn_block_trainable_bwd"] != n:
+                raise AssertionError(f"fit epoch {epoch}: K6 {k6}, K9 {k9}")
+            if epoch == 1 and not min_grad > 0.0:
+                raise AssertionError("fit epoch 1: a vision LN1 / MLP gradient is zero")
+        fresh, _ = _distill_trainer(torch, np, sd, tsd, "cuda", FIT_B, **changes)
+        start = fresh.resume(ckpts)
+        same = all(torch.equal(a, b) for a, b in zip(trainer.student.parameters(),
+                                                     fresh.student.parameters()))
+        mine, theirs = trainer.optimizer.state_dict(), fresh.optimizer.state_dict()
+        same_opt = (mine["count"], mine["mini_step"]) == (theirs["count"], theirs["mini_step"]) \
+            and all(torch.equal(a, b) for k in ("mu", "nu") for a, b in zip(mine[k], theirs[k]))
+        replayed = not any(lay.fused_frozen_mlp for lay in fresh.student.vision_model.encoder.layers)
+        print(f"fit: resume from {ckpts.latest()['path'].rsplit('/', 1)[-1]}: start epoch {start}, "
+              f"step {fresh.step} (uninterrupted {trainer.step}), parameters bit-equal {same}, "
+              f"optimizer state bit-equal {same_opt}, stage replayed (K6 off) {replayed}",
+              flush=True)
+        if not (start == FIT_EPOCHS and fresh.step == trainer.step and same and same_opt
+                and replayed):
+            raise AssertionError("fit: resume did not restore the uninterrupted state")
+        for t in (trainer, fresh):
+            t.train_step_on_batch(batch)
+        torch.cuda.synchronize()
+        diff = max((a - b).abs().max().item() for a, b in zip(trainer.student.parameters(),
+                                                                fresh.student.parameters()))
+        print(f"fit: next update after resume vs uninterrupted: max |diff| {diff} (bound 0: no "
+              f"kernel sums with atomics)", flush=True)
+        if diff != 0.0:
+            raise AssertionError(f"fit: the resumed run's next update differs by {diff}")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    del trainer, fresh
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1158,7 +1622,8 @@ def main() -> int:
     print(f"load: self-check {json.dumps(_build.SELF_CHECK)}, launches "
           f"{json.dumps(loader_launches)}", flush=True)
 
-    table = KernelTable(list(KERNELS) + list(TRAIN_KERNELS) + list(TEACHER_KERNELS))
+    table = KernelTable(list(KERNELS) + list(TRAIN_KERNELS) + list(TEACHER_KERNELS)
+                        + list(TRAINABLE_KERNELS))
     kernel_phase(torch, vb, card, table)
     service, args, launches = slice_phase(torch, np, vb, cli_serve, card)
     cli_serve.bench(service, args, concurrencies=(1, 32))
@@ -1167,21 +1632,36 @@ def main() -> int:
 
     train_kernel_phase(torch, np, card, table)
     xattn_kernel_phase(torch, np, card, table)
+    trainable_kernel_phase(torch, np, card, table)
+    l14_frozen_mlp_phase(torch, np, card)
     from dclip_tpu_torch.core import CLIPConfig
     from dclip_tpu_torch.models.weights import random_state_dict, random_teacher_state_dict
 
     sd = random_state_dict(CLIPConfig.vit_b_16(), seed=0)
     tsd = random_teacher_state_dict(_teacher_config(), seed=0)
-    train_launches, _ = train_slice_phase(torch, np, sd, tsd, card)
+    train_launches, default_ms = train_slice_phase(torch, np, sd, tsd, card)
+    fused_launches = fused_slice_phase(torch, np, sd, tsd, card, default_ms)
     uncached_launches, _ = uncached_slice_phase(torch, np, sd, tsd, card)
     cache_levels_phase(torch, np, sd, tsd, card)
     target_agreement_phase(torch, np, sd, tsd)
     grad_agreement_phase(torch, np, sd, tsd)
+    # The vision LN1 unfrozen at epoch 0: K9's LayerNorm weight gradients
+    # are held too, beside the text LN2 / MLP ones of K8.
+    from dclip_tpu_torch.core.config import UnfreezeStage
+
+    grad_agreement_phase(torch, np, sd, tsd, "fused grads",
+                         must_hold=("vision_model.encoder.layers.0.layer_norm1.weight",
+                                    "text_model.encoder.layers.0.layer_norm2.weight",
+                                    "text_model.encoder.layers.0.mlp.fc1.weight"),
+                         **_fused_changes(unfreeze_schedule=(
+                             UnfreezeStage(epoch=0, patterns=("layer_norm1",)),)))
+    fit_phase(torch, np, sd, tsd, card)
 
     counts = {**{n: launches[n] for n in KERNELS}, **{n: train_launches[n] for n in TRAIN_KERNELS},
               **{n: uncached_launches[n] for n in TEACHER_KERNELS if n in uncached_launches},
-              "loader_self_check": loader_launches["loader_self_check"]}
-    sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS}
+              "loader_self_check": loader_launches["loader_self_check"],
+              **{n: fused_launches[n] for n in TRAINABLE_KERNELS}}
+    sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS, **TRAINABLE_KERNELS}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **table.entry(name)}
                for name, (src, rep) in sources.items()]

@@ -52,6 +52,16 @@ _SIGNATURES = {
     # a, w, bias, residual, aux_in, aux_out (the last four nullable), c,
     # m, n, k, epilogue, out_f32, stream
     "dclip_gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the same, w given as [n, k]
+    "dclip_gemm_nt_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, y, c, m, n, k, k_tiles_per_split, splits, stream
+    "dclip_gemm_tn_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, part, rows, n, rows_per_split, splits, stream
+    "dclip_colsum_partial_bf16": [_P, _P, _I, _I, _I, _I, _P],
+    # part, out, splits, n, stream
+    "dclip_reduce_rows_f32": [_P, _P, _I, _I, _P],
+    # x, g, dh, scale, dx (nullable), part, rows, d, eps, blocks, stream
+    "dclip_layernorm_bwd_wgrad_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     # qkv, out, b, s, heads, stream
     "dclip_attention_bf16": [_P, _P, _I, _I, _I, _P],
     # q, k, v, ldq, ldk, ldv, out, pad, seg, m, rinv (the last four

@@ -169,7 +169,16 @@ def gemm_bias_act_residual(a: torch.Tensor, w: torch.Tensor,
     if _on_cpu(a, w, bias, residual, dgelu_of):
         return gemm_bias_act_residual_reference(a, w, bias, residual, gelu, save_preact,
                                                 dgelu_of, out_dtype)
-    k, n = w.shape
+    out = launch_gemm(a, w, bias, residual, gelu, save_preact, dgelu_of, out_dtype)
+    LAUNCHES["gemm_bias_act_residual"] += 1
+    return out
+
+
+def launch_gemm(a, w, bias=None, residual=None, gelu: bool = False, save_preact: bool = False,
+                dgelu_of=None, out_dtype=None, w_is_nk: bool = False):
+    """Check the operands and launch `csrc/gemm.cu` on CUDA tensors: w is
+    [K, N] (the NN mode), or [N, K] with `w_is_nk` (the NT mode)."""
+    n, k = w.shape if w_is_nk else w.shape[::-1]
     _require(a, "a", torch.bfloat16, a.dim())
     _require(w, "w", torch.bfloat16, 2)
     out_shape = a.shape[:-1] + (n,)
@@ -199,14 +208,14 @@ def gemm_bias_act_residual(a: torch.Tensor, w: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    entry = lib.dclip_gemm_nt_bf16 if w_is_nk else lib.dclip_gemm_bf16
     with torch.cuda.device(a.device):
-        code = lib.dclip_gemm_bf16(
+        code = entry(
             a.data_ptr(), w.data_ptr(), ptr(bias), ptr(residual), ptr(dgelu_of), ptr(pre),
             c.data_ptr(), a.numel() // k, n, k, epilogue, int(c.dtype == torch.float32),
             _stream(a),
         )
-    check(lib, code, "gemm_bias_act_residual")
-    LAUNCHES["gemm_bias_act_residual"] += 1
+    check(lib, code, "gemm (NT mode)" if w_is_nk else "gemm_bias_act_residual")
     return (c, pre) if save_preact else c
 
 

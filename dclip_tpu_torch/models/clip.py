@@ -26,6 +26,13 @@ attention logits / softmax run in f32.
   `fused_frozen_mlp=True` (vision only) runs LN2 + MLP through
   `kernels.mlp_frozen` (K6), valid only while those weights are frozen
   (`pack_frozen_vision_mlp` casts them once).
+  `fused_trainable_text_mlp=True` runs the text tower's LN2 + MLP through
+  `kernels.mlp_trainable` (K8) and `fused_trainable_attn_block=True` the
+  vision tower's LN1 + attention + out_proj + residual through
+  `kernels.attn_block_trainable` (K9), both with gradients for every
+  weight (`clip.py:466-484`); a layer whose call carries a causal, padding
+  or segment mask keeps the per-op attention. Parameter names do not
+  change with any flag.
 On CPU tensors every kernel wrapper runs its plain f32 twin.
 """
 from __future__ import annotations
@@ -37,7 +44,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from dclip_tpu_torch.core.config import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
-from dclip_tpu_torch.kernels import mlp_frozen, vit_attention, vit_block
+from dclip_tpu_torch.kernels import (
+    attn_block_trainable,
+    mlp_frozen,
+    mlp_trainable,
+    vit_attention,
+    vit_block,
+)
 from dclip_tpu_torch.kernels.vit_block import quick_gelu
 
 
@@ -123,13 +136,16 @@ class Attention(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, hidden: int, heads: int, mlp_dim: int, eps: float, device=None,
-                 fused: bool = False, causal: bool = False, fused_frozen_mlp: bool = False):
+                 fused: bool = False, causal: bool = False, fused_frozen_mlp: bool = False,
+                 fused_trainable_mlp: bool = False, fused_trainable_attn_block: bool = False):
         super().__init__()
         self.self_attn = Attention(hidden, heads, device, fused, causal)
         self.layer_norm1 = nn.LayerNorm(hidden, eps=eps, device=device)
         self.mlp = MLP(hidden, mlp_dim, device)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=eps, device=device)
         self.fused_frozen_mlp = fused_frozen_mlp
+        self.fused_trainable_mlp = fused_trainable_mlp
+        self.fused_trainable_attn_block = fused_trainable_attn_block
         self.frozen_mlp_weights: Optional[dict] = None  # set by pack_frozen_mlp
 
     def pack_frozen_mlp(self, dtype: torch.dtype) -> None:
@@ -140,11 +156,24 @@ class EncoderLayer(nn.Module):
             dtype)
 
     def forward(self, x: torch.Tensor, padding_mask=None, segment_ids=None) -> torch.Tensor:
-        x = x + self.self_attn(_layer_norm(x, self.layer_norm1), padding_mask, segment_ids)
+        attn = self.self_attn
+        if self.fused_trainable_attn_block and not attn.causal and padding_mask is None \
+                and segment_ids is None:
+            ln = self.layer_norm1
+            x = attn_block_trainable.attention_block_trainable(
+                x, ln.weight, ln.bias, attn.q_proj.weight, attn.q_proj.bias,
+                attn.k_proj.weight, attn.k_proj.bias, attn.v_proj.weight, attn.v_proj.bias,
+                attn.out_proj.weight, attn.out_proj.bias, attn.heads, ln.eps)
+        else:
+            x = x + attn(_layer_norm(x, self.layer_norm1), padding_mask, segment_ids)
+        ln, mlp = self.layer_norm2, self.mlp
+        if self.fused_trainable_mlp:
+            return mlp_trainable.mlp_block_trainable(
+                x, ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+                mlp.fc2.bias, ln.eps)
         if self.fused_frozen_mlp:
             if self.frozen_mlp_weights is None:
                 raise RuntimeError("fused_frozen_mlp: call pack_frozen_mlp(dtype) first")
-            ln, mlp = self.layer_norm2, self.mlp
             return mlp_frozen.mlp_block_frozen(
                 x, ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
                 mlp.fc2.bias, ln.eps, packed=self.frozen_mlp_weights)
@@ -154,10 +183,12 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, num_layers: int, hidden: int, heads: int, mlp_dim: int,
                  eps: float, device=None, fused: bool = False, causal: bool = False,
-                 fused_frozen_mlp: bool = False):
+                 fused_frozen_mlp: bool = False, fused_trainable_mlp: bool = False,
+                 fused_trainable_attn_block: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(hidden, heads, mlp_dim, eps, device, fused, causal, fused_frozen_mlp)
+            EncoderLayer(hidden, heads, mlp_dim, eps, device, fused, causal, fused_frozen_mlp,
+                         fused_trainable_mlp, fused_trainable_attn_block)
             for _ in range(num_layers)
         )
 
@@ -176,7 +207,7 @@ class CLIPTextEmbeddings(nn.Module):
 
 class CLIPTextEncoder(nn.Module):
     def __init__(self, cfg: CLIPTextConfig, dtype: torch.dtype = torch.float32, device=None,
-                 fused_attention: bool = False):
+                 fused_attention: bool = False, fused_trainable_mlp: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -184,7 +215,8 @@ class CLIPTextEncoder(nn.Module):
         self.embeddings = CLIPTextEmbeddings(cfg, device)
         self.encoder = Encoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                                cfg.mlp_dim, cfg.layer_norm_eps, device,
-                               fused=fused_attention, causal=True)
+                               fused=fused_attention, causal=True,
+                               fused_trainable_mlp=fused_trainable_mlp)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                              device=device)
 
@@ -244,7 +276,8 @@ class CLIPVisionEncoder(nn.Module):
     packed for `kernels.vit_block.fused_image_features`."""
 
     def __init__(self, cfg: CLIPVisionConfig, device=None, dtype: torch.dtype = torch.float32,
-                 fused_attention: bool = False, fused_frozen_mlp: bool = False):
+                 fused_attention: bool = False, fused_frozen_mlp: bool = False,
+                 fused_trainable_attn_block: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -252,7 +285,8 @@ class CLIPVisionEncoder(nn.Module):
         self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, device=device)
         self.encoder = Encoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                                cfg.mlp_dim, cfg.layer_norm_eps, device,
-                               fused=fused_attention, fused_frozen_mlp=fused_frozen_mlp)
+                               fused=fused_attention, fused_frozen_mlp=fused_frozen_mlp,
+                               fused_trainable_attn_block=fused_trainable_attn_block)
         self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                            device=device)
 
@@ -275,13 +309,16 @@ class CLIPModule(nn.Module):
     take a state dict without a throw-away init."""
 
     def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32, device=None,
-                 fused_attention: bool = False, fused_frozen_mlp: bool = False):
+                 fused_attention: bool = False, fused_frozen_mlp: bool = False,
+                 fused_trainable_text_mlp: bool = False,
+                 fused_trainable_attn_block: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.text_model = CLIPTextEncoder(cfg.text, dtype, device, fused_attention)
+        self.text_model = CLIPTextEncoder(cfg.text, dtype, device, fused_attention,
+                                          fused_trainable_text_mlp)
         self.vision_model = CLIPVisionEncoder(cfg.vision, device, dtype, fused_attention,
-                                              fused_frozen_mlp)
+                                              fused_frozen_mlp, fused_trainable_attn_block)
         self.text_projection = nn.Linear(cfg.text.hidden_size, cfg.projection_dim,
                                          bias=False, device=device)
         self.visual_projection = nn.Linear(cfg.vision.hidden_size, cfg.projection_dim,

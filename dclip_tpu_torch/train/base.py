@@ -1,15 +1,17 @@
-"""Shared trainer scaffolding: device transfer, epoch loop, fit, the k-NN
-gate of the teacher's patch embeddings and the budgeted patch encode
-(counterpart of `dclip_tpu/train/base.py:18-200, 206-311`).
+"""Shared trainer scaffolding: device transfer, epoch loop, fit with
+checkpoints, resume, the k-NN gate of the teacher's patch embeddings and
+the budgeted patch encode (counterpart of `dclip_tpu/train/base.py`).
 
-Checkpoints, resume and preemption wait for the port's full trainer
-(ROADMAP Queue 1 items 5 and 10); asking for them raises. The budgeted
-patch encode is the single-device branch (dp > 1 is Queue 1 item 10).
+A trainer's checkpoint is its `checkpoint_state()` (plain tensors,
+numbers and strings; `train.checkpoint`), restored by
+`load_checkpoint_state`. Preemption waits for the multi-device work
+(ROADMAP Queue 1 item 10); asking for it raises. The budgeted patch encode
+is the single-device branch (dp > 1 is item 10 too).
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Iterable, Mapping, Optional
+from typing import Dict, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -81,8 +83,10 @@ def fingerprint_objects(*objects) -> str:
 
 class BaseTrainer:
     """Subclasses set self.device and self.step and implement
-    train_step_on_batch(batch) -> metrics (device scalars) and
-    eval_loss_on_batch(batch) -> float."""
+    train_step_on_batch(batch) -> metrics (device scalars),
+    eval_loss_on_batch(batch) -> float, and checkpoint_state() /
+    load_checkpoint_state(state); optionally _num_epochs, _on_epoch_start
+    and _prepare_resume."""
 
     # Host-only (index, content_key) and unconsumed (conf) fields never
     # cross to the device.
@@ -110,6 +114,12 @@ class BaseTrainer:
         raise NotImplementedError
 
     def eval_loss_on_batch(self, batch) -> float:
+        raise NotImplementedError
+
+    def checkpoint_state(self) -> dict:
+        raise NotImplementedError
+
+    def load_checkpoint_state(self, state: Mapping) -> None:
         raise NotImplementedError
 
     def train_epoch(self, batches: Iterable, logger=None, preemption=None) -> float:
@@ -141,19 +151,51 @@ class BaseTrainer:
 
     def fit(self, train_pipeline, val_pipeline=None, checkpoints=None, logger=None,
             start_epoch: int = 0, preemption=None) -> Dict[str, list]:
-        if checkpoints is not None:
+        """Epochs [start_epoch, _num_epochs()): `_on_epoch_start`, the
+        training batches, validation (else the train loss), and with a
+        `CheckpointManager` one checkpoint per epoch; a KeyboardInterrupt or
+        an error saves an `.interrupt` / `.error` checkpoint and re-raises."""
+        if preemption is not None:
             raise NotImplementedError(
-                "checkpoints and resume are ROADMAP Queue 1 item 5 of the port")
+                "preemption handling (train/preemption.py) is ROADMAP Queue 1 item 10")
         history: Dict[str, list] = {"train_loss": [], "val_loss": []}
-        for epoch in range(start_epoch, self._num_epochs()):
-            self._on_epoch_start(epoch)
-            train_loss = self.train_epoch(train_pipeline.epoch(epoch), logger, preemption)
-            history["train_loss"].append(train_loss)
-            val_loss = (self.validate(val_pipeline.epoch(epoch))
-                        if val_pipeline is not None else train_loss)
-            if val_loss != val_loss:  # NaN: empty val pipeline
-                print("validation yielded no batches; using train_loss")
-                val_loss = train_loss
-            history["val_loss"].append(val_loss)
-            print(f"Epoch {epoch}: train_loss={train_loss:.4f} val_loss={val_loss:.4f}")
+        try:
+            for epoch in range(start_epoch, self._num_epochs()):
+                self._on_epoch_start(epoch)
+                train_loss = self.train_epoch(train_pipeline.epoch(epoch), logger)
+                history["train_loss"].append(train_loss)
+                val_loss = (self.validate(val_pipeline.epoch(epoch))
+                            if val_pipeline is not None else train_loss)
+                if val_loss != val_loss:  # NaN: empty val pipeline
+                    print("validation yielded no batches; using train_loss")
+                    val_loss = train_loss
+                history["val_loss"].append(val_loss)
+                print(f"Epoch {epoch}: train_loss={train_loss:.4f} val_loss={val_loss:.4f}")
+                if checkpoints is not None:
+                    checkpoints.save(self.checkpoint_state(), step=self.step, epoch=epoch,
+                                     metrics={"train_loss": train_loss, "val_loss": val_loss})
+        except KeyboardInterrupt:
+            if checkpoints is not None:
+                checkpoints.save_interrupt(self.checkpoint_state(), self.step, "interrupt")
+            raise
+        except Exception:
+            if checkpoints is not None:
+                checkpoints.save_interrupt(self.checkpoint_state(), self.step, "error")
+            raise
         return history
+
+    def _prepare_resume(self, saved_epoch: int) -> None:
+        """Hook: bring the trainer's structure (the unfreeze stage) to the
+        one it had when the checkpoint was saved, before restoring into it."""
+
+    def resume(self, checkpoints) -> int:
+        """Restore the latest regular checkpoint; returns the epoch to start
+        from (0 when there is none)."""
+        entry = checkpoints.latest()
+        if entry is None:
+            return 0
+        saved_epoch = entry.get("epoch") or 0
+        self._prepare_resume(saved_epoch)
+        state, _ = checkpoints.restore_latest_or_none()
+        self.load_checkpoint_state(state)
+        return saved_epoch + 1

@@ -17,8 +17,18 @@ One training step: teacher targets for the batch, then the student update.
   teacher-only fields (`teacher_pixels`, `boxes`, `box_mask`) cross to the
   device; on a full hit they stay on the host.
 - Student step: its image tower and (packed) caption tower forward and
-  backward (K3 / K4 / K5 attention, K6 frozen MLP), the cos-distill(img) +
+  backward (K3 / K4 / K5 attention, K6 frozen MLP; opt-in, K8 for the text
+  tower's LN2 + MLP with `fused_text_mlp` and K9 for the vision tower's
+  LN1 + attention block with `fused_attn_block`), the cos-distill(img) +
   cos-distill(txt) + InfoNCE loss (K11), the masked AdamW update.
+- Epochs: `fit` runs the unfreeze schedule (`unfreeze_schedule` plus the
+  `unfreeze_text_at_epoch` sugar): when a stage changes the trainable
+  mask, the student module is rebuilt for it (K6 switches off once the
+  vision LN2 / MLP train) and the optimizer state starts afresh, the step
+  count kept (`distill_trainer.py:957-1010`). A `CheckpointManager`
+  saves `checkpoint_state()` after each epoch; `resume` replays the
+  schedule to the saved epoch and restores parameters, AdamW moments,
+  the accumulation state and the step.
 
 With the kernels on (`use_pallas`, auto on CUDA) the kernels run; on the
 CPU, asked for explicitly, their plain twins. The teacher tail computes
@@ -31,10 +41,9 @@ loss without the caches and without gradients. The stages run under
 breakdown of a step; outside a profile they cost a few microseconds.
 
 What waits, each raising NotImplementedError that names its ROADMAP
-item: checkpoints, resume, the unfreeze schedule and `remat` (Queue 1
-item 5), the projection head of the k-NN gate (item 9), the fused text MLP
-(K8, Queue 2 item 7) and fused attention block (K9, Queue 2 item 8), and a
-mesh with dp or mp > 1 or `dp_equivalent` (Queue 1 item 10).
+item: `remat` (Queue 1 item 5), the projection head of the k-NN gate
+(item 9), and a mesh with dp or mp > 1, `dp_equivalent` or preemption
+(Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -44,7 +53,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from dclip_tpu_torch.core.config import CLIPConfig, DistillConfig
+from dclip_tpu_torch.core.config import CLIPConfig, DistillConfig, UnfreezeStage
 from dclip_tpu_torch.core.device import resolve_device, resolve_dtype
 from dclip_tpu_torch.core.fast_paths import resolve_fast_paths
 from dclip_tpu_torch.kernels import vit_block
@@ -72,6 +81,9 @@ from dclip_tpu_torch.train.optim import (
     make_train_step,
     student_trainable_mask,
 )
+
+
+CHECKPOINT_FORMAT = "dclip_tpu_torch.DistillTrainer/1"
 
 
 def _waits(what: str, where: str) -> NotImplementedError:
@@ -255,22 +267,16 @@ class DistillTrainer(BaseTrainer):
                          "Queue 1 item 9")
         self.device = resolve_device(device)
         cfg = self.cfg = resolve_fast_paths(cfg, self.device)
-        for on, what, where in (
-                (cfg.remat, "remat", "Queue 1 item 5"),
-                (cfg.fused_text_mlp, "the fused trainable text MLP (K8)", "Queue 2 item 7"),
-                (cfg.fused_attn_block, "the fused trainable attention block (K9)",
-                 "Queue 2 item 8")):
-            if on:
-                raise _waits(what, where)
-        if cfg.unfreeze_schedule or cfg.unfreeze_text_at_epoch is not None:
-            raise _waits("the unfreeze schedule", "Queue 1 item 5")
+        if cfg.remat:
+            raise _waits("remat", "Queue 1 item 5")
         self._student_dtype = resolve_dtype(cfg.compute_dtype, self.device)
         self._use_kernels = bool(cfg.use_pallas)
         if self._use_kernels and self.device.type == "cuda" \
                 and self._student_dtype != torch.bfloat16:
             raise ValueError("the CUDA kernels compute in bfloat16: use compute_dtype "
                              "'bfloat16' (or 'auto'), or use_pallas=False")
-        self._trainable_mask = student_trainable_mask(student_state_dict.keys())
+        self._unfrozen_extra: tuple = ()
+        self._trainable_mask = self._student_mask(student_state_dict.keys())
         self.student = self._make_student(student_state_dict)
         self._build_optimizer()
         self.teacher_clip_state_dict = teacher_clip_state_dict
@@ -297,6 +303,12 @@ class DistillTrainer(BaseTrainer):
 
     # -- construction ---------------------------------------------------------
 
+    def _student_mask(self, names) -> Dict[str, bool]:
+        """The trainable mask of the current unfreeze stage; with
+        `unfreeze_text_at_epoch` set, the text tower starts frozen."""
+        return student_trainable_mask(names, self._unfrozen_extra,
+                                      freeze_text=self.cfg.unfreeze_text_at_epoch is not None)
+
     def _vision_mlp_frozen(self) -> bool:
         """True iff the trainable mask excludes every vision `mlp` and
         `layer_norm2` leaf: the validity condition of the frozen-MLP kernel
@@ -311,13 +323,21 @@ class DistillTrainer(BaseTrainer):
                 for k, v in state_dict.items()}
 
     def _make_student(self, state_dict) -> CLIPModule:
-        """The student on the device, f32 parameters with requires_grad from
-        the mask. With the kernels on, attention is fused in both towers and
-        the vision LN2 + MLP blocks run the frozen-MLP kernel exactly while
-        the mask freezes them (no VMEM gate: the kernels tile)."""
-        fused_frozen = self._use_kernels and self._vision_mlp_frozen()
+        """The student for the current unfreeze stage, on the device: f32
+        parameters with requires_grad from the mask. With the kernels on
+        (`distill_trainer.py:468-516`), attention is fused in both towers,
+        the vision LN2 + MLP blocks run the frozen-MLP kernel (K6) exactly
+        while the mask freezes them, the text LN2 + MLP blocks run K8 with
+        `fused_text_mlp` and the vision attention blocks K9 with
+        `fused_attn_block`. There are no VMEM gates (`mlp_frozen_fit`,
+        `mlp_trainable_fit`, `attn_block_fit` on the TPU): the kernels tile,
+        so every width runs on them."""
+        kernels = self._use_kernels
+        fused_frozen = kernels and self._vision_mlp_frozen()
         model = CLIPModule(self.student_config, dtype=self._student_dtype, device="meta",
-                           fused_attention=self._use_kernels, fused_frozen_mlp=fused_frozen)
+                           fused_attention=kernels, fused_frozen_mlp=fused_frozen,
+                           fused_trainable_text_mlp=kernels and bool(self.cfg.fused_text_mlp),
+                           fused_trainable_attn_block=kernels and bool(self.cfg.fused_attn_block))
         model.load_state_dict(self._on_device(state_dict), strict=True, assign=True)
         for name, p in model.named_parameters():
             p.requires_grad_(self._trainable_mask[name])
@@ -551,10 +571,43 @@ class DistillTrainer(BaseTrainer):
         self.step += 1
         return metrics
 
+    # -- the unfreeze schedule -------------------------------------------------
+
+    def _effective_unfreeze_schedule(self):
+        """`unfreeze_schedule` plus the `unfreeze_text_at_epoch` sugar (the
+        reference's intended text unfreeze, CLIP_image_distillation.py:753-755)."""
+        schedule = tuple(self.cfg.unfreeze_schedule)
+        if self.cfg.unfreeze_text_at_epoch is not None:
+            schedule += (UnfreezeStage(epoch=self.cfg.unfreeze_text_at_epoch,
+                                       patterns=("text_model",)),)
+        return schedule
+
+    def _maybe_unfreeze(self, epoch: int) -> None:
+        """Apply the stages reached at `epoch`. A changed mask rebuilds the
+        student for it (an unfrozen vision LN2 / MLP takes K6 off: its
+        backward gives those weights no gradient) and starts a fresh
+        optimizer state; the step count stays."""
+        new = tuple(p for stage in self._effective_unfreeze_schedule() if epoch >= stage.epoch
+                    for p in stage.patterns)
+        if set(new) == set(self._unfrozen_extra):
+            return
+        self._unfrozen_extra = new
+        self._trainable_mask = self._student_mask(self._trainable_mask.keys())
+        self.student = self._make_student(self.student.state_dict())
+        self._build_optimizer()
+
     # -- BaseTrainer hooks ----------------------------------------------------
 
     def _num_epochs(self) -> int:
         return self.cfg.phase1_epochs
+
+    def _on_epoch_start(self, epoch: int) -> None:
+        self._maybe_unfreeze(epoch)
+
+    def _prepare_resume(self, saved_epoch: int) -> None:
+        # The checkpoint's trainable set is the one of the stage active when
+        # it was saved: replay the schedule to that epoch first.
+        self._maybe_unfreeze(saved_epoch)
 
     def eval_loss_on_batch(self, batch) -> float:
         """The teacher and the student loss in one pass, no caches, no
@@ -565,5 +618,30 @@ class DistillTrainer(BaseTrainer):
             loss, _ = self._student_loss(teacher_img, teacher_txt, device_batch)
         return float(loss)
 
-    def resume(self, checkpoints) -> int:
-        raise _waits("resume", "Queue 1 item 5")
+    def checkpoint_state(self) -> dict:
+        """Parameters, the trainable names and the AdamW state in their order
+        (moments, accumulator, counters), the step and the unfreeze stage,
+        on the CPU."""
+        return {"format": CHECKPOINT_FORMAT, "step": self.step,
+                "unfrozen": list(self._unfrozen_extra),
+                "params": {n: p.detach().cpu().clone()
+                           for n, p in self.student.named_parameters()},
+                "trainable": self._trainable_names(), "optimizer": self.optimizer.state_dict()}
+
+    def load_checkpoint_state(self, state) -> None:
+        """Restore `checkpoint_state()` into this trainer, whose unfreeze
+        stage must be the saved one (`resume` replays the schedule first)."""
+        if state.get("format") != CHECKPOINT_FORMAT:
+            raise ValueError(f"not a {CHECKPOINT_FORMAT} checkpoint: {state.get('format')!r}")
+        if set(state["unfrozen"]) != set(self._unfrozen_extra):
+            raise ValueError(f"checkpoint saved at unfreeze stage {state['unfrozen']}, trainer at "
+                             f"{list(self._unfrozen_extra)}")
+        self.student = self._make_student(state["params"])
+        self._build_optimizer()
+        if state["trainable"] != self._trainable_names():
+            raise ValueError("checkpoint's trainable parameters differ from the trainer's")
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+    def _trainable_names(self):
+        return [n for n, _ in self.student.named_parameters() if self._trainable_mask[n]]

@@ -112,6 +112,28 @@ class MaskedAdamW:
             p.add_(update * -lr)
         return True
 
+    def state_dict(self) -> dict:
+        """The moments, the accumulator and both counters as CPU tensors and
+        ints, in the order of `params`."""
+        def cpu(ts):
+            return None if ts is None else [t.detach().cpu().clone() for t in ts]
+
+        return {"count": self.count, "mini_step": self.mini_step, "mu": cpu(self.mu),
+                "nu": cpu(self.nu), "acc": cpu(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping) -> None:
+        """Restore `state_dict()`'s output, copied onto the parameters'
+        devices; raises on another number or shape of tensors."""
+        for key in ("mu", "nu", "acc"):
+            mine, theirs = getattr(self, key), state[key]
+            if (mine is None) != (theirs is None) or (
+                    mine is not None and [t.shape for t in mine] != [t.shape for t in theirs]):
+                raise ValueError(f"optimizer state {key!r} does not match these parameters")
+            for dst, src in zip(mine or (), theirs or ()):
+                dst.copy_(src)
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+
 
 def make_optimizer(params: Sequence[torch.nn.Parameter], learning_rate: float, *,
                    kind: str = "adamw", warmup_steps: int = 0,

@@ -362,3 +362,160 @@ def test_loader_self_check(cuda_device):
     assert _build.SELF_CHECK["max_abs_err"] == 0.0
     x = torch.randn(8, 128, device=cuda_device)
     torch.testing.assert_close(_build.probe_x2(x), 2.0 * x, rtol=0, atol=0)
+
+
+# -- the trainable blocks (K8, K9), their GEMM modes and row reductions --------------
+
+
+def _f32(rng, device, *shape, base=0.0, scale=1.0):
+    return torch.from_numpy((base + scale * rng.standard_normal(shape)).astype(np.float32)).to(
+        device)
+
+
+def _close_sum(got, want, what=""):
+    """f32 sums of the same bf16 products in another order: within 1e-4 of
+    the largest |twin|."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32, what
+    err = (got - want.float()).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want.float().abs().max().item()), (what, err)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,k,n", [(4928, 512, 2048), (591, 768, 2304), (70, 256, 136)])
+def test_gemm_nt_matches_twin(cuda_device, m, k, n):
+    from dclip_tpu_torch.kernels import trainable_ops as to
+
+    rng = np.random.RandomState(m + n)
+    a = _bf16(rng, cuda_device, m, k)
+    w = (_f32(rng, cuda_device, n, k, scale=k**-0.5)).bfloat16()
+    bias = _f32(rng, cuda_device, n, scale=0.1)
+    res = _bf16(rng, cuda_device, m, n)
+    to.reset_launches()
+    got, pre = to.gemm_nt(a, w, bias, gelu=True, save_preact=True)
+    want, want_pre = to.gemm_nt_reference(a, w, bias, gelu=True, save_preact=True)
+    _close_rel(got, want, what="gelu")
+    _close_rel(pre, want_pre, what="preact")
+    _close_rel(to.gemm_nt(a, w, bias, residual=res),
+               to.gemm_nt_reference(a, w, bias, residual=res), what="residual")
+    assert to.LAUNCHES["gemm_nt"] == 2
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows,p,q", [(4928, 2048, 512), (6304, 768, 768), (1576, 2304, 768),
+                                      (37, 24, 136)])
+def test_gemm_tn_and_colsum_match_twins(cuda_device, rows, p, q):
+    from dclip_tpu_torch.kernels import trainable_ops as to
+
+    rng = np.random.RandomState(rows + p)
+    x, y = _bf16(rng, cuda_device, rows, p), _bf16(rng, cuda_device, rows, q)
+    got = to.gemm_tn(x, y)
+    _close_sum(got, to.gemm_tn_reference(x, y), "gemm_tn")
+    assert torch.equal(got, to.gemm_tn(x, y))  # no atomics: the same bits every run
+    _close_sum(to.colsum(x), to.colsum_reference(x), "colsum")
+    assert torch.equal(to.colsum(y), to.colsum(y))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows,d", [(4928, 512), (6304, 768), (5, 1024)])
+def test_layernorm_bwd_wgrad_matches_twin(cuda_device, rows, d):
+    from dclip_tpu_torch.kernels import trainable_ops as to
+
+    rng = np.random.RandomState(rows + d)
+    x, g = _bf16(rng, cuda_device, rows, d), _bf16(rng, cuda_device, rows, d)
+    dh = _f32(rng, cuda_device, rows, d)
+    scale = _f32(rng, cuda_device, d, base=1.0, scale=0.1)
+    dx, ds, db = to.layernorm_bwd_wgrad(x, g, dh, scale)
+    want = to.layernorm_bwd_wgrad_reference(x, g, dh, scale)
+    _close_rel(dx, want[0], what="dx")
+    _close_sum(ds, want[1], "dscale")
+    _close_sum(db, want[2], "dbias")
+    none, ds2, db2 = to.layernorm_bwd_wgrad(x, None, dh, scale, need_dx=False)
+    assert none is None and torch.equal(ds2, ds) and torch.equal(db2, db)
+
+
+def _hf_mlp(rng, device, d, mlp):
+    return [_f32(rng, device, d, base=1.0, scale=0.1), _f32(rng, device, d, scale=0.1),
+            _f32(rng, device, mlp, d, scale=d**-0.5), _f32(rng, device, mlp, scale=0.1),
+            _f32(rng, device, d, mlp, scale=mlp**-0.5), _f32(rng, device, d, scale=0.1)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s,d,mlp", [(64, 77, 512, 2048), (3, 50, 128, 256)])
+def test_mlp_trainable_matches_twin(cuda_device, b, s, d, mlp):
+    """K8 forward (y, a1) and all seven gradients against the f32 twins."""
+    from dclip_tpu_torch.kernels import mlp_trainable as mt
+
+    rng = np.random.RandomState(b + d)
+    weights = _hf_mlp(rng, cuda_device, d, mlp)
+    x, g = _bf16(rng, cuda_device, b, s, d), _bf16(rng, cuda_device, b, s, d)
+    p = mt.pack_trainable_mlp(*weights, dtype=torch.bfloat16)
+    y, a1, h, act = mt.mlp_trainable_fwd(x, p)
+    y_ref, a1_ref = mt.mlp_trainable_fwd_reference(x, *weights)
+    _close_rel(y, y_ref, what="y")
+    _close_rel(a1, a1_ref, what="a1")
+    grads = mt.mlp_trainable_bwd(x, g, a1, h, act, p)
+    want = mt.mlp_trainable_bwd_reference(x, g, a1_ref, *weights)
+    for name, got_t, want_t in zip(("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2"),
+                                   grads, want):
+        _close_rel(got_t, want_t, tol=2.0**-5, what=name)
+    # The autograd form: the same gradients, and no weight-gradient launch
+    # for frozen weights.
+    xs = x.clone().requires_grad_()
+    ws = [w.clone().requires_grad_(i >= 2) for i, w in enumerate(weights)]
+    mt.reset_launches()
+    vb.reset_launches()
+    mt.mlp_block_trainable(xs, *ws).backward(g)
+    assert mt.LAUNCHES == {"mlp_trainable_fwd": 1, "mlp_trainable_bwd": 1}
+    assert ws[0].grad is None and ws[1].grad is None
+    _close_rel(xs.grad, want[0], tol=2.0**-5, what="dx (autograd)")
+    _close_rel(ws[2].grad, want[3], tol=2.0**-5, what="dw1 (autograd)")
+
+
+def _hf_attn(rng, device, d):
+    out = [_f32(rng, device, d, base=1.0, scale=0.1), _f32(rng, device, d, scale=0.1)]
+    for _ in range(4):
+        out += [_f32(rng, device, d, d, scale=d**-0.5), _f32(rng, device, d, scale=0.1)]
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s,d,heads", [(2, 197, 768, 12), (3, 50, 128, 2)])
+def test_attn_block_trainable_matches_twin(cuda_device, b, s, d, heads):
+    """K9 forward (o, q, k, v, attn, m, rinv) and all eleven gradients
+    against the f32 twins. rinv is held relative to the twin's at 2^-5: the
+    kernel's logits come from bf16 q and k, the twin's from f32 ones, and a
+    logit's rounding error scales with its size. dbk is 0 in exact
+    arithmetic (softmax ignores a per-row shift), so both sides hold
+    rounding noise of the row sum there: it is held to 2^-5 of the largest
+    |dbq| instead."""
+    from dclip_tpu_torch.kernels import attn_block_trainable as ab
+
+    rng = np.random.RandomState(s + d)
+    weights = _hf_attn(rng, cuda_device, d)
+    x, g = _bf16(rng, cuda_device, b, s, d), _bf16(rng, cuda_device, b, s, d)
+    p = ab.pack_trainable_attn(*weights, dtype=torch.bfloat16)
+    o, h, qkv, attn, m, r = ab.attention_block_trainable_fwd(x, p, heads)
+    want = ab.attention_block_trainable_fwd_reference(x, *weights, heads)
+    for name, got_t, want_t in zip(("o", "q", "k", "v", "attn", "m"),
+                                   (o, *qkv.split(d, -1), attn, m), want):
+        _close_rel(got_t, want_t, what=name)
+    torch.testing.assert_close(r, want[6], rtol=2.0**-5, atol=0)
+    grads = ab.attention_block_trainable_bwd(x, g, h, qkv, attn, m, r, p, heads)
+    wgrads = ab.attention_block_trainable_bwd_reference(x, g, *want[1:], *weights, heads)
+    names = ("dx", "dln_scale", "dln_bias", "dwq", "dbq", "dwk", "dbk", "dwv", "dbv", "dwo",
+             "dbo")
+    for name, got_t, want_t in zip(names, grads, wgrads):
+        if name == "dbk":
+            torch.cuda.synchronize()
+            err = (got_t - want_t).abs().max().item()
+            assert err <= 2.0**-5 * wgrads[4].abs().max().item(), (name, err)
+        else:
+            _close_rel(got_t, want_t, tol=2.0**-5, what=name)
+    # The default vision mask in the first layer: only q/k/v/out_proj train
+    # and the input needs no gradient, so no dh product, no LN backward.
+    ws = [w.clone().requires_grad_(i >= 2) for i, w in enumerate(weights)]
+    vb.reset_launches()
+    ab.attention_block_trainable(x, *ws, heads).backward(g)
+    assert vb.LAUNCHES["gemm_bias_act_residual"] == 1 and vb.LAUNCHES["layernorm"] == 1
+    assert ws[0].grad is None and all(w.grad is not None for w in ws[2:])

@@ -75,6 +75,33 @@ def test_forward_and_dx_match_pallas(b, s, d, mlp):
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(cts[0]), **TOL)
 
 
+def test_k6_matches_the_tiled_pallas_pair_k7():
+    """K7 (`_mlp_block_frozen_tiled`, weights streamed over mlp_dim for L/14)
+    is folded into the port's K6: K6 against JAX `mlp_block_frozen(...,
+    interpret=True, tile=64)` (4 tiles over mlp 256), forward and dx, at
+    tests/test_kernels.py's fixture and tolerances (:485, :497)."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(7)
+    b, s, d, m = 3, 16, 64, 256
+    x = rng.randn(b, s, d).astype(np.float32)
+    w = ((1 + 0.1 * rng.randn(d)).astype(np.float32), (0.1 * rng.randn(d)).astype(np.float32),
+         (rng.randn(d, m) * 0.05).astype(np.float32), (0.1 * rng.randn(m)).astype(np.float32),
+         (rng.randn(m, d) * 0.05).astype(np.float32), (0.1 * rng.randn(d)).astype(np.float32))
+    co = np.random.RandomState(9).randn(b, s, d).astype(np.float32)
+    tiled = lambda x: jmf.mlp_block_frozen(x, *w, interpret=True, tile=64)  # noqa: E731
+    want = tiled(x)
+    want_dx = jax.grad(lambda x: jnp.sum(tiled(x) * co))(x)
+    hf = [torch.from_numpy(np.ascontiguousarray(a)) for a in (w[0], w[1], w[2].T, w[3],
+                                                              w[4].T, w[5])]
+    tx = torch.from_numpy(x).requires_grad_()
+    out = mf.mlp_block_frozen(tx, *hf)
+    (out * torch.from_numpy(co)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), rtol=1e-4, atol=1e-5)
+
+
 def test_layernorm_bwd_reference_is_autograd():
     """The LN backward row formula equals autograd through F.layer_norm
     (frozen affine) plus the residual gradient."""

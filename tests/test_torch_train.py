@@ -200,22 +200,23 @@ def test_cache_miss_raises_not_implemented(setup):
 
 @pytest.mark.parametrize("change,match", [
     ({"remat": True}, "Queue 1 item 5"),
-    ({"fused_text_mlp": True}, "K8"),
-    ({"fused_attn_block": True}, "K9"),
-    ({"unfreeze_text_at_epoch": 1}, "unfreeze"),
     ({"mesh": MeshConfig(data_parallel=2)}, "item 10"),
 ])
 def test_waiting_options_raise(setup, change, match):
+    """The K8 / K9 flags and the unfreeze schedule run now
+    (tests/test_torch_train_fused.py, tests/test_torch_fit.py)."""
     with pytest.raises(NotImplementedError, match=match):
         _port_trainer(setup, **change)
 
 
 def test_waiting_entry_points_raise(setup):
+    """Checkpoints and resume run now (tests/test_torch_fit.py); preemption
+    and dp_equivalent wait for the multi-device work."""
     tr = _port_trainer(setup)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tr.resume(None)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tr.fit(None, checkpoints=object())
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tr.fit(None, preemption=object())
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tr.train_epoch([], preemption=object())
     cfg = setup["cfg"]
     sd = state_dict_from_jax(setup["params"], cfg)
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -157,7 +157,7 @@ def test_source_digest_tracks_sources(tmp_path, monkeypatch):
 
     names = sorted(p.rsplit("/", 1)[-1] for p in _build._sources())
     assert names == ["attention.cu", "attention_bwd.cu", "cross_attention.cu", "distill_loss.cu",
-                     "gemm.cu", "layernorm.cu", "status.cu"]
+                     "gemm.cu", "layernorm.cu", "reduce.cu", "status.cu"]
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
