@@ -14,8 +14,11 @@ Phases; each one passes or raises, and any failure exits non-zero:
 3. Kernels: at ViT-B/16 shapes (B=64, S=197, D=768, 12 heads, MLP 3072,
    bf16) holds every CUDA kernel (layernorm, the four GEMM epilogues,
    attention) and both blocks (attention, MLP) against their plain
-   PyTorch twins on the same inputs, plus a ragged B=1 case, and times
-   kernel and twin with CUDA events in turns (plain, kernel, kernel, plain).
+   PyTorch twins on the same inputs, plus a ragged B=1 case and the
+   retrieval eval's B=256, and again at ViT-L/14 shapes (B=64, S=257,
+   D=1024, 16 heads, MLP 4096: the zero-shot eval's); times kernel and
+   twin at B/16 B=64 and L/14 B=64 with CUDA events in turns (plain,
+   kernel, kernel, plain).
 4. Slice: builds the B/16 `ClipService` through the serve CLI's own
    `build_service` (random weights from seed 0, bf16, buckets 1,4,16,64,
    index_dim 512), runs `warmup()`, the CLI's `--selftest` against a live
@@ -53,7 +56,9 @@ Phases; each one passes or raises, and any failure exits non-zero:
    K2), the teacher text tower (K3) and the cross-attention (K10), then the
    student step. 2 warm-up and 5 timed steps: ms per step, images/s, peak
    device memory, exact launch counts (7 x the per-step count), a
-   torch.profiler breakdown of one step by stage and by kernel.
+   torch.profiler breakdown of one step by stage and by kernel. Then one
+   step with the teacher's k-NN gate over a 100,000-row store of seeded
+   unit keys: the same launches plus one K12 (Q = 2,048 patch embeddings).
 10. Cache levels: a `TeacherTargetCache`; the first step misses and fills
    every level, a repeat hits the device full-target level (no K1 / K2 /
    K10 launch), the same images with resampled captions hit the device
@@ -89,13 +94,38 @@ Phases; each one passes or raises, and any failure exits non-zero:
    bit for bit and replays the stage, and its next update equals the
    uninterrupted trainer's bit for bit (no kernel sums with atomics).
 
+18. K12, the streamed top-k: at the serving search (Q=64, N=1,000,000,
+   D=512, k=10; a 2.05 GB f32 store on the card) and the teacher's k-NN
+   gate (Q=2,048, N=100,000, k=3) against its twin (f32 matmul without TF32
+   and a stable sort), plus a ragged N, all-negative scores, k > N,
+   duplicated rows, k = 64, k = 150 (three rounds of 64) and 200 equal rows
+   at k = 150; scores within 1e-5 * max(1, |twin|), indices equal
+   wherever the twin's neighbouring scores are further apart than that,
+   exact ties to the lower row; CUDA-event times beside `torch.matmul` +
+   `torch.topk`. Phase 4's service searches through K12 (the selftest's
+   search, then 3 searches of 64 queries against a 1,000,000-row index,
+   timed end to end with the per-call copy of the keys to the card).
+19. Retrieval eval: ViT-B/16 from `load_clip` (random weights, seed 0,
+   bf16) embeds 1,000 seeded preprocessed images (`make_image_encoder`, K1 /
+   K2) and 5,000 captions of 8-24 hash-tokenizer words (packed), then
+   `retrieval_metrics` on the card: ranks equal to the CPU port's on the
+   same similarity, the similarity within 1e-5 of the CPU one, bf16 image
+   embeddings vs the f32 module route on the card (cosine >= 0.99, 64
+   images); images/s, captions/s, metrics ms.
+20. Zero-shot eval: ViT-L/14 (the zero-shot CLI's default preset, full width
+   and depth, bf16), 100 class prompts, 1,024 seeded images in batches of
+   64 through `evaluate_zero_shot` (K1 / K2 at S=257, D=1024, 16 heads, MLP
+   4096): top-1 / top-5 equal to the stable top-k of the same logits on
+   the host, bf16 vs f32 features cosine >= 0.99 (32 images); images/s.
+
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type (989 TFLOP/s bf16
 tensor cores, 67 TFLOP/s f32 CUDA cores) and the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s, from the
 shapes of this run; and `library_ms`, the time of one PyTorch call that
 computes the same function, where there is one
-(`scaled_dot_product_attention` and its backward), else null.
+(`scaled_dot_product_attention` and its backward; `torch.matmul` +
+`torch.topk` for K12), else null.
 
 The second-to-last line is `{"kernels": [...]}` and the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -183,6 +213,14 @@ TRAINABLE_KERNELS = {
     "colsum": (SRC + "reduce.cu", K8 + ":82,134"),
     "layernorm_bwd_wgrad": (SRC + "layernorm.cu", K8 + ":82"),
 }
+# The search's kernel: K12.
+TOPK_KERNELS = {"topk_streamed": (SRC + "topk.cu", "dclip_tpu/kernels/topk.py:51")}
+# K12 vs its twin: f32 sums in another order, |score| <= 1 (unit rows).
+TOPK_TOL = 1e-5
+SEARCH_N, SEARCH_Q, SEARCH_K, SEARCH_CALLS = 1_000_000, 64, 10, 3
+GATE_Q, GATE_N, GATE_K = 2048, 100_000, 3
+EVAL_IMAGES, EVAL_CAPS_PER_IMAGE, EVAL_COS_IMAGES = 1000, 5, 64
+ZS_IMAGES, ZS_CLASSES, ZS_BATCH, ZS_COS_IMAGES = 1024, 100, 64, 32
 TRAIN_B, TEXT_S, TEXT_D, TEXT_HEADS, TEXT_MLP = 256, 77, 512, 8, 2048
 # A weight or bias gradient, kernel vs twin on the same bf16 operands: f32
 # sums of the same products in another order, within 1e-4 of the largest
@@ -190,6 +228,14 @@ TRAIN_B, TEXT_S, TEXT_D, TEXT_HEADS, TEXT_MLP = 256, 77, 512, 8, 2048
 SUM_TOL = 1e-4
 # K7 at ViT-L/14 widths (CLIPConfig.vit_l_14().vision, B=32).
 L14_B, L14_S, L14_D, L14_MLP = 32, 257, 1024, 4096
+EVAL_BATCH = 256  # the retrieval eval's image batch
+# The kernel phase's cases: (label, B, S, D, heads, MLP, timed). ViT-B/16 at
+# the serving batch, a ragged B=1 and the retrieval eval's batch; ViT-L/14
+# (the zero-shot eval's preset: 257 tokens, a ragged last row tile) at the
+# zero-shot batch.
+BLOCK_CASES = (("B/16", B, S, D, HEADS, MLP, True), ("B/16", 1, S, D, HEADS, MLP, False),
+               ("B/16", EVAL_BATCH, S, D, HEADS, MLP, False),
+               ("L/14", ZS_BATCH, L14_S, L14_D, 16, L14_MLP, True))
 FIT_B, FIT_EPOCHS, FIT_STEPS = 32, 2, 2
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 GRAD_B, GRAD_COS_GLOBAL, GRAD_COS_TENSOR = 8, 0.99, 0.95
@@ -232,7 +278,11 @@ def import_port_modules():
                  "dclip_tpu_torch.kernels.attn_block_trainable",
                  "dclip_tpu_torch.kernels.trainable_ops", "dclip_tpu_torch.train.checkpoint",
                  "dclip_tpu_torch.train.distill_trainer", "dclip_tpu_torch.ops.image_ops",
-                 "dclip_tpu_torch.ops.packing"):
+                 "dclip_tpu_torch.ops.packing", "dclip_tpu_torch.kernels.topk",
+                 "dclip_tpu_torch.ops.knn", "dclip_tpu_torch.ops.retrieval",
+                 "dclip_tpu_torch.models.encoding", "dclip_tpu_torch.eval.retrieval",
+                 "dclip_tpu_torch.eval.zero_shot", "dclip_tpu_torch.data.embedding_store",
+                 "dclip_tpu_torch.data.tokenizer"):
         importlib.import_module(name)
 
 
@@ -340,10 +390,10 @@ def sdpa_calls(torch, q, k, v, heads, keep, g=None):
     return lambda: torch.autograd.grad(o, (qg, kg, vg), g4, retain_graph=True)
 
 
-def layer_weights(rng, torch, device):
-    """One encoder layer in the packed layout, drawn like random weights
-    (N(0, 0.02) matrices) but with non-trivial biases and LN affines so
-    every epilogue term is exercised."""
+def layer_weights(rng, torch, device, d=D, mlp=MLP):
+    """One encoder layer of width d in the packed layout, drawn like random
+    weights (N(0, 0.02) matrices) but with non-trivial biases and LN affines
+    so every epilogue term is exercised."""
     def w(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype("float32") * 0.02).to(device)
 
@@ -352,12 +402,12 @@ def layer_weights(rng, torch, device):
 
     bf = torch.bfloat16
     return {
-        "ln1_scale": f32(D, 1.0), "ln1_bias": f32(D, 0.0),
-        "qkv_w": w(D, 3 * D).to(bf), "qkv_b": f32(3 * D, 0.0),
-        "out_w": w(D, D).to(bf), "out_b": f32(D, 0.0),
-        "ln2_scale": f32(D, 1.0), "ln2_bias": f32(D, 0.0),
-        "fc1_w": w(D, MLP).to(bf), "fc1_b": f32(MLP, 0.0),
-        "fc2_w": w(MLP, D).to(bf), "fc2_b": f32(D, 0.0),
+        "ln1_scale": f32(d, 1.0), "ln1_bias": f32(d, 0.0),
+        "qkv_w": w(d, 3 * d).to(bf), "qkv_b": f32(3 * d, 0.0),
+        "out_w": w(d, d).to(bf), "out_b": f32(d, 0.0),
+        "ln2_scale": f32(d, 1.0), "ln2_bias": f32(d, 0.0),
+        "fc1_w": w(d, mlp).to(bf), "fc1_b": f32(mlp, 0.0),
+        "fc2_w": w(mlp, d).to(bf), "fc2_b": f32(d, 0.0),
     }
 
 
@@ -366,71 +416,79 @@ def kernel_phase(torch, vb, card: str, table: KernelTable):
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(0)
-    p = layer_weights(rng, torch, dev)
+    weights = {}
 
     def randn(*shape, scale=1.0):
         return (torch.from_numpy(rng.standard_normal(shape).astype("float32") * scale)
                 .to(dev).to(torch.bfloat16))
 
-    for b in (B, 1):
-        m = b * S
-        x = randn(b, S, D)
-        h = randn(b, S, D)
-        a = randn(b, S, D)
-        g = randn(b, S, MLP)
-        qkv = randn(b, S, 3 * D)
-        attn_flops = 4.0 * b * HEADS * S * S * (D // HEADS)
+    for label, b, s, d, heads, mlp, timed in BLOCK_CASES:
+        if (d, mlp) not in weights:
+            weights[d, mlp] = layer_weights(rng, torch, dev, d, mlp)
+        p = weights[d, mlp]
+        m = b * s
+        x = randn(b, s, d)
+        h = randn(b, s, d)
+        a = randn(b, s, d)
+        g = randn(b, s, mlp)
+        qkv = randn(b, s, 3 * d)
+        attn_flops = 4.0 * b * heads * s * s * (d // heads)
         cases = [  # name, variant, (kernel, twin), args, kwargs, bound, library call
             ("layernorm", "ln", (vb.layernorm, vb.layernorm_reference),
              (x, p["ln1_scale"], p["ln1_bias"], EPS), {},
-             work(f32_flops=8.0 * m * D, nbytes=4.0 * m * D + 8.0 * D), None),
+             work(f32_flops=8.0 * m * d, nbytes=4.0 * m * d + 8.0 * d), None),
             ("gemm_bias_act_residual", "qkv",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (h, p["qkv_w"], p["qkv_b"]), {}, gemm_work(m, D, 3 * D), None),
+             (h, p["qkv_w"], p["qkv_b"]), {}, gemm_work(m, d, 3 * d), None),
             ("gemm_bias_act_residual", "out_proj+residual",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (a, p["out_w"], p["out_b"]), {"residual": x}, gemm_work(m, D, D, 1), None),
+             (a, p["out_w"], p["out_b"]), {"residual": x}, gemm_work(m, d, d, 1), None),
             ("gemm_bias_act_residual", "fc1+gelu",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (h, p["fc1_w"], p["fc1_b"]), {"gelu": True}, gemm_work(m, D, MLP), None),
+             (h, p["fc1_w"], p["fc1_b"]), {"gelu": True}, gemm_work(m, d, mlp), None),
             ("gemm_bias_act_residual", "fc2+residual",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (g, p["fc2_w"], p["fc2_b"]), {"residual": x}, gemm_work(m, MLP, D, 1), None),
-            ("attention", "core", (vb.attention, vb.attention_reference), (qkv, HEADS), {},
-             work(bf16_flops=attn_flops, nbytes=2.0 * m * 4 * D),
-             sdpa_calls(torch, qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], HEADS, None)),
+             (g, p["fc2_w"], p["fc2_b"]), {"residual": x}, gemm_work(m, mlp, d, 1), None),
+            ("attention", "core", (vb.attention, vb.attention_reference), (qkv, heads), {},
+             work(bf16_flops=attn_flops, nbytes=2.0 * m * 4 * d),
+             sdpa_calls(torch, qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], heads, None)),
             ("attention_block", "block",
-             (vb.attention_block_fused, vb.attention_block_reference), (x, p, HEADS, EPS), {},
-             work(bf16_flops=2.0 * m * D * 4 * D + attn_flops,
-                  nbytes=4.0 * m * D + 8.0 * D * D + 4.0 * 6 * D), None),
+             (vb.attention_block_fused, vb.attention_block_reference), (x, p, heads, EPS), {},
+             work(bf16_flops=2.0 * m * d * 4 * d + attn_flops,
+                  nbytes=4.0 * m * d + 8.0 * d * d + 4.0 * 6 * d), None),
             ("mlp_block", "block", (vb.mlp_block_fused, vb.mlp_block_reference),
              (x, p, EPS), {},
-             work(bf16_flops=4.0 * m * D * MLP,
-                  nbytes=4.0 * m * D + 4.0 * D * MLP + 4.0 * (MLP + 3 * D)), None),
+             work(bf16_flops=4.0 * m * d * mlp,
+                  nbytes=4.0 * m * d + 4.0 * d * mlp + 4.0 * (mlp + 3 * d)), None),
         ]
         for name, variant, (kernel, twin), args, kwargs, bound, library in cases:
             got = kernel(*args, **kwargs)
             want = twin(*args, **kwargs)
             torch.cuda.synchronize()
+            what = f"{name}[{variant}] {label} B={b}"
             if got.shape != want.shape or got.dtype != torch.bfloat16:
-                raise AssertionError(f"{name}[{variant}] B={b}: got {got.shape} {got.dtype}")
+                raise AssertionError(f"{what}: got {got.shape} {got.dtype}")
             if not torch.isfinite(got).all():
-                raise AssertionError(f"{name}[{variant}] B={b}: non-finite output")
+                raise AssertionError(f"{what}: non-finite output")
             err = (got.float() - want.float()).abs().max().item()
             tol = REL_TOL * max(1.0, want.float().abs().max().item())
-            print(f"kernel {name}[{variant}] B={b}: max_abs_err {err} bound {tol}", flush=True)
+            print(f"kernel {what}: max_abs_err {err} bound {tol}", flush=True)
             if not err <= tol:
-                raise AssertionError(f"{name}[{variant}] B={b}: max_abs_err {err} > {tol}")
+                raise AssertionError(f"{what}: max_abs_err {err} > {tol}")
             table.error(name, err)
-            if b == B:
+            if timed:
                 iters = 10 if name.endswith("block") else 20
                 ms, plain_ms = time_pair(
                     torch, lambda: kernel(*args, **kwargs), lambda: twin(*args, **kwargs), iters)
                 lib_ms = None if library is None else time_one(torch, library, iters)
-                print(f"time {name}[{variant}] B={b}: kernel {ms} ms, plain {plain_ms} ms, "
+                print(f"time {what}: kernel {ms} ms, plain {plain_ms} ms, "
                       f"bound {max(bound)} ms, library {lib_ms} ms ({card})", flush=True)
-                # The GEMM entry sums its four epilogues: one layer's GEMMs.
+                # The GEMM entry sums its four epilogues: one layer's GEMMs;
+                # every entry sums its B/16 and L/14 cases.
                 table.timed(name, ms, plain_ms, bound, lib_ms)
+        del x, h, a, g, qkv, got, want
+    del weights
+    torch.cuda.empty_cache()
 
 
 def slice_phase(torch, np, vb, cli_serve, card: str):
@@ -448,10 +506,13 @@ def slice_phase(torch, np, vb, cli_serve, card: str):
     if service.model.dtype != torch.bfloat16:
         raise AssertionError(f"compute dtype {service.model.dtype}, expected bf16 on CUDA")
 
+    from dclip_tpu_torch.kernels import topk as tk
+
     rng = np.random.RandomState(1)
     images = [rng.randint(0, 256, (cfg.vision.image_size,) * 2 + (3,), np.uint8)
               for _ in range(8)]
     vb.reset_launches()
+    tk.reset_launches()
     print("slice: warmup", json.dumps(service.warmup()), f"({card})", flush=True)
     if cli_serve.selftest(service, args) != 0:
         raise AssertionError("serve --selftest failed")
@@ -492,7 +553,56 @@ def slice_phase(torch, np, vb, cli_serve, card: str):
           f"mean {cos.mean()} bound {COS_BOUND}", flush=True)
     if not cos.min() >= COS_BOUND:
         raise AssertionError(f"image cosine {cos.min()} < {COS_BOUND}")
+    launches["topk_streamed"] = search_phase(torch, np, service, card)
+    print(f"slice: K12 launches {launches['topk_streamed']} (the selftest's search + "
+          f"{SEARCH_CALLS} index searches)", flush=True)
+    if launches["topk_streamed"] != 1 + SEARCH_CALLS:
+        raise AssertionError(f"K12 launches {launches['topk_streamed']} != {1 + SEARCH_CALLS}")
     return service, args, launches
+
+
+def search_phase(torch, np, service, card: str):
+    """`ClipService.search` over a 1,000,000-row index of seeded unit keys:
+    SEARCH_CALLS searches of 64 text queries, each copying the host keys to
+    the card as the service does, timed end to end; every result equal to
+    K12's on a device-resident copy of the keys (deterministic). Returns
+    the K12 launch count after the searches."""
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+    from dclip_tpu_torch.kernels import topk as tk
+    from dclip_tpu_torch.serve.service import ClipService
+
+    dim = service.cfg.projection_dim
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    keys_dev = torch.randn((SEARCH_N, dim), generator=gen, device="cuda")
+    keys_dev /= keys_dev.norm(dim=-1, keepdim=True)
+    store = EmbeddingStore.from_arrays(keys_dev.cpu().numpy(),
+                                       ids=[f"img{i}" for i in range(SEARCH_N)])
+    big = ClipService(service.model, service.cfg, service.tokenizer, index=store,
+                      device=service.device)
+    texts = [f"a photo of object {i} on a table" for i in range(SEARCH_Q)]
+    queries = big.encode_texts(texts)
+    launched = tk.LAUNCHES["topk_streamed"]
+    seconds = []
+    for _ in range(SEARCH_CALLS):
+        t0 = time.perf_counter()
+        hits = big.search(queries, k=SEARCH_K)
+        seconds.append(time.perf_counter() - t0)
+    path_launches = tk.LAUNCHES["topk_streamed"]
+    if path_launches - launched != SEARCH_CALLS:
+        raise AssertionError("ClipService.search did not launch K12 once per call")
+    # The comparison's own launch is not the path's: counted above.
+    want_s, want_i = tk.topk_streamed(torch.from_numpy(queries).cuda(), keys_dev, SEARCH_K)
+    got_i = np.asarray([[int(h[0][3:]) for h in row] for row in hits])
+    got_s = np.asarray([[h[1] for h in row] for row in hits], np.float32)
+    if not (np.array_equal(got_i, want_i.cpu().numpy())
+            and np.array_equal(got_s, want_s.cpu().numpy())):
+        raise AssertionError("ClipService.search differs from K12 on the device-resident keys")
+    print(f"search: ClipService.search, {SEARCH_Q} queries x {SEARCH_N} keys x {dim}, "
+          f"k={SEARCH_K}, end to end with the host-to-card key copy: "
+          f"{json.dumps([1e3 * x for x in seconds])} ms ({card})", flush=True)
+    del big, store, keys_dev
+    torch.cuda.empty_cache()
+    return path_launches
 
 
 def _bound_check(torch, name, got, want, tol, with_one=True):
@@ -821,13 +931,14 @@ def _all_modules():
         distill_loss,
         mlp_frozen,
         mlp_trainable,
+        topk,
         trainable_ops,
         vit_attention,
         vit_block,
     )
 
     return (vit_block, vit_attention, mlp_frozen, distill_loss, cross_attention, _build,
-            mlp_trainable, attn_block_trainable, trainable_ops)
+            mlp_trainable, attn_block_trainable, trainable_ops, topk)
 
 
 def _reset_all_launches():
@@ -1020,9 +1131,38 @@ def uncached_slice_phase(torch, np, sd, tsd, card: str):
     profile_steps(torch, trainer, batch, card, steps=1,
                   spans=("dclip.h2d", "dclip.crop", "dclip.region_encode", "dclip.teacher_text",
                          "dclip.cross_attention", "dclip.student_step"))
+    launches["topk_streamed"] = gated_step(torch, np, trainer, batch, ms, card)
     del trainer
     torch.cuda.empty_cache()
     return launches, ms
+
+
+def gated_step(torch, np, trainer, batch, ungated_ms, card: str):
+    """One more uncached step with the teacher's k-NN gate on: a GATE_N-row
+    store of seeded unit keys (`knn_store`), so K12 runs once per step on
+    the B x P = GATE_Q patch embeddings. Returns K12's launches."""
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    keys = torch.randn((GATE_N, trainer.teacher_clip_config.projection_dim), generator=gen,
+                       device="cuda")
+    trainer._init_knn_gate(EmbeddingStore.from_arrays((keys / keys.norm(dim=-1, keepdim=True))
+                                                      .cpu().numpy()))
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    loss = float(trainer.train_step_on_batch(batch)["loss"])
+    torch.cuda.synchronize()
+    gated_ms = 1e3 * (time.perf_counter() - t0)
+    launches = _all_launches()
+    expected = _expected({**_uncached_per_step(trainer), "topk_streamed": 1}, 1)
+    print(f"gated: one uncached step with the k-NN gate over {GATE_N} keys: {gated_ms} ms "
+          f"(ungated mean {ungated_ms} ms), loss {loss}, launches {json.dumps(launches)} "
+          f"({card})", flush=True)
+    if launches != expected or not np.isfinite(loss):
+        raise AssertionError(f"gated step: launches {launches} != {expected}, loss {loss}")
+    trainer._init_knn_gate(None)
+    return launches["topk_streamed"]
 
 
 def cache_levels_phase(torch, np, sd, tsd, card: str):
@@ -1588,6 +1728,261 @@ def fit_phase(torch, np, sd, tsd, card: str):
     torch.cuda.empty_cache()
 
 
+# -- K12 and the eval paths ------------------------------------------------------------
+
+
+def _hold_topk(torch, name, got, queries, store, k, table=None):
+    """K12's result against its twin's top-(k + 1) on the same inputs:
+    scores within TOPK_TOL * max(1, |twin|), indices equal wherever the
+    twin's neighbouring scores are further apart than that, exact ties in
+    ascending row order. Returns the largest score error."""
+    from dclip_tpu_torch.kernels import topk as tk
+
+    gs, gi = got
+    ws, wi = tk.topk_streamed_reference(queries, store, k + 1)
+    torch.cuda.synchronize()
+    k = min(k, store.shape[0])
+    if gs.shape != (queries.shape[0], k) or gi.dtype != torch.int32:
+        raise AssertionError(f"{name}: got {tuple(gs.shape)} {gi.dtype}")
+    tol = TOPK_TOL * ws.abs().clamp_min(1.0)
+    err = (gs - ws[:, :k]).abs().max().item()
+    gaps = ws[:, :-1] - ws[:, 1:]
+    inf = torch.full_like(ws[:, :1], float("inf"))
+    apart = (torch.cat([inf, gaps], 1)[:, :k] > tol[:, :k]) & \
+        (torch.cat([gaps, inf], 1)[:, :k] > tol[:, :k])
+    same = torch.equal(gi[apart], wi[:, :k][apart])
+    tied = gs[:, 1:] == gs[:, :-1]
+    ordered = bool((gi[:, 1:][tied] > gi[:, :-1][tied]).all())
+    print(f"kernel topk_streamed[{name}]: max_abs_err {err} bound {TOPK_TOL} * max(1, |twin|); "
+          f"indices equal at {int(apart.sum())} of {apart.numel()} separated positions: {same}; "
+          f"{int(tied.sum())} exact ties in row order: {ordered}", flush=True)
+    if not ((gs - ws[:, :k]).abs() <= tol[:, :k]).all() or not same or not ordered:
+        raise AssertionError(f"topk_streamed[{name}] disagrees with its twin")
+    if table is not None:
+        table.error("topk_streamed", err)
+    return err
+
+
+def topk_kernel_phase(torch, np, card: str, table: KernelTable):
+    """K12 against its twin at the serving search's and the k-NN gate's
+    shapes, timed beside torch.matmul + torch.topk, and its edge cases."""
+    from dclip_tpu_torch.kernels import topk as tk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def unit(*shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return x / x.norm(dim=-1, keepdim=True)
+
+    for name, (nq, n, k) in (("serving search", (SEARCH_Q, SEARCH_N, SEARCH_K)),
+                             ("k-NN gate", (GATE_Q, GATE_N, GATE_K))):
+        d = 512
+        q, s = unit(nq, d), unit(n, d)
+        got = tk.topk_streamed(q, s, k)
+        _hold_topk(torch, f"{name} {nq}x{n}x{d} k={k}", got, q, s, k, table)
+        again = tk.topk_streamed(q, s, k)
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"topk_streamed[{name}]: two runs differ")
+
+        def library():  # f32 matmul: TF32 is off (main)
+            return torch.topk(q @ s.T, k, dim=-1)
+
+        bound = work(f32_flops=2.0 * nq * n * d, nbytes=4.0 * (n * d + nq * d) + 8.0 * nq * k)
+        ms, plain_ms = time_pair(torch, lambda: tk.topk_streamed(q, s, k),
+                                 lambda: tk.topk_streamed_reference(q, s, k), 5)
+        lib_ms = time_one(torch, library, 5)
+        print(f"time topk_streamed[{name}]: kernel {ms} ms, plain {plain_ms} ms, bound "
+              f"{max(bound)} ms ({'operations' if bound[0] >= bound[1] else 'bytes'}), library "
+              f"(torch.matmul + torch.topk) {lib_ms} ms ({card})", flush=True)
+        table.timed("topk_streamed", ms, plain_ms, bound, lib_ms)
+        del q, s, got, again
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(13)
+    base = rng.standard_normal((3000, 64)).astype("float32")
+    base /= np.linalg.norm(base, axis=-1, keepdims=True)
+    dup = torch.from_numpy(np.concatenate([base, base[:100], base[:100]])).to(dev)
+    queries = torch.from_numpy(base[:100]).to(dev)
+    edge = [  # name, queries, store, k
+        ("ragged N (not a chunk multiple)", unit(37, 512), unit(100_037, 512), 7),
+        ("all-negative scores", -torch.from_numpy(np.abs(rng.standard_normal((5, 16))))
+         .float().to(dev), torch.from_numpy(np.abs(rng.standard_normal((1300, 16)))).float()
+         .to(dev), 5),
+        ("k > N", unit(9, 32), unit(4, 32), 10),
+        ("duplicated rows", queries, dup, 4),
+        ("k = 64, D = 30 (padded)", unit(70, 30), unit(9_000, 30), 64),
+        ("k = 150 (three rounds)", unit(70, 30), unit(9_000, 30), 150),
+        ("one tie across round bounds", queries[:3], dup[:1].expand(200, -1).contiguous(), 150),
+    ]
+    for name, qe, se, k in edge:
+        got = tk.topk_streamed(qe, se, k)
+        _hold_topk(torch, name, got, qe, se, k, table)
+        if name == "all-negative scores" and not (got[0] < 0).all():
+            raise AssertionError("all-negative case: a non-negative score was selected")
+        if name == "duplicated rows":
+            r = torch.arange(100, device=dev, dtype=torch.int32)
+            if not torch.equal(got[1][:, :3], torch.stack([r, r + 3000, r + 3100], 1)):
+                raise AssertionError("duplicated rows: the tie did not go to the lower row")
+        if name == "one tie across round bounds" and not torch.equal(
+                got[1], torch.arange(k, device=dev, dtype=torch.int32).expand(3, k)):
+            raise AssertionError("200 equal rows: the rounds did not rank them in row order")
+    torch.cuda.empty_cache()
+
+
+def _eval_pixels(np, n, size, seed):
+    """n seeded preprocessed images: uint8 noise through the CLIP
+    normalization of `data.pipeline.preprocess_image`, NHWC f32."""
+    from dclip_tpu_torch.ops.image_ops import CLIP_MEAN, CLIP_STD
+
+    u8 = np.random.RandomState(seed).randint(0, 256, (n, size, size, 3), np.uint8)
+    return ((u8.astype(np.float32) / 255.0 - np.asarray(CLIP_MEAN, np.float32))
+            / np.asarray(CLIP_STD, np.float32))
+
+
+def _route_cosine(torch, np, model, pixels, what):
+    """Image features of the bf16 route (K1 / K2) against the f32 module
+    route on the card, on the same weights: per-row cosine."""
+    from dclip_tpu_torch.kernels import vit_block as vb
+    from dclip_tpu_torch.models.clip import CLIPModule
+    from dclip_tpu_torch.models.encoding import make_image_encoder
+
+    f32 = CLIPModule(model.cfg, dtype=torch.float32, device="meta")
+    f32.load_state_dict(model.state_dict(), strict=True, assign=True)
+    feats = {}
+    for dtype, m in (("bfloat16", model), ("float32", f32.eval())):
+        vb.reset_launches()
+        feats[dtype] = make_image_encoder(m, batch_size=len(pixels))(pixels)
+        torch.cuda.synchronize()
+        if (vb.LAUNCHES["image_features"] > 0) != (dtype == "bfloat16"):
+            raise AssertionError(f"{what}: the {dtype} route launched {vb.LAUNCHES}")
+    a, b = feats["bfloat16"], feats["float32"]
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    print(f"{what}: bf16 kernels vs f32 module route on the card, {len(pixels)} images: per-row "
+          f"cosine min {cos.min()} mean {cos.mean()} bound {COS_BOUND}", flush=True)
+    if not cos.min() >= COS_BOUND:
+        raise AssertionError(f"{what}: image cosine {cos.min()} < {COS_BOUND}")
+
+
+def eval_retrieval_phase(torch, np, card: str):
+    """The retrieval eval at ViT-B/16 and Karpathy-test scale on the card."""
+    from dclip_tpu_torch.cli.common import load_clip
+    from dclip_tpu_torch.data.tokenizer import HashTokenizer
+    from dclip_tpu_torch.eval.retrieval import embed_captions
+    from dclip_tpu_torch.kernels import vit_block as vb
+    from dclip_tpu_torch.models.encoding import make_image_encoder
+    from dclip_tpu_torch.ops import retrieval as ret
+
+    cfg, model = load_clip("vit-b-16", "random", 0, "bfloat16", "cuda")
+    # vocab_size = the preset's, so the tokenizer's EOS id is the model's.
+    tok = HashTokenizer(vocab_size=cfg.text.vocab_size, max_length=cfg.text.max_length)
+    pixels = _eval_pixels(np, EVAL_IMAGES, cfg.vision.image_size, 19)
+    rng = np.random.RandomState(19)
+    words = [f"w{i}" for i in range(400)]
+    captions = [" ".join(rng.choice(words, rng.randint(8, 25)))
+                for _ in range(EVAL_IMAGES * EVAL_CAPS_PER_IMAGE)]
+    c2i = np.repeat(np.arange(EVAL_IMAGES), EVAL_CAPS_PER_IMAGE)
+
+    vb.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = make_image_encoder(model, batch_size=256)(list(pixels))
+    img_s = time.perf_counter() - t0
+    batches = -(-EVAL_IMAGES // 256)
+    if vb.LAUNCHES["attention_block"] != cfg.vision.num_layers * batches \
+            or vb.LAUNCHES["mlp_block"] != cfg.vision.num_layers * batches:
+        raise AssertionError(f"retrieval eval: the image encode launched {vb.LAUNCHES}")
+    t0 = time.perf_counter()
+    cap = embed_captions(model, tok, captions, batch_size=256, packed=True)
+    cap_s = time.perf_counter() - t0
+    if img.shape != (EVAL_IMAGES, cfg.projection_dim) or cap.shape != (len(captions),
+                                                                       cfg.projection_dim) \
+            or not (np.isfinite(img).all() and np.isfinite(cap).all()):
+        raise AssertionError(f"retrieval eval: embeddings {img.shape} {cap.shape} not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = ret.retrieval_metrics(cap, img, c2i, device="cuda")
+    metrics = {dd: {k: float(v) for k, v in m.items()} for dd, m in metrics.items()}
+    metrics_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"eval retrieval: ViT-B/16 bf16, {EVAL_IMAGES} images {EVAL_IMAGES / img_s} images/s "
+          f"({img_s} s), {len(captions)} captions packed {len(captions) / cap_s} captions/s "
+          f"({cap_s} s), retrieval_metrics {metrics_ms} ms ({card}); metrics "
+          f"{json.dumps(metrics)} (random weights)", flush=True)
+
+    # The ranks on the card against the CPU port's, on the same similarity.
+    c2i_dev = torch.from_numpy(c2i).cuda()
+    sim = ret.similarity_matrix(torch.from_numpy(cap).cuda(), torch.from_numpy(img).cuda())
+    ranks = (ret.t2i_ranks(sim, c2i_dev).cpu(), ret.i2t_ranks(sim, c2i_dev).cpu())
+    sim_host = sim.cpu()
+    want = (ret.t2i_ranks(sim_host, torch.from_numpy(c2i)),
+            ret.i2t_ranks(sim_host, torch.from_numpy(c2i)))
+    sim_err = (ret.similarity_matrix(torch.from_numpy(cap), torch.from_numpy(img))
+               - sim_host).abs().max().item()
+    same = all(torch.equal(a, b) for a, b in zip(ranks, want))
+    print(f"eval retrieval: t2i / i2t ranks on the card equal the CPU port's on the same "
+          f"similarity: {same}; similarity card vs CPU max |diff| {sim_err} (bound 1e-5)",
+          flush=True)
+    if not same or not sim_err <= 1e-5:
+        raise AssertionError("retrieval eval: ranks or similarity differ from the CPU port")
+    _route_cosine(torch, np, model, pixels[:EVAL_COS_IMAGES], "eval retrieval")
+    del model, sim
+    torch.cuda.empty_cache()
+
+
+def eval_zero_shot_phase(torch, np, card: str):
+    """Zero-shot classification at ViT-L/14, the zero-shot CLI's default
+    preset, on the card: K1 / K2 at L/14 widths."""
+    from dclip_tpu_torch.cli.common import load_clip
+    from dclip_tpu_torch.data.tokenizer import HashTokenizer
+    from dclip_tpu_torch.eval.zero_shot import IMAGENET_PROMPT, embed_classnames, evaluate_zero_shot
+    from dclip_tpu_torch.kernels import vit_block as vb
+    from dclip_tpu_torch.models.encoding import image_forward, zero_shot_logits
+    from dclip_tpu_torch.ops.retrieval import stable_topk
+
+    t0 = time.perf_counter()
+    cfg, model = load_clip("vit-l-14", "random", 0, "bfloat16", "cuda")
+    print(f"eval zero-shot: ViT-L/14 random weights built in {time.perf_counter() - t0} s",
+          flush=True)
+    tok = HashTokenizer(vocab_size=cfg.text.vocab_size, max_length=cfg.text.max_length)
+    names = [f"object kind {i}" for i in range(ZS_CLASSES)]
+    text = embed_classnames(model, tok, names, IMAGENET_PROMPT)
+    pixels = _eval_pixels(np, ZS_IMAGES, cfg.vision.image_size, 20)
+    labels = np.random.RandomState(20).randint(0, ZS_CLASSES, ZS_IMAGES)
+
+    def batches():
+        for i in range(0, ZS_IMAGES, ZS_BATCH):
+            yield pixels[i:i + ZS_BATCH], labels[i:i + ZS_BATCH]
+
+    evaluate_zero_shot(model, text, [next(batches())], log_every=0)  # warm
+    vb.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = evaluate_zero_shot(model, text, batches(), log_every=0)
+    seconds = time.perf_counter() - t0
+    steps = ZS_IMAGES // ZS_BATCH
+    if vb.LAUNCHES["attention_block"] != cfg.vision.num_layers * steps:
+        raise AssertionError(f"zero-shot eval: launches {vb.LAUNCHES}")
+    # The same logits (deterministic kernels), their top-5 on the host.
+    fwd = image_forward(model)
+    c1 = c5 = 0
+    for px, lab in batches():
+        logits = zero_shot_logits(fwd, torch.from_numpy(px).cuda(), text)
+        _, top = stable_topk(logits, 5)
+        host = np.argsort(-logits.cpu().numpy(), axis=1, kind="stable")[:, :5]
+        if not np.array_equal(top.cpu().numpy(), host):
+            raise AssertionError("zero-shot eval: top-5 differs from the host's stable top-k")
+        c1 += int((host[:, 0] == lab).sum())
+        c5 += int((host == lab[:, None]).any(axis=1).sum())
+    print(f"eval zero-shot: ViT-L/14 bf16, {ZS_CLASSES} classes, {ZS_IMAGES} images in batches "
+          f"of {ZS_BATCH}: {ZS_IMAGES / seconds} images/s ({seconds} s); top-1 {res['top1']} "
+          f"top-5 {res['top5']} (random weights; host replay {c1}, {c5}) ({card})", flush=True)
+    if (res["top1"], res["top5"], res["total"]) != (c1 / ZS_IMAGES, c5 / ZS_IMAGES, ZS_IMAGES):
+        raise AssertionError(f"zero-shot eval: {res} != the host's top-k ({c1}, {c5})")
+    _route_cosine(torch, np, model, pixels[:ZS_COS_IMAGES], "eval zero-shot")
+    del model, text, fwd
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1623,7 +2018,7 @@ def main() -> int:
           f"{json.dumps(loader_launches)}", flush=True)
 
     table = KernelTable(list(KERNELS) + list(TRAIN_KERNELS) + list(TEACHER_KERNELS)
-                        + list(TRAINABLE_KERNELS))
+                        + list(TRAINABLE_KERNELS) + list(TOPK_KERNELS))
     kernel_phase(torch, vb, card, table)
     service, args, launches = slice_phase(torch, np, vb, cli_serve, card)
     cli_serve.bench(service, args, concurrencies=(1, 32))
@@ -1634,6 +2029,9 @@ def main() -> int:
     xattn_kernel_phase(torch, np, card, table)
     trainable_kernel_phase(torch, np, card, table)
     l14_frozen_mlp_phase(torch, np, card)
+    topk_kernel_phase(torch, np, card, table)
+    eval_retrieval_phase(torch, np, card)
+    eval_zero_shot_phase(torch, np, card)
     from dclip_tpu_torch.core import CLIPConfig
     from dclip_tpu_torch.models.weights import random_state_dict, random_teacher_state_dict
 
@@ -1660,8 +2058,10 @@ def main() -> int:
     counts = {**{n: launches[n] for n in KERNELS}, **{n: train_launches[n] for n in TRAIN_KERNELS},
               **{n: uncached_launches[n] for n in TEACHER_KERNELS if n in uncached_launches},
               "loader_self_check": loader_launches["loader_self_check"],
-              **{n: fused_launches[n] for n in TRAINABLE_KERNELS}}
-    sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS, **TRAINABLE_KERNELS}
+              **{n: fused_launches[n] for n in TRAINABLE_KERNELS},
+              "topk_streamed": launches["topk_streamed"] + uncached_launches["topk_streamed"]}
+    sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS, **TRAINABLE_KERNELS,
+               **TOPK_KERNELS}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **table.entry(name)}
                for name, (src, rep) in sources.items()]

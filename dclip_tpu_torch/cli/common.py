@@ -6,11 +6,12 @@ Every entry point takes the same flags as the JAX package's:
                    (seeded N(0, 0.02) weights; there is no download path)
   --tokenizer_dir  dir containing vocab.json + merges.txt, or 'hash'
 plus `--device` (default `cuda`; `cpu` only when asked for).
+`restore_student_params` reads the port's own checkpoints.
 """
 from __future__ import annotations
 
 import argparse
-from typing import Tuple, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import torch
 
@@ -93,3 +94,39 @@ def load_tokenizer(tokenizer_dir: str, max_length: int = 77):
     from dclip_tpu_torch.data.tokenizer import CLIPTokenizer
 
     return CLIPTokenizer.from_pretrained_dir(tokenizer_dir, max_length=max_length)
+
+
+def restore_student_params(checkpoint: str, template: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """The student CLIP's state dict from a checkpoint of the port's
+    `train.checkpoint.CheckpointManager` (counterpart of
+    `dclip_tpu/cli/common.py:172-182`, which reads flax msgpack).
+
+    `checkpoint`: a trainer checkpoint file (`checkpoint_state()`, the
+    parameters under "params"), a file holding a plain state dict, or a
+    checkpoint directory (its latest regular checkpoint). Every tensor of
+    `template` (the model's `state_dict()`) must be present with its shape;
+    the result has the template's names, dtypes and devices."""
+    import os
+
+    from dclip_tpu_torch.train.checkpoint import CheckpointManager, restore_state
+
+    if os.path.isdir(checkpoint):
+        state = CheckpointManager(checkpoint).restore()
+    else:
+        state = restore_state(checkpoint)
+    if isinstance(state, dict) and isinstance(state.get("params"), dict):
+        state = state["params"]
+    missing = sorted(set(template) - set(state))
+    extra = sorted(set(state) - set(template))
+    if missing or extra:
+        raise ValueError(f"{checkpoint}: not a checkpoint of this model: missing {missing[:5]}, "
+                         f"unexpected {extra[:5]}")
+    out = {}
+    for name, t in template.items():
+        v = state[name]
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"{checkpoint}: {name} has shape {tuple(v.shape)}, the model "
+                             f"{tuple(t.shape)}")
+        out[name] = v.to(dtype=t.dtype, device=t.device)
+    return out

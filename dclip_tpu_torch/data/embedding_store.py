@@ -107,6 +107,24 @@ class EmbeddingStore:
     def ids(self) -> List[str]:
         return list(self._ids)
 
+    @classmethod
+    def from_arrays(cls, keys: np.ndarray, values: Optional[np.ndarray] = None,
+                    positions: Optional[np.ndarray] = None,
+                    ids: Optional[Sequence[str]] = None) -> "EmbeddingStore":
+        """A store holding these rows as given (keys are not renormalized,
+        as `load` does not): keys and values [N, D], positions [N, 4], ids
+        (default "0", "1", ...)."""
+        keys = np.asarray(keys, np.float32)
+        n = keys.shape[0]
+        values = keys if values is None else np.asarray(values, np.float32)
+        positions = (np.zeros((n, 4), np.float32) if positions is None
+                     else np.asarray(positions, np.float32))
+        store = cls(dim=keys.shape[1])
+        store._keys, store._values, store._positions = list(keys), list(values), list(positions)
+        store._ids = [str(i) for i in range(n)] if ids is None else list(ids)
+        store._packed = (keys, values, positions)
+        return store
+
     # -- persistence ------------------------------------------------------------
 
     def save(self, path: str) -> None:
@@ -142,29 +160,18 @@ class EmbeddingStore:
 
     @classmethod
     def load(cls, path: str) -> "EmbeddingStore":
+        names = ("keys", "values", "positions")
         if path.endswith(".dcs"):
             from dclip_tpu_torch import native
 
             s = native.NativeKVStore(path)
             try:
-                store = cls(dim=int(s.get("dim").decode()))
                 ids = json.loads(s.get("ids").decode())
-                keys = s.get_array("keys")
-                values = s.get_array("values")
-                positions = s.get_array("positions")
+                arrays = [s.get_array(k) for k in names]
             finally:
                 s.close()
-            store._keys = [k for k in keys]
-            store._values = [v for v in values]
-            store._positions = [p for p in positions]
-            store._ids = ids
-            return store
-        with np.load(path, allow_pickle=False) as z:
-            store = cls(dim=int(z["dim"]))
-            ids = json.loads(str(z["ids"]))
-            keys, values, positions = z["keys"], z["values"], z["positions"]
-        store._keys = [k for k in keys]
-        store._values = [v for v in values]
-        store._positions = [p for p in positions]
-        store._ids = ids
-        return store
+        else:
+            with np.load(path, allow_pickle=False) as z:
+                ids = json.loads(str(z["ids"]))
+                arrays = [z[k] for k in names]
+        return cls.from_arrays(*arrays, ids=ids)

@@ -82,6 +82,12 @@ _SIGNATURES = {
     # x0, a0, s0, b0, y0, rows0, x1, a1, s1, b1, y1, rows1, d, eps, stream
     "dclip_add_layernorm_f32": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F,
                                 _P],
+    # queries, store, after_s, after_i, part_s, part_i, out_s, out_i, ld, nq,
+    # n, d, k, rows_per_chunk, chunks, stream
+    "dclip_topk_streamed_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P],
+    # k, out: int blocks of pass 1 one SM holds
+    "dclip_topk_blocks_per_sm": [_I, _P],
     # x, y, n, stream
     "dclip_probe_x2": [_P, _P, _I, _P],
 }

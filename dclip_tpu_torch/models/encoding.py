@@ -1,0 +1,92 @@
+"""Batched encode helpers shared by the eval paths (counterpart of
+`dclip_tpu/models/encoding.py:33-158`).
+
+PyTorch runs eagerly, so the JAX module's memoized jits become plain
+functions of a model that holds its weights, run without gradients on the
+model's device. The image route keeps the JAX rule (`encoding.py:118-125`):
+a bf16 model on the card runs `kernels.vit_block.fused_image_features`
+(K1 / K2, bf16 only); every other case (f32, the CPU) runs the module
+path, `CLIPModule.image_features`.
+"""
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from dclip_tpu_torch.kernels.vit_block import fused_image_features
+from dclip_tpu_torch.models.clip import CLIPModule
+from dclip_tpu_torch.ops.losses import l2_normalize
+
+
+def model_device(model: CLIPModule) -> torch.device:
+    return next(model.parameters()).device
+
+
+def image_forward(model: CLIPModule) -> Callable[[torch.Tensor], torch.Tensor]:
+    """pixels NHWC on the model's device -> image features [B, P]. The
+    route rule: K1 / K2 for a bf16 model on CUDA (its weights packed once,
+    here), else the module path."""
+    if model_device(model).type == "cuda" and model.dtype == torch.bfloat16:
+        with torch.no_grad():
+            weights = model.pack_image_weights()
+        return lambda px: fused_image_features(model.cfg, weights, px)
+    return model.image_features
+
+
+def text_forward(model: CLIPModule, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+    """[B, T] ids and mask (host) -> text features [B, P] on the device."""
+    dev = model_device(model)
+    with torch.inference_mode():
+        return model.get_text_features(torch.as_tensor(np.asarray(ids), device=dev),
+                                       torch.as_tensor(np.asarray(mask), device=dev))
+
+
+def packed_text_forward(model: CLIPModule, packed: dict) -> torch.Tensor:
+    """Text features of a packed batch (`ops.packing.pack_captions`), in
+    caption order: the numbers of `text_forward` on the unpacked batch."""
+    dev = model_device(model)
+    keys = ("packed_ids", "packed_segments", "packed_positions", "packed_eos_rows",
+            "packed_eos_cols")
+    with torch.inference_mode():
+        return model.get_packed_text_features(
+            *(torch.as_tensor(np.asarray(packed[k]), device=dev) for k in keys))
+
+
+def zero_shot_logits(image_fn: Callable[[torch.Tensor], torch.Tensor], pixels: torch.Tensor,
+                     text_features: torch.Tensor) -> torch.Tensor:
+    """[B, C] = 100 * normalized image features @ text_features.T in f32
+    (`encoding.py:65-79`); `image_fn` from `image_forward`."""
+    with torch.inference_mode():
+        img = l2_normalize(image_fn(pixels).float())
+        return 100.0 * img @ text_features.float().T
+
+
+def make_image_encoder(model: CLIPModule, batch_size: int = 256, mesh=None
+                       ) -> Callable[[Sequence[np.ndarray]], np.ndarray]:
+    """encode(pixels): a list / array of preprocessed NHWC images -> [N, P]
+    f32 features on the host, in batches of `batch_size` (the tail batch
+    zero-padded, as the JAX encoder pads to one compiled shape)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_image_encoder(mesh=...): multi-device eval is ROADMAP Queue 1 item 10")
+    fwd = image_forward(model)
+    dev = model_device(model)
+
+    def encode(pixels: Sequence[np.ndarray]) -> np.ndarray:
+        out = []
+        for start in range(0, len(pixels), batch_size):
+            chunk = np.stack(pixels[start:start + batch_size])
+            n = chunk.shape[0]
+            if n < batch_size:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((batch_size - n,) + chunk.shape[1:], chunk.dtype)])
+            with torch.inference_mode():
+                feats = fwd(torch.as_tensor(chunk, device=dev))
+            out.append(feats[:n].float().cpu().numpy())
+        if not out:
+            return np.zeros((0, model.cfg.projection_dim), np.float32)
+        return np.concatenate(out, 0)
+
+    return encode

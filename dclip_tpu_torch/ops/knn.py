@@ -1,9 +1,12 @@
 """Exact inner-product k-NN and the k-NN gate of the teacher's patch
 embeddings (counterpart of `dclip_tpu/ops/knn.py:42-56, 95-140`).
 
-On the JAX side these are XLA einsums plus `top_k` (no Pallas kernel), so
-here they are plain torch on the device the tensors live on. Gate
-semantics, per query:
+`knn_search` is the XLA einsum + `top_k` of the JAX package, computed
+without the [Q, N] score matrix: on CUDA tensors it launches K12
+(`kernels.topk.topk_streamed`, the counterpart of the Pallas
+`topk_streamed`), on CPU tensors its plain twin. Both break ties as
+`jax.lax.top_k` does: the lower store index first. Gate semantics, per
+query:
   top-1 score >= threshold -> the stored neighbour's value   (source 0)
   else                     -> the raw normalized query       (source 2)
 (source 1, the projection head's output, waits for ROADMAP Queue 1 item 9).
@@ -14,6 +17,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from dclip_tpu_torch.kernels.topk import topk_streamed
 from dclip_tpu_torch.ops.losses import l2_normalize
 
 SOURCE_KNN = 0
@@ -29,11 +33,18 @@ class KNNResult(NamedTuple):
 
 def knn_search(queries: torch.Tensor, store_keys: torch.Tensor,
                k: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
-    """queries [Q, D], store_keys [N, D] -> (scores [Q, k], indices [Q, k]),
-    descending — the contract of `faiss.IndexFlatIP.search`."""
-    scores = queries.float() @ store_keys.float().T
-    return torch.topk(scores, min(k, store_keys.shape[0]), dim=-1,
-                      largest=True, sorted=True)
+    """queries [Q, D], store_keys [N, D] -> (scores [Q, k] f32, indices
+    [Q, k] int32), descending, k = min(k, N) — the contract of
+    `faiss.IndexFlatIP.search`. CUDA: any k (over 64 in rounds of 64)."""
+    return topk_streamed(queries, store_keys, k)
+
+
+def knn_search_sharded(queries, store_shard, axis: str, k: int = 3, n_valid=None):
+    """Top-k over a store sharded across devices (`dclip_tpu/ops/knn.py:59`):
+    waits for the port's multi-device paths."""
+    raise NotImplementedError(
+        "knn_search_sharded: a store sharded across devices is ROADMAP Queue 1 item 10 "
+        "(multi-device); knn_search covers one device")
 
 
 def knn_or_projection(queries: torch.Tensor, store_keys: Optional[torch.Tensor],
@@ -52,7 +63,7 @@ def knn_or_projection(queries: torch.Tensor, store_keys: Optional[torch.Tensor],
     scores, idx = knn_search(q, store_keys, k)
     top1_score, top1_idx = scores[:, 0], idx[:, 0]
     hit = top1_score >= similarity_threshold
-    retrieved = store_values[top1_idx].float()
+    retrieved = store_values[top1_idx.long()].float()
     return KNNResult(
         torch.where(hit[:, None], retrieved, q),
         torch.where(hit, SOURCE_KNN, SOURCE_CLIP).to(torch.int32),

@@ -519,3 +519,117 @@ def test_attn_block_trainable_matches_twin(cuda_device, b, s, d, heads):
     ab.attention_block_trainable(x, *ws, heads).backward(g)
     assert vb.LAUNCHES["gemm_bias_act_residual"] == 1 and vb.LAUNCHES["layernorm"] == 1
     assert ws[0].grad is None and all(w.grad is not None for w in ws[2:])
+
+
+# -- K12: the streamed top-k ------------------------------------------------------
+#
+# Scores within 1e-5 * max(1, |twin|) (f32 sums in another order than the
+# twin's matmul); indices equal wherever the twin's neighbouring scores
+# differ by more than that; exact ties (duplicated rows score bit for bit
+# alike in the kernel) go to the lower row.
+
+TOPK_TOL = 1e-5
+
+
+def _hold_topk(got, queries, store, k):
+    from dclip_tpu_torch.kernels import topk as tk
+
+    gs, gi = got
+    ws, wi = tk.topk_streamed_reference(queries, store, k + 1)  # one more: the last gap
+    torch.cuda.synchronize()
+    k = min(k, store.shape[0])
+    assert gs.shape == (queries.shape[0], k) and gs.dtype == torch.float32
+    assert gi.shape == gs.shape and gi.dtype == torch.int32
+    tol = TOPK_TOL * ws.abs().clamp_min(1.0)
+    assert ((gs - ws[:, :k]).abs() <= tol[:, :k]).all()
+    gaps = ws[:, :-1] - ws[:, 1:]
+    inf = torch.full_like(ws[:, :1], float("inf"))
+    before = torch.cat([inf, gaps], 1)[:, :k]
+    after = torch.cat([gaps, inf], 1)[:, :k]
+    apart = (before > tol[:, :k]) & (after > tol[:, :k])
+    assert torch.equal(gi[apart], wi[:, :k][apart])
+    tied = gs[:, 1:] == gs[:, :-1]
+    assert (gi[:, 1:][tied] > gi[:, :-1][tied]).all()
+    assert ((gi >= 0) & (gi < store.shape[0])).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nq,n,d,k", [(7, 1000, 36, 5), (3, 130, 30, 3), (64, 1_000_000, 512, 10),
+                                      (130, 5000, 512, 64), (5, 3, 16, 5), (20, 5000, 64, 100),
+                                      (9, 3000, 32, 200)],
+                         ids=["small", "d_pad", "serving_1m", "k64", "k_over_n", "k100_two_rounds",
+                              "k200_four_rounds"])
+def test_topk_streamed_matches_twin(cuda_device, nq, n, d, k):
+    from dclip_tpu_torch.kernels import topk as tk
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d)
+    q = torch.randn((nq, d), generator=gen, device=cuda_device)
+    s = torch.randn((n, d), generator=gen, device=cuda_device)
+    q, s = q / q.norm(dim=-1, keepdim=True), s / s.norm(dim=-1, keepdim=True)
+    tk.reset_launches()
+    got = tk.topk_streamed(q, s, k)
+    assert tk.LAUNCHES == {"topk_streamed": 1}
+    _hold_topk(got, q, s, k)
+    again = tk.topk_streamed(q, s, k)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])  # deterministic
+
+
+@pytest.mark.requires_cuda
+def test_topk_streamed_ties_and_negative_scores(cuda_device):
+    """Duplicated rows tie exactly and go to the lower row; all-negative
+    scores still beat rows past N (the TPU kernel's padding case)."""
+    from dclip_tpu_torch.kernels import topk as tk
+
+    rng = np.random.RandomState(11)
+    base = rng.standard_normal((300, 64)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=-1, keepdims=True)
+    store = np.concatenate([base, base[:40], base[:40]])  # rows r, r + 300, r + 340 equal
+    s = torch.from_numpy(store).to(cuda_device)
+    q = torch.from_numpy(base[:40]).to(cuda_device)
+    got_s, got_i = tk.topk_streamed(q, s, 4)
+    _hold_topk((got_s, got_i), q, s, 4)
+    r = torch.arange(40, device=cuda_device, dtype=torch.int32)
+    assert torch.equal(got_i[:, :3], torch.stack([r, r + 300, r + 340], 1))
+    assert (got_s[:, 0] == got_s[:, 1]).all() and (got_s[:, 1] == got_s[:, 2]).all()
+
+    neg_q = -torch.from_numpy(np.abs(rng.standard_normal((4, 16))).astype(np.float32))
+    pos_s = torch.from_numpy(np.abs(rng.standard_normal((130, 16))).astype(np.float32))
+    got = tk.topk_streamed(neg_q.to(cuda_device), pos_s.to(cuda_device), 3)
+    assert (got[0] < 0).all()
+    _hold_topk(got, neg_q.to(cuda_device), pos_s.to(cuda_device), 3)
+
+    # One tie across round bounds (k > 64): 200 equal rows rank in row order.
+    same = torch.from_numpy(np.repeat(base[:1], 200, 0)).to(cuda_device)
+    got_s, got_i = tk.topk_streamed(q[:3], same, 150)
+    assert torch.equal(got_i, torch.arange(150, device=cuda_device, dtype=torch.int32)
+                       .expand(3, 150))
+    assert (got_s == got_s[:, :1]).all()
+
+
+@pytest.mark.requires_cuda
+def test_knn_search_launches_k12(cuda_device):
+    """The search and the k-NN gate on CUDA tensors go through K12, once
+    per call, and agree with their CPU results."""
+    from dclip_tpu_torch.kernels import topk as tk
+    from dclip_tpu_torch.ops import knn
+
+    rng = np.random.RandomState(12)
+    keys = rng.standard_normal((500, 32)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=-1, keepdims=True)
+    keys[250] = keys[3]  # a tie at the top for query 0
+    queries = np.concatenate([keys[3:4] + 1e-3, rng.standard_normal((6, 32))]).astype(np.float32)
+    tk.reset_launches()
+    s, i = knn.knn_search(torch.from_numpy(queries).to(cuda_device),
+                          torch.from_numpy(keys).to(cuda_device), 5)
+    gate = knn.knn_or_projection(torch.from_numpy(queries).to(cuda_device),
+                                 torch.from_numpy(keys).to(cuda_device),
+                                 torch.from_numpy(-keys).to(cuda_device), 0.85)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {"topk_streamed": 2}
+    cs, ci = knn.knn_search(torch.from_numpy(queries), torch.from_numpy(keys), 5)
+    assert torch.equal(i.cpu(), ci) and i[0, 0].item() == 3 and i[0, 1].item() == 250
+    torch.testing.assert_close(s.cpu(), cs, rtol=0, atol=TOPK_TOL)
+    cgate = knn.knn_or_projection(torch.from_numpy(queries), torch.from_numpy(keys),
+                                  torch.from_numpy(-keys), 0.85)
+    assert torch.equal(gate.source.cpu(), cgate.source)
+    torch.testing.assert_close(gate.embeddings.cpu(), cgate.embeddings, rtol=0, atol=TOPK_TOL)
