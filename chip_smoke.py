@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training and eval paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -114,9 +114,40 @@ Phases; each one passes or raises, and any failure exits non-zero:
    images); images/s, captions/s, metrics ms.
 20. Zero-shot eval: ViT-L/14 (the zero-shot CLI's default preset, full width
    and depth, bf16), 100 class prompts, 1,024 seeded images in batches of
-   64 through `evaluate_zero_shot` (K1 / K2 at S=257, D=1024, 16 heads, MLP
-   4096): top-1 / top-5 equal to the stable top-k of the same logits on
-   the host, bf16 vs f32 features cosine >= 0.99 (32 images); images/s.
+   64 through `evaluate_zero_shot`, which runs the module route as the JAX
+   eval does (no block kernel launches): top-1 / top-5 equal to the stable
+   top-k of the same logits on the host; images/s. K1 / K2 at S=257,
+   D=1024, 16 heads, MLP 4096 (the retrieval encoder's route) against the
+   f32 module route, cosine >= 0.99 (32 images); phase 3 holds them at
+   these widths against their twins.
+21. Trainable cross-attention (`kernels.cross_attention_trainable`, K10's
+   differentiable form) at B=32 and B=256, T=77 with the synthetic batch's
+   content-token masks, P=8 with two boxless rows, D=512, 8 heads, bf16
+   inputs: the forward against its f32 twin on the live weights, the
+   gradients of both streams (one bf16 ulp) and all 12 parameters (1e-4 of
+   the largest) against autograd through the f32 module; CUDA-event times
+   of forward and backward with their bounds; two Adam steps after which
+   K10 agrees with the twin on the updated weights and the pack made
+   before the update does not.
+22. Teacher training slice (the main path of the meta-teacher slice):
+   `TeacherTrainer` at ViT-B/16 (random CLIP weights from seed 0, bf16,
+   kernels on) with the meta-teacher of phase 9, no pe cache, at B=32 (the
+   teacher CLI's default) and B=256: 2 warm-up and 5 timed steps, ms per
+   step, images/s, peak memory, exact launches (per step 12 K1 + 12 K2
+   over the B x 8 crops, 12 K3, one K10 call of 6 launches), a falling
+   loss, a torch.profiler breakdown of one B=256 step by range.
+23. Teacher fit: `TeacherTrainer.fit` at B=32, 2 epochs of 2 steps over
+   in-memory batches with host indices, an in-memory pe cache with its
+   device level, a `CheckpointManager` in a temporary directory: epoch 1
+   launches no K1 / K2 and K10 every step; ms per step of both epochs; a
+   fresh trainer's `resume` restores step, parameters and Adam state bit
+   for bit and its next update equals the uninterrupted trainer's; a
+   profile of one pe-cache-hit step.
+24. Teacher gradient agreement: one step's gradients of the 12 teacher
+   tensors at full width and depth, B=8, bf16 kernels on the card vs f32
+   twins on the CPU: global cosine >= 0.99, every tensor >= 0.95 (the
+   in_proj biases by their q and v parts; the k part, zero in exact
+   arithmetic, held below 0.1 of the q part's norm).
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type (989 TFLOP/s bf16
@@ -197,6 +228,11 @@ TEACHER_KERNELS = {
     "add_layernorm_f32": (SRC + "cross_attention.cu", XATTN),
     "loader_self_check": (SRC + "status.cu", "dclip_tpu/kernels/__init__.py:39"),
 }
+# The teacher trainer's: K10's differentiable form.
+TEACHER_TRAIN_KERNELS = {
+    "cross_attention_trainable": ("dclip_tpu_torch/kernels/cross_attention.py",
+                                  "dclip_tpu/kernels/cross_attention.py:148"),
+}
 # The fused-trainable step's kernels: K8, K9 and the GEMM modes and row
 # reductions they add.
 K8 = "dclip_tpu/kernels/mlp_trainable.py"
@@ -246,6 +282,9 @@ GRAD_NOISE_RATIO = 0.1
 # max_patches=8, max_text_tokens=77).
 TEACHER_P = 8
 AGREE_B, TARGET_COS = 2, 0.99
+# The meta-teacher slice: the CLI's default batch and bench.py's.
+TEACHER_B = XATTN_TRAIN_B = (32, 256)
+TEACHER_LR = 1e-4
 
 
 def card_line() -> str:
@@ -280,6 +319,7 @@ def import_port_modules():
                  "dclip_tpu_torch.train.distill_trainer", "dclip_tpu_torch.ops.image_ops",
                  "dclip_tpu_torch.ops.packing", "dclip_tpu_torch.kernels.topk",
                  "dclip_tpu_torch.ops.knn", "dclip_tpu_torch.ops.retrieval",
+                 "dclip_tpu_torch.train.teacher_trainer", "dclip_tpu_torch.models.cross_modal",
                  "dclip_tpu_torch.models.encoding", "dclip_tpu_torch.eval.retrieval",
                  "dclip_tpu_torch.eval.zero_shot", "dclip_tpu_torch.data.embedding_store",
                  "dclip_tpu_torch.data.tokenizer"):
@@ -972,13 +1012,13 @@ def _distill_config(batch_size, **changes):
                       teacher=_teacher_config()), **changes)
 
 
-def _batch(np, batch_size):
+def _batch(np, batch_size, seed=0, first=0):
     from dclip_tpu_torch.cli.common import synthetic_distill_batch
     from dclip_tpu_torch.core import CLIPConfig
 
     batch = synthetic_distill_batch(CLIPConfig.vit_b_16(), _teacher_config(), batch_size,
-                                    np.random.RandomState(0))
-    batch["index"] = np.arange(batch_size, dtype=np.int64)
+                                    np.random.RandomState(seed))
+    batch["index"] = np.arange(first, first + batch_size, dtype=np.int64)
     return batch
 
 
@@ -1013,7 +1053,7 @@ def _expected(per_step, steps):
     return {k: per_step.get(k, 0) * steps for k in names}
 
 
-def _run_steps(torch, np, trainer, batch, what, card):
+def _run_steps(torch, np, trainer, batch, what, card, batch_size=TRAIN_B):
     """Warm-up steps, then timed steps on the host clock ending in a
     synchronize; CUDA events between steps give each step's span on the
     device clock without a host synchronize."""
@@ -1037,7 +1077,7 @@ def _run_steps(torch, np, trainer, batch, what, card):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{what}: training loss not finite and falling: {losses}")
     ms = 1000.0 * seconds / TIMED_STEPS
-    print(f"{what}: step {ms} ms, {TRAIN_B * TIMED_STEPS / seconds} images/s (B={TRAIN_B}, "
+    print(f"{what}: step {ms} ms, {batch_size * TIMED_STEPS / seconds} images/s (B={batch_size}, "
           f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; {card})", flush=True)
     return ms
 
@@ -1728,6 +1768,316 @@ def fit_phase(torch, np, sd, tsd, card: str):
     torch.cuda.empty_cache()
 
 
+# -- the meta-teacher training path: K10's trainable form, TeacherTrainer ----------------
+
+
+def _xattn_trainable_case(torch, np, rng, b, dev):
+    """Live f32 teacher parameters (`CrossModalAttention` names), bf16
+    inputs zeroed at masked slots, the synthetic batch's content-token
+    masks and P=8 box masks with two boxless rows."""
+    from dclip_tpu_torch.core import CLIPConfig
+
+    sd = _teacher_sd(rng, torch, TEXT_D, dev)
+    params = {k[len("cross_modal_attention."):]: v.requires_grad_() for k, v in sd.items()}
+    batch = _batch(np, b)
+    ids, am = batch["input_ids"], batch["attention_mask"]
+    eos = CLIPConfig.vit_b_16().text.eos_token_id
+    tmask_np = (am > 0) & (np.arange(TEXT_S)[None] > 0) & (ids != eos)
+    tmask = torch.from_numpy(tmask_np.astype("float32")).to(dev)
+    imask_np = (rng.rand(b, TEACHER_P) > 0.25).astype("float32")
+    imask_np[:2] = 0.0
+    imask = torch.from_numpy(imask_np).to(dev)
+
+    def stream(n, mask):
+        x = torch.from_numpy(rng.standard_normal((b, n, TEXT_D)).astype("float32")).to(dev)
+        return (x * mask[..., None]).bfloat16()
+
+    return params, stream(TEXT_S, tmask), stream(TEACHER_P, imask), tmask, imask
+
+
+def xattn_trainable_phase(torch, np, card: str, table: KernelTable):
+    """`cross_attention_trainable` at the teacher step's shapes (B=32, 256):
+    the forward (K10 on weights packed from the live parameters) against
+    its f32 twin, the gradients against the twin's (autograd through the
+    f32 module on the card), CUDA-event times of forward and backward, and
+    two Adam steps that show the forward reads the updated weights."""
+    from torch.func import functional_call
+
+    from dclip_tpu_torch.kernels import cross_attention as xa
+    from dclip_tpu_torch.models.cross_modal import CrossModalAttention
+    from dclip_tpu_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(23)
+    module = CrossModalAttention(TEXT_D, TEXT_HEADS, device="meta")
+    d, t, p, h = TEXT_D, TEXT_S, TEACHER_P, TEXT_HEADS
+    for b in XATTN_TRAIN_B:
+        params, text, image, tmask, imask = _xattn_trainable_case(torch, np, rng, b, dev)
+        names = list(params)
+        text.requires_grad_()
+        image.requires_grad_()
+        out = xa.cross_attention_trainable(params, text, image, tmask, imask, h)
+        w32 = xa.pack_cross_attention(params, torch.float32, prefix="")
+        want = xa.cross_attention_reference(w32, text, image, tmask, imask, h)
+        err = max(_bound_check(torch, f"cross_attention_trainable[B={b} {name}]", g, r, REL_TOL)
+                  for name, g, r in zip(("text", "image"), out, want))
+        if out[0].dtype != torch.bfloat16:
+            raise AssertionError(f"cross_attention_trainable: bf16 inputs gave {out[0].dtype}")
+        table.error("cross_attention_trainable", err)
+        gt = torch.randn(text.shape, device=dev).bfloat16()
+        gi = torch.randn(image.shape, device=dev).bfloat16()
+        wrt = [text, image] + [params[n] for n in names]
+        grads = torch.autograd.grad(out, wrt, (gt, gi), retain_graph=True)
+        t32, i32 = (x.detach().float().requires_grad_() for x in (text, image))
+        ps = {n: v.detach().clone().requires_grad_() for n, v in params.items()}
+        ref = functional_call(module, ps, (t32, i32, tmask, imask))
+        ref_grads = torch.autograd.grad(ref, [t32, i32] + [ps[n] for n in names],
+                                        (gt.float(), gi.float()))
+        # Inputs' gradients are rounded to bf16 at the end (one bf16 ulp);
+        # the parameters' are f32 sums of the same products.
+        for i, (name, g, r) in enumerate(zip(["text", "image"] + names, grads, ref_grads)):
+            _bound_check(torch, f"cross_attention_trainable[B={b}] grad {name}", g, r,
+                         DL_BWD_TOL if i < 2 else SUM_TOL, with_one=False)
+
+        rows = b * (t + p)
+        gemm_flops, core_flops = 8.0 * rows * d * d, 8.0 * b * t * p * d
+        param_bytes = 4.0 * (8 * d * d + 12 * d)
+        fwd_bound = work(bf16_flops=gemm_flops, f32_flops=core_flops + 10.0 * rows * d,
+                         nbytes=4.0 * rows * d + 4.0 * rows + param_bytes)
+        bwd_bound = work(f32_flops=3.0 * (gemm_flops + core_flops + 10.0 * rows * d),
+                         nbytes=6.0 * rows * d + 4.0 * rows + 2.0 * param_bytes)
+
+        def fwd():
+            with torch.no_grad():
+                return xa.cross_attention_trainable(params, text, image, tmask, imask, h)
+
+        def twin():
+            w = xa.pack_cross_attention(params, torch.float32, prefix="")
+            return xa.cross_attention_reference(w, text.detach(), image.detach(), tmask, imask, h)
+
+        fwd_ms, twin_ms = time_pair(torch, fwd, twin, 10)
+        bwd_ms = time_one(torch, lambda: torch.autograd.grad(out, wrt, (gt, gi),
+                                                             retain_graph=True), 5)
+        print(f"time cross_attention_trainable[B={b}]: forward kernel {fwd_ms} ms, twin "
+              f"{twin_ms} ms, bound {max(fwd_bound)} ms ({gemm_flops / 1e9} GFLOP bf16 + "
+              f"{core_flops / 1e9} GFLOP f32); backward (f32 recompute through the module, "
+              f"the same code behind either forward) {bwd_ms} ms, bound {max(bwd_bound)} ms "
+              f"({3.0 * (gemm_flops + core_flops) / 1e9} GFLOP f32) ({card})", flush=True)
+        table.timed("cross_attention_trainable", fwd_ms + bwd_ms, twin_ms + bwd_ms,
+                    tuple(a + c for a, c in zip(fwd_bound, bwd_bound)))
+        del out, grads, ref, ref_grads
+
+    # Two Adam steps at B=32: after the first, K10 runs on a fresh pack.
+    params, text, image, tmask, imask = _xattn_trainable_case(torch, np, rng, XATTN_TRAIN_B[0],
+                                                              dev)
+    stale = xa.pack_cross_attention(params, torch.bfloat16, prefix="")
+    opt = make_optimizer(list(params.values()), 1e-2, kind="adam")
+    for step in range(2):
+        for v in params.values():
+            v.grad = None
+        at, ai = xa.cross_attention_trainable(params, text, image, tmask, imask, h)
+        w32 = xa.pack_cross_attention(params, torch.float32, prefix="")
+        want = xa.cross_attention_reference(w32, text, image, tmask, imask, h)
+        err = max(_bound_check(torch, f"cross_attention_trainable[after {step} steps] {name}",
+                               g, r, REL_TOL) for name, g, r in zip(("text", "image"),
+                                                                    (at, ai), want))
+        if step == 1:
+            old = xa.cross_attention_fused(stale, text, image, tmask, imask, h)[0]
+            stale_err = (old.float() - want[0].float()).abs().max().item()
+            bound = REL_TOL * max(1.0, want[0].float().abs().max().item())
+            print(f"cross_attention_trainable: after one update, fresh pack max_abs_err {err}, "
+                  f"the pack made before the update {stale_err} (bound {bound})", flush=True)
+            if not stale_err > bound:
+                raise AssertionError("the stale pack passes: the update did not reach K10")
+        (at.float().square().mean() + ai.float().square().mean()).backward()
+        opt.step()
+    torch.cuda.empty_cache()
+
+
+def _teacher_trainer(sd, tsd, device, batch_size, pe_cache=None, **changes):
+    """The port's TeacherTrainer at ViT-B/16 (random CLIP weights from seed
+    0) with the meta-teacher of `_teacher_config()` (random, seed 0)."""
+    import dataclasses
+
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.core.config import TeacherTrainConfig
+    from dclip_tpu_torch.train import TeacherTrainer
+
+    cfg = dataclasses.replace(
+        TeacherTrainConfig(batch_size=batch_size, learning_rate=TEACHER_LR, seed=0,
+                           clip_model="vit-b-16", teacher=_teacher_config()), **changes)
+    return TeacherTrainer(cfg, sd, CLIPConfig.vit_b_16(), tsd, pe_cache=pe_cache, device=device)
+
+
+def _teacher_per_step(trainer, region_encode=True):
+    """Launches of one teacher step: the region encode over B x P crops
+    (12 layers of K1 + K2) unless the pe cache serves it, the text tower
+    (K3 x 12), one `cross_attention_trainable` (K10: 4 GEMMs, its core,
+    its add + LayerNorm)."""
+    v = trainer.clip_config.vision.num_layers
+    per = {"gemm_bias_act_residual": 4, "self_attention_fused": trainer.clip_config.text.num_layers,
+           "cross_attention_core": 1, "add_layernorm_f32": 1, "cross_attention": 1,
+           "cross_attention_trainable": 1}
+    if region_encode:
+        per.update({"layernorm": 2 * v, "gemm_bias_act_residual": 4 * v + 4, "attention": v,
+                    "attention_block": v, "mlp_block": v, "encoder_forward": 1,
+                    "image_features": 1})
+    return per
+
+
+TEACHER_SPANS = ("dclip.crop", "dclip.region_encode", "dclip.teacher_text",
+                 "dclip.cross_attention", "dclip.cross_attention_bwd", "dclip.backward",
+                 "dclip.optimizer", "dclip.teacher_train_step")
+
+
+def teacher_slice_phase(torch, np, sd, tsd, card: str):
+    """The main path of the meta-teacher slice: `TeacherTrainer` steps at
+    ViT-B/16, bf16, kernels on, no pe cache, at B=32 and B=256. Returns the
+    launches of both runs."""
+    steps = WARMUP_STEPS + TIMED_STEPS
+    total = {}
+    for b in TEACHER_B:
+        trainer = _teacher_trainer(sd, tsd, "cuda", b)
+        if trainer._dtype != torch.bfloat16 or not trainer._use_kernels \
+                or trainer._frozen_image_features is None:
+            raise AssertionError("expected bf16 and the kernels on CUDA")
+        batch = _batch(np, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_launches()
+        _run_steps(torch, np, trainer, batch, f"teacher B={b}", card, batch_size=b)
+        launches = _all_launches()
+        expected = _expected(_teacher_per_step(trainer), steps)
+        print(f"teacher B={b}: launches", json.dumps(launches), "expected", json.dumps(expected),
+              flush=True)
+        if launches != expected:
+            raise AssertionError(f"teacher launch counts {launches} != {expected}")
+        print(f"teacher B={b}: peak device memory {torch.cuda.max_memory_allocated() / 2**30} "
+              f"GiB ({card})", flush=True)
+        if b == TEACHER_B[-1]:
+            profile_steps(torch, trainer, batch, card, steps=1, spans=TEACHER_SPANS)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        del trainer
+        torch.cuda.empty_cache()
+    return total
+
+
+def teacher_fit_phase(torch, np, sd, tsd, card: str):
+    """`TeacherTrainer.fit`, 2 epochs of 2 steps at B=32 over in-memory
+    batches with host indices, an in-memory pe cache with its device level,
+    checkpoints in a temporary directory; then a bit-exact resume."""
+    import shutil
+    import tempfile
+
+    from dclip_tpu_torch.train.checkpoint import CheckpointManager
+    from dclip_tpu_torch.train.distill_trainer import TeacherTargetCache
+
+    trainer = _teacher_trainer(sd, tsd, "cuda", FIT_B, pe_cache=TeacherTargetCache(),
+                               epochs=FIT_EPOCHS)
+    batches = [_batch(np, FIT_B, seed=i, first=i * FIT_B) for i in range(FIT_STEPS)]
+    log = []
+
+    class Pipeline:
+        def epoch(self, epoch):
+            _reset_all_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield from batches
+            torch.cuda.synchronize()
+            log.append((epoch, 1e3 * (time.perf_counter() - t0) / FIT_STEPS, _all_launches()))
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_teacher_")
+    try:
+        ckpts = CheckpointManager(directory, prefix="teacher", save_top_k=0)
+        history = trainer.fit(Pipeline(), checkpoints=ckpts)
+        print(f"teacher fit: {FIT_EPOCHS} epochs x {FIT_STEPS} steps at B={FIT_B}, losses "
+              f"{json.dumps(history['train_loss'])}, device pe hits {trainer._dev_pe.hits}",
+              flush=True)
+        for epoch, ms, got in log:
+            expected = _expected(_teacher_per_step(trainer, region_encode=epoch == 0),
+                                 FIT_STEPS)
+            print(f"teacher fit: epoch {epoch}: {ms} ms per step (host clock; {card}), K1 "
+                  f"{got['attention_block']}, K2 {got['mlp_block']}, K3 "
+                  f"{got['self_attention_fused']}, K10 {got['cross_attention']}", flush=True)
+            if got != expected:
+                raise AssertionError(f"teacher fit epoch {epoch}: launches {got} != {expected}")
+        print(f"teacher fit: ms per step, epoch 1 (pe cache hits) {log[1][1]} vs epoch 0 "
+              f"(region encode) {log[0][1]} ({card})", flush=True)
+        if trainer._dev_pe.hits != FIT_STEPS or not all(np.isfinite(history["train_loss"])):
+            raise AssertionError(f"teacher fit: device pe hits {trainer._dev_pe.hits}, "
+                                 f"losses {history['train_loss']}")
+        fresh = _teacher_trainer(sd, tsd, "cuda", FIT_B, pe_cache=TeacherTargetCache(),
+                                 epochs=FIT_EPOCHS)
+        start = fresh.resume(ckpts)
+        same = all(torch.equal(a, b) for a, b in zip(trainer.teacher.parameters(),
+                                                     fresh.teacher.parameters()))
+        mine, theirs = trainer.optimizer.state_dict(), fresh.optimizer.state_dict()
+        same_opt = (mine["count"], mine["mini_step"]) == (theirs["count"], theirs["mini_step"]) \
+            and all(torch.equal(a, b) for k in ("mu", "nu") for a, b in zip(mine[k], theirs[k]))
+        print(f"teacher fit: resume from {ckpts.latest()['path'].rsplit('/', 1)[-1]}: start "
+              f"epoch {start}, step {fresh.step} (uninterrupted {trainer.step}), parameters "
+              f"bit-equal {same}, Adam state bit-equal {same_opt}", flush=True)
+        if not (start == FIT_EPOCHS and fresh.step == trainer.step and same and same_opt):
+            raise AssertionError("teacher fit: resume did not restore the uninterrupted state")
+        # The resumed trainer encodes (its pe cache is empty), the other hits.
+        for tr in (trainer, fresh):
+            tr.train_step_on_batch(batches[1])
+        torch.cuda.synchronize()
+        diff = max((a - b).abs().max().item() for a, b in zip(trainer.teacher.parameters(),
+                                                                fresh.teacher.parameters()))
+        print(f"teacher fit: next update after resume vs uninterrupted: max |diff| {diff} "
+              f"(bound 0)", flush=True)
+        if diff != 0.0:
+            raise AssertionError(f"teacher fit: the resumed run's next update differs by {diff}")
+        print("teacher fit: profile of one pe-cache-hit step", flush=True)
+        profile_steps(torch, trainer, batches[0], card, steps=1, spans=TEACHER_SPANS)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    del trainer, fresh
+    torch.cuda.empty_cache()
+
+
+def teacher_grad_phase(torch, np, sd, tsd):
+    """One teacher step's gradients at full width and depth, B=8: bf16
+    kernels on the card vs f32 twins on the CPU."""
+    grads = {}
+    for device, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        trainer = _teacher_trainer(sd, tsd, device, GRAD_B, compute_dtype=dtype,
+                                   use_pallas=True)
+        t0 = time.perf_counter()
+        trainer.train_step_on_batch(_batch(np, GRAD_B))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        print(f"teacher grads: {device} {dtype} step {time.perf_counter() - t0} s", flush=True)
+        grads[device] = {n: p.grad.double().cpu() for n, p in trainer.teacher.named_parameters()}
+        del trainer
+    d = TEXT_D
+    dot = na = nb = 0.0
+    cos, ratios = {}, []
+    for name, a in grads["cuda"].items():
+        b = grads["cpu"][name]
+        dot += float((a * b).sum())
+        na += float((a * a).sum())
+        nb += float((b * b).sum())
+        parts = {name: (a, b)}
+        if name.endswith("in_proj_bias"):  # q | k | v; k's gradient is rounding noise
+            parts = {f"{name}[q]": (a[:d], b[:d]), f"{name}[v]": (a[2 * d:], b[2 * d:])}
+            ratios += [float(g[d:2 * d].norm() / g[:d].norm()) for g in (a, b)]
+        for n, (x, y) in parts.items():
+            cos[n] = float((x * y).sum() / (x.norm() * y.norm()))
+    glob = dot / (na ** 0.5 * nb ** 0.5)
+    worst = min(cos, key=cos.get)
+    print(f"teacher grads: {len(grads['cuda'])} tensors, global cosine {glob}, min cosine "
+          f"{cos[worst]} ({worst}); all {json.dumps(cos)}; k-bias max |g| / |g q-bias| "
+          f"{max(ratios)}; bounds {GRAD_COS_GLOBAL} / {GRAD_COS_TENSOR}, noise ratio "
+          f"{GRAD_NOISE_RATIO}", flush=True)
+    if not (glob >= GRAD_COS_GLOBAL and cos[worst] >= GRAD_COS_TENSOR
+            and max(ratios) < GRAD_NOISE_RATIO):
+        raise AssertionError(f"teacher gradient agreement: global {glob}, min {cos[worst]} "
+                             f"({worst}), k-bias noise ratio {max(ratios)}")
+
+
 # -- K12 and the eval paths ------------------------------------------------------------
 
 
@@ -1936,7 +2286,7 @@ def eval_zero_shot_phase(torch, np, card: str):
     from dclip_tpu_torch.data.tokenizer import HashTokenizer
     from dclip_tpu_torch.eval.zero_shot import IMAGENET_PROMPT, embed_classnames, evaluate_zero_shot
     from dclip_tpu_torch.kernels import vit_block as vb
-    from dclip_tpu_torch.models.encoding import image_forward, zero_shot_logits
+    from dclip_tpu_torch.models.encoding import zero_shot_logits
     from dclip_tpu_torch.ops.retrieval import stable_topk
 
     t0 = time.perf_counter()
@@ -1959,27 +2309,27 @@ def eval_zero_shot_phase(torch, np, card: str):
     t0 = time.perf_counter()
     res = evaluate_zero_shot(model, text, batches(), log_every=0)
     seconds = time.perf_counter() - t0
-    steps = ZS_IMAGES // ZS_BATCH
-    if vb.LAUNCHES["attention_block"] != cfg.vision.num_layers * steps:
-        raise AssertionError(f"zero-shot eval: launches {vb.LAUNCHES}")
-    # The same logits (deterministic kernels), their top-5 on the host.
-    fwd = image_forward(model)
+    # The module route, as the JAX eval's: no block kernel runs.
+    if any(vb.LAUNCHES.values()):
+        raise AssertionError(f"zero-shot eval: the module route launched {vb.LAUNCHES}")
+    # The same logits (the same module calls), their top-5 on the host.
     c1 = c5 = 0
     for px, lab in batches():
-        logits = zero_shot_logits(fwd, torch.from_numpy(px).cuda(), text)
+        logits = zero_shot_logits(model.image_features, torch.from_numpy(px).cuda(), text)
         _, top = stable_topk(logits, 5)
         host = np.argsort(-logits.cpu().numpy(), axis=1, kind="stable")[:, :5]
         if not np.array_equal(top.cpu().numpy(), host):
             raise AssertionError("zero-shot eval: top-5 differs from the host's stable top-k")
         c1 += int((host[:, 0] == lab).sum())
         c5 += int((host == lab[:, None]).any(axis=1).sum())
-    print(f"eval zero-shot: ViT-L/14 bf16, {ZS_CLASSES} classes, {ZS_IMAGES} images in batches "
-          f"of {ZS_BATCH}: {ZS_IMAGES / seconds} images/s ({seconds} s); top-1 {res['top1']} "
+    print(f"eval zero-shot: ViT-L/14 bf16 module route, {ZS_CLASSES} classes, {ZS_IMAGES} "
+          f"images in batches of {ZS_BATCH}: {ZS_IMAGES / seconds} images/s ({seconds} s); "
+          f"top-1 {res['top1']} "
           f"top-5 {res['top5']} (random weights; host replay {c1}, {c5}) ({card})", flush=True)
     if (res["top1"], res["top5"], res["total"]) != (c1 / ZS_IMAGES, c5 / ZS_IMAGES, ZS_IMAGES):
         raise AssertionError(f"zero-shot eval: {res} != the host's top-k ({c1}, {c5})")
     _route_cosine(torch, np, model, pixels[:ZS_COS_IMAGES], "eval zero-shot")
-    del model, text, fwd
+    del model, text
     torch.cuda.empty_cache()
 
 
@@ -2018,7 +2368,8 @@ def main() -> int:
           f"{json.dumps(loader_launches)}", flush=True)
 
     table = KernelTable(list(KERNELS) + list(TRAIN_KERNELS) + list(TEACHER_KERNELS)
-                        + list(TRAINABLE_KERNELS) + list(TOPK_KERNELS))
+                        + list(TRAINABLE_KERNELS) + list(TOPK_KERNELS)
+                        + list(TEACHER_TRAIN_KERNELS))
     kernel_phase(torch, vb, card, table)
     service, args, launches = slice_phase(torch, np, vb, cli_serve, card)
     cli_serve.bench(service, args, concurrencies=(1, 32))
@@ -2027,6 +2378,7 @@ def main() -> int:
 
     train_kernel_phase(torch, np, card, table)
     xattn_kernel_phase(torch, np, card, table)
+    xattn_trainable_phase(torch, np, card, table)
     trainable_kernel_phase(torch, np, card, table)
     l14_frozen_mlp_phase(torch, np, card)
     topk_kernel_phase(torch, np, card, table)
@@ -2054,14 +2406,18 @@ def main() -> int:
                          **_fused_changes(unfreeze_schedule=(
                              UnfreezeStage(epoch=0, patterns=("layer_norm1",)),)))
     fit_phase(torch, np, sd, tsd, card)
+    teacher_launches = teacher_slice_phase(torch, np, sd, tsd, card)
+    teacher_fit_phase(torch, np, sd, tsd, card)
+    teacher_grad_phase(torch, np, sd, tsd)
 
     counts = {**{n: launches[n] for n in KERNELS}, **{n: train_launches[n] for n in TRAIN_KERNELS},
               **{n: uncached_launches[n] for n in TEACHER_KERNELS if n in uncached_launches},
               "loader_self_check": loader_launches["loader_self_check"],
               **{n: fused_launches[n] for n in TRAINABLE_KERNELS},
-              "topk_streamed": launches["topk_streamed"] + uncached_launches["topk_streamed"]}
+              "topk_streamed": launches["topk_streamed"] + uncached_launches["topk_streamed"],
+              "cross_attention_trainable": teacher_launches["cross_attention_trainable"]}
     sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS, **TRAINABLE_KERNELS,
-               **TOPK_KERNELS}
+               **TOPK_KERNELS, **TEACHER_TRAIN_KERNELS}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **table.entry(name)}
                for name, (src, rep) in sources.items()]

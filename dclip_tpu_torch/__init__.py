@@ -4,7 +4,7 @@ The JAX package `dclip_tpu` stays the reference; this package mirrors its
 module layout so each counterpart is found under the same path:
 
   core/      the config dataclasses (the port's copy), device and
-             fast-path resolution
+             fast-path resolution, the metrics logger and profiler ranges
   kernels/   hand-written CUDA kernels (csrc/*.cu, built with nvcc at
              first use) behind Python wrappers with plain PyTorch twins
   models/    CLIP dual encoder with HF `CLIPModel` parameter names, the
@@ -13,12 +13,15 @@ module layout so each counterpart is found under the same path:
   ops/       CLIP pixel normalization and region crop-resize, teacher
              aggregation, exact k-NN search and its gate, losses, caption
              packing
-  data/      tokenizers, embedding store, serving image resize/crop
+  data/      tokenizers, embedding store, detection cache, the corpus
+             input pipeline (MultiModalPipeline), image preprocessing
   serve/     dynamic request batcher, bucket-padded ClipService
-  train/     the distillation step: DistillTrainer (teacher targets with
-             their caches, student step), masked AdamW, epoch loop
+  train/     DistillTrainer (teacher targets with their caches, student
+             step), TeacherTrainer (the meta-teacher), masked Adam /
+             AdamW, epoch loop, checkpoints
   native/    the `.dcs` KV store and host top-k (C++, built with g++)
-  cli/       `python -m dclip_tpu_torch.cli.serve`
+  cli/       serve, train_teacher, train_distill, flickr30k_eval,
+             zero_shot_eval, karpathy (`python -m dclip_tpu_torch.cli.<name>`)
 
 This package imports `torch` and never `jax`, and nothing of the JAX
 package `dclip_tpu`: what it needs of it (the config dataclasses, the

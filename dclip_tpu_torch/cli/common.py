@@ -5,17 +5,20 @@ Every entry point takes the same flags as the JAX package's:
   --clip_weights   local HF snapshot dir / .bin / .safetensors, or 'random'
                    (seeded N(0, 0.02) weights; there is no download path)
   --tokenizer_dir  dir containing vocab.json + merges.txt, or 'hash'
-plus `--device` (default `cuda`; `cpu` only when asked for).
-`restore_student_params` reads the port's own checkpoints.
+plus `--device` (default `cuda`; `cpu` only when asked for) and, for the
+trainers, `--mesh_data` / `--mesh_model` (one device: -1 or 1, and 1).
+`restore_student_params` reads the port's own checkpoints;
+`fit_with_preemption` runs a trainer's `fit` (no preemption guard yet).
 """
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Dict, Mapping, Tuple, Union
 
 import torch
 
-from dclip_tpu_torch.core.config import CLIPConfig
+from dclip_tpu_torch.core.config import CLIPConfig, MeshConfig
 from dclip_tpu_torch.core.device import resolve_device, resolve_dtype
 from dclip_tpu_torch.models.clip import CLIPModule
 
@@ -35,6 +38,110 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
                    help="cuda (default; fails without a card) or cpu")
 
 
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh_data", type=int, default=-1,
+                   help="data-parallel mesh size (-1: all devices; the port runs on one)")
+    p.add_argument("--mesh_model", type=int, default=1, help="model-parallel mesh size")
+
+
+def mesh_config(args) -> MeshConfig:
+    """The `MeshConfig` of the flags; any other than one device raises."""
+    dp, mp = getattr(args, "mesh_data", -1), getattr(args, "mesh_model", 1)
+    if dp not in (-1, 1) or mp != 1:
+        raise NotImplementedError(
+            f"--mesh_data {dp} --mesh_model {mp}: a mesh of more than one device is not "
+            "ported yet: ROADMAP Queue 1 item 10")
+    return MeshConfig(data_parallel=dp, model_parallel=mp)
+
+
+def add_data_args(p: argparse.ArgumentParser) -> None:
+    """The pipeline and teacher-shape flags both training CLIs share."""
+    p.add_argument("--detection_cache", default=None, help="npz detection cache")
+    p.add_argument("--num_workers", type=int, default=0,
+                   help="decode worker processes (0 = threads only)")
+    p.add_argument("--fast_decode", action="store_true",
+                   help="scaled DCT JPEG decode (PIL draft; training only)")
+    p.add_argument("--decode_backend", choices=("pil", "native"), default="pil",
+                   help="'native' (C++ libjpeg) is not ported yet and raises")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process runs: not ported yet, raises")
+    p.add_argument("--max_patches", type=int, default=8)
+    p.add_argument("--teacher_image_size", type=int, default=224)
+    p.add_argument("--compute_dtype", default="auto", choices=["auto", "float32", "bfloat16"],
+                   help="auto = bfloat16 on CUDA, float32 on the CPU")
+    p.add_argument("--use_pallas", action=argparse.BooleanOptionalAction, default=None,
+                   help="the hand-written kernels on the hot path (auto: on CUDA)")
+    p.add_argument("--compact_patches", action=argparse.BooleanOptionalAction, default=None,
+                   help="region-encode only valid patch slots (auto: on CUDA)")
+    p.add_argument("--projection_weights", default=None,
+                   help="the k-NN gate's projection branch: not ported yet, raises")
+    p.add_argument("--knn_store", default=None,
+                   help="EmbeddingStore (.npz / .dcs) enabling the k-NN gate over patch "
+                        "embeddings")
+    p.add_argument("--device_target_cache", action=argparse.BooleanOptionalAction,
+                   default=None, help="device-resident level 0 over the host cache "
+                                      "(default: on whenever there is a host cache)")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--metrics_csv", default=None)
+
+
+def check_waiting_flags(args) -> None:
+    """The flags whose paths are not ported yet raise, naming their item."""
+    if args.multihost:
+        raise NotImplementedError("--multihost is not ported yet: ROADMAP Queue 1 item 10")
+    if args.projection_weights:
+        raise NotImplementedError("--projection_weights (models/projections.py) is not "
+                                  "ported yet: ROADMAP Queue 1 item 9")
+    if args.decode_backend == "native":
+        raise NotImplementedError("--decode_backend native (native/jpeg_decode.cc) is not "
+                                  "ported yet: ROADMAP Queue 1 item 5")
+
+
+def load_detection_cache(path):
+    from dclip_tpu_torch.data.detection_cache import DetectionCache
+
+    if path and os.path.exists(path):
+        return DetectionCache.load(path)
+    print("No detection cache: box slots will be empty (masked out)")
+    return None
+
+
+def load_knn_store(path):
+    if not (path and os.path.exists(path)):
+        return None
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+
+    store = EmbeddingStore.load(path)
+    print(f"KNN gate enabled: {len(store)} stored embeddings")
+    return store
+
+
+def make_pipeline(args, path, tokenizer, cache, clip_cfg, batch_size, max_patches, seed,
+                  drop_remainder=True):
+    """The corpus JSON at `path` as a `data.pipeline.MultiModalPipeline`."""
+    from dclip_tpu_torch.data.corpus import load_corpus
+    from dclip_tpu_torch.data.pipeline import MultiModalPipeline
+
+    return MultiModalPipeline(
+        load_corpus(path), tokenizer, cache, batch_size=batch_size,
+        drop_remainder=drop_remainder, max_patches=max_patches,
+        image_size=clip_cfg.vision.image_size, teacher_image_size=args.teacher_image_size,
+        max_text_tokens=clip_cfg.text.max_length, seed=seed, num_workers=args.num_workers,
+        fast_decode=args.fast_decode, decode_backend=args.decode_backend)
+
+
+def load_clip_state_dict(preset: str, weights: str, seed: int = 0
+                         ) -> Tuple[CLIPConfig, Dict[str, torch.Tensor]]:
+    """(config, HF-named f32 CPU state dict) from a preset and a weights
+    source: seeded random weights for 'random', else a local file or
+    snapshot directory."""
+    from dclip_tpu_torch.models.weights import load_state_dict_file, random_state_dict
+
+    cfg = CLIPConfig.from_name(preset)
+    return cfg, random_state_dict(cfg, seed) if weights == "random" else \
+        load_state_dict_file(weights)
+
+
 def load_clip(
     preset: str, weights: str, seed: int = 0, compute_dtype: str = "float32",
     device: Union[str, torch.device] = "cuda",
@@ -44,11 +151,8 @@ def load_clip(
     compute_dtype: "auto" = bfloat16 on CUDA, float32 on the CPU. Params
     are stored float32; the dtype sets the activations (and the image
     tower's packed kernel weights)."""
-    from dclip_tpu_torch.models.weights import load_state_dict_file, random_state_dict
-
     device = resolve_device(device)
-    cfg = CLIPConfig.from_name(preset)
-    sd = random_state_dict(cfg, seed) if weights == "random" else load_state_dict_file(weights)
+    cfg, sd = load_clip_state_dict(preset, weights, seed)
     model = CLIPModule(cfg, dtype=resolve_dtype(compute_dtype, device), device="meta")
     model.load_state_dict(sd, strict=True, assign=True)
     return cfg, model.to(device).eval()
@@ -130,3 +234,13 @@ def restore_student_params(checkpoint: str, template: Mapping[str, torch.Tensor]
                              f"{tuple(t.shape)}")
         out[name] = v.to(dtype=t.dtype, device=t.device)
     return out
+
+
+def fit_with_preemption(trainer, train_pipe, val_pipe, checkpoints, logger,
+                        start_epoch: int = 0) -> bool:
+    """Run `trainer.fit`; True if preempted (counterpart of
+    `dclip_tpu/cli/common.py:214-233`). The SIGTERM guard is ROADMAP Queue 1
+    item 10, so this runs `fit` without one and returns False."""
+    trainer.fit(train_pipe, val_pipe, checkpoints=checkpoints, logger=logger,
+                start_epoch=start_epoch)
+    return False

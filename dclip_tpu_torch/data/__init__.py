@@ -1,1 +1,2 @@
-"""Host-side data code: tokenizers, embedding store, image resize/crop."""
+"""Host-side data code: tokenizers, embedding store, detection cache, the
+corpus input pipeline, image resize/crop."""

@@ -3,7 +3,13 @@ protocols (counterpart of `dclip_tpu/eval/zero_shot.py:42-300`).
 
 - prompts "a photo of a {name}" (ImageNet) and "a photo of a {name}, a
   type of object" (CIFAR);
-- logits = 100 * normalized image features @ normalized text features.T;
+- logits = 100 * normalized image features @ normalized text features.T,
+  the image features from the module path (`CLIPModule.image_features`
+  at the model's dtype) for every model, as the JAX
+  `zero_shot_logits_forward` runs `get_image_features`
+  (`dclip_tpu/models/encoding.py:65-79`); the retrieval eval and the
+  service take K1 / K2 for a bf16 model on the card instead
+  (`models.encoding.image_route`);
 - top-1 / top-5 from a stable descending sort of each row, so a tie goes
   to the lower class index as in `jax.lax.top_k` (`ops.retrieval.stable_topk`,
   the rule of K12's twin);
@@ -23,12 +29,7 @@ import numpy as np
 import torch
 
 from dclip_tpu_torch.models.clip import CLIPModule
-from dclip_tpu_torch.models.encoding import (
-    image_forward,
-    model_device,
-    text_forward,
-    zero_shot_logits,
-)
+from dclip_tpu_torch.models.encoding import model_device, text_forward, zero_shot_logits
 from dclip_tpu_torch.ops.losses import l2_normalize
 from dclip_tpu_torch.ops.retrieval import stable_topk
 
@@ -59,7 +60,7 @@ def evaluate_zero_shot(model: CLIPModule, text_features: torch.Tensor,
         raise NotImplementedError(
             "mesh: multi-device eval is ROADMAP Queue 1 item 10 (multi-device)")
     dev = model_device(model)
-    image_fn = image_forward(model)
+    image_fn = model.image_features
     text_features = torch.as_tensor(text_features, device=dev)
     correct1 = correct5 = total = 0
     for step, (pixels, labels) in enumerate(image_batches):

@@ -26,9 +26,11 @@ once when packed, the inputs when they enter (exact for the trainer's
 inputs, bf16 features times 0/1 masks); the residual enters the LayerNorm
 in f32.
 
-Weights come packed once by `pack_cross_attention` from the port's
-teacher state dict (`cross_modal_attention.*`, torch
-`nn.MultiheadAttention` names). Every wrapper has its plain twin
+Weights come packed by `pack_cross_attention` from the port's teacher
+state dict (`cross_modal_attention.*`, torch `nn.MultiheadAttention`
+names): once for the frozen teacher, on every call for the trainable
+form `cross_attention_trainable` (the teacher trainer's; its backward
+recomputes through `models.cross_modal`). Every wrapper has its plain twin
 (`*_reference`) in f32; a wrapper takes it only when its tensors lie on
 the CPU, and for CUDA tensors launches its kernels or raises.
 """
@@ -37,9 +39,11 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from dclip_tpu_torch.kernels._build import check, load_library
 from dclip_tpu_torch.kernels.vit_block import _on_cpu, _stream, gemm_bias_act_residual
+from dclip_tpu_torch.models.cross_modal import CrossModalAttention
 
 NEG = -1e30
 EPS = 1e-5
@@ -49,6 +53,7 @@ LAUNCHES: Dict[str, int] = {
     "cross_attention_core": 0,
     "add_layernorm_f32": 0,
     "cross_attention": 0,
+    "cross_attention_trainable": 0,
 }
 
 
@@ -250,3 +255,69 @@ def cross_attention_fused(p: Mapping[str, torch.Tensor], text: torch.Tensor, ima
                                (p["lnt_bias"], p["lni_bias"]))
     LAUNCHES["cross_attention"] += 1
     return yt.to(text.dtype), yi.to(image.dtype)
+
+
+# -- the differentiable form ---------------------------------------------------------
+
+
+class _CrossAttentionTrainable(torch.autograd.Function):
+    """apply(text, image, text_mask, image_mask, num_heads, names, *params):
+    masks already completed (`_masks`), `params` the live tensors named by
+    `names` (`CrossModalAttention.named_parameters()`)."""
+
+    @staticmethod
+    def forward(ctx, text, image, text_mask, image_mask, num_heads, names, *params):
+        on_cpu = _on_cpu(text, image, text_mask, image_mask)
+        packed = pack_cross_attention(dict(zip(names, params)),
+                                      torch.float32 if on_cpu else torch.bfloat16, prefix="")
+        out = cross_attention_fused(packed, text, image, text_mask, image_mask, num_heads)
+        if not on_cpu:
+            LAUNCHES["cross_attention_trainable"] += 1
+        ctx.num_heads, ctx.names = num_heads, names
+        ctx.save_for_backward(text, image, text_mask, image_mask, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_text, g_image):
+        text, image, text_mask, image_mask, *params = ctx.saved_tensors
+        need = (ctx.needs_input_grad[0], ctx.needs_input_grad[1], *ctx.needs_input_grad[6:])
+        with torch.enable_grad(), record_function("dclip.cross_attention_bwd"):
+            leaves = [x.detach().float().requires_grad_(n)
+                      for x, n in zip((text, image, *params), need)]
+            module = CrossModalAttention(text.shape[-1], ctx.num_heads, device="meta")
+            out = torch.func.functional_call(module, dict(zip(ctx.names, leaves[2:])),
+                                             (leaves[0], leaves[1], text_mask, image_mask))
+            got = iter(torch.autograd.grad(out, [x for x, n in zip(leaves, need) if n],
+                                           (g_text.float(), g_image.float())))
+        grads = [next(got).to(x.dtype) if n else None
+                 for x, n in zip((text, image, *params), need)]
+        return (grads[0], grads[1], None, None, None, None, *grads[2:])
+
+
+def cross_attention_trainable(params: Mapping[str, torch.Tensor], text: torch.Tensor,
+                              image: torch.Tensor, text_mask: Optional[torch.Tensor] = None,
+                              image_mask: Optional[torch.Tensor] = None,
+                              num_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable K10 (counterpart of `dclip_tpu/kernels/cross_attention.py:148-198`).
+
+    `params`: the 12 live parameters of a `models.cross_modal.CrossModalAttention`
+    by their names in it (`text_to_image.in_proj_weight`, ..., `norm_image.bias`).
+    Forward: `cross_attention_fused` on weights packed from `params` on every
+    call (a pack made once would go stale as the parameters train), bf16
+    on CUDA (K10's six launches), f32 for the plain twin on the CPU; the
+    outputs take the inputs' dtypes. Backward, the JAX VJP's recipe
+    (`:187-195`): no attention residuals are saved; the forward is recomputed
+    in f32 through `CrossModalAttention` itself (`torch.func.functional_call`
+    on the saved inputs and parameters) and differentiated with
+    `torch.autograd.grad`, giving gradients for every parameter and both
+    input streams, cast back to their dtypes. This backward is plain
+    PyTorch by design: the JAX one is XLA, not Pallas, and a hand-written
+    one waits until a profile of the teacher step ranks it among the top
+    costs (ROADMAP Queue 2). A single-sided mask is completed with ones
+    before both the forward and the recompute (`:165-175`), so the two
+    never disagree."""
+    tm, im = _masks(text, image, text_mask, image_mask)
+    names = tuple(params)
+    with record_function("dclip.cross_attention"):
+        return _CrossAttentionTrainable.apply(text, image, tm, im, num_heads, names,
+                                              *(params[n] for n in names))

@@ -3,10 +3,14 @@
 
 PyTorch runs eagerly, so the JAX module's memoized jits become plain
 functions of a model that holds its weights, run without gradients on the
-model's device. The image route keeps the JAX rule (`encoding.py:118-125`):
-a bf16 model on the card runs `kernels.vit_block.fused_image_features`
-(K1 / K2, bf16 only); every other case (f32, the CPU) runs the module
-path, `CLIPModule.image_features`.
+model's device. `image_forward` takes `make_image_encoder`'s route rule
+(`encoding.py:118-125`), and so the retrieval eval's and the service's
+(`dclip_tpu/serve/service.py:96-118`): a bf16 model on the card runs
+`kernels.vit_block.fused_image_features` (K1 / K2, bf16 only); every
+other case (f32, the CPU) runs the module path, `CLIPModule.image_features`.
+The zero-shot eval does not take this rule: like the JAX
+`zero_shot_logits_forward` (`encoding.py:65-79`) it always runs the
+module path at the model's dtype.
 """
 from __future__ import annotations
 
@@ -24,11 +28,15 @@ def model_device(model: CLIPModule) -> torch.device:
     return next(model.parameters()).device
 
 
+def image_route(device: torch.device, dtype: torch.dtype) -> str:
+    """"kernels" (K1 / K2) for a bf16 model on CUDA, else "module"."""
+    return "kernels" if device.type == "cuda" and dtype == torch.bfloat16 else "module"
+
+
 def image_forward(model: CLIPModule) -> Callable[[torch.Tensor], torch.Tensor]:
-    """pixels NHWC on the model's device -> image features [B, P]. The
-    route rule: K1 / K2 for a bf16 model on CUDA (its weights packed once,
-    here), else the module path."""
-    if model_device(model).type == "cuda" and model.dtype == torch.bfloat16:
+    """pixels NHWC on the model's device -> image features [B, P] by
+    `image_route`; the kernels' weights are packed once, here."""
+    if image_route(model_device(model), model.dtype) == "kernels":
         with torch.no_grad():
             weights = model.pack_image_weights()
         return lambda px: fused_image_features(model.cfg, weights, px)
@@ -57,7 +65,8 @@ def packed_text_forward(model: CLIPModule, packed: dict) -> torch.Tensor:
 def zero_shot_logits(image_fn: Callable[[torch.Tensor], torch.Tensor], pixels: torch.Tensor,
                      text_features: torch.Tensor) -> torch.Tensor:
     """[B, C] = 100 * normalized image features @ text_features.T in f32
-    (`encoding.py:65-79`); `image_fn` from `image_forward`."""
+    (`encoding.py:65-79`); `image_fn` is `image_forward(model)` or the
+    module path `model.image_features`."""
     with torch.inference_mode():
         img = l2_normalize(image_fn(pixels).float())
         return 100.0 * img @ text_features.float().T

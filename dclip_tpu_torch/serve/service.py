@@ -9,10 +9,11 @@ depend on what else shares its batch.
 Text requests go raw string -> tokenizer -> [B, 77] ids; image requests
 take uint8 RGB arrays, resize/crop them on the host in uint8 and ship the
 uint8 bytes to the device, where rescale and CLIP normalization run. The
-image tower runs `kernels.vit_block.fused_image_features` over weights
-packed once at construction: the hand-written CUDA block kernels on a CUDA
-device, their plain twins on the CPU. Embeddings come back f32 and
-L2-normalized.
+image tower takes `models.encoding.image_route`, the JAX service's rule
+(`dclip_tpu/serve/service.py:96-118`): a bf16 model on CUDA runs the
+hand-written block kernels (`kernels.vit_block.fused_image_features`,
+K1 / K2) over weights packed once at construction; any other (f32, or on
+the CPU) runs the module path. Embeddings come back f32 and L2-normalized.
 
 An optional in-memory retrieval index (`data.embedding_store
 .EmbeddingStore` + `ops.knn.knn_search` on the device) turns the service
@@ -29,7 +30,7 @@ import torch
 
 from dclip_tpu_torch.core.device import resolve_device
 from dclip_tpu_torch.data.embedding_store import EmbeddingStore
-from dclip_tpu_torch.kernels.vit_block import fused_image_features
+from dclip_tpu_torch.models.encoding import image_forward, image_route
 from dclip_tpu_torch.ops.image_ops import normalize as clip_normalize
 from dclip_tpu_torch.ops.knn import knn_search
 
@@ -62,7 +63,8 @@ class ClipService:
     ):
         """`model`: a `models.clip.CLIPModule` holding its weights (its
         `dtype` is the compute dtype). It is moved to `device` once, here,
-        and the image tower's weights are packed for the kernels once."""
+        and, on the kernels' route, the image tower's weights are packed
+        once."""
         if quantize is not None:
             raise NotImplementedError(
                 "quantize: int8 serving is not ported yet (ROADMAP Queue 1, "
@@ -81,8 +83,8 @@ class ClipService:
         self.normalize = normalize
         self.quantize = quantize
         self._lock = threading.Lock()  # encode calls + index mutations
-        with torch.no_grad():
-            self._image_weights = self.model.pack_image_weights()
+        self.image_route = image_route(self.device, self.model.dtype)
+        self._image_fn = image_forward(self.model)
 
         self._index = None
         if index is not None:
@@ -119,7 +121,7 @@ class ClipService:
         with torch.inference_mode():
             px = torch.from_numpy(pixels_u8).to(self.device)
             px = clip_normalize(px.float() / 255.0)
-            emb = fused_image_features(self.cfg, self._image_weights, px)
+            emb = self._image_fn(px)
             return self._maybe_normalize(emb).cpu().numpy()
 
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:

@@ -82,7 +82,7 @@ def fingerprint_objects(*objects) -> str:
 
 
 class BaseTrainer:
-    """Subclasses set self.device and self.step and implement
+    """Subclasses set self.device, self.cfg and self.step and implement
     train_step_on_batch(batch) -> metrics (device scalars),
     eval_loss_on_batch(batch) -> float, and checkpoint_state() /
     load_checkpoint_state(state); optionally _num_epochs, _on_epoch_start
@@ -103,6 +103,26 @@ class BaseTrainer:
             if k not in self._HOST_ONLY_FIELDS and v is not None
             and (fields is None or k in fields)
         }
+
+    # -- the k-NN gate of the teacher's patch embeddings (both trainers) --------
+
+    def _init_knn_gate(self, knn_store) -> None:
+        """Optional k-NN gate over the raw patch embeddings: an
+        `EmbeddingStore` of (key, value) rows on the device (the projection
+        branch, `projection_params`, is ROADMAP Queue 1 item 9)."""
+        self._knn_keys = self._knn_values = None
+        if knn_store is not None and len(knn_store) > 0:
+            self._knn_keys = torch.as_tensor(knn_store.keys, dtype=torch.float32).to(self.device)
+            self._knn_values = torch.as_tensor(knn_store.values,
+                                               dtype=torch.float32).to(self.device)
+
+    def _maybe_knn_gate(self, pe: torch.Tensor, batch) -> torch.Tensor:
+        """`apply_knn_gate` at the teacher config's threshold, or `pe` as it
+        is without a store."""
+        if self._knn_keys is None:
+            return pe
+        return apply_knn_gate(pe, self._knn_keys, self._knn_values,
+                              self.cfg.teacher.similarity_threshold, batch["box_mask"])
 
     def _num_epochs(self) -> int:
         raise NotImplementedError

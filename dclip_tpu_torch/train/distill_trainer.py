@@ -68,12 +68,7 @@ from dclip_tpu_torch.models.teacher import (
 )
 from dclip_tpu_torch.ops.losses import distillation_loss
 from dclip_tpu_torch.ops.packing import pack_captions_sharded
-from dclip_tpu_torch.train.base import (
-    BaseTrainer,
-    apply_knn_gate,
-    budgeted_patch_encode,
-    fingerprint_objects,
-)
+from dclip_tpu_torch.train.base import BaseTrainer, budgeted_patch_encode, fingerprint_objects
 from dclip_tpu_torch.train.device_cache import DeviceTargetCache, resolve_device_cache
 from dclip_tpu_torch.train.optim import (
     count_trainable,
@@ -369,15 +364,6 @@ class DistillTrainer(BaseTrainer):
                 lambda px: vit_block.fused_image_features(cfg, packed, px))
             self._xattn = pack_cross_attention(teacher_sd, self._student_dtype)
 
-    def _init_knn_gate(self, knn_store) -> None:
-        """Optional k-NN gate over the raw patch embeddings: an
-        `EmbeddingStore` of (key, value) rows on the device."""
-        self._knn_keys = self._knn_values = None
-        if knn_store is not None and len(knn_store) > 0:
-            self._knn_keys = torch.as_tensor(knn_store.keys, dtype=torch.float32).to(self.device)
-            self._knn_values = torch.as_tensor(knn_store.values,
-                                               dtype=torch.float32).to(self.device)
-
     def _build_optimizer(self) -> None:
         n_train, n_total = count_trainable(self._trainable_mask)
         print(f"Student trainable leaves: {n_train}/{n_total}")
@@ -396,12 +382,6 @@ class DistillTrainer(BaseTrainer):
                                    self._knn_keys, self._knn_values)
 
     # -- teacher forward (frozen) ---------------------------------------------
-
-    def _maybe_knn_gate(self, pe: torch.Tensor, batch) -> torch.Tensor:
-        if self._knn_keys is None:
-            return pe
-        return apply_knn_gate(pe, self._knn_keys, self._knn_values,
-                              self.cfg.teacher.similarity_threshold, batch["box_mask"])
 
     def _encode_patches_only(self, batch) -> torch.Tensor:
         """Image side of the teacher: caption-independent, so cacheable per

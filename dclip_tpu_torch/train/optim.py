@@ -1,6 +1,7 @@
 """Trainable-leaf masks, the warmup schedule and a masked AdamW that
 matches the JAX package's optax chain (counterpart of
-`dclip_tpu/train/optim.py:28-198`).
+`dclip_tpu/train/optim.py:28-198`), and the name-pattern mask of the
+teacher trainer.
 
 The JAX optimizer is
 
@@ -29,6 +30,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 
 def student_trainable_mask(names: Iterable[str], extra_patterns: Sequence[str] = (),
@@ -47,6 +49,20 @@ def student_trainable_mask(names: Iterable[str], extra_patterns: Sequence[str] =
         else:
             out[name] = True
     return out
+
+
+def pattern_mask(names: Iterable[str], patterns: Sequence[str],
+                 default: bool = False) -> Dict[str, bool]:
+    """{name: True where any pattern is a substring of the name, else
+    `default`} (`dclip_tpu/train/optim.py:34-47`, the reference's
+    `any(p in name for p in patterns)`). Over the teacher's torch names
+    (`cross_modal_attention.text_to_image.in_proj_weight`) the default
+    `TeacherTrainConfig.trainable_patterns` mark the same parameters as
+    over the Flax paths (`cross_modal_attention/text_to_image/q_proj/kernel`):
+    all of them, through "attention". The count differs: 12 torch tensors
+    against 20 Flax leaves, since torch keeps q, k and v in one
+    `in_proj_weight` / `in_proj_bias`."""
+    return {name: any(p in name for p in patterns) or default for name in names}
 
 
 def count_trainable(mask: Mapping[str, bool]) -> Tuple[int, int]:
@@ -158,8 +174,10 @@ def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.T
         for p in model.parameters():
             p.grad = None
         loss, metrics = loss_fn(*args)
-        loss.backward()
-        optimizer.step()
+        with record_function("dclip.backward"):
+            loss.backward()
+        with record_function("dclip.optimizer"):
+            optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

@@ -330,7 +330,7 @@ def test_cross_attention_matches_twin(cuda_device, b, t, p, d, heads, masks):
         got = xa.cross_attention_fused(w, x, y, *kw, num_heads=heads)
         want = xa.cross_attention_reference(w, x, y, *kw, num_heads=heads)
         assert xa.LAUNCHES == {"cross_attention_core": 1, "add_layernorm_f32": 1,
-                               "cross_attention": 1}
+                               "cross_attention": 1, "cross_attention_trainable": 0}
         for name, g, r in zip(("text", "image"), got, want):
             assert g.dtype == dtype
             _close_rel(g, r, what=f"{name} {dtype}")
@@ -352,6 +352,111 @@ def test_cross_attention_core_all_masked_rows(cuda_device):
     _close_rel(out_t, v_mean, what="uniform average")
     want_t, want_i = xa.cross_attention_core_reference(qkv_t, qkv_i, tmask, imask, 2)
     _close_rel(out_i, want_i, what="image queries")
+
+
+def _trainable_case(rng, device, b=4, t=77, p=8, d=512, heads=8):
+    """Live f32 parameters (by `CrossModalAttention` names), bf16-valued f32
+    inputs, the content-token and box masks with a boxless row."""
+    sd = _teacher_sd(rng, d, device)
+    params = {k[len("cross_modal_attention."):]: v.clone().requires_grad_()
+              for k, v in sd.items()}
+    text = _bf16(rng, device, b, t, d).float().requires_grad_()
+    image = _bf16(rng, device, b, p, d).float().requires_grad_()
+    tmask = torch.from_numpy((np.arange(t)[None] < rng.randint(2, t + 1, (b, 1)))
+                             .astype(np.float32)).to(device)
+    imask = torch.from_numpy((rng.rand(b, p) > 0.3).astype(np.float32)).to(device)
+    imask[0] = 0.0
+    return params, text, image, tmask, imask
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("masks", ["both", "image", "none"])
+def test_cross_attention_trainable_matches_twin(cuda_device, masks):
+    """Forward: K10 (six launches, one count of the trainable form) against
+    the f32 twin on the same live weights. Gradients: the same f32
+    recompute on both sides, so they agree to f32 sums (1e-4 relative);
+    this holds the saved inputs and the mask completion."""
+    from dclip_tpu_torch.kernels import cross_attention as xa
+
+    rng = np.random.RandomState(21)
+    params, text, image, tmask, imask = _trainable_case(rng, cuda_device)
+    kw = {"both": (tmask, imask), "image": (None, imask), "none": (None, None)}[masks]
+    g = (torch.randn_like(text), torch.randn_like(image))
+    xa.reset_launches()
+    out = xa.cross_attention_trainable(params, text, image, *kw, num_heads=8)
+    torch.cuda.synchronize()
+    assert xa.LAUNCHES == {"cross_attention_core": 1, "add_layernorm_f32": 1,
+                           "cross_attention": 1, "cross_attention_trainable": 1}
+    names = list(params)
+    grads = torch.autograd.grad(out, [text, image] + [params[n] for n in names], g)
+
+    cpu = {n: v.detach().cpu().requires_grad_() for n, v in params.items()}
+    ct, ci = (x.detach().cpu().requires_grad_() for x in (text, image))
+    ckw = tuple(None if m is None else m.cpu() for m in kw)
+    want = xa.cross_attention_trainable(cpu, ct, ci, *ckw, num_heads=8)
+    want_grads = torch.autograd.grad(want, [ct, ci] + [cpu[n] for n in names],
+                                     tuple(x.cpu() for x in g))
+    for name, a, w in zip(("text", "image"), out, want):
+        assert a.dtype == torch.float32
+        _close_rel(a, w.to(cuda_device), what=name)
+    for name, a, w in zip(["text", "image"] + names, grads, want_grads):
+        _close_rel(a, w.to(cuda_device), tol=1e-4, what=f"grad {name}")
+
+
+@pytest.mark.requires_cuda
+def test_cross_attention_trainable_reads_updated_weights(cuda_device):
+    """Two Adam steps: after the first, the forward (K10 on a fresh pack)
+    equals the twin on the updated weights; a pack made once would not."""
+    from dclip_tpu_torch.kernels import cross_attention as xa
+    from dclip_tpu_torch.train.optim import make_optimizer
+
+    rng = np.random.RandomState(22)
+    params, text, image, tmask, imask = _trainable_case(rng, cuda_device)
+    stale = xa.pack_cross_attention(params, torch.bfloat16, prefix="")
+    opt = make_optimizer(list(params.values()), 1e-2, kind="adam")
+    for step in range(2):
+        for v in params.values():
+            v.grad = None
+        at, ai = xa.cross_attention_trainable(params, text.detach(), image.detach(), tmask,
+                                              imask, num_heads=8)
+        w32 = xa.pack_cross_attention(params, torch.float32, prefix="")
+        want = xa.cross_attention_reference(w32, text.detach(), image.detach(), tmask, imask, 8)
+        for name, a, w in zip(("text", "image"), (at, ai), want):
+            _close_rel(a, w, what=f"step {step} {name}")
+        if step == 1:
+            old = xa.cross_attention_fused(stale, text.detach(), image.detach(), tmask, imask, 8)
+            torch.cuda.synchronize()
+            stale_err = (old[0] - want[0]).abs().max().item()
+            assert stale_err > REL_TOL * max(1.0, want[0].abs().max().item()), stale_err
+        (at.square().mean() + ai.square().mean()).backward()
+        opt.step()
+
+
+@pytest.mark.requires_cuda
+def test_f32_service_takes_the_module_route(cuda_device):
+    """An f32 ViT-B/16 `ClipService` on the card serves through the module
+    path (the bf16-only block kernels stay out) and equals it."""
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.models.clip import CLIPModule
+    from dclip_tpu_torch.models.weights import random_state_dict
+    from dclip_tpu_torch.ops.image_ops import normalize
+    from dclip_tpu_torch.serve import ClipService
+
+    cfg = CLIPConfig.vit_b_16()
+    model = CLIPModule(cfg, dtype=torch.float32, device="meta")
+    model.load_state_dict(random_state_dict(cfg, 0), assign=True)
+    svc = ClipService(model, cfg, buckets=(1, 4), device=cuda_device)
+    assert svc.image_route == "module"
+    u8 = np.random.RandomState(5).randint(0, 256, (3, 224, 224, 3), np.uint8)
+    vb.reset_launches()
+    got = svc.encode_images(list(u8))
+    assert set(vb.LAUNCHES.values()) == {0}
+    with torch.no_grad():
+        px = normalize(torch.from_numpy(u8).to(cuda_device).float() / 255.0)
+        want = svc.model.image_features(px)
+    want = (want / want.norm(dim=-1, keepdim=True)).cpu().numpy()
+    assert got.shape == (3, 512) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.requires_cuda

@@ -107,6 +107,28 @@ def test_service_refuses_what_is_not_ported():
         ClipService(model, cfg, mesh=2, device="cpu")
 
 
+def test_image_route_follows_the_jax_service(services):
+    """K1 / K2 only for a bf16 model on CUDA; f32 and the CPU take the
+    module path (`dclip_tpu/serve/service.py:96-118`), where the f32
+    service's images equal `CLIPModule.image_features` bit for bit."""
+    from dclip_tpu_torch.models.encoding import image_route
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert image_route(cuda, torch.bfloat16) == "kernels"
+    assert {image_route(cuda, torch.float32), image_route(cpu, torch.bfloat16),
+            image_route(cpu, torch.float32)} == {"module"}
+    cfg, _, port_svc = services
+    assert port_svc.image_route == "module"
+    u8 = np.random.RandomState(4).randint(0, 256, (3,) + (cfg.vision.image_size,) * 2 + (3,),
+                                          np.uint8)
+    with torch.no_grad():
+        from dclip_tpu_torch.ops.image_ops import normalize
+
+        feats = port_svc.model.image_features(normalize(torch.from_numpy(u8).float() / 255.0))
+    want = (feats / feats.norm(dim=-1, keepdim=True)).numpy()
+    np.testing.assert_array_equal(port_svc.encode_images(list(u8))[:3], want)
+
+
 def test_pad_to_bucket():
     assert [pad_to_bucket(n, (1, 4, 16)) for n in (1, 3, 16)] == [1, 4, 16]
     for n in (0, 17):

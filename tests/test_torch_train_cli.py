@@ -1,0 +1,177 @@
+"""The port's training CLIs fed from disk, on the CPU, beside the JAX CLIs:
+a corpus of PNGs in tmp_path with a `GridProposalDetector` npz cache.
+
+- `dclip_tpu_torch.cli.train_teacher --device cpu --model_preset tiny`
+  runs 2 epochs; its checkpoints (names up to the extension and the val
+  loss digits, index epochs and steps, metric keys) match
+  `dclip_tpu.cli.train_teacher`'s run on the same corpus;
+  `--resume` with `--epochs 3` runs epoch 2 only.
+- `dclip_tpu_torch.cli.train_distill --teacher_checkpoint <that checkpoint>`
+  runs an epoch on the restored teacher: its teacher weights are the
+  checkpoint's, and its teacher targets equal those of the module path on
+  those weights.
+
+Losses are not compared across the packages here: the JAX CLI initialises
+the teacher with `jax.random`, which the port does not reproduce. The
+trainer tests (tests/test_torch_teacher_train.py) hold the numbers.
+"""
+import json
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+FLAGS = ["--batch_size", "4", "--learning_rate", "1e-3", "--max_patches", "4",
+         "--teacher_image_size", "32", "--model_preset", "tiny", "--pe_cache", "memory"]
+
+
+@pytest.fixture(scope="module")
+def workspace(tmp_path_factory):
+    from PIL import Image
+
+    from dclip_tpu.data.detection_cache import GridProposalDetector, build_cache
+
+    root = tmp_path_factory.mktemp("train_cli")
+    rng = np.random.RandomState(0)
+    items = []
+    for i in range(10):
+        p = str(root / f"img{i}.png")
+        Image.fromarray((rng.rand(40, 48, 3) * 255).astype("uint8")).save(p)
+        items.append({"image_path": p, "captions": [f"a photo of thing {i}", f"thing {i}"]})
+    (root / "syn_train.json").write_text(json.dumps(items[:8]))
+    (root / "syn_val.json").write_text(json.dumps(items[8:]))
+    build_cache([it["image_path"] for it in items], GridProposalDetector(),
+                str(root / "precache.npz"))
+    return root
+
+
+def _run(main, root, package, extra):
+    out = str(root / package)
+    argv = ["--train_file", str(root / "syn_train.json"), "--output_path", out + "/teacher",
+            "--detection_cache", str(root / "precache.npz")] + FLAGS + extra
+    assert main(argv) == 0
+    with open(os.path.join(out, "checkpoints.json")) as f:
+        return out, json.load(f)
+
+
+def _shape(index):
+    """Each entry's file name with the val loss digits and the extension
+    masked, its epoch, step and metric keys."""
+    return [(re.sub(r"val\d+\.\d{4}", "val#", os.path.basename(e["path"])).rsplit(".", 1)[0],
+             e["epoch"], e["step"], sorted(e["metrics"]), e["tag"]) for e in index]
+
+
+@pytest.fixture(scope="module")
+def teacher_runs(workspace):
+    from dclip_tpu.cli import train_teacher as jax_cli
+    from dclip_tpu_torch.cli import train_teacher
+
+    port = _run(train_teacher.main, workspace, "port", ["--device", "cpu", "--epochs", "2"])
+    jax_run = _run(jax_cli.main, workspace, "jax", ["--epochs", "2", "--mesh_data", "1"])
+    return port, jax_run
+
+
+def test_train_teacher_checkpoints_match_the_jax_cli(teacher_runs):
+    (_, index), (_, jax_index) = teacher_runs
+    assert _shape(index) == _shape(jax_index)
+    assert [e["epoch"] for e in index] == [0, 1] and [e["step"] for e in index] == [2, 4]
+    assert all(os.path.exists(e["path"]) and e["path"].endswith(".pt") for e in index)
+    state = torch.load(index[-1]["path"], weights_only=True)
+    assert state["format"] == "dclip_tpu_torch.TeacherTrainer/1" and state["step"] == 4
+    assert len(state["params"]) == 12 and state["optimizer"]["count"] == 4
+
+
+def test_train_teacher_resume_runs_the_remaining_epoch(teacher_runs, workspace, capsys):
+    from dclip_tpu_torch.cli import train_teacher
+
+    (_, index), _ = teacher_runs
+    capsys.readouterr()
+    _, resumed = _run(train_teacher.main, workspace, "port",
+                      ["--device", "cpu", "--epochs", "3", "--resume"])
+    printed = capsys.readouterr().out
+    assert "Epoch 2:" in printed and "Epoch 0:" not in printed and "Epoch 1:" not in printed
+    assert [e["epoch"] for e in resumed] == [0, 1, 2] and resumed[-1]["step"] == 6
+    assert "Best model:" in printed
+
+
+def test_train_distill_reads_the_teacher_checkpoint(teacher_runs, workspace, monkeypatch):
+    from dclip_tpu_torch.cli import train_distill
+    from dclip_tpu_torch.data.pipeline import MultiModalPipeline
+    from dclip_tpu_torch.data.detection_cache import DetectionCache
+    from dclip_tpu_torch.data.tokenizer import HashTokenizer
+    from dclip_tpu_torch.data.corpus import load_corpus
+    from dclip_tpu_torch.train.distill_trainer import DistillTrainer
+
+    (_, index), _ = teacher_runs
+    ckpt = index[1]["path"]
+    built = []
+
+    class Recording(DistillTrainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            built.append(self)
+
+    monkeypatch.setattr(train_distill, "DistillTrainer", Recording)
+    ckpt_dir = str(workspace / "distill_ckpts")
+    assert train_distill.main(
+        ["--train_file", str(workspace / "syn_train.json"), "--train_batch_size", "4",
+         "--phase1_epochs", "1", "--checkpoint_dir", ckpt_dir, "--accumulate_grad_batches", "1",
+         "--teacher_checkpoint", ckpt, "--detection_cache", str(workspace / "precache.npz"),
+         "--max_patches", "4", "--teacher_image_size", "32", "--model_preset", "tiny",
+         "--device", "cpu"]) == 0
+    (tr,) = built
+    assert tr.step == 2
+    assert any(f.startswith("distill_epoch0_train") for f in os.listdir(ckpt_dir))
+    saved = torch.load(ckpt, weights_only=True)["params"]
+    for name, t in tr.teacher.state_dict().items():
+        assert torch.equal(t, saved[name]), name
+    # The CLI trainer's targets (kernels off on the CPU: the module path)
+    # equal the targets of a trainer given the saved weights directly.
+    direct = DistillTrainer(tr.cfg, tr.student.state_dict(), tr.teacher_clip_state_dict, saved,
+                            tr.student_config, tr.teacher_clip_config, device="cpu")
+    pipe = MultiModalPipeline(load_corpus(str(workspace / "syn_train.json")),
+                              HashTokenizer(1000, 16),
+                              DetectionCache.load(str(workspace / "precache.npz")),
+                              batch_size=4, max_patches=4, image_size=32, teacher_image_size=32)
+    batch = next(iter(pipe.epoch(0)))
+    assert batch.box_mask.sum() == 16
+    got = tr._teacher_targets(tr._device_batch(batch))
+    want = direct._teacher_targets(direct._device_batch(batch))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+
+
+def test_train_distill_reads_a_reference_pth(tmp_path):
+    """A torch state dict of the reference teacher (`cross_modal_attention.*`
+    among other keys) loads; one missing a key raises."""
+    from dclip_tpu_torch.cli.train_distill import load_teacher_state_dict
+    from dclip_tpu_torch.core.config import TeacherConfig
+    from dclip_tpu_torch.models.weights import random_teacher_state_dict
+
+    tcfg = TeacherConfig(embed_dim=16, max_patches=4, max_text_tokens=16)
+    sd = random_teacher_state_dict(tcfg, seed=5)
+    torch.save(dict(sd, **{"image_tokenizer.x": torch.zeros(2)}), tmp_path / "t.pth")
+    got = load_teacher_state_dict(str(tmp_path / "t.pth"), tcfg, seed=0)
+    assert set(got) == set(sd) and all(torch.equal(got[k], sd[k]) for k in sd)
+    sd.pop("cross_modal_attention.norm_text.bias")
+    torch.save(sd, tmp_path / "bad.pth")
+    with pytest.raises(ValueError, match="norm_text.bias"):
+        load_teacher_state_dict(str(tmp_path / "bad.pth"), tcfg, seed=0)
+
+
+def test_the_waiting_flags_raise(workspace):
+    from dclip_tpu_torch.cli import train_distill, train_teacher
+
+    base = ["--train_file", str(workspace / "syn_train.json"), "--model_preset", "tiny",
+            "--device", "cpu"]
+    for flags, item in ((["--multihost"], "item 10"), (["--projection_weights", "p"], "item 9"),
+                        (["--decode_backend", "native"], "item 5"),
+                        (["--mesh_data", "2"], "item 10")):
+        for cli in (train_teacher, train_distill):
+            with pytest.raises(NotImplementedError, match=item):
+                cli.main(base + flags)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        train_distill.main(base + ["--remat", "--checkpoint_dir",
+                                   str(workspace / "remat_ckpts")])

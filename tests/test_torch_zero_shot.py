@@ -68,6 +68,40 @@ def test_embed_classnames_and_evaluate_match_jax(tiny):
     assert got == want and got["total"] == 19
 
 
+def test_evaluate_zero_shot_bf16_matches_jax(tiny):
+    """A bf16 model: the module path at bf16 on both sides (the JAX
+    `zero_shot_logits_forward` runs `get_image_features`), the same top-1 /
+    top-5 on the same weights, pixels and class bank."""
+    from dclip_tpu.models.clip import CLIPModule as JaxCLIPModule
+    from dclip_tpu_torch.models.clip import CLIPModule
+
+    cfg = tiny[0]
+    params = torch_parity.jax_clip_fan_in(cfg, seed=4)  # features that differ by image
+    model = CLIPModule(cfg, dtype=torch.bfloat16, device="meta")
+    model.load_state_dict(state_dict_from_jax(params, cfg), strict=True, assign=True)
+    jmodel = JaxCLIPModule(cfg, dtype=jnp.bfloat16)
+    rng = np.random.RandomState(11)
+    s = cfg.vision.image_size
+    pixels = rng.standard_normal((24, s, s, 3)).astype(np.float32)
+    with torch.no_grad():
+        feats = model.eval().image_features(torch.from_numpy(pixels)).float()
+    # Each class vector: one image's features plus noise, so every image's
+    # top-1 is clear of the bf16 rounding of either framework.
+    bank = feats[:12] + 0.2 * feats.norm(dim=-1, keepdim=True)[:12] * torch.from_numpy(
+        rng.standard_normal((12, cfg.projection_dim)).astype(np.float32)) / 4
+    bank = bank / bank.norm(dim=-1, keepdim=True)
+    labels = np.concatenate([np.arange(12), rng.randint(0, 12, 12)])
+
+    def batches():
+        for i in range(0, 24, 10):
+            yield pixels[i:i + 10], labels[i:i + 10]
+
+    got = zs.evaluate_zero_shot(model, bank, batches(), log_every=0)
+    want = jzs.evaluate_zero_shot(jmodel, {"params": params}, jnp.asarray(bank.numpy()),
+                                  batches(), log_every=0)
+    assert got == want and got["total"] == 24 and got["top1"] >= 0.5
+
+
 def test_evaluate_zero_shot_separable(tiny):
     """Each image's own normalized features as the class bank: top-1 is 1.0."""
     cfg, _, _, model = tiny

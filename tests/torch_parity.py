@@ -59,6 +59,24 @@ def jax_clip(cfg, seed: int = 0):
     return model, jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def jax_clip_fan_in(cfg, seed: int = 1):
+    """`jax_clip`'s weights with every kernel redrawn at N(0, 1/fan_in). At
+    N(0, 0.02) the tiny towers give nearly the same features for every
+    crop, caption and image (the signal fades under the LayerNorms), so
+    attention is near uniform and, in training, the text-to-image
+    attention's q / k gradients sit at the f32 noise floor, where Adam
+    turns rounding into steps of about lr."""
+    _, params = jax_clip(cfg, seed=seed)
+    rng = np.random.RandomState(seed + 100)
+
+    def fill(path, a):
+        if str(path[-1].key) != "kernel":
+            return a
+        return (rng.standard_normal(a.shape) * np.prod(a.shape[:-1]) ** -0.5).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, params)
+
+
 def port_clip(cfg, params, dtype=torch.float32) -> CLIPModule:
     """The port's CLIPModule on the CPU holding the same weights."""
     model = CLIPModule(cfg, dtype=dtype, device="meta")
