@@ -18,7 +18,13 @@ Phases; each one passes or raises, and any failure exits non-zero:
    retrieval eval's B=256, and again at ViT-L/14 shapes (B=64, S=257,
    D=1024, 16 heads, MLP 4096: the zero-shot eval's); times kernel and
    twin at B/16 B=64 and L/14 B=64 with CUDA events in turns (plain,
-   kernel, kernel, plain).
+   kernel, kernel, plain). Then the GEMM (`csrc/gemm.cu`) alone: NN and NT
+   at the four projections of a B/16 layer for M = 12,608 (serving bucket
+   64), 50,432 (the student at B=256) and 403,456 (the teacher ViT over
+   2,048 crops), TN at K8's and K9's weight-gradient shapes, each timed in
+   turns against one PyTorch call (`torch.addmm` / `F.linear` with a bf16
+   bias, `torch.matmul`), with TFLOP/s and share of the bf16 peak; held
+   against the twin at the two smaller M.
 4. Slice: builds the B/16 `ClipService` through the serve CLI's own
    `build_service` (random weights from seed 0, bf16, buckets 1,4,16,64,
    index_dim 512), runs `warmup()`, the CLI's `--selftest` against a live
@@ -155,7 +161,9 @@ tensor cores, 67 TFLOP/s f32 CUDA cores) and the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s, from the
 shapes of this run; and `library_ms`, the time of one PyTorch call that
 computes the same function, where there is one
-(`scaled_dot_product_attention` and its backward; `torch.matmul` +
+(`scaled_dot_product_attention` and its backward; `torch.addmm`,
+`F.linear` and `torch.matmul` for the GEMM's NN, NT and TN modes, without
+their epilogues' activation and residual terms; `torch.matmul` +
 `torch.topk` for K12), else null.
 
 The second-to-last line is `{"kernels": [...]}` and the last line is
@@ -272,6 +280,13 @@ EVAL_BATCH = 256  # the retrieval eval's image batch
 BLOCK_CASES = (("B/16", B, S, D, HEADS, MLP, True), ("B/16", 1, S, D, HEADS, MLP, False),
                ("B/16", EVAL_BATCH, S, D, HEADS, MLP, False),
                ("L/14", ZS_BATCH, L14_S, L14_D, 16, L14_MLP, True))
+# The GEMM phase: the rows of a ViT-B/16 layer's projections at the serving
+# bucket of 64 images, the cache-warm student at B=256, and the teacher ViT
+# over 2,048 region crops (B=256 x 8 boxes); TN at K9's weight gradients
+# (B=256 vision rows) and K8's (the 64 packed text rows of 77 tokens).
+GEMM_ROWS = (B * S, TRAIN_B * S, TRAIN_B * 8 * S)
+GEMM_TN_CASES = (("K9 dwqkv", TRAIN_B * S, 3 * D, D), ("K9 dwo", TRAIN_B * S, D, D),
+                 ("K8 dw2", 64 * TEXT_S, TEXT_D, TEXT_MLP), ("K8 dw1", 64 * TEXT_S, TEXT_MLP, TEXT_D))
 FIT_B, FIT_EPOCHS, FIT_STEPS = 32, 2, 2
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 GRAD_B, GRAD_COS_GLOBAL, GRAD_COS_TENSOR = 8, 0.99, 0.95
@@ -473,22 +488,31 @@ def kernel_phase(torch, vb, card: str, table: KernelTable):
         g = randn(b, s, mlp)
         qkv = randn(b, s, 3 * d)
         attn_flops = 4.0 * b * heads * s * s * (d // heads)
+
+        def addmm(act, name):
+            """The projection's product and bias in one PyTorch call (its
+            activation and residual terms are not in it)."""
+            act2, bias = act.reshape(-1, act.shape[-1]), p[f"{name}_b"].to(torch.bfloat16)
+            return lambda: torch.addmm(bias, act2, p[f"{name}_w"])
+
         cases = [  # name, variant, (kernel, twin), args, kwargs, bound, library call
             ("layernorm", "ln", (vb.layernorm, vb.layernorm_reference),
              (x, p["ln1_scale"], p["ln1_bias"], EPS), {},
              work(f32_flops=8.0 * m * d, nbytes=4.0 * m * d + 8.0 * d), None),
             ("gemm_bias_act_residual", "qkv",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (h, p["qkv_w"], p["qkv_b"]), {}, gemm_work(m, d, 3 * d), None),
+             (h, p["qkv_w"], p["qkv_b"]), {}, gemm_work(m, d, 3 * d), addmm(h, "qkv")),
             ("gemm_bias_act_residual", "out_proj+residual",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (a, p["out_w"], p["out_b"]), {"residual": x}, gemm_work(m, d, d, 1), None),
+             (a, p["out_w"], p["out_b"]), {"residual": x}, gemm_work(m, d, d, 1),
+             addmm(a, "out")),
             ("gemm_bias_act_residual", "fc1+gelu",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (h, p["fc1_w"], p["fc1_b"]), {"gelu": True}, gemm_work(m, d, mlp), None),
+             (h, p["fc1_w"], p["fc1_b"]), {"gelu": True}, gemm_work(m, d, mlp), addmm(h, "fc1")),
             ("gemm_bias_act_residual", "fc2+residual",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
-             (g, p["fc2_w"], p["fc2_b"]), {"residual": x}, gemm_work(m, mlp, d, 1), None),
+             (g, p["fc2_w"], p["fc2_b"]), {"residual": x}, gemm_work(m, mlp, d, 1),
+             addmm(g, "fc2")),
             ("attention", "core", (vb.attention, vb.attention_reference), (qkv, heads), {},
              work(bf16_flops=attn_flops, nbytes=2.0 * m * 4 * d),
              sdpa_calls(torch, qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], heads, None)),
@@ -528,6 +552,81 @@ def kernel_phase(torch, vb, card: str, table: KernelTable):
                 table.timed(name, ms, plain_ms, bound, lib_ms)
         del x, h, a, g, qkv, got, want
     del weights
+    torch.cuda.empty_cache()
+
+
+def gemm_phase(torch, card: str):
+    """The port's GEMM (`csrc/gemm.cu`) in each mode against one PyTorch call
+    on the same operands, timed in turns (library, kernel, kernel, library):
+    NN and NT at the four projections of a ViT-B/16 layer for the main
+    path's row counts, TN at K8's and K9's weight-gradient shapes. Held
+    against the f32 twin at the two smaller M (the twin's f32 copies at the
+    teacher's M cost memory and time for nothing). Printed only: each
+    mode's row in the kernel table comes from the phases that drive it."""
+    from dclip_tpu_torch.kernels import trainable_ops as to
+    from dclip_tpu_torch.kernels import vit_block as vb
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(torch.bfloat16)
+
+    def report(what, m, k, n, ms, lib_ms, lib_name, bound):
+        flop = 2.0 * m * k * n
+        tflops, lib_tflops = flop / ms / 1e9, flop / lib_ms / 1e9
+        print(f"gemm {what} M={m} K={k} N={n}: kernel {ms} ms ({tflops} TFLOP/s, "
+              f"{tflops / (BF16_PEAK / 1e12)} of peak), {lib_name} {lib_ms} ms ({lib_tflops} "
+              f"TFLOP/s), kernel / library {ms / lib_ms}, bound {max(bound)} ms ({card})",
+              flush=True)
+
+    bias = {n: torch.randn(n, device=dev, generator=gen) * 0.1 for n in (D, 3 * D, MLP)}
+    weights = {}  # (K, N) -> ([K, N] NN layout, [N, K] nn.Linear layout)
+    for k, n in ((D, 3 * D), (D, D), (D, MLP), (MLP, D)):
+        w = randn(k, n, scale=k**-0.5)
+        weights[k, n] = (w, w.t().contiguous())
+    for m in GEMM_ROWS:
+        checked = m <= TRAIN_B * S
+        iters = max(2, int(2e6 / m))  # ~ 20-40 ms a window
+        x, h, g = randn(m, D), randn(m, D), randn(m, MLP)
+        cases = (("qkv", h, (D, 3 * D), {}, 0), ("out_proj+residual", h, (D, D), {"residual": x}, 1),
+                 ("fc1+gelu", h, (D, MLP), {"gelu": True, "save_preact": True}, 1),
+                 ("fc2+residual", g, (MLP, D), {"residual": x}, 1))
+        for what, a, (k, n), kw, extra in cases:
+            w_kn, w_nk = weights[k, n]
+            b32, b16 = bias[n], bias[n].to(torch.bfloat16)
+            modes = (("NN", lambda: vb.gemm_bias_act_residual(a, w_kn, b32, **kw),
+                      lambda: vb.gemm_bias_act_residual_reference(a, w_kn, b32, **kw),
+                      lambda: torch.addmm(b16, a, w_kn), "torch.addmm"),
+                     ("NT", lambda: to.gemm_nt(a, w_nk, b32, **kw),
+                      lambda: to.gemm_nt_reference(a, w_nk, b32, **kw),
+                      lambda: F.linear(a, w_nk, b16), "F.linear"))
+            for mode, kernel, twin, library, lib_name in modes:
+                if checked:
+                    got, want = kernel(), twin()
+                    pairs = zip(got, want) if kw.get("save_preact") else ((got, want),)
+                    for i, (gt, wt) in enumerate(pairs):
+                        _bound_check(torch, f"gemm {mode} {what}[{i}] M={m}", gt, wt, REL_TOL)
+                    del got, want
+                ms, lib_ms = time_pair(torch, kernel, library, iters)
+                report(f"{mode} {what}", m, k, n, ms, lib_ms, lib_name,
+                       gemm_work(m, k, n, extra))
+        del x, h, g
+        torch.cuda.empty_cache()
+    for what, rows, p, q in GEMM_TN_CASES:
+        xa, ya = randn(rows, p), randn(rows, q)
+        got = to.gemm_tn(xa, ya)
+        _bound_check(torch, f"gemm TN {what}", got, to.gemm_tn_reference(xa, ya), SUM_TOL)
+        if not torch.equal(got, to.gemm_tn(xa, ya)):
+            raise AssertionError(f"gemm TN {what}: two runs differ")
+        ms, lib_ms = time_pair(torch, lambda: to.gemm_tn(xa, ya),
+                               lambda: torch.matmul(xa.t(), ya), 10)
+        report(f"TN {what}", p, rows, q, ms, lib_ms, "torch.matmul",
+               work(bf16_flops=2.0 * rows * p * q, nbytes=2.0 * rows * (p + q) + 4.0 * p * q))
+        del xa, ya, got
+    del weights, bias
     torch.cuda.empty_cache()
 
 
@@ -1530,14 +1629,17 @@ def _trainable_parts(torch, to, table, timed, sum_check, variant, timed_case, nt
                      cs_cases, ln_args, ln_bound):
     """The GEMM's NT and TN modes, the column sums and the LayerNorm
     weight-gradient backward on one block's operands, against their twins."""
+    F = torch.nn.functional
     for what, args, kw, bound in nt_cases:
         got, want = to.gemm_nt(*args, **kw), to.gemm_nt_reference(*args, **kw)
         pairs = zip(got, want) if kw.get("save_preact") else ((got, want),)
         table.error("gemm_nt", max(_bound_check(torch, f"gemm_nt[{variant} {what}]", a, w,
                                                 REL_TOL) for a, w in pairs))
         if timed_case:
+            a2, w, bias = args[0].reshape(-1, args[0].shape[-1]), args[1], args[2]
             timed("gemm_nt", f"{variant} {what}", lambda: to.gemm_nt(*args, **kw),
-                  lambda: to.gemm_nt_reference(*args, **kw), 10, bound)
+                  lambda: to.gemm_nt_reference(*args, **kw), 10, bound,
+                  lambda: F.linear(a2, w, bias.to(torch.bfloat16)), " (F.linear, bf16 bias)")
     for what, (xa, ya), bound in tn_cases:
         got = to.gemm_tn(xa, ya)
         table.error("gemm_tn", sum_check(f"gemm_tn[{variant} {what}]", got,
@@ -2371,6 +2473,7 @@ def main() -> int:
                         + list(TRAINABLE_KERNELS) + list(TOPK_KERNELS)
                         + list(TEACHER_TRAIN_KERNELS))
     kernel_phase(torch, vb, card, table)
+    gemm_phase(torch, card)
     service, args, launches = slice_phase(torch, np, vb, cli_serve, card)
     cli_serve.bench(service, args, concurrencies=(1, 32))
     del service

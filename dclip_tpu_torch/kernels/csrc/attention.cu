@@ -19,44 +19,89 @@
 //   product, and the stats contract (m in the log2 domain, rinv the
 //   reciprocal row sum). The schedule is not the TPU's: the TPU runs one
 //   program per batch row with every head's [S, S] logits in VMEM; here a
-//   block owns one (batch row, head, 64-query tile) and walks the keys in
-//   tiles of 64 with an online softmax, so no [S, S] tensor exists.
-// Bound on the H100: at S = 197 (vision) and 77 (text) the per-head work is
-//   small (~10 MFLOP per query tile), so the kernel is bound by latency and
-//   by the 16-byte loads of K and V; occupancy comes from B * H * ceil(S/64)
-//   blocks (12,288 at the training batch of 256 images).
-// Design: 4 warps x 16 query rows. Per key tile: QK^T on WMMA bf16
-//   fragments into an f32 scratch, a row-wise online softmax in f32 (two
-//   lanes per row), P rounded to bf16 and PV on WMMA accumulating into an
-//   f32 output tile in shared memory that the softmax rescales. Keys past S
-//   are zero-filled and excluded with -inf (they are tile padding, not
-//   keys of the row); query rows past S are computed on zeros and not
-//   stored. The row sum is taken in f32 over the bf16-rounded P that
-//   enters the PV product, so the normalised weights sum to one exactly as
-//   in the TPU's ones-column trick and rinv is the one the backward needs.
-//   K and V of one head at S=197 take 50 KB, above the 48 KB static limit;
-//   tiling the keys keeps the block at 70 KB of dynamic shared memory.
+//   block owns 128 query rows of one (batch row, head) and walks the keys
+//   in tiles of 64 with an online softmax, so no [S, S] tensor exists.
+// Bound on the H100: at S = 197 (vision) and 77 (text) the per-head work
+//   is small (4 * S^2 * 64 flops, ~10 MFLOP per head at S = 197), so the
+//   kernel is bound by latency: the load of each K/V tile, the dependent
+//   chain QK^T -> softmax -> PV, and the launch of B * H * ceil(S/128)
+//   short blocks (6,144 at the training batch of 256 images).
+// Design: two warpgroups per block, each owning 64 consecutive query rows
+//   of the same (b, h), so one K/V tile in shared memory serves 128 rows;
+//   two blocks per SM (~100 KB of shared memory, at most 128 registers a
+//   thread each), so one block's softmax overlaps the other's wgmma. K/V
+//   tiles of 64 keys go through a ring of 5 slots filled by 16-byte
+//   cp.async stores in the 128-byte-swizzled layout wgmma reads: every
+//   tile of S <= 320 (197, 257, 77) is requested before the first is
+//   used, and longer rows refill a slot as soon as it is free, so the
+//   loads' latency is paid once per block, not once per tile. Per tile and
+//   warpgroup,
+//   S = Q K^T is four wgmma m64n64k16 (Q and K from shared memory, both
+//   K-major) into 32 f32 registers a thread; the masked online softmax runs
+//   on those registers in the log2 domain, row max and row sum by quad
+//   shuffles (a row's 64 keys lie in the four lanes of a quad); P is
+//   rounded to bf16 in registers and is the register A operand of O += P V,
+//   four more wgmma m64n64k16 with V from shared memory, MN-major. O stays
+//   in f32 registers and is rescaled there; it is normalised once at the
+//   end and stored as 16-byte vectors. Keys past S are zero-filled and
+//   excluded with -inf (they are tile padding, not keys of the row); query
+//   rows past S are computed on zeros and not stored. The row sum is taken
+//   in f32 over the bf16-rounded P that enters the PV product, so the
+//   normalised weights sum to one exactly as in the TPU's ones-column trick
+//   and rinv is the one the backward needs.
 #include <math.h>
-#include <mma.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
+namespace sm = dclip::sm90;
 
-constexpr int kHd = 64;          // head_dim (the only one taken)
-constexpr int kQTile = 64, kKTile = 64, kWarps = 4;
-constexpr int kLdh = kHd + 8;    // bf16 rows of Q, K, V, P tiles
-constexpr int kLds = kKTile + 4; // f32 rows of S and O scratch (kHd == kKTile)
-constexpr int kQBytes = kQTile * kLdh * 2;
-constexpr int kKBytes = kKTile * kLdh * 2;
-constexpr int kSBytes = kWarps * 16 * kLds * 4;
-constexpr int kPBytes = kWarps * 16 * kLdh * 2;
-constexpr int kMaskBytes = 2 * kKTile * 4;
-constexpr int kSmemBytes = kQBytes + 2 * kKBytes + 2 * kSBytes + kPBytes + kMaskBytes;
+constexpr int kHd = 64;                       // head_dim (the only one taken)
+constexpr int kTile = 64;                     // query rows per warpgroup, keys per tile
+constexpr int kGroups = 2;                    // warpgroups per block
+constexpr int kThreads = kGroups * 128;
+constexpr int kRing = 5;                      // K/V tiles in flight: all of S <= 320
+constexpr int kTileBytes = kTile * kHd * 2;   // one swizzled [64][64] bf16 tile, 8 KB
+constexpr int kSmemBytes = (kGroups + 2 * kRing) * kTileBytes + kRing * kTile * 8 + 1024;
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Rows [r0, r0 + rows) x 64 bf16 columns of `src` (already offset to its
+// first column; row stride `ld` elements) into consecutive swizzled tiles
+// at `dst`, by all threads in 16-byte cp.async copies; rows >= valid are
+// zero.
+template <int kRows>
+__device__ __forceinline__ void load_rows(unsigned char* dst, const __nv_bfloat16* __restrict__ src,
+                                          int r0, int valid, int ld) {
+#pragma unroll
+  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int row = c >> 3, chunk = c & 7;
+    const bool ok = r0 + row < valid;
+    const __nv_bfloat16* p = ok ? src + static_cast<size_t>(r0 + row) * ld + chunk * 8 : src;
+    dclip::cp_async_16(dst + sm::swizzle128(row, chunk), p, ok);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(dclip::kFullMask, v, 1));
+  return fmaxf(v, __shfl_xor_sync(dclip::kFullMask, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(dclip::kFullMask, v, 1);
+  return v + __shfl_xor_sync(dclip::kFullMask, v, 2);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// kMasked: any of causal, pad, seg is given (the unmasked frozen-tower
+// core skips the per-key mask terms).
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, 2)
     attention_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, int ldq, int ldk,
@@ -64,157 +109,196 @@ __global__ void __launch_bounds__(kWarps * 32)
                      const float* __restrict__ pad, const int* __restrict__ seg,
                      float* __restrict__ m_out, float* __restrict__ r_out,
                      int s, int heads, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + kQBytes);
-  __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(smem + kQBytes + kKBytes);
-  float* ss_all = reinterpret_cast<float*>(smem + kQBytes + 2 * kKBytes);
-  float* so_all = reinterpret_cast<float*>(smem + kQBytes + 2 * kKBytes + kSBytes);
-  __nv_bfloat16* sp_all =
-      reinterpret_cast<__nv_bfloat16*>(smem + kQBytes + 2 * kKBytes + 2 * kSBytes);
-  float* kpad = reinterpret_cast<float*>(smem + kQBytes + 2 * kKBytes + 2 * kSBytes + kPBytes);
-  int* kseg = reinterpret_cast<int*>(kpad + kKTile);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sk = sq + kGroups * kTileBytes;  // [kRing] K tiles
+  unsigned char* sv = sk + kRing * kTileBytes;    // [kRing] V tiles
+  float* kpad = reinterpret_cast<float*>(sv + kRing * kTileBytes);  // [kRing][64]
+  int* kseg = reinterpret_cast<int*>(kpad + kRing * kTile);          // [kRing][64]
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kGroups * kTile, h = blockIdx.y, b = blockIdx.z;
   const int d = heads * kHd;
   const __nv_bfloat16* qb = q + static_cast<size_t>(b) * s * ldq + h * kHd;
   const __nv_bfloat16* kb = k + static_cast<size_t>(b) * s * ldk + h * kHd;
   const __nv_bfloat16* vb = v + static_cast<size_t>(b) * s * ldv + h * kHd;
-  float* ss = ss_all + warp * 16 * kLds;
-  float* so = so_all + warp * 16 * kLds;
-  __nv_bfloat16* sp = sp_all + warp * 16 * kLdh;
+  const int tiles = (s + kTile - 1) / kTile;
 
-  dclip::load_tile64<kWarps * 32>(sq, kLdh, qb, q0, s, ldq);
-  for (int i = lane; i < 16 * kHd; i += 32) so[(i / kHd) * kLds + i % kHd] = 0.f;
-
-  // Lane owns half (32 columns) of row `row` of its warp's 16 query rows.
-  const int row = lane >> 1, half = lane & 1;
-  const int gq = q0 + warp * 16 + row;
-  const int qseg = (seg != nullptr && gq < s) ? seg[static_cast<size_t>(b) * s + gq] : 0;
-  const float scale_log2 = 0.125f * 1.4426950408889634f;  // 64^-0.5 * log2(e)
-  float m_run = -INFINITY, l_run = 0.f;
-
-  for (int k0 = 0; k0 < s; k0 += kKTile) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    dclip::load_tile64<kWarps * 32>(sk, kLdh, kb, k0, s, ldk);
-    dclip::load_tile64<kWarps * 32>(sv, kLdh, vb, k0, s, ldv);
-    if (threadIdx.x < kKTile) {
-      const int key = k0 + threadIdx.x;
-      const size_t at = static_cast<size_t>(b) * s + key;
-      kpad[threadIdx.x] = (pad != nullptr && key < s) ? pad[at] : 1.f;
-      kseg[threadIdx.x] = (seg != nullptr && key < s) ? seg[at] : 0;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kKTile / 16];
-#pragma unroll
-      for (int c = 0; c < kKTile / 16; ++c) wmma::fill_fragment(acc[c], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kHd; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fq;
-        wmma::load_matrix_sync(fq, sq + warp * 16 * kLdh + kk, kLdh);
-#pragma unroll
-        for (int c = 0; c < kKTile / 16; ++c) {
-          // K stored [key][dim] row-major is K^T in column-major.
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fk;
-          wmma::load_matrix_sync(fk, sk + c * 16 * kLdh + kk, kLdh);
-          wmma::mma_sync(acc[c], fq, fk, acc[c]);
-        }
+  // Tile `tile` (if it exists) into ring slot tile % kRing; one cp.async
+  // group per call, empty past the last tile, so that "tile j landed" is
+  // always "all but the last kRing - 1 groups done".
+  auto load_kv = [&](int tile) {
+    if (tile < tiles) {
+      const int k0 = tile * kTile, slot = tile % kRing;
+      load_rows<kTile>(sk + slot * kTileBytes, kb, k0, s, ldk);
+      load_rows<kTile>(sv + slot * kTileBytes, vb, k0, s, ldv);
+      if (kMasked && threadIdx.x < kTile) {
+        const int key = k0 + threadIdx.x;
+        const size_t at = static_cast<size_t>(b) * s + key;
+        kpad[slot * kTile + threadIdx.x] = (pad != nullptr && key < s) ? pad[at] : 1.f;
+        kseg[slot * kTile + threadIdx.x] = (seg != nullptr && key < s) ? seg[at] : 0;
       }
-#pragma unroll
-      for (int c = 0; c < kKTile / 16; ++c)
-        wmma::store_matrix_sync(ss + c * 16, acc[c], kLds, wmma::mem_row_major);
     }
-    __syncwarp();
+    dclip::cp_async_commit();
+  };
 
-    // Masked online softmax in the log2 domain over this lane's 32 keys.
-    float* srow = ss + row * kLds + half * 32;
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int e = 0; e < 32; ++e) {
-      const int j = half * 32 + e, key = k0 + j;
+  load_rows<kGroups * kTile>(sq, qb, q0, s, ldq);  // joins tile 0's group
+#pragma unroll
+  for (int t = 0; t < kRing; ++t) load_kv(t);
+
+  // This thread's two rows (of its warp's 16) and its key columns 2 (lane
+  // % 4) + {0, 1} of each 8-key group.
+  const int row_lo = q0 + wg * kTile + warp * 16 + (lane >> 2), row_hi = row_lo + 8;
+  const int col = 2 * (lane & 3);
+  int seg_lo = 0, seg_hi = 0;
+  if (kMasked && seg != nullptr) {
+    if (row_lo < s) seg_lo = seg[static_cast<size_t>(b) * s + row_lo];
+    if (row_hi < s) seg_hi = seg[static_cast<size_t>(b) * s + row_hi];
+  }
+  const float scale_log2 = 0.125f * 1.4426950408889634f;  // 64^-0.5 * log2(e)
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  const uint64_t dq = sm::desc_sw128(sq + wg * kTileBytes, 16, 1024);
+  for (int j = 0; j < tiles; ++j) {
+    const int slot = j % kRing;
+    dclip::cp_async_wait<kRing - 1>();
+    sm::fence_proxy_async();  // this thread's cp.async stores, visible to wgmma
+    __syncthreads();          // tile j (and Q) landed for every thread
+
+    // S = Q K^T: 64 rows x 64 keys per warpgroup.
+    float sacc[32];
+    const uint64_t dk = sm::desc_sw128(sk + slot * kTileBytes, 16, 1024);
+    sm::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHd / 16; ++kk)
+      sm::wgmma_m64n64k16_ss<0, 0>(sacc, sm::desc_add(dq, kk * 32), sm::desc_add(dk, kk * 32),
+                                   kk > 0);
+    sm::wgmma_commit();
+    sm::wgmma_wait<0>();
+    sm::fence_regs(sacc);
+
+    // Masked log2-domain logits; sacc[4 g + e] is key 8 g + col + (e & 1)
+    // of row_lo (e < 2) or row_hi.
+    const int k0 = j * kTile;
+    const float* tpad = kpad + slot * kTile;
+    const int* tseg = kseg + slot * kTile;
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int kl = 8 * (i / 4) + col + (i & 1), key = k0 + kl;
+      const bool hi = (i & 2) != 0;
       float l = -INFINITY;
       if (key < s) {
-        const bool keep = (!causal || key <= gq) && (seg == nullptr || kseg[j] == qseg) &&
-                          kpad[j] > 0.f;
-        l = keep ? srow[e] * scale_log2 : dclip::kNegBig;
+        bool keep = true;
+        if (kMasked)
+          keep = (!causal || key <= (hi ? row_hi : row_lo)) &&
+                 (seg == nullptr || tseg[kl] == (hi ? seg_hi : seg_lo)) && tpad[kl] > 0.f;
+        l = keep ? sacc[i] * scale_log2 : dclip::kNegBig;
       }
-      srow[e] = l;
-      mx = fmaxf(mx, l);
+      sacc[i] = l;
+      if (hi) mx_hi = fmaxf(mx_hi, l); else mx_lo = fmaxf(mx_lo, l);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(dclip::kFullMask, mx, 1));
-    const float m_new = fmaxf(m_run, mx);  // finite: every tile has a key < s
-    const float alpha = exp2f(m_run - m_new);
-    __nv_bfloat16* prow = sp + row * kLdh + half * 32;
-    float rs = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < 32; ++e) {
-      const __nv_bfloat16 p = __float2bfloat16(exp2f(srow[e] - m_new));
-      prow[e] = p;
-      rs += __bfloat162float(p);
+    // Finite: every tile holds a key < s, whose logit is real or -1e30.
+    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo)), mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+    const float a_lo = exp2f(m_lo - mn_lo), a_hi = exp2f(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+
+    // P in bf16, packed as the A fragments of four k16 steps; the row sums
+    // over the rounded values.
+    uint32_t p[16];
+    float rs_lo = 0.f, rs_hi = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const bool hi = (i & 2) != 0;
+      const float mref = hi ? mn_hi : mn_lo;
+      const __nv_bfloat16 p0 = __float2bfloat16(exp2f(sacc[i] - mref));
+      const __nv_bfloat16 p1 = __float2bfloat16(exp2f(sacc[i + 1] - mref));
+      const float sum = __bfloat162float(p0) + __bfloat162float(p1);
+      if (hi) rs_hi += sum; else rs_lo += sum;
+      // Key group g = i / 4 is half (g & 1) of k16 step g / 2: register
+      // 4 (g / 2) + 2 (g & 1) + (row_hi ? 1 : 0).
+      p[4 * (i / 8) + 2 * ((i / 4) & 1) + (hi ? 1 : 0)] = pack_bf16(p0, p1);
     }
-    rs += __shfl_xor_sync(dclip::kFullMask, rs, 1);
-    l_run = l_run * alpha + rs;
-    m_run = m_new;
-    float* orow = so + row * kLds + half * 32;
-#pragma unroll 8
-    for (int e = 0; e < 32; ++e) orow[e] *= alpha;
-    __syncwarp();
+    l_lo = l_lo * a_lo + rs_lo;
+    l_hi = l_hi * a_hi + rs_hi;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? a_hi : a_lo;
 
     // O += P V.
+    const uint64_t dv = sm::desc_sw128(sv + slot * kTileBytes, kTileBytes, 1024);
+    sm::fence_regs(p);
+    sm::fence_regs(o);
+    sm::wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kHd / 16; ++c) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo;
-      wmma::load_matrix_sync(fo, so + c * 16, kLds, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kKTile; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fp;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fp, sp + kk, kLdh);
-        wmma::load_matrix_sync(fv, sv + kk * kLdh + c * 16, kLdh);
-        wmma::mma_sync(fo, fp, fv, fo);
-      }
-      wmma::store_matrix_sync(so + c * 16, fo, kLds, wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      sm::wgmma_m64n64k16_rs<1>(o, p + 4 * kk, sm::desc_add(dv, kk * 2048), 1);
+    sm::wgmma_commit();
+    sm::wgmma_wait<0>();
+    sm::fence_regs(o);
+    if (j + kRing < tiles) __syncthreads();  // every warpgroup is done with the slot
+    load_kv(j + kRing);
   }
 
-  if (gq < s) {
-    const float inv = 1.f / l_run;
-    const float* orow = so + row * kLds + half * 32;
-    __nv_bfloat16* dst = out + (static_cast<size_t>(b) * s + gq) * d + h * kHd + half * 32;
+  const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float o[8];
+  for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? inv_hi : inv_lo;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = orow[c * 8 + e] * inv;
-      *reinterpret_cast<uint4*>(dst + c * 8) = dclip::pack8(o);
+  for (int g0 = 0; g0 < kHd / 8; g0 += 4) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float vals[8];
+      sm::quad_gather8(o, g0, half, vals);
+      const int row = half ? row_hi : row_lo;
+      if (row < s) {
+        __nv_bfloat16* dst = out + (static_cast<size_t>(b) * s + row) * d + h * kHd +
+                             (g0 + (lane & 3)) * 8;
+        *reinterpret_cast<uint4*>(dst) = dclip::pack8(vals);
+      }
     }
-    if (m_out != nullptr && half == 0) {
-      const size_t at = (static_cast<size_t>(b) * s + gq) * heads + h;
-      m_out[at] = m_run;
-      r_out[at] = inv;
+  }
+  if (m_out != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? row_hi : row_lo;
+      if (row < s) {
+        const size_t at = (static_cast<size_t>(b) * s + row) * heads + h;
+        m_out[at] = half ? m_hi : m_lo;
+        r_out[at] = half ? inv_hi : inv_lo;
+      }
     }
   }
 }
 
-int launch(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
-           void* out, const void* pad, const void* seg, void* m, void* r, int b,
-           int s, int heads, int causal, void* stream) {
+template <bool kMasked>
+int launch_masked(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
+                  void* out, const void* pad, const void* seg, void* m, void* r, int b,
+                  int s, int heads, int causal, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      attention_kernel<kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + kQTile - 1) / kQTile, heads, b);
-  attention_kernel<<<grid, kWarps * 32, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((s + kGroups * kTile - 1) / (kGroups * kTile), heads, b);
+  attention_kernel<kMasked><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), ldq, ldk, ldv,
       static_cast<__nv_bfloat16*>(out), static_cast<const float*>(pad),
       static_cast<const int*>(seg), static_cast<float*>(m), static_cast<float*>(r), s,
       heads, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
+           void* out, const void* pad, const void* seg, void* m, void* r, int b,
+           int s, int heads, int causal, void* stream) {
+  return (causal || pad != nullptr || seg != nullptr)
+             ? launch_masked<true>(q, k, v, ldq, ldk, ldv, out, pad, seg, m, r, b, s, heads,
+                                   causal, stream)
+             : launch_masked<false>(q, k, v, ldq, ldk, ldv, out, pad, seg, m, r, b, s, heads,
+                                    causal, stream);
 }
 
 }  // namespace

@@ -3,7 +3,7 @@
 // saving the pre-activation to AUX[M,N]; or a multiply by quick-GELU's
 // derivative at AUX[M,N] (the frozen-MLP backward). A, W, R, AUX bf16;
 // bias f32 or absent; C bf16 or f32; accumulation and the epilogue in f32.
-// Three operand modes, one template each:
+// Three operand modes, one main loop:
 //   NN  A [M,K] and W [K,N], both row-major (the layouts above);
 //   NT  W given as [N,K] row-major, nn.Linear's [out, in]: C = A . W^T,
 //       so a trainable weight needs one bf16 cast per step and no
@@ -15,265 +15,315 @@
 //       order (no atomics: the result does not change from run to run).
 //
 // Replaces: the four projections inside dclip_tpu/kernels/vit_block.py
-//   `_attn_kernel` (QKV at lines 56-58, out_proj + residual at 91-93) and
-//   `_mlp_kernel` (fc1 + GELU at 101-103, fc2 + residual at 104-106). On
-//   the TPU each program keeps the whole weight matrix resident in VMEM
-//   (4.7 MB / 9.4 MB); a Hopper block has at most 227 KB of shared memory,
-//   so here the weights stream through shared memory in tiles. Also the
-//   four GEMMs of dclip_tpu/kernels/mlp_frozen.py (K6): `_fwd_save_kernel`
-//   (line 135: fc1 with the pre-activation a1 saved beside the GELU
-//   output, then fc2 + residual) and `_bwd_dx_kernel` (line 159:
-//   g W2^T times quick-GELU'(a1), then da1 W1^T into f32 for the
-//   LayerNorm backward of layernorm.cu). The TPU keeps a1's chunks and the
-//   f32 intermediates in VMEM; here each GEMM writes its [M, N] output once.
-//   The NT and TN modes serve the trainable blocks: the products of
-//   dclip_tpu/kernels/mlp_trainable.py `_bwd_a_kernel` / `_bwd_b_kernel`
-//   (K8; dW2 = gelu(a1)^T g at line 107, dW1 = h^T da1 at line 161, which
-//   the TPU accumulates in VMEM across its sequential batch grid) and
-//   attn_block_trainable.py `_fwd_kernel` (K9; QKV at lines 86-88,
-//   out_proj at 119) with its VJP's weight gradients (lines 240, 266).
+//   `_attn_kernel` (line 47: QKV, out_proj + residual) and `_mlp_kernel`
+//   (line 96: fc1 + GELU, fc2 + residual). On the TPU each program keeps
+//   the whole weight matrix resident in VMEM (4.7 MB / 9.4 MB); a Hopper
+//   block has at most 227 KB of shared memory, so here the weights stream
+//   through shared memory in tiles. Also the GEMMs of
+//   dclip_tpu/kernels/mlp_frozen.py (K6): `_fwd_save_kernel` (line 135: fc1
+//   with the pre-activation a1 saved beside the GELU output, then fc2 +
+//   residual) and `_bwd_dx_kernel` (line 159: g W2^T times quick-GELU'(a1),
+//   then da1 W1^T into f32 for the LayerNorm backward of layernorm.cu).
+//   The NT and TN modes serve the trainable blocks: mlp_trainable.py
+//   `_bwd_a_kernel` / `_bwd_b_kernel` (K8, lines 82 and 134: dW2 =
+//   gelu(a1)^T g, dW1 = h^T da1, which the TPU accumulates in VMEM across
+//   its sequential batch grid) and attn_block_trainable.py `_fwd_kernel`
+//   (K9, line 78: QKV, out_proj) with its VJP's weight gradients (line
+//   224); and the four projections of K10 (cross_attention.py:74).
 // Bound on the H100: tensor-core throughput. At the serving bucket of 64
 //   images M = 12,608 rows, and fc1 (K=768, N=3072) does 2*M*K*N flops
-//   over 2*(M*K + K*N + M*N) bytes, ~590 flop/byte, above the ~295 ridge.
+//   over 2*(M*K + K*N + M*N) bytes, ~590 flop/byte, above the ~295 ridge;
+//   the teacher ViT over 2,048 crops (M = 403,456) does 68.5 TFLOP of
+//   projections a step. Only wgmma reaches the card's bf16 rate, and only
+//   if the operands arrive without costing the issuing threads anything.
 //   A weight gradient reduces over M = 50,432 vision rows into only 36-108
 //   output tiles of 128 x 128, fewer than the 132 SMs: hence the split.
-// Design: 128x128 output tile per block of 8 warps (2 x 4, each warp a
-//   64x32 tile of 4x2 WMMA bf16 m16n16k16 fragments), K walked in steps of
-//   32 through a 3-stage cp.async ring so the next tiles load while the
-//   tensor cores run. An operand whose K runs along its rows in memory
-//   (A in NN / NT, W in NT) is staged [128][32 + 8]; one whose K runs down
-//   its columns (W in NN / TN, X in TN) is staged [32][128 + 8], and its
-//   WMMA fragment is read column-major where the product wants the
-//   transpose. M, N and (in TN) K edges are masked by zero-filled loads
-//   and guarded stores (M = 197 * batch is ragged); NN and NT need K % 32
-//   == 0, every mode N % 8 == 0 and TN M % 8 == 0. The epilogue stages
-//   each fragment through a per-warp 16x16 f32 scratch and writes 16-byte
-//   bf16 vectors (or two 16-byte f32 vectors). For K6's forward the GELU
-//   output and a1 are both written (2 x M x mlp bf16, 2 x 310 MB per layer
-//   at 256 images): applying GELU to A as fc2 loads it would write a1
-//   only, but recompute the GELU once per N-tile of fc2 (6 times at N =
-//   768) inside the GEMM's main loop; the extra store is the cheaper of
-//   the two. wgmma + TMA are later work.
-#include <mma.h>
-
-#include <type_traits>
-
+// Design: a 128 x 128 output tile per block of two consumer warpgroups and
+//   one producer warp. One producer thread keeps a ring of 3 shared-memory
+//   stages filled with TMA loads (cp.async.bulk.tensor on CUtensorMaps passed
+//   as __grid_constant__, 128-byte swizzle, K in steps of 64), each stage's
+//   arrival counted in bytes on its "full" mbarrier; two consumer warpgroups,
+//   64 rows each, issue wgmma.mma_async m64n128k16 from shared-memory
+//   descriptors into f32 register accumulators, keep one wgmma group in flight
+//   and hand each stage back on its "empty" mbarrier. Two blocks share an SM
+//   (96 KB of shared memory and 96 registers a thread each, what ptxas allots
+//   two 288-thread blocks), so that one block's prologue, pipeline fill and
+//   epilogue overlap the other's main loop: at K = 768 a tile's main loop is
+//   only 12 stages. (setmaxnreg, to move the producer's registers to the
+//   consumers, is not used: ptxas compiles the block at its own register
+//   count, below the launch bound, and an increase past what the producer
+//   freed stalled the card.) wgmma reads 16-bit operands K-major or MN-major,
+//   so the three modes differ only in their descriptors and tensor maps, with
+//   no transposed copy: A is K-major in NN / NT and M-major in TN; W is
+//   N-major in NN, K-major in NT, and Y N-major in TN. Ragged M (197 * batch
+//   rows) and TN's ragged K come from TMA's zero fill out of bounds; stores
+//   are guarded. NN and NT need K % 32 == 0 and every mode N % 8 == 0 (TN also
+//   M % 8 == 0), which give TMA its 16-byte row strides; each operand's base
+//   is 16-byte aligned (the wrappers check). The epilogue runs from the
+//   accumulator registers: the residual or quick-GELU' tile is pulled into L2
+//   while the main loop runs, a quad transpose gives each lane 8 consecutive
+//   columns of a row, then bias, pre-activation save, activation (sigmoid by
+//   one tanh.approx) and residual in f32 and one 16-byte bf16 store (or two
+//   f32 ones). For K6's forward the GELU output and a1 are both written:
+//   applying GELU to A as fc2 loads it would write a1 only, but recompute the
+//   GELU once per N-tile of fc2; the extra store is the cheaper of the two.
+//   Not yet: a persistent tile schedule (each tile's epilogue overlapping the
+//   next one's loads), clusters with TMA multicast, the TN reduction inside a
+//   cluster, fp8.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using dclip::sm90::desc_add;
+using dclip::sm90::desc_sw128;
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kWarpM = 64, kWarpN = 32;
-constexpr int kFragM = kWarpM / 16, kFragN = kWarpN / 16;
-// Padded rows (fewer bank conflicts, 32-byte aligned fragments).
-constexpr int kKLd = kBK + 8;   // a [128][32] tile, K along the row
-constexpr int kMNLd = kBN + 8;  // a [32][128] tile, K down the column
-constexpr int kStage = kBM * kKLd;  // bf16 elements; >= kBK * kMNLd, so either layout fits
-constexpr int kSmemBytes = kStages * 2 * kStage * 2 + (kThreads / 32) * 16 * 16 * 4;
+constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3;
+constexpr int kConsumers = 2;                   // warpgroups, 64 rows each
+constexpr int kThreads = kConsumers * 128 + 32;  // and one producer warp
+constexpr int kBox = 64 * 64 * 2;               // one [64][64] bf16 TMA box, 8 KB
+constexpr int kABytes = kBM * kBK * 2;          // 16 KB
 
 constexpr int kModeNN = 0, kModeNT = 1, kModeTN = 2;
 constexpr int kEpiNone = 0, kEpiGelu = 1, kEpiDgelu = 2;
 
-// Rows [r0, r0 + 128) x columns [k0, k0 + 32) of a row-major [rows, kdim]
-// matrix into a [128][kKLd] tile; out-of-range 8-column chunks are zero.
-__device__ __forceinline__ void load_rows_k(const __nv_bfloat16* __restrict__ src,
-                                            __nv_bfloat16* dst, int r0, int rows, int k0,
-                                            int kdim) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int row = c >> 2, col = (c & 3) * 8;
-    const bool ok = r0 + row < rows && k0 + col < kdim;
-    const __nv_bfloat16* p = ok ? src + static_cast<size_t>(r0 + row) * kdim + k0 + col : src;
-    dclip::cp_async_16(dst + row * kKLd + col, p, ok);
-  }
+constexpr int kStageBytes = kABytes + kBN * kBK * 2;
+// The ring, 2 x kStages mbarriers, and slack to align the ring to 1 KB.
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+
+// sigmoid(y) = (1 + tanh(y / 2)) / 2: one tanh.approx (a single MUFU
+// operation, relative error ~2^-11) where expf and a division take three;
+// the results are rounded to bf16 (2^-9) or feed a gradient.
+__device__ __forceinline__ float sigmoid_fast(float y) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.5f * y));
+  return fmaf(0.5f, t, 0.5f);
 }
 
-// Rows [k0, k0 + 32) x columns [c0, c0 + 128) of a row-major [kdim, cols]
-// matrix into a [32][kMNLd] tile; out-of-range chunks are zero.
-__device__ __forceinline__ void load_k_cols(const __nv_bfloat16* __restrict__ src,
-                                            __nv_bfloat16* dst, int k0, int kdim, int c0,
-                                            int cols) {
+// Columns gn .. gn + 7 of row gm; v holds the accumulator's values.
+__device__ __forceinline__ void epilogue8(float* v, int gm, int gn, int m, int n,
+                                          const float* __restrict__ bias,
+                                          const __nv_bfloat16* __restrict__ r,
+                                          const __nv_bfloat16* __restrict__ aux_in,
+                                          __nv_bfloat16* __restrict__ aux_out, void* c,
+                                          size_t slice, int epi, int out_f32) {
+  if (gm >= m || gn >= n) return;
+  const size_t off = static_cast<size_t>(gm) * n + gn;
+  if (bias != nullptr) {
+    const float4 b0 = *reinterpret_cast<const float4*>(bias + gn);
+    const float4 b1 = *reinterpret_cast<const float4*>(bias + gn + 4);
+    v[0] += b0.x; v[1] += b0.y; v[2] += b0.z; v[3] += b0.w;
+    v[4] += b1.x; v[5] += b1.y; v[6] += b1.z; v[7] += b1.w;
+  }
+  if (aux_out != nullptr) *reinterpret_cast<uint4*>(aux_out + off) = dclip::pack8(v);
+  if (epi == kEpiGelu) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int row = c >> 4, col = (c & 15) * 8;
-    const bool ok = k0 + row < kdim && c0 + col < cols;
-    const __nv_bfloat16* p = ok ? src + static_cast<size_t>(k0 + row) * cols + c0 + col : src;
-    dclip::cp_async_16(dst + row * kMNLd + col, p, ok);
+    for (int e = 0; e < 8; ++e) v[e] *= sigmoid_fast(1.702f * v[e]);
+  } else if (epi == kEpiDgelu) {
+    float pre[8];
+    dclip::unpack8(*reinterpret_cast<const uint4*>(aux_in + off), pre);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      // d/da quick_gelu(a) = s + 1.702 a s (1 - s), s = sigmoid(1.702 a)
+      const float sg = sigmoid_fast(1.702f * pre[e]);
+      v[e] *= sg + 1.702f * pre[e] * sg * (1.f - sg);
+    }
+  }
+  if (r != nullptr) {
+    float rv[8];
+    dclip::unpack8(*reinterpret_cast<const uint4*>(r + off), rv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] += rv[e];
+  }
+  if (out_f32) {
+    float4* cf = reinterpret_cast<float4*>(static_cast<float*>(c) + slice + off);
+    cf[0] = make_float4(v[0], v[1], v[2], v[3]);
+    cf[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(c) + slice + off) = dclip::pack8(v);
   }
 }
 
 template <int kMode>
-__device__ __forceinline__ void load_stage(const __nv_bfloat16* __restrict__ a,
-                                           const __nv_bfloat16* __restrict__ w,
-                                           __nv_bfloat16* sa, __nv_bfloat16* sb, int m0, int n0,
-                                           int k0, int m, int n, int k) {
-  if constexpr (kMode == kModeTN) {
-    load_k_cols(a, sa, k0, k, m0, m);  // X [K, M]
-  } else {
-    load_rows_k(a, sa, m0, m, k0, k);  // A [M, K]
-  }
-  if constexpr (kMode == kModeNT) {
-    load_rows_k(w, sb, n0, n, k0, k);  // W [N, K]
-  } else {
-    load_k_cols(w, sb, k0, k, n0, n);  // W [K, N]
-  }
-}
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, const float* __restrict__ bias,
+                const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ aux_in,
+                __nv_bfloat16* __restrict__ aux_out, void* __restrict__ c, int m, int n, int k,
+                int epi, int out_f32, int k_tiles_per_split) {
+  namespace sm = dclip::sm90;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-    gemm_bias_act_residual_kernel(const __nv_bfloat16* __restrict__ a,
-                                  const __nv_bfloat16* __restrict__ w,
-                                  const float* __restrict__ bias,
-                                  const __nv_bfloat16* __restrict__ r,
-                                  const __nv_bfloat16* __restrict__ aux_in,
-                                  __nv_bfloat16* __restrict__ aux_out,
-                                  void* __restrict__ c, int m, int n, int k, int epi,
-                                  int out_f32, int k_tiles_per_split) {
-  using LayoutA = std::conditional_t<kMode == kModeTN, wmma::col_major, wmma::row_major>;
-  using LayoutB = std::conditional_t<kMode == kModeNT, wmma::col_major, wmma::row_major>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sb = sa + kStages * kStage;
-  float* scratch = reinterpret_cast<float*>(sb + kStages * kStage);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warp_m = warp / 4, warp_n = warp % 4;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   // This block's share of the K tiles (all of them unless K is split).
   const int kt0 = blockIdx.z * k_tiles_per_split;
   const int kt1 = min((k + kBK - 1) / kBK, kt0 + k_tiles_per_split);
   const int ktiles = max(kt1 - kt0, 0);
-  const size_t slice = static_cast<size_t>(blockIdx.z) * m * n;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFragM][kFragN];
-#pragma unroll
-  for (int i = 0; i < kFragM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFragN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles)
-      load_stage<kMode>(a, w, sa + s * kStage, sb + s * kStage, m0, n0, (kt0 + s) * kBK, m, n,
-                        k);
-    dclip::cp_async_commit();
-  }
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    dclip::cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kt landed; every warp is done with tile kt-1
-    const int next = kt + kStages - 1;
-    if (next < ktiles) {
-      const int s = next % kStages;
-      load_stage<kMode>(a, w, sa + s * kStage, sb + s * kStage, m0, n0, (kt0 + next) * kBK, m,
-                        n, k);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm::mbar_init(&full[s], 1);
+      sm::mbar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
     }
-    dclip::cp_async_commit();
+    sm::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-    const __nv_bfloat16* ta = sa + (kt % kStages) * kStage;
-    const __nv_bfloat16* tb = sb + (kt % kStages) * kStage;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA> fa[kFragM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB> fb[kFragN];
-#pragma unroll
-      for (int i = 0; i < kFragM; ++i) {
-        const int row = warp_m * kWarpM + i * 16;
+  if (wg == kConsumers) {
+    // Producer warp: one thread issues every load.
+    if (threadIdx.x == kConsumers * 128) {
+      sm::prefetch_tensormap(&map_a);
+      sm::prefetch_tensormap(&map_b);
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % kStages;
+        sm::mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        sm::mbar_expect_tx(&full[s], kStageBytes);
+        unsigned char* sa = smem + s * kStageBytes;
+        unsigned char* sb = sa + kABytes;
+        const int kk = (kt0 + kt) * kBK;
         if constexpr (kMode == kModeTN) {
-          wmma::load_matrix_sync(fa[i], ta + kk * kMNLd + row, kMNLd);
+          // X [K, M]: two [64 K][64 M] boxes, one per consumer.
+          sm::tma_load_2d(sa, &map_a, &full[s], m0, kk);
+          sm::tma_load_2d(sa + kBox, &map_a, &full[s], m0 + 64, kk);
         } else {
-          wmma::load_matrix_sync(fa[i], ta + row * kKLd + kk, kKLd);
+          sm::tma_load_2d(sa, &map_a, &full[s], kk, m0);  // A [M, K]: [128 M][64 K]
         }
-      }
-#pragma unroll
-      for (int j = 0; j < kFragN; ++j) {
-        const int col = warp_n * kWarpN + j * 16;
         if constexpr (kMode == kModeNT) {
-          wmma::load_matrix_sync(fb[j], tb + col * kKLd + kk, kKLd);
+          sm::tma_load_2d(sb, &map_b, &full[s], kk, n0);  // W [N, K]: [kBN N][64 K]
         } else {
-          wmma::load_matrix_sync(fb[j], tb + kk * kMNLd + col, kMNLd);
+#pragma unroll
+          for (int i = 0; i < kBN / 64; ++i)  // W / Y [K, N]: [64 K][64 N] boxes
+            sm::tma_load_2d(sb + i * kBox, &map_b, &full[s], n0 + 64 * i, kk);
         }
       }
-#pragma unroll
-      for (int i = 0; i < kFragM; ++i)
-#pragma unroll
-        for (int j = 0; j < kFragN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
-  }
-  dclip::cp_async_wait<0>();
+  } else {
+    // The epilogue's residual / quick-GELU' operand tile, 128 rows of two
+    // 128-byte lines, pulled into L2 while the main loop runs.
+    if (r != nullptr || aux_in != nullptr) {
+      const int pr = m0 + threadIdx.x / 2, pc = n0 + (threadIdx.x & 1) * 64;
+      if (pr < m && pc < n) {
+        const size_t off = static_cast<size_t>(pr) * n + pc;
+        sm::prefetch_l2(r != nullptr ? r + off : aux_in + off);
+        if (r != nullptr && aux_in != nullptr) sm::prefetch_l2(aux_in + off);
+      }
+    }
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  // Epilogue: fragment -> per-warp f32 scratch -> bias, activation,
-  // residual -> one 16-byte bf16 store (or two f32 ones) per lane (lane
-  // covers row lane/2, 8 columns).
-  float* sw = scratch + warp * 256;
-  const int er = lane >> 1, ec = (lane & 1) * 8;
+    constexpr int kTransA = kMode == kModeTN ? 1 : 0;
+    constexpr int kTransB = kMode == kModeNT ? 0 : 1;
+    // Per k16 step: K-major operands move 32 bytes along their rows,
+    // MN-major ones 16 rows of 128 bytes.
+    constexpr uint32_t kStepA = kTransA ? 2048 : 32, kStepB = kTransB ? 2048 : 32;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % kStages;
+      sm::mbar_wait(&full[s], (kt / kStages) & 1);
+      const unsigned char* sa = smem + s * kStageBytes;
+      const unsigned char* sb = sa + kABytes;
+      // This warpgroup's 64 rows: 64 rows of 128 bytes (K-major) or the
+      // [64 K][64 M] box of its columns (M-major); both 8 KB in.
+      const uint64_t da = desc_sw128(sa + wg * kBox, 16, 1024);
+      // The 128 columns of B: 128 rows of 128 bytes (K-major), or two
+      // [64 K][64 N] boxes 8 KB apart (N-major, the LBO).
+      const uint64_t db = desc_sw128(sb, kTransB ? kBox : 16, 1024);
+      sm::fence_regs(acc);
+      sm::wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < kFragM; ++i) {
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        sm::wgmma_m64n128k16_ss<kTransA, kTransB>(acc, desc_add(da, kk * kStepA),
+                                                  desc_add(db, kk * kStepB), 1);
+      sm::wgmma_commit();
+      sm::fence_regs(acc);
+      // Keep this step's group in flight; the previous one is done, so
+      // its stage goes back to the producer.
+      sm::wgmma_wait<1>();
+      if (kt > 0 && lane == 0) sm::mbar_arrive(&empty[(kt - 1) % kStages]);
+    }
+    sm::wgmma_wait<0>();
+    sm::fence_regs(acc);
+
+    // Epilogue: 8 consecutive columns of one row per lane and store.
+    const size_t slice = static_cast<size_t>(blockIdx.z) * m * n;
+    const int row = m0 + wg * 64 + warp * 16 + (lane >> 2);
 #pragma unroll
-    for (int j = 0; j < kFragN; ++j) {
-      wmma::store_matrix_sync(sw, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + warp_m * kWarpM + i * 16 + er;
-      const int gn = n0 + warp_n * kWarpN + j * 16 + ec;
-      if (gm < m && gn < n) {
-        const size_t off = static_cast<size_t>(gm) * n + gn;
+    for (int g0 = 0; g0 < 16; g0 += 4) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
         float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = sw[er * 16 + ec + e] + (bias ? bias[gn + e] : 0.f);
-        if (aux_out != nullptr) *reinterpret_cast<uint4*>(aux_out + off) = dclip::pack8(v);
-        if (epi == kEpiGelu) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = v[e] / (1.f + expf(-1.702f * v[e]));
-        } else if (epi == kEpiDgelu) {
-          float pre[8];
-          dclip::unpack8(*reinterpret_cast<const uint4*>(aux_in + off), pre);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            // d/da quick_gelu(a) = s + 1.702 a s (1 - s), s = sigmoid(1.702 a)
-            const float sg = 1.f / (1.f + expf(-1.702f * pre[e]));
-            v[e] *= sg + 1.702f * pre[e] * sg * (1.f - sg);
-          }
-        }
-        if (r != nullptr) {
-          float rv[8];
-          dclip::unpack8(*reinterpret_cast<const uint4*>(r + off), rv);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += rv[e];
-        }
-        if (out_f32) {
-          float4* cf = reinterpret_cast<float4*>(static_cast<float*>(c) + slice + off);
-          cf[0] = make_float4(v[0], v[1], v[2], v[3]);
-          cf[1] = make_float4(v[4], v[5], v[6], v[7]);
-        } else {
-          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(c) + slice + off) =
-              dclip::pack8(v);
-        }
+        sm::quad_gather8(acc, g0, half, v);
+        const int col = n0 + (g0 + (lane & 3)) * 8;
+        epilogue8(v, row + 8 * half, col, m, n, bias, r, aux_in, aux_out, c, slice, epi,
+                  out_f32);
       }
-      __syncwarp();
     }
   }
+}
+
+// cuTensorMapEncodeTiled is a driver-API function; it is reached through
+// the runtime's entry-point query, so the library links without -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major bf16 [rows, cols] matrix read in [box_rows][box_cols] boxes
+// with 128-byte swizzle (box_cols = 64: one 128-byte row).
+bool encode(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int kMode>
 int launch(const void* a, const void* w, const void* bias, const void* r, const void* aux_in,
            void* aux_out, void* c, int m, int n, int k, int epi, int out_f32,
            int k_tiles_per_split, int splits, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(gemm_bias_act_residual_kernel<kMode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
+  CUtensorMap map_a, map_b;
+  const bool ok =
+      (kMode == kModeTN ? encode(&map_a, a, k, m, 64) : encode(&map_a, a, m, k, kBM)) &&
+      (kMode == kModeNT ? encode(&map_b, w, n, k, kBN) : encode(&map_b, w, k, n, 64));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<kMode>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, splits);
-  gemm_bias_act_residual_kernel<kMode><<<grid, kThreads, kSmemBytes,
-                                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(r),
-      static_cast<const __nv_bfloat16*>(aux_in), static_cast<__nv_bfloat16*>(aux_out), c, m,
-      n, k, epi, out_f32, k_tiles_per_split);
+  gemm_kernel<kMode><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_b, static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(r),
+      static_cast<const __nv_bfloat16*>(aux_in), static_cast<__nv_bfloat16*>(aux_out), c, m, n,
+      k, epi, out_f32, k_tiles_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -301,7 +351,7 @@ extern "C" int dclip_gemm_nt_bf16(const void* a, const void* w, const void* bias
 
 // c[z] = x[rows of split z]^T . y[rows of split z] for z < splits: x [k, m]
 // and y [k, n] bf16 row-major, 16-byte aligned, m % 8 == 0, n % 8 == 0, any
-// k; split z takes K tiles (of 32 rows) [z * k_tiles_per_split, ...);
+// k; split z takes K tiles (of 64 rows) [z * k_tiles_per_split, ...);
 // c: [splits, m, n] f32 (the split partials, summed by
 // dclip_reduce_rows_f32; with splits == 1, the product itself).
 extern "C" int dclip_gemm_tn_bf16(const void* x, const void* y, void* c, int m, int n, int k,

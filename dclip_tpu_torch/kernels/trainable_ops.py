@@ -52,7 +52,7 @@ LAUNCHES: Dict[str, int] = {
 }
 
 # Output tiles of csrc/gemm.cu and the rows of one of its K steps.
-_TILE, _KSTEP = 128, 32
+_TILE, _KSTEP = 128, 64
 
 
 def reset_launches() -> None:
@@ -125,10 +125,10 @@ def gemm_tn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     rows_y, q = _rows(y, "y")
     if rows_y != rows:
         raise ValueError(f"gemm_tn: x {tuple(x.shape)} and y {tuple(y.shape)} differ in rows")
-    tiles = -(-p // _TILE) * -(-q // _TILE)
-    # At least 8 K steps (256 rows) per split.
-    splits, per = _splits(-(-rows // _KSTEP), -(-_blocks_wanted(x) // tiles), 8)
     lib = load_library()
+    tiles = -(-p // _TILE) * -(-q // _TILE)
+    # At least 4 K steps (256 rows) per split.
+    splits, per = _splits(-(-rows // _KSTEP), -(-_blocks_wanted(x) // tiles), 4)
     out = torch.empty((p, q), dtype=torch.float32, device=x.device)
     part = out if splits == 1 else torch.empty((splits, p, q), dtype=torch.float32,
                                                device=x.device)

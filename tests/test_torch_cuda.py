@@ -214,6 +214,72 @@ def test_attention_autograd_writes_one_qkv_gradient(cuda_device):
         assert va.LAUNCHES["self_attention_fused"] == 1
 
 
+def _edge_masks(b, s, masks, device):
+    """The masks of `test_attention_forward_edges`: none; causal + key
+    padding whose last batch row has no valid key (a fully masked row);
+    three segments and trailing padding (segment 0)."""
+    if masks == "none":
+        return {}
+    if masks == "causal_pad":
+        lengths = np.maximum(1, (np.arange(b) + 1) * s // b)
+        lengths[-1] = 0
+        pad = (np.arange(s)[None] < lengths[:, None]).astype(np.float32)
+        return {"causal": True, "padding_mask": torch.from_numpy(pad).to(device)}
+    seg = (np.arange(s) * 3 // max(s, 1) + 1)[None].repeat(b, 0).astype(np.int32)
+    seg[:, s - s // 5:] = 0
+    return {"segment_ids": torch.from_numpy(seg).to(device)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("masks", ["none", "causal_pad", "segments"])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 197, 257])
+def test_attention_forward_edges(cuda_device, s, masks):
+    """K3 / K4 (csrc/attention.cu) at every query- and key-tile edge of its
+    64-row tiles and 128-row blocks, with each mask; stats on and off."""
+    from dclip_tpu_torch.kernels import vit_attention as va
+
+    b, d, heads = 3, 128, 2
+    rng = np.random.RandomState(s)
+    qkv = _bf16(rng, cuda_device, b, s, 3 * d)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    kw = _edge_masks(b, s, masks, cuda_device)
+    o, m, r = va.self_attention_fwd_stats(q, k, v, heads, **kw)
+    o_ref, m_ref, r_ref = va.attention_reference(q, k, v, heads, stats=True, **kw)
+    _close_rel(o, o_ref, what="o")
+    _close_rel(m, m_ref, what="m")
+    torch.testing.assert_close(r, r_ref, rtol=2.0**-6, atol=0)
+    torch.testing.assert_close(va.self_attention_fused(q, k, v, heads, **kw), o, rtol=0, atol=0)
+    if masks == "causal_pad":  # the last batch row has no valid key
+        assert torch.all(m[-1] == -1e30)
+        _close_rel(o[-1], v[-1].float().mean(0, keepdim=True).expand(s, d), what="masked row")
+
+
+@pytest.mark.requires_cuda
+def test_kernels_are_deterministic(cuda_device):
+    """Two launches of each GEMM mode and of the attention forward give the
+    same bits (no atomics; fit / resume rely on it)."""
+    from dclip_tpu_torch.kernels import trainable_ops as to
+    from dclip_tpu_torch.kernels import vit_attention as va
+
+    rng = np.random.RandomState(3)
+    a, w = _bf16(rng, cuda_device, 1000, 768), _bf16(rng, cuda_device, 768, 2304)
+    bias = torch.from_numpy(rng.standard_normal(2304).astype(np.float32)).to(cuda_device)
+    y = _bf16(rng, cuda_device, 1000, 2304)
+    calls = {
+        "nn": lambda: vb.gemm_bias_act_residual(a, w, bias, gelu=True, save_preact=True),
+        "nt": lambda: to.gemm_nt(a, w.t().contiguous(), bias, residual=y),
+        "tn": lambda: to.gemm_tn(a, y),
+        "attention": lambda: va.self_attention_fwd_stats(
+            *y[..., :2304].reshape(8, 125, 2304).split(768, -1), 12, causal=True),
+    }
+    for name, call in calls.items():
+        first, second = call(), call()
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        for x1, x2 in zip(first, second):
+            assert torch.equal(x1, x2), name
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("b,s", [(2, 197), (1, 50)])
 def test_mlp_frozen_fwd_bwd_match_twins(cuda_device, b, s):
@@ -261,22 +327,35 @@ def test_distill_loss_matches_twin(cuda_device, b, d):
         assert err <= 2.0**-7 * want.float().abs().max().item(), err
 
 
+# Shapes that cross every edge of csrc/gemm.cu's 128 x 128 tiles and its
+# K steps of 64 (TMA zero-fills past M, N and K): each (N, K) pair below
+# with each M.
+GEMM_M = (1, 63, 64, 65, 127, 129, 197, 12608)
+GEMM_NK = ((8, 32), (24, 96), (136, 3072), (3072, 96))
+
+
 @pytest.mark.requires_cuda
-def test_gemm_epilogue_modes(cuda_device):
-    rng = np.random.RandomState(11)
-    a = _bf16(rng, cuda_device, 3, 70, 256)
-    w = _bf16(rng, cuda_device, 256, 136) * 0.1
-    bias = torch.from_numpy(rng.standard_normal(136).astype(np.float32)).to(cuda_device)
-    aux = _bf16(rng, cuda_device, 3, 70, 136)
+@pytest.mark.parametrize("n,k", GEMM_NK)
+@pytest.mark.parametrize("m", GEMM_M)
+def test_gemm_epilogue_modes(cuda_device, m, n, k):
+    rng = np.random.RandomState(11 + m + n + k)
+    a = _bf16(rng, cuda_device, m, k)
+    w = _bf16(rng, cuda_device, k, n) * k**-0.5
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda_device)
+    aux = _bf16(rng, cuda_device, m, n)
+    res = _bf16(rng, cuda_device, m, n)
     got, pre = vb.gemm_bias_act_residual(a, w, bias, gelu=True, save_preact=True)
     want, want_pre = vb.gemm_bias_act_residual_reference(a, w, bias, gelu=True, save_preact=True)
     _close_rel(got, want, what="gelu")
     _close_rel(pre, want_pre, what="preact")
     _close_rel(vb.gemm_bias_act_residual(a, w, dgelu_of=aux),
                vb.gemm_bias_act_residual_reference(a, w, dgelu_of=aux), what="dgelu")
-    f32 = vb.gemm_bias_act_residual(a, w, out_dtype=torch.float32)
+    _close_rel(vb.gemm_bias_act_residual(a, w, bias, residual=res),
+               vb.gemm_bias_act_residual_reference(a, w, bias, residual=res), what="residual")
+    f32 = vb.gemm_bias_act_residual(a, w, bias, residual=res, out_dtype=torch.float32)
     assert f32.dtype == torch.float32
-    _close_rel(f32, vb.gemm_bias_act_residual_reference(a, w, out_dtype=torch.float32),
+    _close_rel(f32, vb.gemm_bias_act_residual_reference(a, w, bias, residual=res,
+                                                        out_dtype=torch.float32),
                what="f32 out")
 
 
@@ -487,7 +566,8 @@ def _close_sum(got, want, what=""):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("m,k,n", [(4928, 512, 2048), (591, 768, 2304), (70, 256, 136)])
+@pytest.mark.parametrize("m,k,n", [(4928, 512, 2048), (591, 768, 2304), (70, 256, 136)]
+                         + [(m, k, n) for m in GEMM_M for n, k in GEMM_NK])
 def test_gemm_nt_matches_twin(cuda_device, m, k, n):
     from dclip_tpu_torch.kernels import trainable_ops as to
 
@@ -503,15 +583,23 @@ def test_gemm_nt_matches_twin(cuda_device, m, k, n):
     _close_rel(pre, want_pre, what="preact")
     _close_rel(to.gemm_nt(a, w, bias, residual=res),
                to.gemm_nt_reference(a, w, bias, residual=res), what="residual")
-    assert to.LAUNCHES["gemm_nt"] == 2
+    f32 = to.gemm_nt(a, w, out_dtype=torch.float32)
+    _close_rel(f32, to.gemm_nt_reference(a, w, out_dtype=torch.float32), what="f32 out")
+    assert to.LAUNCHES["gemm_nt"] == 3
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("splits", ["one", "several"])
 @pytest.mark.parametrize("rows,p,q", [(4928, 2048, 512), (6304, 768, 768), (1576, 2304, 768),
-                                      (37, 24, 136)])
-def test_gemm_tn_and_colsum_match_twins(cuda_device, rows, p, q):
+                                      (37, 24, 136), (197, 136, 24), (197, 3072, 768),
+                                      (50432, 768, 2304), (50432, 8, 8)])
+def test_gemm_tn_and_colsum_match_twins(cuda_device, monkeypatch, rows, p, q, splits):
+    """TN over ragged row counts (K of the product), with the rows in one
+    split or split over blocks and summed in order by csrc/reduce.cu."""
     from dclip_tpu_torch.kernels import trainable_ops as to
 
+    if splits == "one":
+        monkeypatch.setattr(to, "_blocks_wanted", lambda t: 1)
     rng = np.random.RandomState(rows + p)
     x, y = _bf16(rng, cuda_device, rows, p), _bf16(rng, cuda_device, rows, q)
     got = to.gemm_tn(x, y)

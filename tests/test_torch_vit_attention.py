@@ -152,3 +152,34 @@ def test_cuda_tensors_never_fall_back_to_the_twin(monkeypatch):
         va.self_attention_fused(*(_fake_cuda(2, 77, 512, dtype=torch.float32),) * 3, 8)
     with pytest.raises(ValueError):  # a CPU mask with CUDA activations
         va.self_attention_fused(q, k, v, 8, segment_ids=torch.zeros(2, 77, dtype=torch.int32))
+
+
+def _edge_masks(b, s, rng):
+    """Masks for any S >= 1: causal + key padding whose last batch row has
+    no valid key (a fully masked row); three segments and trailing padding."""
+    lengths = np.maximum(1, rng.randint(1, s + 1, size=b))
+    lengths[-1] = 0
+    pad = (np.arange(s)[None] < lengths[:, None]).astype(np.float32)
+    seg = (np.arange(s) * 3 // s + 1)[None].repeat(b, 0).astype(np.int32)
+    seg[:, s - s // 5:] = 0
+    return {"none": {}, "causal_padding": {"causal": True, "padding_mask": pad},
+            "causal_segments": {"causal": True, "segment_ids": seg},
+            "segments": {"segment_ids": seg}}
+
+
+@pytest.mark.parametrize("mask", sorted(MASKS))
+@pytest.mark.parametrize("s", [1, 65, 257])
+def test_fwd_stats_match_pallas_at_tile_edges(mask, s):
+    """The twin, the yardstick of csrc/attention.cu on the card, against
+    `_self_attention_fwd_stats` (interpret mode) at sequence lengths that
+    leave the kernel's 64-key tiles and 128-row blocks ragged, head_dim 64
+    as the kernel takes it."""
+    b, d, heads = 2, 128, 2
+    rng = np.random.RandomState(s)
+    q, k, v = (rng.standard_normal((b, s, d)).astype(np.float32) for _ in range(3))
+    kw = _edge_masks(b, s, np.random.RandomState(s))[mask]
+    want = jva._self_attention_fwd_stats(q, k, v, num_heads=heads, interpret=True, **kw)
+    got = va.self_attention_fwd_stats(*(torch.from_numpy(t) for t in (q, k, v)), heads,
+                                      **_torch_kw(kw))
+    for name, w, g in zip(("o", "m", "rinv"), want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)

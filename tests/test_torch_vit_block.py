@@ -166,3 +166,128 @@ def test_source_digest_tracks_sources(tmp_path, monkeypatch):
     with open(csrc / "common.cuh", "a") as f:
         f.write("// edit\n")
     assert _build.source_digest() != before
+
+
+# -- the operand contract of the Hopper GEMM and attention (TMA, wgmma) ----------
+
+
+def _fake_view(shape, *, offset=0, row_pad=0, dtype=torch.bfloat16):
+    """A fake CUDA tensor of `shape` whose base lies `offset` elements into
+    its storage and whose rows are `row_pad` elements longer than they are
+    wide (no card needed)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    ld = shape[-1] + row_pad
+    strides, acc = [], 1
+    for i, n in enumerate(reversed(shape)):
+        strides.append(1 if i == 0 else acc)
+        acc *= ld if i == 0 else n
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        store = torch.empty(acc + offset, dtype=dtype, device="cuda")
+        return store.as_strided(tuple(shape), tuple(reversed(strides)), offset)
+
+
+def _layout_cases():
+    """wrapper name -> (module, call(layout)), where layout is "aligned",
+    "offset" (a storage offset of one element: a base 2 bytes past 16-byte
+    alignment) or "stride" (rows 4 elements longer: not contiguous, and a
+    row stride TMA and the 16-byte loads cannot take)."""
+    from dclip_tpu_torch.kernels import trainable_ops as to
+    from dclip_tpu_torch.kernels import vit_attention as va
+
+    def act(shape, layout):
+        return _fake_view(shape, offset=int(layout == "offset"), row_pad=4 * (layout == "stride"))
+
+    f32 = dict(dtype=torch.float32)
+    return {
+        "gemm_bias_act_residual": (vb, lambda lay: vb.gemm_bias_act_residual(
+            act((2, 197, 768), lay), _fake_view((768, 2304)), _fake_view((2304,), **f32))),
+        "gemm_nt": (vb, lambda lay: to.gemm_nt(
+            _fake_view((394, 768)), act((2304, 768), lay), _fake_view((2304,), **f32))),
+        "gemm_tn": (to, lambda lay: to.gemm_tn(act((394, 768), lay), _fake_view((394, 2304)))),
+        "attention": (vb, lambda lay: vb.attention(act((2, 197, 2304), lay), 12)),
+        "self_attention_fwd_stats": (va, lambda lay: va.self_attention_fwd_stats(
+            *(act((2, 77, 512), lay) if lay != "stride" else
+              _fake_view((2, 77, 512), row_pad=4) for _ in range(3)), 8, causal=True)),
+    }
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset", "stride"])
+@pytest.mark.parametrize("name", ["gemm_bias_act_residual", "gemm_nt", "gemm_tn", "attention",
+                                  "self_attention_fwd_stats"])
+def test_cuda_operand_layout_is_checked_before_the_library(monkeypatch, name, layout):
+    """csrc/gemm.cu reads its operands by TMA and csrc/attention.cu by
+    16-byte copies: a base that is not 16-byte aligned, or a row stride
+    that breaks that contract, raises ValueError before the kernel library
+    is loaded; a well-formed call reaches the library (stubbed to raise)."""
+    module, call = _layout_cases()[name]
+
+    def no_library():
+        raise RuntimeError("kernel library requested")
+
+    monkeypatch.setattr(module, "load_library", no_library)
+    if layout == "aligned":
+        with pytest.raises(RuntimeError, match="kernel library requested"):
+            call(layout)
+    else:
+        with pytest.raises(ValueError, match="aligned|contiguous|row stride"):
+            call(layout)
+
+
+def _ragged_mlp_args(rng, k):
+    """K8's operands in the JAX layout at hidden width k, mlp 2k."""
+    m = 2 * k
+    return [(1 + 0.1 * rng.randn(k)).astype(np.float32), (0.1 * rng.randn(k)).astype(np.float32),
+            (rng.randn(k, m) * k**-0.5).astype(np.float32), (0.1 * rng.randn(m)).astype(np.float32),
+            (rng.randn(m, k) * m**-0.5).astype(np.float32), (0.1 * rng.randn(k)).astype(np.float32)]
+
+
+@pytest.mark.parametrize("k", [32, 96])
+@pytest.mark.parametrize("m", [1, 65, 197])
+def test_gemm_twins_match_jax_at_ragged_shapes(m, k):
+    """The GEMM's three twins (NN, NT, TN), the kernel's yardsticks on the
+    card, against the JAX package's Pallas kernels (interpret mode) at row
+    counts and widths that leave csrc/gemm.cu's 128 x 128 tiles and its K
+    steps of 64 ragged: NN through the frozen ViT blocks, NT and TN through
+    K8's forward and its weight gradients, composed from the twins alone."""
+    import jax
+    import jax.numpy as jnp
+
+    from dclip_tpu.kernels.mlp_trainable import mlp_block_trainable
+    from dclip_tpu_torch.kernels import trainable_ops as to
+
+    rng = np.random.RandomState(m + k)
+    params = torch_parity.layer_params(rng, k, 2 * k)
+    x = rng.standard_normal((1, m, k)).astype(np.float32)
+    p = vb.pack_layer(layer_state_dict_from_jax(params), "", torch.float32)
+    heads = k // 16
+    np.testing.assert_allclose(
+        vb.attention_block_reference(torch.from_numpy(x), p, heads).numpy(),
+        np.asarray(jax_vit_block.attention_block_fused(x, params, heads, 1e-5, interpret=True)),
+        **BLOCK_TOL)
+    np.testing.assert_allclose(
+        vb.mlp_block_reference(torch.from_numpy(x), p).numpy(),
+        np.asarray(jax_vit_block.mlp_block_fused(x, params, 1e-5, interpret=True)), **BLOCK_TOL)
+
+    lns, lnb, w1, b1, w2, b2 = _ragged_mlp_args(rng, k)
+    g = rng.standard_normal((1, m, k)).astype(np.float32)
+    want_y = mlp_block_trainable(x, lns, lnb, w1, b1, w2, b2, interpret=True)
+    want_dw1, want_dw2 = jax.grad(
+        lambda w1, w2: jnp.sum(mlp_block_trainable(x, lns, lnb, w1, b1, w2, b2,
+                                                   interpret=True) * g),
+        argnums=(0, 1))(w1, w2)
+    t = {n: torch.from_numpy(a) for n, a in
+         zip(("x", "g", "lns", "lnb", "b1", "b2"), (x, g, lns, lnb, b1, b2))}
+    w1_nk, w2_nk = torch.from_numpy(w1.T.copy()), torch.from_numpy(w2.T.copy())
+    h = vb.layernorm_reference(t["x"], t["lns"], t["lnb"])
+    act, a1 = to.gemm_nt_reference(h, w1_nk, t["b1"], gelu=True, save_preact=True)
+    y = to.gemm_nt_reference(act, w2_nk, t["b2"], residual=t["x"])
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **BLOCK_TOL)
+    # dW2 = act^T g and dW1 = h^T da1 ([in, out], the JAX layout), with
+    # da1 = (g W2^T) * quick_gelu'(a1) from the NN twin's dgelu epilogue.
+    da1 = vb.gemm_bias_act_residual_reference(t["g"], w2_nk, dgelu_of=a1)
+    grad_tol = dict(rtol=1e-4, atol=2e-4)  # tests/test_kernels.py's for K8
+    np.testing.assert_allclose(to.gemm_tn_reference(act, t["g"]).numpy(),
+                               np.asarray(want_dw2), **grad_tol)
+    np.testing.assert_allclose(to.gemm_tn_reference(h, da1).numpy(), np.asarray(want_dw1),
+                               **grad_tol)
