@@ -18,7 +18,8 @@ Phases; each one passes or raises, and any failure exits non-zero:
    retrieval eval's B=256, and again at ViT-L/14 shapes (B=64, S=257,
    D=1024, 16 heads, MLP 4096: the zero-shot eval's); times kernel and
    twin at B/16 B=64 and L/14 B=64 with CUDA events in turns (plain,
-   kernel, kernel, plain). Then the GEMM (`csrc/gemm.cu`) alone: NN and NT
+   kernel, kernel, plain), the LayerNorm beside `F.layer_norm` there and at
+   the teacher ViT's crops (403,456 x 768 rows). Then the GEMM (`csrc/gemm.cu`) alone: NN and NT
    at the four projections of a B/16 layer for M = 12,608 (serving bucket
    64), 50,432 (the student at B=256) and 403,456 (the teacher ViT over
    2,048 crops), TN at K8's and K9's weight-gradient shapes, each timed in
@@ -40,7 +41,11 @@ Phases; each one passes or raises, and any failure exits non-zero:
    backward (dq, dk, dv), the frozen-MLP forward (y, a1) and dx, the
    LayerNorm backward, and the distillation loss (parts; dsi, dst) at
    B=256 against their plain twins, plus a ragged small case of each, with
-   CUDA-event times in turns.
+   CUDA-event times in turns, the attention backward beside SDPA's and the
+   LayerNorm backward beside `F.layer_norm`'s input gradient. Then the
+   attention backward, untimed, at every edge of its tiles, blocks, narrow
+   last tile and ring (S = 1, 63, 64, 65, 128, 197, 257, 320, 321) with
+   each mask kind, two calls on the same inputs giving the same bits.
 7. Cross-attention kernels (K10): at the teacher tail's shapes (B=256, 77
    text tokens with the synthetic batch's content-token masks, 8 boxes with
    two all-invalid rows and random others, D=512, 8 heads, f32 inputs)
@@ -161,7 +166,8 @@ tensor cores, 67 TFLOP/s f32 CUDA cores) and the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s, from the
 shapes of this run; and `library_ms`, the time of one PyTorch call that
 computes the same function, where there is one
-(`scaled_dot_product_attention` and its backward; `torch.addmm`,
+(`scaled_dot_product_attention` and its backward; `F.layer_norm` and
+its input gradient, and its weight gradients for the LayerNorm's; `torch.addmm`,
 `F.linear` and `torch.matmul` for the GEMM's NN, NT and TN modes, without
 their epilogues' activation and residual terms; `torch.matmul` +
 `torch.topk` for K12), else null.
@@ -445,6 +451,32 @@ def sdpa_calls(torch, q, k, v, heads, keep, g=None):
     return lambda: torch.autograd.grad(o, (qg, kg, vg), g4, retain_graph=True)
 
 
+def ln_work(rows, d):
+    """The LayerNorm forward's bound: bf16 in and out, f32 scale and bias."""
+    return work(f32_flops=8.0 * rows * d, nbytes=4.0 * rows * d + 8.0 * d)
+
+
+def layer_norm_call(torch, x, scale, bias):
+    """`F.layer_norm` on the same bf16 rows, with bf16 copies of scale and
+    bias (made here, outside the timed call)."""
+    d = x.shape[-1]
+    w, b = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    return lambda: torch.nn.functional.layer_norm(x, (d,), w, b, EPS)
+
+
+def layer_norm_grad_call(torch, x, scale, dh, weights: bool = False):
+    """The backward of that `F.layer_norm` call for the cotangent dh (as
+    bf16): the input gradient, and with `weights` also scale's and bias's."""
+    d = x.shape[-1]
+    xr = x.detach().requires_grad_()
+    w = scale.to(torch.bfloat16).requires_grad_(weights)
+    b = torch.zeros_like(w).requires_grad_(weights)
+    y = torch.nn.functional.layer_norm(xr, (d,), w, b, EPS)
+    wrt = (xr, w, b) if weights else (xr,)
+    dy = dh.to(torch.bfloat16)
+    return lambda: torch.autograd.grad(y, wrt, dy, retain_graph=True)
+
+
 def layer_weights(rng, torch, device, d=D, mlp=MLP):
     """One encoder layer of width d in the packed layout, drawn like random
     weights (N(0, 0.02) matrices) but with non-trivial biases and LN affines
@@ -498,7 +530,7 @@ def kernel_phase(torch, vb, card: str, table: KernelTable):
         cases = [  # name, variant, (kernel, twin), args, kwargs, bound, library call
             ("layernorm", "ln", (vb.layernorm, vb.layernorm_reference),
              (x, p["ln1_scale"], p["ln1_bias"], EPS), {},
-             work(f32_flops=8.0 * m * d, nbytes=4.0 * m * d + 8.0 * d), None),
+             ln_work(m, d), layer_norm_call(torch, x, p["ln1_scale"], p["ln1_bias"])),
             ("gemm_bias_act_residual", "qkv",
              (vb.gemm_bias_act_residual, vb.gemm_bias_act_residual_reference),
              (h, p["qkv_w"], p["qkv_b"]), {}, gemm_work(m, d, 3 * d), addmm(h, "qkv")),
@@ -551,7 +583,24 @@ def kernel_phase(torch, vb, card: str, table: KernelTable):
                 # every entry sums its B/16 and L/14 cases.
                 table.timed(name, ms, plain_ms, bound, lib_ms)
         del x, h, a, g, qkv, got, want
-    del weights
+    # The teacher ViT's LN1 / LN2 over 2,048 region crops (B=256 x 8 boxes).
+    rows = TRAIN_B * 8 * S
+    p = weights[D, MLP]
+    x = randn(rows, D)
+    args = (x, p["ln1_scale"], p["ln1_bias"], EPS)
+    got, want = vb.layernorm(*args), vb.layernorm_reference(*args)
+    table.error("layernorm", _bound_check(torch, f"layernorm[crops] rows={rows}", got, want,
+                                          REL_TOL))
+    del got, want
+    ms, plain_ms = time_pair(torch, lambda: vb.layernorm(*args),
+                             lambda: vb.layernorm_reference(*args), 10)
+    lib_ms = time_one(torch, layer_norm_call(torch, x, p["ln1_scale"], p["ln1_bias"]), 10)
+    bound = ln_work(rows, D)
+    print(f"time layernorm[crops] rows={rows} D={D}: kernel {ms} ms, plain {plain_ms} ms, "
+          f"bound {max(bound)} ms ({max(bound) / ms} of it), F.layer_norm {lib_ms} ms ({card})",
+          flush=True)
+    table.timed("layernorm", ms, plain_ms, bound, lib_ms)
+    del x, args, weights
     torch.cuda.empty_cache()
 
 
@@ -791,6 +840,44 @@ def _keep(torch, b, s, dev, kw):
     return keep
 
 
+ATTN_BWD_EDGE_S = (1, 63, 64, 65, 128, 197, 257, 320, 321)
+
+
+def attention_bwd_edges(torch, np, va, table: KernelTable):
+    """K5 against its twin at every edge of its 64-row tiles, 128-row
+    blocks, narrow last tile (<= 16 live columns) and 4-slot ring, with
+    each mask kind (a fully masked batch row under causal + padding), B=3,
+    D=128, 2 heads; two calls on the same inputs give the same bits."""
+    dev = torch.device("cuda")
+    b, d, heads = 3, 128, 2
+    for s in ATTN_BWD_EDGE_S:
+        rng = np.random.RandomState(2000 + s)
+        lengths = np.maximum(1, (np.arange(b) + 1) * s // b)
+        lengths[-1] = 0
+        pad = torch.from_numpy((np.arange(s)[None] < lengths[:, None]).astype("float32")).to(dev)
+        segs = (np.arange(s) * 3 // s + 1)[None].repeat(b, 0).astype("int32")
+        segs[:, s - s // 5:] = 0
+        seg = torch.from_numpy(segs).to(dev)
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * d)).astype("float32")).to(
+            dev, torch.bfloat16)
+        g = torch.from_numpy(rng.standard_normal((b, s, d)).astype("float32")).to(
+            dev, torch.bfloat16)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        for what, kw in (("none", {}), ("causal_pad", {"causal": True, "padding_mask": pad}),
+                         ("segments", {"segment_ids": seg}),
+                         ("causal_segments", {"causal": True, "segment_ids": seg})):
+            o, m, r = va.self_attention_fwd_stats(q, k, v, heads, **kw)
+            o_ref, m_ref, r_ref = va.attention_reference(q, k, v, heads, stats=True, **kw)
+            grads = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw)
+            want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, **kw)
+            err = max(_bound_check(torch, f"attention_bwd[edge S={s} {what}] {n}", a, w, BWD_TOL)
+                      for n, a, w in zip(("dq", "dk", "dv"), grads, want))
+            table.error("self_attention_bwd_stats", err)
+            again = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw)
+            if not all(torch.equal(x1, x2) for x1, x2 in zip(grads, again)):
+                raise AssertionError(f"attention_bwd[edge S={s} {what}]: two calls differ")
+
+
 def train_kernel_phase(torch, np, card: str, table: KernelTable):
     """The training kernels against their twins at the cache-warm step's
     shapes, plus a ragged small case of each; CUDA-event times."""
@@ -872,6 +959,7 @@ def train_kernel_phase(torch, np, card: str, table: KernelTable):
                5, variant, bwd_bound,
                sdpa_calls(torch, q, k, v, heads, keep, g) if timed else None)
         del qkv, q, k, v, g, o, m, r, o_ref, m_ref, r_ref, grads, want, lib_fwd
+    attention_bwd_edges(torch, np, va, table)
 
     for variant, b, timed in (("vision", TRAIN_B, True), ("ragged", 1, False)):
         mrows = b * S
@@ -901,7 +989,8 @@ def train_kernel_phase(torch, np, card: str, table: KernelTable):
                             mf.layernorm_bwd_reference(x, g, dh, p["ln2_scale"]), REL_TOL)
         record("layernorm_bwd", errl, timed, lambda: mf.layernorm_bwd(x, g, dh, p["ln2_scale"]),
                lambda: mf.layernorm_bwd_reference(x, g, dh, p["ln2_scale"]), 20, variant,
-               work(f32_flops=12.0 * mrows * D, nbytes=10.0 * mrows * D + 4.0 * D))
+               work(f32_flops=12.0 * mrows * D, nbytes=10.0 * mrows * D + 4.0 * D),
+               layer_norm_grad_call(torch, x, p["ln2_scale"], dh) if timed else None)
         del x, g, y, a1, y_ref, a1_ref, dx, dh
 
     for variant, b, timed in (("b256", TRAIN_B, True), ("ragged", 5, False)):
@@ -1666,9 +1755,13 @@ def _trainable_parts(torch, to, table, timed, sum_check, variant, timed_case, nt
               sum_check(f"layernorm_bwd_wgrad[{variant}] dscale", got[1], want[1]),
               sum_check(f"layernorm_bwd_wgrad[{variant}] dbias", got[2], want[2]))
     table.error("layernorm_bwd_wgrad", err)
+    if not all(torch.equal(a, b) for a, b in zip(got, to.layernorm_bwd_wgrad(x, g, dh, scale))):
+        raise AssertionError(f"layernorm_bwd_wgrad[{variant}]: two runs differ")
     if timed_case:
         timed("layernorm_bwd_wgrad", variant, lambda: to.layernorm_bwd_wgrad(x, g, dh, scale),
-              lambda: to.layernorm_bwd_wgrad_reference(x, g, dh, scale), 20, ln_bound)
+              lambda: to.layernorm_bwd_wgrad_reference(x, g, dh, scale), 20, ln_bound,
+              layer_norm_grad_call(torch, x, scale, dh, weights=True),
+              " (F.layer_norm backward: input, scale and bias gradients)")
 
 
 def l14_frozen_mlp_phase(torch, np, card: str):

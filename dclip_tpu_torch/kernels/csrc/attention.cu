@@ -66,23 +66,6 @@ constexpr int kRing = 5;                      // K/V tiles in flight: all of S <
 constexpr int kTileBytes = kTile * kHd * 2;   // one swizzled [64][64] bf16 tile, 8 KB
 constexpr int kSmemBytes = (kGroups + 2 * kRing) * kTileBytes + kRing * kTile * 8 + 1024;
 
-// Rows [r0, r0 + rows) x 64 bf16 columns of `src` (already offset to its
-// first column; row stride `ld` elements) into consecutive swizzled tiles
-// at `dst`, by all threads in 16-byte cp.async copies; rows >= valid are
-// zero.
-template <int kRows>
-__device__ __forceinline__ void load_rows(unsigned char* dst, const __nv_bfloat16* __restrict__ src,
-                                          int r0, int valid, int ld) {
-#pragma unroll
-  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int row = c >> 3, chunk = c & 7;
-    const bool ok = r0 + row < valid;
-    const __nv_bfloat16* p = ok ? src + static_cast<size_t>(r0 + row) * ld + chunk * 8 : src;
-    dclip::cp_async_16(dst + sm::swizzle128(row, chunk), p, ok);
-  }
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(dclip::kFullMask, v, 1));
   return fmaxf(v, __shfl_xor_sync(dclip::kFullMask, v, 2));
@@ -110,8 +93,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                      float* __restrict__ m_out, float* __restrict__ r_out,
                      int s, int heads, int causal) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sq = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sq = sm::align1024(smem_raw);
   unsigned char* sk = sq + kGroups * kTileBytes;  // [kRing] K tiles
   unsigned char* sv = sk + kRing * kTileBytes;    // [kRing] V tiles
   float* kpad = reinterpret_cast<float*>(sv + kRing * kTileBytes);  // [kRing][64]
@@ -131,8 +113,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto load_kv = [&](int tile) {
     if (tile < tiles) {
       const int k0 = tile * kTile, slot = tile % kRing;
-      load_rows<kTile>(sk + slot * kTileBytes, kb, k0, s, ldk);
-      load_rows<kTile>(sv + slot * kTileBytes, vb, k0, s, ldv);
+      sm::load_rows_async<kTile, kThreads>(sk + slot * kTileBytes, kb, k0, s, ldk);
+      sm::load_rows_async<kTile, kThreads>(sv + slot * kTileBytes, vb, k0, s, ldv);
       if (kMasked && threadIdx.x < kTile) {
         const int key = k0 + threadIdx.x;
         const size_t at = static_cast<size_t>(b) * s + key;
@@ -143,7 +125,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     dclip::cp_async_commit();
   };
 
-  load_rows<kGroups * kTile>(sq, qb, q0, s, ldq);  // joins tile 0's group
+  sm::load_rows_async<kGroups * kTile, kThreads>(sq, qb, q0, s, ldq);  // joins tile 0's group
 #pragma unroll
   for (int t = 0; t < kRing; ++t) load_kv(t);
 

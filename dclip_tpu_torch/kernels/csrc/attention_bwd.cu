@@ -5,115 +5,142 @@
 // Replaces: dclip_tpu/kernels/vit_attention.py `_bwd_kernel` (K5, line
 //   308, `_self_attention_bwd_stats`). The algebra is the TPU's: per head,
 //   e = exp2(mask(scale log2e q k^T) - m) recomputed from the saved stats
-//   (no max or sum pass), dV = e^T (g rinv), dP = g v^T,
+//   (no max or sum pass), dV = e^T bf16(g rinv), dP = g v^T,
 //   dS = e ((dP - delta) rinv), dQ = scale dS k, dK = scale dS^T q, with
 //   delta = rowsum(g o) per head in f32 (the flash-attention identity).
 //   Masks as in the forward (`_mask_logits`, the finite -1e30). The TPU
 //   keeps every head's [S, S] tiles of one batch row in VMEM; blocks here
 //   run in parallel with no order between them, so the work splits into
-//   two kernels with no atomics:
-//   - dq: one block per (query tile, head, batch row) walks the key tiles;
-//     it also computes delta for its rows and writes it out;
-//   - dkdv: one block per (key tile, head, batch row) walks the query
-//     tiles and reads delta.
+//   two kernels with no atomics (7 products per tile pair against 5 for
+//   one kernel, but every sum has one owner and a fixed order, so two runs
+//   give the same bits):
+//   - dq: a block owns 128 query rows of one (batch row, head) and walks
+//     the key tiles; it also computes delta for its rows and writes it;
+//   - dkdv: a block owns 128 keys and walks the query tiles, reading delta.
 //   No [S, S] tensor reaches device memory.
-// Bound on the H100: like the forward, latency and the 16-byte tile loads
-//   at S = 197 / 77; each block does 2 (dq) or 4 (dkdv) 16x64x64 WMMA
-//   products per tile pair. Occupancy: B * H * ceil(S/64) blocks of each.
-// Design: 4 warps x 16 rows, tiles of 64 in shared memory, scores and dP
-//   in per-warp f32 scratch, e and dS rounded to bf16 for the tensor cores
-//   (as the TPU kernel rounds them to the input dtype), f32 accumulators in
-//   WMMA fragments. Rows and keys past S are zero-filled and contribute
-//   nothing (e = 0 there); their outputs are not stored.
+// Bound on the H100: at S = 197 / 77 the work per head is small (~10 flops
+//   per byte moved), so the kernels are bound by latency: the loads of the
+//   streamed tiles, the dependent chain of products and exponentials per
+//   tile, and the launch of B * H * ceil(S/128) short blocks.
+// Design: the forward's (csrc/attention.cu). Two warpgroups a block, each
+//   owning 64 rows (queries in dq, keys in dkdv), so one streamed tile in
+//   shared memory serves 128 rows; two blocks an SM (~100-110 KB of shared
+//   memory, at most 128 registers a thread), so one block's exponentials
+//   and masks overlap the other's wgmma. The streamed tiles (K/V in dq, Q/g
+//   with their m, rinv, delta and segment ids in dkdv) go through a ring of
+//   4 slots filled by 16-byte cp.async stores in the 128-byte-swizzled
+//   layout wgmma reads (4-byte cp.async for the per-row stats): every tile
+//   of S <= 256 (197, 77) is requested before the first is used, and longer
+//   rows refill a slot as soon as it is free. Per tile and warpgroup:
+//   - dq: S = Q K^T and dP = g V^T are wgmma m64n64k16 with both operands
+//     K-major from shared memory, into f32 registers; dS is formed there
+//     with the masks, rounded to bf16 in registers and is the register A
+//     operand of dQ += dS K (K read MN-major, as the forward reads V).
+//   - dkdv: S^T = K Q^T, then P^T = exp2(S^T c - m) in registers (m of the
+//     query columns from the staged stats), rounded to bf16, the register A
+//     operand of dV += P^T GR, where GR = bf16(g rinv) is formed once per
+//     query tile in shared memory (the TPU's `grs`); dP^T = V g^T runs in
+//     the same wgmma group; dS^T = P^T ((dP^T - delta) rinv) from the bf16
+//     P^T (keeping the f32 one live would cost 32 registers a thread and
+//     the second block an SM), rounded to bf16, the A operand of
+//     dK += dS^T Q (Q read MN-major).
+//   No S, P or dS goes through shared memory. The ragged last tile of a
+//   row with at most 16 live columns (S = 197: 5, S = 77: 13) runs
+//   m64n16k16 products and one k16 step of the accumulating products, a
+//   quarter of a full tile's work. Keys past S are excluded (e = 0); query
+//   rows past S arrive as zeros with zero m, rinv and delta, so they add
+//   exactly zero to dK and dV; rows past S are not stored.
 #include <math.h>
-#include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
+namespace sm = dclip::sm90;
 
-constexpr int kHd = 64, kTile = 64, kWarps = 4, kThreads = kWarps * 32;
-constexpr int kLdh = kHd + 8;   // bf16 tile rows
-constexpr int kLds = kTile + 4; // f32 scratch rows
-constexpr int kTileBytes = kTile * kLdh * 2;
-constexpr int kWarpF32Bytes = kWarps * 16 * kLds * 4;
-constexpr int kWarpBf16Bytes = kWarps * 16 * kLdh * 2;
-constexpr float kScale = 0.125f;                           // 64^-0.5
+constexpr int kHd = 64;                       // head_dim (the only one taken)
+constexpr int kTile = 64;                     // rows per warpgroup, columns per tile
+constexpr int kGroups = 2;                    // warpgroups per block
+constexpr int kThreads = kGroups * 128;
+constexpr int kRing = 4;                      // streamed tiles in flight: all of S <= 256
+constexpr int kNarrow = 16;                   // width of the ragged last tile's products
+constexpr int kTileBytes = kTile * kHd * 2;   // one swizzled [64][64] bf16 tile, 8 KB
+constexpr float kScale = 0.125f;              // 64^-0.5
 constexpr float kScaleLog2 = 0.125f * 1.4426950408889634f;  // with log2(e)
 
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
+// dq: Q, g (two warpgroups) + K, V ring; key pad / seg per slot; delta.
+constexpr int kDqSmem = (2 * kGroups + 2 * kRing) * kTileBytes + kRing * kTile * 8 +
+                        kGroups * kTile * 4 + 1024;
+// dkdv: K, V (two warpgroups) + Q, g ring + GR; m, rinv, delta, seg per slot.
+constexpr int kDkvSmem = (2 * kGroups + 2 * kRing + 1) * kTileBytes + kRing * kTile * 16 + 1024;
 
-// out[16, 64] (f32, ld kLds) = a[16, 64] . bt[64, 64]^T; a and bt are
-// row-major bf16 tiles with ld kLdh (bt row-major is bt^T column-major).
-__device__ __forceinline__ void warp_abt(float* out, const __nv_bfloat16* a,
-                                         const __nv_bfloat16* bt) {
-  FragAcc acc[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) wmma::fill_fragment(acc[c], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < kHd; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, kLdh);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      FragBCol fb;
-      wmma::load_matrix_sync(fb, bt + c * 16 * kLdh + kk, kLdh);
-      wmma::mma_sync(acc[c], fa, fb, acc[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    wmma::store_matrix_sync(out + c * 16, acc[c], kLds, wmma::mem_row_major);
+using Narrow = std::integral_constant<int, kNarrow>;
+using Full = std::integral_constant<int, kTile>;
+
+// 4 bytes global -> shared through cp.async; zero-filled when `pred` is false.
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(pred ? 4 : 0)
+               : "memory");
 }
 
-// acc[16, 64] += a[16, 64] . bm[64, 64]; both row-major bf16, ld kLdh.
-__device__ __forceinline__ void warp_ab_acc(FragAcc (&acc)[4], const __nv_bfloat16* a,
-                                            const __nv_bfloat16* bm) {
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return make_float2(__bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(v))),
+                     __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(v >> 16))));
+}
+
+// D[64 x N] (+)= A B over one k16 step, both operands K-major from shared
+// memory; N = 64 or the narrow 16.
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc) {
+  if constexpr (N == kTile)
+    sm::wgmma_m64n64k16_ss<0, 0>(d, a, b, acc);
+  else
+    sm::wgmma_m64n16k16_ss<0, 0>(d, a, b, acc);
+}
+
+// Register index of accumulator pair i (columns 8 (i / 4) + 2 (lane % 4)
+// + {0, 1} of row lo (i & 2 == 0) or hi) in the register A fragments of
+// the k16 steps (see attention.cu).
+__device__ __forceinline__ constexpr int frag(int i) {
+  return 4 * (i / 8) + 2 * ((i / 4) & 1) + ((i & 2) ? 1 : 0);
+}
+
+// acc * scale as bf16, rows `row_lo` / `row_hi` (< s only) of a head slice
+// with row stride ld, 16 bytes at a time.
+__device__ __forceinline__ void store_rows(const float (&acc)[32], float scale,
+                                           __nv_bfloat16* __restrict__ dst, int ld, int row_lo,
+                                           int row_hi, int s) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int kk = 0; kk < kTile; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, kLdh);
+  for (int g0 = 0; g0 < kHd / 8; g0 += 4) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, bm + kk * kLdh + c * 16, kLdh);
-      wmma::mma_sync(acc[c], fa, fb, acc[c]);
+    for (int half = 0; half < 2; ++half) {
+      float vals[8];
+      sm::quad_gather8(acc, g0, half, vals);
+      const int row = half ? row_hi : row_lo;
+      if (row < s) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) vals[e] *= scale;
+        *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row) * ld + (g0 + (lane & 3)) * 8) =
+            dclip::pack8(vals);
+      }
     }
   }
 }
 
-// The warp's 16 rows of acc * scale as bf16 into dst (row `first_row` of
-// a head slice with row stride ld); rows >= s are not stored.
-__device__ __forceinline__ void store_rows(FragAcc (&acc)[4], float* scratch,
-                                           __nv_bfloat16* dst, int ld, int first_row,
-                                           int s, float scale) {
-  const int lane = threadIdx.x & 31, row = lane >> 1, half = lane & 1;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    wmma::store_matrix_sync(scratch + c * 16, acc[c], kLds, wmma::mem_row_major);
-  __syncwarp();
-  if (first_row + row < s) {
-    const float* src = scratch + row * kLds + half * 32;
-    __nv_bfloat16* out = dst + static_cast<size_t>(first_row + row) * ld + half * 32;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = src[c * 8 + e] * scale;
-      *reinterpret_cast<uint4*>(out + c * 8) = dclip::pack8(v);
-    }
-  }
-  __syncwarp();
-}
-
-constexpr int kDqSmem = 4 * kTileBytes + 2 * kWarpF32Bytes + kWarpBf16Bytes + 2 * kTile * 4;
-
-__global__ void __launch_bounds__(kThreads)
+// kMasked: any of causal, pad, seg is given.
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, 2)
     attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v, int ldq, int ldk, int ldv,
@@ -123,93 +150,184 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ pad, const int* __restrict__ seg,
                             float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
                             int lddq, int s, int heads, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sg = sq + kTile * kLdh;
-  __nv_bfloat16* sk = sg + kTile * kLdh;
-  __nv_bfloat16* sv = sk + kTile * kLdh;
-  float* ss_all = reinterpret_cast<float*>(smem + 4 * kTileBytes);
-  float* sdp_all = reinterpret_cast<float*>(smem + 4 * kTileBytes + kWarpF32Bytes);
-  __nv_bfloat16* sds_all =
-      reinterpret_cast<__nv_bfloat16*>(smem + 4 * kTileBytes + 2 * kWarpF32Bytes);
-  float* kpad = reinterpret_cast<float*>(smem + 4 * kTileBytes + 2 * kWarpF32Bytes +
-                                         kWarpBf16Bytes);
-  int* kseg = reinterpret_cast<int*>(kpad + kTile);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = sm::align1024(smem_raw);
+  unsigned char* sg = sq + kGroups * kTileBytes;
+  unsigned char* sk = sg + kGroups * kTileBytes;  // [kRing] K tiles
+  unsigned char* sv = sk + kRing * kTileBytes;    // [kRing] V tiles
+  float* kpad = reinterpret_cast<float*>(sv + kRing * kTileBytes);  // [kRing][64]
+  int* kseg = reinterpret_cast<int*>(kpad + kRing * kTile);          // [kRing][64]
+  float* sdelta = reinterpret_cast<float*>(kseg + kRing * kTile);    // [128]
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kGroups * kTile, h = blockIdx.y, b = blockIdx.z;
   const int d = heads * kHd;
   const size_t rows0 = static_cast<size_t>(b) * s;
   const __nv_bfloat16* qb = q + rows0 * ldq + h * kHd;
   const __nv_bfloat16* kb = k + rows0 * ldk + h * kHd;
   const __nv_bfloat16* vb = v + rows0 * ldv + h * kHd;
-  float* ss = ss_all + warp * 16 * kLds;
-  float* sdp = sdp_all + warp * 16 * kLds;
-  __nv_bfloat16* sds = sds_all + warp * 16 * kLdh;
+  const __nv_bfloat16* gb = g + rows0 * d + h * kHd;
+  const __nv_bfloat16* ob = o + rows0 * d + h * kHd;
+  const int tiles = (s + kTile - 1) / kTile;
 
-  dclip::load_tile64<kThreads>(sq, kLdh, qb, q0, s, ldq);
-  dclip::load_tile64<kThreads>(sg, kLdh, g + rows0 * d + h * kHd, q0, s, d);
-  dclip::load_tile64<kThreads>(sk, kLdh, o + rows0 * d + h * kHd, q0, s, d);  // O, briefly
-  __syncthreads();
-
-  // Lane owns half (32 columns) of row `row` of its warp's 16 query rows.
-  const int row = lane >> 1, half = lane & 1, lr = warp * 16 + row;
-  const int gq = q0 + lr;
-  float dl = 0.f;
-#pragma unroll 8
-  for (int e = 0; e < 32; ++e)
-    dl += __bfloat162float(sg[lr * kLdh + half * 32 + e]) *
-          __bfloat162float(sk[lr * kLdh + half * 32 + e]);
-  dl += __shfl_xor_sync(dclip::kFullMask, dl, 1);
-  float mrow = 0.f, rrow = 0.f;
-  int qseg = 0;
-  if (gq < s) {
-    const size_t at = (rows0 + gq) * heads + h;
-    mrow = m[at];
-    rrow = r[at];
-    if (half == 0) delta[at] = dl;
-    if (seg != nullptr) qseg = seg[rows0 + gq];
-  }
-
-  FragAcc acc[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) wmma::fill_fragment(acc[c], 0.f);
-
-  for (int k0 = 0; k0 < s; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile (and with O)
-    dclip::load_tile64<kThreads>(sk, kLdh, kb, k0, s, ldk);
-    dclip::load_tile64<kThreads>(sv, kLdh, vb, k0, s, ldv);
-    if (threadIdx.x < kTile) {
-      const int key = k0 + threadIdx.x;
-      kpad[threadIdx.x] = (pad != nullptr && key < s) ? pad[rows0 + key] : 1.f;
-      kseg[threadIdx.x] = (seg != nullptr && key < s) ? seg[rows0 + key] : 0;
-    }
-    __syncthreads();
-    warp_abt(ss, sq + warp * 16 * kLdh, sk);   // S = Q K^T
-    warp_abt(sdp, sg + warp * 16 * kLdh, sv);  // dP = G V^T
-    __syncwarp();
-#pragma unroll 8
-    for (int e = 0; e < 32; ++e) {
-      const int j = half * 32 + e, key = k0 + j;
-      float ds = 0.f;
-      if (gq < s && key < s) {
-        const bool keep = (!causal || key <= gq) && (seg == nullptr || kseg[j] == qseg) &&
-                          kpad[j] > 0.f;
-        const float l = keep ? ss[row * kLds + j] * kScaleLog2 : dclip::kNegBig;
-        ds = exp2f(l - mrow) * ((sdp[row * kLds + j] - dl) * rrow);
+  // Tile `tile` (if it exists) into ring slot tile % kRing; one cp.async
+  // group per call, empty past the last tile.
+  auto load_kv = [&](int tile) {
+    if (tile < tiles) {
+      const int k0 = tile * kTile, slot = tile % kRing;
+      sm::load_rows_async<kTile, kThreads>(sk + slot * kTileBytes, kb, k0, s, ldk);
+      sm::load_rows_async<kTile, kThreads>(sv + slot * kTileBytes, vb, k0, s, ldv);
+      if (kMasked && threadIdx.x < 2 * kTile) {
+        const int j = threadIdx.x % kTile, key = k0 + j;
+        const bool ok = key < s;
+        const size_t at = rows0 + (ok ? key : 0);
+        if (threadIdx.x < kTile) {
+          if (pad != nullptr) cp_async_4(kpad + slot * kTile + j, pad + at, ok);
+        } else if (seg != nullptr) {
+          cp_async_4(kseg + slot * kTile + j, seg + at, ok);
+        }
       }
-      sds[row * kLdh + j] = __float2bfloat16(ds);
     }
-    __syncwarp();
-    warp_ab_acc(acc, sds, sk);  // dQ += dS K
+    dclip::cp_async_commit();
+  };
+
+  // Q and g join tile 0's group.
+  sm::load_rows_async<kGroups * kTile, kThreads>(sq, qb, q0, s, ldq);
+  sm::load_rows_async<kGroups * kTile, kThreads>(sg, gb, q0, s, d);
+#pragma unroll
+  for (int t = 0; t < kRing; ++t) load_kv(t);
+
+  // delta = rowsum(g o) of the block's 128 rows: two threads a row.
+  {
+    const int row = threadIdx.x >> 1, half = threadIdx.x & 1, gq = q0 + row;
+    float dl = 0.f;
+    if (gq < s) {
+      const __nv_bfloat16* gp = gb + static_cast<size_t>(gq) * d + half * 32;
+      const __nv_bfloat16* op = ob + static_cast<size_t>(gq) * d + half * 32;
+      uint4 gv[4], ov[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        gv[c] = *reinterpret_cast<const uint4*>(gp + c * 8);
+        ov[c] = *reinterpret_cast<const uint4*>(op + c * 8);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float fg[8], fo[8];
+        dclip::unpack8(gv[c], fg);
+        dclip::unpack8(ov[c], fo);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dl += fg[e] * fo[e];
+      }
+    }
+    dl += __shfl_xor_sync(dclip::kFullMask, dl, 1);
+    if (half == 0) {
+      sdelta[row] = dl;
+      if (gq < s) delta[(rows0 + gq) * heads + h] = dl;
+    }
   }
-  store_rows(acc, ss, dq + rows0 * lddq + h * kHd, lddq, q0 + warp * 16, s, kScale);
+
+  // This thread's two query rows and its key columns 2 (lane % 4) + {0, 1}
+  // of each 8-key group.
+  const int lr = wg * kTile + warp * 16 + (lane >> 2);
+  const int row_lo = q0 + lr, row_hi = row_lo + 8;
+  const int col = 2 * (lane & 3);
+  float m_lo = 0.f, m_hi = 0.f, r_lo = 0.f, r_hi = 0.f;
+  int seg_lo = 0, seg_hi = 0;
+  if (row_lo < s) {
+    const size_t at = (rows0 + row_lo) * heads + h;
+    m_lo = m[at];
+    r_lo = r[at];
+    if (kMasked && seg != nullptr) seg_lo = seg[rows0 + row_lo];
+  }
+  if (row_hi < s) {
+    const size_t at = (rows0 + row_hi) * heads + h;
+    m_hi = m[at];
+    r_hi = r[at];
+    if (kMasked && seg != nullptr) seg_hi = seg[rows0 + row_hi];
+  }
+  __syncthreads();  // sdelta
+  const float dl_lo = sdelta[lr], dl_hi = sdelta[lr + 8];
+  const bool live = q0 + wg * kTile < s;  // the warpgroup has a row < s
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const uint64_t dqa = sm::desc_sw128(sq + wg * kTileBytes, 16, 1024);
+  const uint64_t dga = sm::desc_sw128(sg + wg * kTileBytes, 16, 1024);
+
+  for (int j = 0; j < tiles; ++j) {
+    const int slot = j % kRing, k0 = j * kTile;
+    dclip::cp_async_wait<kRing - 1>();
+    sm::fence_proxy_async();  // this thread's cp.async stores, visible to wgmma
+    __syncthreads();          // tile j (and Q, g) landed for every thread
+
+    auto step = [&](auto width) {
+      constexpr int N = decltype(width)::value;
+      float sacc[N / 2], dpacc[N / 2];
+      const uint64_t dk = sm::desc_sw128(sk + slot * kTileBytes, 16, 1024);
+      const uint64_t dv = sm::desc_sw128(sv + slot * kTileBytes, 16, 1024);
+      sm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHd / 16; ++kk)
+        mma_ss<N>(sacc, sm::desc_add(dqa, kk * 32), sm::desc_add(dk, kk * 32), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < kHd / 16; ++kk)
+        mma_ss<N>(dpacc, sm::desc_add(dga, kk * 32), sm::desc_add(dv, kk * 32), kk > 0);
+      sm::wgmma_commit();
+      sm::wgmma_wait<0>();
+      sm::fence_regs(sacc);
+      sm::fence_regs(dpacc);
+
+      // dS = e ((dP - delta) rinv), masked; sacc[4 g + e] is key
+      // 8 g + col + (e & 1) of row_lo (e < 2) or row_hi.
+      const float* tpad = kpad + slot * kTile;
+      const int* tseg = kseg + slot * kTile;
+      uint32_t ds[N / 4];
+#pragma unroll
+      for (int i = 0; i < N / 2; i += 2) {
+        const bool hi = (i & 2) != 0;
+        float dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kl = 8 * (i / 4) + col + e, key = k0 + kl;
+          float p = 0.f;
+          if (key < s) {
+            bool keep = true;
+            if (kMasked)
+              keep = (!causal || key <= (hi ? row_hi : row_lo)) &&
+                     (seg == nullptr || tseg[kl] == (hi ? seg_hi : seg_lo)) &&
+                     (pad == nullptr || tpad[kl] > 0.f);
+            const float l = keep ? sacc[i + e] * kScaleLog2 : dclip::kNegBig;
+            p = exp2f(l - (hi ? m_hi : m_lo));
+          }
+          dsv[e] = p * ((dpacc[i + e] - (hi ? dl_hi : dl_lo)) * (hi ? r_hi : r_lo));
+        }
+        ds[frag(i)] = pack_bf16(dsv[0], dsv[1]);
+      }
+
+      // dQ += dS K, K MN-major.
+      const uint64_t dkm = sm::desc_sw128(sk + slot * kTileBytes, kTileBytes, 1024);
+      sm::fence_regs(ds);
+      sm::fence_regs(acc);
+      sm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        sm::wgmma_m64n64k16_rs<1>(acc, ds + 4 * kk, sm::desc_add(dkm, kk * 2048), 1);
+      sm::wgmma_commit();
+      sm::wgmma_wait<0>();
+      sm::fence_regs(acc);
+    };
+    if (live) {
+      if (s - k0 <= kNarrow) step(Narrow{}); else step(Full{});
+    }
+    if (j + kRing < tiles) __syncthreads();  // every warpgroup is done with the slot
+    load_kv(j + kRing);
+  }
+  store_rows(acc, kScale, dq + rows0 * lddq + h * kHd, lddq, row_lo, row_hi, s);
 }
 
-constexpr int kDkvSmem =
-    5 * kTileBytes + 2 * kWarpF32Bytes + 2 * kWarpBf16Bytes + 4 * kTile * 4;
-
-__global__ void __launch_bounds__(kThreads)
+template <bool kMasked>
+__global__ void __launch_bounds__(kThreads, 2)
     attention_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v, int ldq, int ldk,
@@ -220,130 +338,198 @@ __global__ void __launch_bounds__(kThreads)
                               __nv_bfloat16* __restrict__ dk, int lddk,
                               __nv_bfloat16* __restrict__ dv, int lddv, int s, int heads,
                               int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sv = sk + kTile * kLdh;
-  __nv_bfloat16* sq = sv + kTile * kLdh;
-  __nv_bfloat16* sg = sq + kTile * kLdh;
-  __nv_bfloat16* sgr = sg + kTile * kLdh;
-  float* sst_all = reinterpret_cast<float*>(smem + 5 * kTileBytes);
-  float* sdpt_all = reinterpret_cast<float*>(smem + 5 * kTileBytes + kWarpF32Bytes);
-  __nv_bfloat16* se_all =
-      reinterpret_cast<__nv_bfloat16*>(smem + 5 * kTileBytes + 2 * kWarpF32Bytes);
-  __nv_bfloat16* sdst_all = se_all + kWarps * 16 * kLdh;
-  float* qm = reinterpret_cast<float*>(smem + 5 * kTileBytes + 2 * kWarpF32Bytes +
-                                       2 * kWarpBf16Bytes);
-  float* qr = qm + kTile;
-  float* qd = qr + kTile;
-  int* qsg = reinterpret_cast<int*>(qd + kTile);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sk = sm::align1024(smem_raw);
+  unsigned char* sv = sk + kGroups * kTileBytes;
+  unsigned char* sq = sv + kGroups * kTileBytes;  // [kRing] Q tiles
+  unsigned char* sg = sq + kRing * kTileBytes;    // [kRing] g tiles
+  unsigned char* sgr = sg + kRing * kTileBytes;   // GR of the current query tile
+  float* qm = reinterpret_cast<float*>(sgr + kTileBytes);  // [kRing][64] each
+  float* qr = qm + kRing * kTile;
+  float* qd = qr + kRing * kTile;
+  int* qs = reinterpret_cast<int*>(qd + kRing * kTile);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int k0 = blockIdx.x * kGroups * kTile, h = blockIdx.y, b = blockIdx.z;
   const int d = heads * kHd;
   const size_t rows0 = static_cast<size_t>(b) * s;
   const __nv_bfloat16* qb = q + rows0 * ldq + h * kHd;
   const __nv_bfloat16* gb = g + rows0 * d + h * kHd;
-  float* sst = sst_all + warp * 16 * kLds;
-  float* sdpt = sdpt_all + warp * 16 * kLds;
-  __nv_bfloat16* se = se_all + warp * 16 * kLdh;
-  __nv_bfloat16* sdst = sdst_all + warp * 16 * kLdh;
+  const int tiles = (s + kTile - 1) / kTile;
 
-  dclip::load_tile64<kThreads>(sk, kLdh, k + rows0 * ldk + h * kHd, k0, s, ldk);
-  dclip::load_tile64<kThreads>(sv, kLdh, v + rows0 * ldv + h * kHd, k0, s, ldv);
-
-  // Lane owns half (32 query columns) of key row `row` of its warp's 16.
-  const int row = lane >> 1, half = lane & 1;
-  const int gk = k0 + warp * 16 + row;
-  const float kp = (pad != nullptr && gk < s) ? pad[rows0 + gk] : 1.f;
-  const int ks = (seg != nullptr && gk < s) ? seg[rows0 + gk] : 0;
-
-  FragAcc dk_acc[4], dv_acc[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    wmma::fill_fragment(dk_acc[c], 0.f);
-    wmma::fill_fragment(dv_acc[c], 0.f);
-  }
-
-  for (int q0 = 0; q0 < s; q0 += kTile) {
-    __syncthreads();  // every warp is done with the previous query tile
-    dclip::load_tile64<kThreads>(sq, kLdh, qb, q0, s, ldq);
-    dclip::load_tile64<kThreads>(sg, kLdh, gb, q0, s, d);
-    if (threadIdx.x < kTile) {
-      const int qi = q0 + threadIdx.x;
-      float mv = 0.f, rv = 0.f, dv_ = 0.f;
-      int sv_ = 0;
-      if (qi < s) {
-        const size_t at = (rows0 + qi) * heads + h;
-        mv = m[at];
-        rv = r[at];
-        dv_ = delta[at];
-        if (seg != nullptr) sv_ = seg[rows0 + qi];
+  // Query tile `tile` and its rows' m, rinv, delta (and segment ids) into
+  // ring slot tile % kRing; rows past S arrive as zeros.
+  auto load_qg = [&](int tile) {
+    if (tile < tiles) {
+      const int q0 = tile * kTile, slot = tile % kRing;
+      sm::load_rows_async<kTile, kThreads>(sq + slot * kTileBytes, qb, q0, s, ldq);
+      sm::load_rows_async<kTile, kThreads>(sg + slot * kTileBytes, gb, q0, s, d);
+      const int j = threadIdx.x % kTile, qi = q0 + j;
+      const bool ok = qi < s;
+      const size_t row = rows0 + (ok ? qi : 0), at = row * heads + h;
+      float* dst = threadIdx.x < kTile ? qm : threadIdx.x < 2 * kTile ? qr : qd;
+      const float* src = threadIdx.x < kTile ? m : threadIdx.x < 2 * kTile ? r : delta;
+      if (threadIdx.x < 3 * kTile) {
+        cp_async_4(dst + slot * kTile + j, src + at, ok);
+      } else if (kMasked && seg != nullptr) {
+        cp_async_4(qs + slot * kTile + j, seg + row, ok);
       }
-      qm[threadIdx.x] = mv;
-      qr[threadIdx.x] = rv;
-      qd[threadIdx.x] = dv_;
-      qsg[threadIdx.x] = sv_;
     }
-    __syncthreads();
-    // GR = bf16(g * rinv) per query row (the TPU's `grs`).
-    for (int c = threadIdx.x; c < kTile * 8; c += kThreads) {
-      const int qrow = c >> 3, c8 = (c & 7) * 8;
+    dclip::cp_async_commit();
+  };
+
+  // K and V join tile 0's group.
+  sm::load_rows_async<kGroups * kTile, kThreads>(sk, k + rows0 * ldk + h * kHd, k0, s, ldk);
+  sm::load_rows_async<kGroups * kTile, kThreads>(sv, v + rows0 * ldv + h * kHd, k0, s, ldv);
+#pragma unroll
+  for (int t = 0; t < kRing; ++t) load_qg(t);
+
+  // This thread's two key rows and its query columns 2 (lane % 4) + {0, 1}
+  // of each 8-query group.
+  const int key_lo = k0 + wg * kTile + warp * 16 + (lane >> 2), key_hi = key_lo + 8;
+  const int col = 2 * (lane & 3);
+  float kp_lo = 1.f, kp_hi = 1.f;
+  int ks_lo = 0, ks_hi = 0;
+  if (kMasked) {
+    if (pad != nullptr) {
+      kp_lo = key_lo < s ? pad[rows0 + key_lo] : 0.f;
+      kp_hi = key_hi < s ? pad[rows0 + key_hi] : 0.f;
+    }
+    if (seg != nullptr) {
+      ks_lo = key_lo < s ? seg[rows0 + key_lo] : 0;
+      ks_hi = key_hi < s ? seg[rows0 + key_hi] : 0;
+    }
+  }
+  const bool live = k0 + wg * kTile < s;  // the warpgroup has a key < s
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const uint64_t dka = sm::desc_sw128(sk + wg * kTileBytes, 16, 1024);
+  const uint64_t dva = sm::desc_sw128(sv + wg * kTileBytes, 16, 1024);
+  const uint64_t grm = sm::desc_sw128(sgr, kTileBytes, 1024);
+
+  for (int j = 0; j < tiles; ++j) {
+    const int slot = j % kRing, q0 = j * kTile;
+    dclip::cp_async_wait<kRing - 1>();
+    __syncthreads();  // tile j and its stats landed; the last tile's GR is free
+    // GR = bf16(g rinv) per query row, in the g tile's swizzled layout.
+#pragma unroll
+    for (int i = 0; i < kTile * 8 / kThreads; ++i) {
+      const int c = threadIdx.x + i * kThreads, row = c >> 3;
+      const int off = sm::swizzle128(row, c & 7);
       float f[8];
-      dclip::unpack8(*reinterpret_cast<const uint4*>(sg + qrow * kLdh + c8), f);
+      dclip::unpack8(*reinterpret_cast<const uint4*>(sg + slot * kTileBytes + off), f);
+      const float rr = qr[slot * kTile + row];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] *= qr[qrow];
-      *reinterpret_cast<uint4*>(sgr + qrow * kLdh + c8) = dclip::pack8(f);
+      for (int e = 0; e < 8; ++e) f[e] *= rr;
+      *reinterpret_cast<uint4*>(sgr + off) = dclip::pack8(f);
     }
+    sm::fence_proxy_async();  // cp.async and GR stores, visible to wgmma
     __syncthreads();
-    warp_abt(sst, sk + warp * 16 * kLdh, sq);   // S^T = K Q^T
-    warp_abt(sdpt, sv + warp * 16 * kLdh, sg);  // dP^T = V G^T
-    __syncwarp();
-#pragma unroll 8
-    for (int e = 0; e < 32; ++e) {
-      const int j = half * 32 + e, qi = q0 + j;
-      float p = 0.f, ds = 0.f;
-      if (qi < s && gk < s) {
-        const bool keep = (!causal || gk <= qi) && (seg == nullptr || ks == qsg[j]) && kp > 0.f;
-        const float l = keep ? sst[row * kLds + j] * kScaleLog2 : dclip::kNegBig;
-        p = exp2f(l - qm[j]);
-        ds = p * ((sdpt[row * kLds + j] - qd[j]) * qr[j]);
+
+    auto step = [&](auto width) {
+      constexpr int N = decltype(width)::value;
+      const float* tm = qm + slot * kTile;
+      const float* tr = qr + slot * kTile;
+      const float* td = qd + slot * kTile;
+      const int* ts = qs + slot * kTile;
+      const uint64_t dqk = sm::desc_sw128(sq + slot * kTileBytes, 16, 1024);
+      const uint64_t dgk = sm::desc_sw128(sg + slot * kTileBytes, 16, 1024);
+
+      // S^T = K Q^T: 64 keys x N queries.
+      float sacc[N / 2];
+      sm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHd / 16; ++kk)
+        mma_ss<N>(sacc, sm::desc_add(dka, kk * 32), sm::desc_add(dqk, kk * 32), kk > 0);
+      sm::wgmma_commit();
+      sm::wgmma_wait<0>();
+      sm::fence_regs(sacc);
+
+      // P^T = exp2(mask(S^T c) - m) in bf16; sacc[4 g + e] is query
+      // 8 g + col + (e & 1) of key_lo (e < 2) or key_hi.
+      uint32_t p[N / 4];
+#pragma unroll
+      for (int i = 0; i < N / 2; i += 2) {
+        const bool hi = (i & 2) != 0;
+        float pv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ql = 8 * (i / 4) + col + e;
+          bool keep = true;
+          if (kMasked)
+            keep = (!causal || (hi ? key_hi : key_lo) <= q0 + ql) &&
+                   (seg == nullptr || ts[ql] == (hi ? ks_hi : ks_lo)) &&
+                   (hi ? kp_hi : kp_lo) > 0.f;
+          const float l = keep ? sacc[i + e] * kScaleLog2 : dclip::kNegBig;
+          pv[e] = exp2f(l - tm[ql]);
+        }
+        p[frag(i)] = pack_bf16(pv[0], pv[1]);
       }
-      se[row * kLdh + j] = __float2bfloat16(p);
-      sdst[row * kLdh + j] = __float2bfloat16(ds);
+
+      // dP^T = V g^T and dV += P^T GR (GR MN-major) in one group.
+      float dpacc[N / 2];
+      sm::fence_regs(p);
+      sm::fence_regs(dv_acc);
+      sm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHd / 16; ++kk)
+        mma_ss<N>(dpacc, sm::desc_add(dva, kk * 32), sm::desc_add(dgk, kk * 32), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        sm::wgmma_m64n64k16_rs<1>(dv_acc, p + 4 * kk, sm::desc_add(grm, kk * 2048), 1);
+      sm::wgmma_commit();
+      sm::wgmma_wait<0>();
+      sm::fence_regs(dpacc);
+      sm::fence_regs(dv_acc);
+
+      // dS^T = P^T ((dP^T - delta) rinv) in bf16.
+      uint32_t ds[N / 4];
+#pragma unroll
+      for (int i = 0; i < N / 2; i += 2) {
+        const float2 e2 = unpack_bf16(p[frag(i)]);
+        const int ql = 8 * (i / 4) + col;
+        ds[frag(i)] = pack_bf16(e2.x * ((dpacc[i] - td[ql]) * tr[ql]),
+                                e2.y * ((dpacc[i + 1] - td[ql + 1]) * tr[ql + 1]));
+      }
+
+      // dK += dS^T Q, Q MN-major.
+      const uint64_t dqm = sm::desc_sw128(sq + slot * kTileBytes, kTileBytes, 1024);
+      sm::fence_regs(ds);
+      sm::fence_regs(dk_acc);
+      sm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        sm::wgmma_m64n64k16_rs<1>(dk_acc, ds + 4 * kk, sm::desc_add(dqm, kk * 2048), 1);
+      sm::wgmma_commit();
+      sm::wgmma_wait<0>();
+      sm::fence_regs(dk_acc);
+    };
+    if (live) {
+      if (s - q0 <= kNarrow) step(Narrow{}); else step(Full{});
     }
-    __syncwarp();
-    warp_ab_acc(dv_acc, se, sgr);   // dV += e^T (g rinv)
-    warp_ab_acc(dk_acc, sdst, sq);  // dK += dS^T Q
+    if (j + kRing < tiles) __syncthreads();  // every warpgroup is done with the slot
+    load_qg(j + kRing);
   }
-  store_rows(dk_acc, sst, dk + rows0 * lddk + h * kHd, lddk, k0 + warp * 16, s, kScale);
-  store_rows(dv_acc, sst, dv + rows0 * lddv + h * kHd, lddv, k0 + warp * 16, s, 1.f);
+  store_rows(dk_acc, kScale, dk + rows0 * lddk + h * kHd, lddk, key_lo, key_hi, s);
+  store_rows(dv_acc, 1.f, dv + rows0 * lddv + h * kHd, lddv, key_lo, key_hi, s);
 }
 
-}  // namespace
-
-// q, k, v: [b, s, heads * 64] bf16 views (unit column stride, row strides
-// ldq / ldk / ldv, batch stride s * ld); g, o: [b, s, heads * 64] bf16
-// contiguous; m, r: [b, s, heads] f32 from the forward; pad [b, s] f32 or
-// null; seg [b, s] int32 or null; delta: [b, s, heads] f32 scratch; dq,
-// dk, dv: bf16 views like q, k, v with row strides lddq / lddk / lddv.
-// Launches the dq kernel (which writes delta), then the dk/dv kernel.
-extern "C" int dclip_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                                        int ldq, int ldk, int ldv, const void* g,
-                                        const void* o, const void* m, const void* r,
-                                        const void* pad, const void* seg, void* delta,
-                                        void* dq, void* dk, void* dv, int lddq, int lddk,
-                                        int lddv, int b, int s, int heads, int causal,
-                                        void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+template <bool kMasked>
+int launch(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
+           const void* g, const void* o, const void* m, const void* r, const void* pad,
+           const void* seg, void* delta, void* dq, void* dk, void* dv, int lddq, int lddk,
+           int lddv, int b, int s, int heads, int causal, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<kMasked>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel,
+  err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<kMasked>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + kTile - 1) / kTile, heads, b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((s + kGroups * kTile - 1) / (kGroups * kTile), heads, b);
   using B16 = __nv_bfloat16;
-  attention_bwd_dq_kernel<<<grid, kThreads, kDqSmem, st>>>(
+  attention_bwd_dq_kernel<kMasked><<<grid, kThreads, kDqSmem, st>>>(
       static_cast<const B16*>(q), static_cast<const B16*>(k), static_cast<const B16*>(v),
       ldq, ldk, ldv, static_cast<const B16*>(g), static_cast<const B16*>(o),
       static_cast<const float*>(m), static_cast<const float*>(r),
@@ -351,11 +537,35 @@ extern "C" int dclip_attention_bwd_bf16(const void* q, const void* k, const void
       static_cast<float*>(delta), static_cast<B16*>(dq), lddq, s, heads, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_kernel<<<grid, kThreads, kDkvSmem, st>>>(
+  attention_bwd_dkdv_kernel<kMasked><<<grid, kThreads, kDkvSmem, st>>>(
       static_cast<const B16*>(q), static_cast<const B16*>(k), static_cast<const B16*>(v),
       ldq, ldk, ldv, static_cast<const B16*>(g), static_cast<const float*>(m),
       static_cast<const float*>(r), static_cast<const float*>(delta),
       static_cast<const float*>(pad), static_cast<const int*>(seg), static_cast<B16*>(dk),
       lddk, static_cast<B16*>(dv), lddv, s, heads, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, k, v: [b, s, heads * 64] bf16 views (unit column stride, row strides
+// ldq / ldk / ldv, multiples of 8, batch stride s * ld, 16-byte aligned);
+// g, o: [b, s, heads * 64] bf16 contiguous; m, r: [b, s, heads] f32 from
+// the forward; pad [b, s] f32 or null; seg [b, s] int32 or null; delta:
+// [b, s, heads] f32 scratch; dq, dk, dv: bf16 views like q, k, v with row
+// strides lddq / lddk / lddv. Launches the dq kernel (which writes delta),
+// then the dk/dv kernel.
+extern "C" int dclip_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                        int ldq, int ldk, int ldv, const void* g,
+                                        const void* o, const void* m, const void* r,
+                                        const void* pad, const void* seg, void* delta,
+                                        void* dq, void* dk, void* dv, int lddq, int lddk,
+                                        int lddv, int b, int s, int heads, int causal,
+                                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (causal || pad != nullptr || seg != nullptr)
+             ? launch<true>(q, k, v, ldq, ldk, ldv, g, o, m, r, pad, seg, delta, dq, dk, dv,
+                            lddq, lddk, lddv, b, s, heads, causal, st)
+             : launch<false>(q, k, v, ldq, ldk, ldv, g, o, m, r, pad, seg, delta, dq, dk, dv,
+                             lddq, lddk, lddv, b, s, heads, causal, st);
 }

@@ -153,8 +153,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                 int epi, int out_f32, int k_tiles_per_split) {
   namespace sm = dclip::sm90;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* smem = sm::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
 
@@ -311,14 +310,18 @@ template <int kMode>
 int launch(const void* a, const void* w, const void* bias, const void* r, const void* aux_in,
            void* aux_out, void* c, int m, int n, int k, int epi, int out_f32,
            int k_tiles_per_split, int splits, void* stream) {
+  // A runtime call first: it makes the device's primary context current in
+  // this host thread, which the driver's tensor-map encode needs. A thread
+  // that has made no runtime call yet (autograd's backward worker, when a
+  // GEMM is its first CUDA work) has none, and the encode would fail.
+  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<kMode>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map_a, map_b;
   const bool ok =
       (kMode == kModeTN ? encode(&map_a, a, k, m, 64) : encode(&map_a, a, m, k, kBM)) &&
       (kMode == kModeNT ? encode(&map_b, w, n, k, kBN) : encode(&map_b, w, k, n, 64));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(gemm_kernel<kMode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, splits);
   gemm_kernel<kMode><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       map_a, map_b, static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(r),

@@ -5,7 +5,8 @@
 //   dxhat = dh * scale, statistics recomputed from x;
 // and the same backward for a trainable LayerNorm, which also emits the
 // weight gradients dscale = sum over rows of dh * xhat and dbias = sum of
-// dh (dx optional), as per-block partials that reduce.cu sums.
+// dh (dx optional), as per-block partials that reduce.cu sums. d % 8 == 0
+// and d <= 1024 (every width of the supported presets).
 //
 // Replaces: the LN1 / LN2 prologue of dclip_tpu/kernels/vit_block.py
 //   `_attn_kernel` (line 52) and `_mlp_kernel` (line 100), `_layer_norm`;
@@ -18,193 +19,227 @@
 //   dx and the dLN scale / bias accumulators) and of the K9 VJP,
 //   attn_block_trainable.py:276-282 (LN1, computed in XLA there).
 // Bound on the H100: memory. One row of D=768 bf16 is 1.5 KB and takes
-//   ~5 flops per element, far below the ~295 flop/byte ridge.
-// Design: one warp per row, 16-byte vector loads (D % 8 == 0), two f32
-//   passes for mean and variance (the same two-pass formula as the TPU
-//   kernel, no E[x^2]-E[x]^2 cancellation); the re-reads of the row hit
-//   L1. The output is rounded to bf16 once, because the GEMM that reads it
-//   runs on bf16 tensor cores. The backward keeps dh in f32 (as the TPU
-//   does) and makes four passes over a row (mean, variance, the two
-//   reductions, the output), all but the first from L1. In the
-//   weight-gradient backward a warp walks rows with a grid stride; each
-//   lane always holds the same 8-column chunks of a row, so it sums its
-//   columns' dh * xhat and dh in registers across all its rows (d <= 1024:
-//   at most 4 chunks a lane), the block's 8 warps add theirs into shared
-//   memory one warp after another, and the block writes one partial.
+//   ~5 flops per element, far below the ~295 flop/byte ridge: the forward
+//   moves 4 bytes an element (bf16 in, bf16 out), the backward 10 (x, g,
+//   dx bf16, dh f32).
+// Design: one warp per row with the row in registers, read once from
+//   device memory and written once. A lane holds kVec = ceil(d / 256)
+//   16-byte vectors of the row (8 columns each; 2, 3, 4 at d = 512, 768,
+//   1024), a template parameter, so every load of a row is unrolled and
+//   issued before the first is used; other widths take the same kernels
+//   with the vectors past d predicated off. Mean and variance are the
+//   TPU kernel's two passes (no E[x^2]-E[x]^2 cancellation), both over
+//   the registers. Warps walk the rows with a grid stride, one wave of
+//   resident blocks, so the forward reads scale and bias (f32, as float4)
+//   once per warp and keeps them in registers across its rows, and the
+//   frozen backward does the same with scale. The output is rounded to
+//   bf16 once, because the GEMM that reads it runs on bf16 tensor cores.
+//   The backward holds x, g and dh (f32, as float4) of a row in registers.
+//   In the weight-gradient backward each lane always holds the same
+//   8-column chunks, so it sums its columns' dh * xhat and dh in registers
+//   across all its rows (that kernel reads scale per row, as float4 from
+//   L1, to leave the registers to those sums); the block's 8 warps add
+//   theirs into shared memory one warp after another, and the block writes
+//   one partial: every sum in a fixed order, the same bits every run.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kMaxVec = 4;  // 16-byte vectors per lane: d <= 32 * 8 * 4
 
-__global__ void __launch_bounds__(kWarps * 32)
-    layernorm_kernel(const __nv_bfloat16* __restrict__ x,
-                     const float* __restrict__ scale,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ y, int rows, int d,
-                     float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const __nv_bfloat16* xr = x + static_cast<size_t>(row) * d;
-  __nv_bfloat16* yr = y + static_cast<size_t>(row) * d;
-  const int chunks = d / 8;
-  float f[8];
+// Whether vector i of this lane lies inside the row (always, when exact).
+template <bool kExact>
+__device__ __forceinline__ bool has(int i, int lane, int chunks) {
+  return kExact || lane + 32 * i < chunks;
+}
 
+__device__ __forceinline__ void load8(const float* __restrict__ p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+// Mean and 1 / std of the row held in xv, two passes over the registers.
+template <int kVec, bool kExact>
+__device__ __forceinline__ void row_stats(const uint4 (&xv)[kVec], int lane, int chunks, int d,
+                                          float eps, float& mean, float& rstd) {
   float sum = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    if (!has<kExact>(i, lane, chunks)) continue;
+    float f[8];
+    dclip::unpack8(xv[i], f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) sum += f[e];
   }
-  const float mean = dclip::warp_sum(sum) / d;
-
+  mean = dclip::warp_sum(sum) / d;
   float sq = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    if (!has<kExact>(i, lane, chunks)) continue;
+    float f[8];
+    dclip::unpack8(xv[i], f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) sq += (f[e] - mean) * (f[e] - mean);
   }
-  const float rstd = rsqrtf(dclip::warp_sum(sq) / d + eps);
+  rstd = rsqrtf(dclip::warp_sum(sq) / d + eps);
+}
 
-  for (int c = lane; c < chunks; c += 32) {
-    dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+template <int kVec, bool kExact>
+__device__ __forceinline__ void load_row(uint4 (&v)[kVec], const __nv_bfloat16* __restrict__ row,
+                                         int lane, int chunks) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = c * 8 + e;
-      f[e] = (f[e] - mean) * rstd * scale[i] + bias[i];
+  for (int i = 0; i < kVec; ++i)
+    v[i] = has<kExact>(i, lane, chunks)
+               ? *reinterpret_cast<const uint4*>(row + (lane + 32 * i) * 8)
+               : make_uint4(0, 0, 0, 0);
+}
+
+template <int kVec, bool kExact>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    layernorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int rows,
+                     int d, float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, chunks = d / 8;
+  float sc[kVec][8], bi[kVec][8];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    if (has<kExact>(i, lane, chunks)) {
+      load8(scale + (lane + 32 * i) * 8, sc[i]);
+      load8(bias + (lane + 32 * i) * 8, bi[i]);
     }
-    *reinterpret_cast<uint4*>(yr + c * 8) = dclip::pack8(f);
+  }
+  for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
+    const size_t base = static_cast<size_t>(row) * d;
+    uint4 xv[kVec];
+    load_row<kVec, kExact>(xv, x + base, lane, chunks);
+    float mean, rstd;
+    row_stats<kVec, kExact>(xv, lane, chunks, d, eps, mean, rstd);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      if (!has<kExact>(i, lane, chunks)) continue;
+      float f[8];
+      dclip::unpack8(xv[i], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = (f[e] - mean) * rstd * sc[i][e] + bi[i][e];
+      *reinterpret_cast<uint4*>(y + base + (lane + 32 * i) * 8) = dclip::pack8(f);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ g,
+template <int kVec, bool kExact>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+    layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
                          const float* __restrict__ dh, const float* __restrict__ scale,
                          __nv_bfloat16* __restrict__ dx, int rows, int d, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const size_t base = static_cast<size_t>(row) * d;
-  const __nv_bfloat16* xr = x + base;
-  const int chunks = d / 8;
-  float f[8];
-
-  float sum = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, chunks = d / 8;
+  float sc[kVec][8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sum += f[e];
-  }
-  const float mean = dclip::warp_sum(sum) / d;
-  float sq = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+  for (int i = 0; i < kVec; ++i)
+    if (has<kExact>(i, lane, chunks)) load8(scale + (lane + 32 * i) * 8, sc[i]);
+  for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
+    const size_t base = static_cast<size_t>(row) * d;
+    uint4 xv[kVec], gv[kVec];
+    float hv[kVec][8];
+    load_row<kVec, kExact>(xv, x + base, lane, chunks);
+    load_row<kVec, kExact>(gv, g + base, lane, chunks);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sq += (f[e] - mean) * (f[e] - mean);
-  }
-  const float rstd = rsqrtf(dclip::warp_sum(sq) / d + eps);
-
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+    for (int i = 0; i < kVec; ++i)
+      if (has<kExact>(i, lane, chunks)) load8(dh + base + (lane + 32 * i) * 8, hv[i]);
+    float mean, rstd;
+    row_stats<kVec, kExact>(xv, lane, chunks, d, eps, mean, rstd);
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = c * 8 + e;
-      const float dxhat = dh[base + i] * scale[i];
-      s1 += dxhat;
-      s2 += dxhat * (f[e] - mean) * rstd;
+    for (int i = 0; i < kVec; ++i) {
+      if (!has<kExact>(i, lane, chunks)) continue;
+      float f[8];
+      dclip::unpack8(xv[i], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float dxhat = hv[i][e] * sc[i][e];
+        s1 += dxhat;
+        s2 += dxhat * (f[e] - mean) * rstd;
+      }
     }
-  }
-  const float m1 = dclip::warp_sum(s1) / d, m2 = dclip::warp_sum(s2) / d;
-
-  for (int c = lane; c < chunks; c += 32) {
-    float gv[8];
-    dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-    dclip::unpack8(*reinterpret_cast<const uint4*>(g + base + c * 8), gv);
+    const float m1 = dclip::warp_sum(s1) / d, m2 = dclip::warp_sum(s2) / d;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = c * 8 + e;
-      const float xhat = (f[e] - mean) * rstd;
-      gv[e] += rstd * (dh[base + i] * scale[i] - m1 - xhat * m2);
+    for (int i = 0; i < kVec; ++i) {
+      if (!has<kExact>(i, lane, chunks)) continue;
+      float f[8], o[8];
+      dclip::unpack8(xv[i], f);
+      dclip::unpack8(gv[i], o);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xhat = (f[e] - mean) * rstd;
+        o[e] += rstd * (hv[i][e] * sc[i][e] - m1 - xhat * m2);
+      }
+      *reinterpret_cast<uint4*>(dx + base + (lane + 32 * i) * 8) = dclip::pack8(o);
     }
-    *reinterpret_cast<uint4*>(dx + base + c * 8) = dclip::pack8(gv);
   }
 }
 
-
-constexpr int kMaxChunks = 4;  // 8-column chunks per lane: d <= 32 * 8 * 4
-
+template <int kVec, bool kExact>
 __global__ void __launch_bounds__(kWarps * 32)
     layernorm_bwd_wgrad_kernel(const __nv_bfloat16* __restrict__ x,
                                const __nv_bfloat16* __restrict__ g,
                                const float* __restrict__ dh, const float* __restrict__ scale,
                                __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
                                int rows, int d, float eps) {
-  __shared__ float red[2][32 * 8 * kMaxChunks];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int chunks = d / 8;
-  float acc_s[kMaxChunks][8], acc_b[kMaxChunks][8];
+  __shared__ float red[2][32 * 8 * kMaxVec];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, chunks = d / 8;
+  float acc_s[kVec][8], acc_b[kVec][8];
 #pragma unroll
-  for (int i = 0; i < kMaxChunks; ++i)
+  for (int i = 0; i < kVec; ++i)
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc_s[i][e] = acc_b[i][e] = 0.f;
 
   for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
     const size_t base = static_cast<size_t>(row) * d;
-    const __nv_bfloat16* xr = x + base;
-    float f[8];
-    float sum = 0.f;
-    for (int c = lane; c < chunks; c += 32) {
-      dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
+    uint4 xv[kVec], gv[kVec];
+    float hv[kVec][8];
+    load_row<kVec, kExact>(xv, x + base, lane, chunks);
+    if (dx != nullptr) load_row<kVec, kExact>(gv, g + base, lane, chunks);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) sum += f[e];
-    }
-    const float mean = dclip::warp_sum(sum) / d;
-    float sq = 0.f;
-    for (int c = lane; c < chunks; c += 32) {
-      dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sq += (f[e] - mean) * (f[e] - mean);
-    }
-    const float rstd = rsqrtf(dclip::warp_sum(sq) / d + eps);
-
+    for (int i = 0; i < kVec; ++i)
+      if (has<kExact>(i, lane, chunks)) load8(dh + base + (lane + 32 * i) * 8, hv[i]);
+    float mean, rstd;
+    row_stats<kVec, kExact>(xv, lane, chunks, d, eps, mean, rstd);
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < kMaxChunks; ++i) {
-      const int c = lane + 32 * i;
-      if (c < chunks) {
-        float hv[8];
-        dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-        const float4 h0 = *reinterpret_cast<const float4*>(dh + base + c * 8);
-        const float4 h1 = *reinterpret_cast<const float4*>(dh + base + c * 8 + 4);
-        hv[0] = h0.x, hv[1] = h0.y, hv[2] = h0.z, hv[3] = h0.w;
-        hv[4] = h1.x, hv[5] = h1.y, hv[6] = h1.z, hv[7] = h1.w;
+    for (int i = 0; i < kVec; ++i) {
+      if (!has<kExact>(i, lane, chunks)) continue;
+      float f[8], sc[8];
+      dclip::unpack8(xv[i], f);
+      load8(scale + (lane + 32 * i) * 8, sc);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float xhat = (f[e] - mean) * rstd;
-          const float dxhat = hv[e] * scale[c * 8 + e];
-          s1 += dxhat;
-          s2 += dxhat * xhat;
-          acc_s[i][e] += hv[e] * xhat;
-          acc_b[i][e] += hv[e];
-        }
+      for (int e = 0; e < 8; ++e) {
+        const float xhat = (f[e] - mean) * rstd;
+        const float dxhat = hv[i][e] * sc[e];
+        s1 += dxhat;
+        s2 += dxhat * xhat;
+        acc_s[i][e] += hv[i][e] * xhat;
+        acc_b[i][e] += hv[i][e];
       }
     }
     if (dx == nullptr) continue;
     const float m1 = dclip::warp_sum(s1) / d, m2 = dclip::warp_sum(s2) / d;
-    for (int c = lane; c < chunks; c += 32) {
-      float gv[8];
-      dclip::unpack8(*reinterpret_cast<const uint4*>(xr + c * 8), f);
-      dclip::unpack8(*reinterpret_cast<const uint4*>(g + base + c * 8), gv);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      if (!has<kExact>(i, lane, chunks)) continue;
+      float f[8], o[8], sc[8];
+      dclip::unpack8(xv[i], f);
+      dclip::unpack8(gv[i], o);
+      load8(scale + (lane + 32 * i) * 8, sc);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const int i = c * 8 + e;
         const float xhat = (f[e] - mean) * rstd;
-        gv[e] += rstd * (dh[base + i] * scale[i] - m1 - xhat * m2);
+        o[e] += rstd * (hv[i][e] * sc[e] - m1 - xhat * m2);
       }
-      *reinterpret_cast<uint4*>(dx + base + c * 8) = dclip::pack8(gv);
+      *reinterpret_cast<uint4*>(dx + base + (lane + 32 * i) * 8) = dclip::pack8(o);
     }
   }
 
@@ -213,14 +248,13 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int w = 0; w < kWarps; ++w) {  // warp order: the same sums every run
     if (warp == w) {
 #pragma unroll
-      for (int i = 0; i < kMaxChunks; ++i) {
+      for (int i = 0; i < kVec; ++i) {
+        if (!has<kExact>(i, lane, chunks)) continue;
         const int c = lane + 32 * i;
-        if (c < chunks) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            red[0][c * 8 + e] += acc_s[i][e];
-            red[1][c * 8 + e] += acc_b[i][e];
-          }
+        for (int e = 0; e < 8; ++e) {
+          red[0][c * 8 + e] += acc_s[i][e];
+          red[1][c * 8 + e] += acc_b[i][e];
         }
       }
     }
@@ -230,31 +264,70 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int i = threadIdx.x; i < 2 * d; i += blockDim.x) out[i] = red[i / d][i % d];
 }
 
+// Blocks of `kernel` resident on the whole card at once: the grid of the
+// row-walking kernels, capped by the rows.
+template <typename Kernel>
+int resident_grid(Kernel kernel, int rows) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32, 0);
+  const int want = (rows + kWarps - 1) / kWarps;
+  return want < per_sm * sms ? want : (per_sm > 0 ? per_sm * sms : 1);
+}
+
+// Calls launch(kernel template instance) for d's vector count: exact at
+// 512, 768, 1024, predicated otherwise. d % 8 != 0 or d > 1024: refused.
+template <typename Launch>
+int dispatch(int d, Launch&& launch) {
+  if (d <= 0 || d % 8 || d > 32 * 8 * kMaxVec) return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 512: return launch(std::integral_constant<int, 2>{}, std::true_type{});
+    case 768: return launch(std::integral_constant<int, 3>{}, std::true_type{});
+    case 1024: return launch(std::integral_constant<int, 4>{}, std::true_type{});
+    default: break;
+  }
+  switch ((d / 8 + 31) / 32) {
+    case 1: return launch(std::integral_constant<int, 1>{}, std::false_type{});
+    case 2: return launch(std::integral_constant<int, 2>{}, std::false_type{});
+    case 3: return launch(std::integral_constant<int, 3>{}, std::false_type{});
+    default: return launch(std::integral_constant<int, 4>{}, std::false_type{});
+  }
+}
+
 }  // namespace
 
-// x, y: [rows, d] bf16, contiguous, 16-byte aligned; scale, bias: [d] f32.
+// x, y: [rows, d] bf16, contiguous, 16-byte aligned; scale, bias: [d] f32,
+// 16-byte aligned; d % 8 == 0, d <= 1024.
 extern "C" int dclip_layernorm_bf16(const void* x, const void* scale,
                                     const void* bias, void* y, int rows,
                                     int d, float eps, void* stream) {
-  const dim3 grid((rows + kWarps - 1) / kWarps);
-  layernorm_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), rows, d,
-      eps);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(d, [&](auto vec, auto exact) {
+    constexpr int kVec = decltype(vec)::value;
+    constexpr bool kExact = decltype(exact)::value;
+    auto kernel = layernorm_kernel<kVec, kExact>;
+    kernel<<<resident_grid(kernel, rows), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), rows, d, eps);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // x, g, dx: [rows, d] bf16; dh: [rows, d] f32; scale: [d] f32; all
-// contiguous and 16-byte aligned, d % 8 == 0.
+// contiguous and 16-byte aligned, d % 8 == 0, d <= 1024.
 extern "C" int dclip_layernorm_bwd_bf16(const void* x, const void* g, const void* dh,
                                         const void* scale, void* dx, int rows, int d,
                                         float eps, void* stream) {
-  const dim3 grid((rows + kWarps - 1) / kWarps);
-  layernorm_bwd_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
-      static_cast<const float*>(dh), static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(dx), rows, d, eps);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(d, [&](auto vec, auto exact) {
+    constexpr int kVec = decltype(vec)::value;
+    constexpr bool kExact = decltype(exact)::value;
+    auto kernel = layernorm_bwd_kernel<kVec, kExact>;
+    kernel<<<resident_grid(kernel, rows), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+        static_cast<const float*>(dh), static_cast<const float*>(scale),
+        static_cast<__nv_bfloat16*>(dx), rows, d, eps);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // x, g: [rows, d] bf16; dh: [rows, d] f32; scale: [d] f32; dx: [rows, d]
@@ -266,9 +339,14 @@ extern "C" int dclip_layernorm_bwd_wgrad_bf16(const void* x, const void* g, cons
                                               const void* scale, void* dx, void* part,
                                               int rows, int d, float eps, int blocks,
                                               void* stream) {
-  layernorm_bwd_wgrad_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
-      static_cast<const float*>(dh), static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part), rows, d, eps);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(d, [&](auto vec, auto exact) {
+    constexpr int kVec = decltype(vec)::value;
+    constexpr bool kExact = decltype(exact)::value;
+    layernorm_bwd_wgrad_kernel<kVec, kExact>
+        <<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+            static_cast<const float*>(dh), static_cast<const float*>(scale),
+            static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part), rows, d, eps);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the GEMM and the attention
-// forward: mbarriers, TMA tile loads, wgmma shared-memory descriptors,
-// the wgmma instructions those kernels issue, and the fences around them.
+// forward and backward: mbarriers, TMA and cp.async tile loads, wgmma
+// shared-memory descriptors, the wgmma instructions those kernels issue,
+// and the fences around them.
 //
 // Shared-memory tiles are 128-byte-swizzled rows of 64 bf16 (128 bytes),
 // eight rows (1,024 bytes) to a swizzle atom, every tile 1,024-byte
@@ -18,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace dclip {
 namespace sm90 {
 
@@ -29,6 +32,31 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // swizzled tile whose base is 1,024-byte aligned.
 __device__ __forceinline__ int swizzle128(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// The first 1,024-byte boundary at or after p: where the swizzled tiles of
+// a block's dynamic shared memory start.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// Rows [r0, r0 + kRows) x 64 bf16 columns of `src` (offset to its first
+// column, row stride `ld` elements) into consecutive swizzled tiles at
+// `dst`, by the block's kThreads threads in 16-byte cp.async copies; rows
+// >= valid are zero.
+template <int kRows, int kThreads>
+__device__ __forceinline__ void load_rows_async(unsigned char* dst,
+                                                const __nv_bfloat16* __restrict__ src, int r0,
+                                                int valid, int ld) {
+#pragma unroll
+  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int row = c >> 3, chunk = c & 7;
+    const bool ok = r0 + row < valid;
+    const __nv_bfloat16* p = ok ? src + static_cast<size_t>(r0 + row) * ld + chunk * 8 : src;
+    cp_async_16(dst + swizzle128(row, chunk), p, ok);
+  }
 }
 
 // -- mbarriers -----------------------------------------------------------------
@@ -194,6 +222,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// The narrow form (N = 16) for a ragged last tile of at most 16 live
+// columns: d[4 g + e] as in the m64n64 accumulator, g = 0, 1.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 

@@ -101,7 +101,8 @@ def layernorm_bwd_reference(x, g, dh, scale, eps: float = 1e-5):
 def layernorm_bwd(x: torch.Tensor, g: torch.Tensor, dh: torch.Tensor, scale: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm backward in x (frozen scale / bias) plus the residual g.
-    CUDA: x, g bf16 [..., D]; dh f32 like x; scale f32 [D]; D % 8 == 0."""
+    CUDA: x, g bf16 [..., D]; dh f32 like x; scale f32 [D]; D % 8 == 0,
+    D <= 1024."""
     if _on_cpu(x, g, dh, scale):
         return layernorm_bwd_reference(x, g, dh, scale, eps)
     d = x.shape[-1]
@@ -110,7 +111,7 @@ def layernorm_bwd(x: torch.Tensor, g: torch.Tensor, dh: torch.Tensor, scale: tor
     _require(dh, "dh", torch.float32, x.dim())
     _require(scale, "scale", torch.float32, 1)
     if g.shape != x.shape or dh.shape != x.shape or scale.shape[0] != d or d % 8 \
-            or x.numel() == 0:
+            or d > 1024 or x.numel() == 0:
         raise ValueError(f"layernorm_bwd: bad shapes x {tuple(x.shape)}, g {tuple(g.shape)}, "
                          f"dh {tuple(dh.shape)}, scale {tuple(scale.shape)}")
     lib = load_library()

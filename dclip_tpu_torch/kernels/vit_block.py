@@ -107,16 +107,17 @@ def layernorm_reference(x, scale, bias, eps: float = 1e-5):
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last dim. CUDA: x bf16 [..., D] (D % 8 == 0),
-    scale / bias f32 [D]; returns bf16 like x."""
+    """LayerNorm over the last dim. CUDA: x bf16 [..., D] (D % 8 == 0,
+    D <= 1024), scale / bias f32 [D]; returns bf16 like x."""
     if _on_cpu(x, scale, bias):
         return layernorm_reference(x, scale, bias, eps)
     d = x.shape[-1]
     _require(x, "x", torch.bfloat16, x.dim())
     _require(scale, "scale", torch.float32, 1)
     _require(bias, "bias", torch.float32, 1)
-    if d % 8 or scale.shape[0] != d or bias.shape[0] != d or x.numel() == 0:
-        raise ValueError(f"layernorm: bad shapes x {tuple(x.shape)}, scale {tuple(scale.shape)}")
+    if d % 8 or d > 1024 or scale.shape[0] != d or bias.shape[0] != d or x.numel() == 0:
+        raise ValueError(f"layernorm: bad shapes x {tuple(x.shape)}, scale {tuple(scale.shape)} "
+                         f"(D % 8 == 0, <= 1024)")
     lib = load_library()
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -227,7 +227,10 @@ def _edge_masks(b, s, masks, device):
         return {"causal": True, "padding_mask": torch.from_numpy(pad).to(device)}
     seg = (np.arange(s) * 3 // max(s, 1) + 1)[None].repeat(b, 0).astype(np.int32)
     seg[:, s - s // 5:] = 0
-    return {"segment_ids": torch.from_numpy(seg).to(device)}
+    seg = torch.from_numpy(seg).to(device)
+    if masks == "causal_segments":
+        return {"causal": True, "segment_ids": seg}
+    return {"segment_ids": seg}
 
 
 @pytest.mark.requires_cuda
@@ -252,6 +255,95 @@ def test_attention_forward_edges(cuda_device, s, masks):
     if masks == "causal_pad":  # the last batch row has no valid key
         assert torch.all(m[-1] == -1e30)
         _close_rel(o[-1], v[-1].float().mean(0, keepdim=True).expand(s, d), what="masked row")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("masks", ["none", "causal_pad", "segments", "causal_segments"])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 128, 197, 257, 320, 321])
+def test_attention_backward_edges(cuda_device, s, masks):
+    """K5 (csrc/attention_bwd.cu) at every edge of its 64-row tiles, its
+    128-row blocks, its narrow last tile (<= 16 live columns: 1, 65, 197,
+    257, 321) and its 4-slot ring (320, 321 refill a slot), with each mask,
+    against the f32 twin run from the f32 statistics within 2^-5; two
+    calls on the same inputs give the same bits."""
+    from dclip_tpu_torch.kernels import vit_attention as va
+
+    b, d, heads = 3, 128, 2
+    rng = np.random.RandomState(1000 + s)
+    qkv = _bf16(rng, cuda_device, b, s, 3 * d)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    g = _bf16(rng, cuda_device, b, s, d)
+    kw = _edge_masks(b, s, masks, cuda_device)
+    o, m, r = va.self_attention_fwd_stats(q, k, v, heads, **kw)
+    o_ref, m_ref, r_ref = va.attention_reference(q, k, v, heads, stats=True, **kw)
+    grads = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw)
+    want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, **kw)
+    for name, got_t, want_t in zip(("dq", "dk", "dv"), grads, want):
+        _close_rel(got_t, want_t, tol=2.0**-5, what=name)
+    again = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw)
+    for name, x1, x2 in zip(("dq", "dk", "dv"), grads, again):
+        assert torch.equal(x1, x2), name
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows", [1, 7, 50435])
+@pytest.mark.parametrize("d", [128, 512, 768, 1024])
+def test_layernorm_kernels_edges(cuda_device, d, rows):
+    """csrc/layernorm.cu's forward, frozen backward and weight-gradient
+    backward against their twins at the exact widths (512, 768, 1024), the
+    predicated one (128), and row counts that leave the last block of 8
+    rows ragged; each call twice, the same bits."""
+    from dclip_tpu_torch.kernels import mlp_frozen as mf
+    from dclip_tpu_torch.kernels import trainable_ops as to
+
+    rng = np.random.RandomState(d * 7 + rows)
+    x = (_f32(rng, cuda_device, rows, d, base=0.5, scale=2.0)).bfloat16()
+    g = _bf16(rng, cuda_device, rows, d)
+    dh = _f32(rng, cuda_device, rows, d)
+    scale = _f32(rng, cuda_device, d, base=1.0, scale=0.1)
+    bias = _f32(rng, cuda_device, d, scale=0.1)
+    calls = {
+        "layernorm": (lambda: (vb.layernorm(x, scale, bias),),
+                      lambda: (vb.layernorm_reference(x, scale, bias),)),
+        "layernorm_bwd": (lambda: (mf.layernorm_bwd(x, g, dh, scale),),
+                          lambda: (mf.layernorm_bwd_reference(x, g, dh, scale),)),
+        "layernorm_bwd_wgrad": (lambda: to.layernorm_bwd_wgrad(x, g, dh, scale),
+                                lambda: to.layernorm_bwd_wgrad_reference(x, g, dh, scale)),
+    }
+    for name, (kernel, twin) in calls.items():
+        got, want = kernel(), twin()
+        _close_rel(got[0], want[0], what=name)
+        for what, a, w in zip(("dscale", "dbias"), got[1:], want[1:]):
+            _close_sum(a, w, f"{name} {what}")
+        for x1, x2 in zip(got, kernel()):
+            assert torch.equal(x1, x2), name
+
+
+@pytest.mark.requires_cuda
+def test_gemm_runs_as_the_first_cuda_work_of_a_thread(cuda_device):
+    """A host thread that has made no CUDA call yet (autograd's backward
+    worker when K8's or K9's backward GEMM is its first work) launches the
+    TMA GEMM: csrc/gemm.cu makes the context current before it encodes its
+    tensor maps."""
+    import threading
+
+    rng = np.random.RandomState(11)
+    a, w = _bf16(rng, cuda_device, 300, 512), _bf16(rng, cuda_device, 512, 256)
+    want = vb.gemm_bias_act_residual_reference(a, w)
+    out = []
+
+    def run():
+        try:
+            out.append(vb.gemm_bias_act_residual(a, w))
+        except RuntimeError as e:
+            out.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(60)
+    assert not t.is_alive() and len(out) == 1
+    assert not isinstance(out[0], Exception), out[0]
+    _close_bf16(out[0], want)
 
 
 @pytest.mark.requires_cuda

@@ -183,3 +183,26 @@ def test_fwd_stats_match_pallas_at_tile_edges(mask, s):
                                       **_torch_kw(kw))
     for name, w, g in zip(("o", "m", "rinv"), want, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("mask", sorted(MASKS))
+@pytest.mark.parametrize("s", [1, 65, 257])
+def test_bwd_stats_match_pallas_at_tile_edges(mask, s):
+    """The backward twin, the yardstick of csrc/attention_bwd.cu on the card,
+    against `_self_attention_bwd_stats` (interpret mode) at the same ragged
+    sequence lengths, from the same forward output and statistics (the
+    Pallas forward's). f32 on both sides: the sums run over S keys or
+    queries in other orders, so the gradients (O(1)-O(10) here) agree to
+    a few ulps, within TOL."""
+    b, d, heads = 2, 128, 2
+    rng = np.random.RandomState(100 + s)
+    q, k, v, g = (rng.standard_normal((b, s, d)).astype(np.float32) for _ in range(4))
+    kw = _edge_masks(b, s, np.random.RandomState(s))[mask]
+    o, m, r = (np.array(t) for t in
+               jva._self_attention_fwd_stats(q, k, v, num_heads=heads, interpret=True, **kw))
+    want = jva._self_attention_bwd_stats(q, k, v, g, o, m, r, num_heads=heads, interpret=True,
+                                         **kw)
+    got = va.attention_bwd_reference(*(torch.from_numpy(t) for t in (q, k, v, g, o, m, r)),
+                                     heads, **_torch_kw(kw))
+    for name, w, t in zip(("dq", "dk", "dv"), want, got):
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), err_msg=name, **TOL)

@@ -291,3 +291,40 @@ def test_gemm_twins_match_jax_at_ragged_shapes(m, k):
                                np.asarray(want_dw2), **grad_tol)
     np.testing.assert_allclose(to.gemm_tn_reference(h, da1).numpy(), np.asarray(want_dw1),
                                **grad_tol)
+
+
+@pytest.mark.parametrize("rows", [1, 13])
+@pytest.mark.parametrize("d", [128, 512, 768, 1024])
+def test_layernorm_twins_match_jax(d, rows):
+    """The LayerNorm twins, the yardsticks of csrc/layernorm.cu on the card
+    (forward, frozen backward, and the backward with weight gradients),
+    against the JAX package's `_layer_norm` and its VJP, at the kernel's
+    widths (512, 768, 1024, and 128 on its predicated path) and row counts
+    that are not a multiple of the 8 rows of a block. f32 on both sides:
+    sums over D (and over the rows for the weight gradients) in other
+    orders, a few ulps of O(1)-O(10) values."""
+    import jax
+    import jax.numpy as jnp
+
+    from dclip_tpu_torch.kernels import mlp_frozen as mf
+    from dclip_tpu_torch.kernels import trainable_ops as to
+
+    rng = np.random.RandomState(d + rows)
+    x = (rng.standard_normal((rows, d)) * 2.0 + 0.5).astype(np.float32)
+    g = rng.standard_normal((rows, d)).astype(np.float32)
+    dh = rng.standard_normal((rows, d)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    eps = 1e-5
+
+    want, vjp = jax.vjp(lambda x, s, b: jax_vit_block._layer_norm(x, s, b, eps), x, scale, bias)
+    want_dx, want_ds, want_db = vjp(jnp.asarray(dh))
+    t = [torch.from_numpy(a) for a in (x, g, dh, scale, bias)]
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(vb.layernorm(t[0], t[3], t[4], eps).numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(mf.layernorm_bwd(t[0], t[1], t[2], t[3], eps).numpy(),
+                               g + np.asarray(want_dx), **tol)
+    dx, ds, db = to.layernorm_bwd_wgrad(t[0], t[1], t[2], t[3], eps)
+    np.testing.assert_allclose(dx.numpy(), g + np.asarray(want_dx), **tol)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(want_ds), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(want_db), rtol=1e-5, atol=1e-4)
