@@ -69,7 +69,9 @@ Phases; each one passes or raises, and any failure exits non-zero:
    device memory, exact launch counts (7 x the per-step count), a
    torch.profiler breakdown of one step by stage and by kernel. Then one
    step with the teacher's k-NN gate over a 100,000-row store of seeded
-   unit keys: the same launches plus one K12 (Q = 2,048 patch embeddings).
+   unit keys: the same launches plus one K12 (Q = 2,048 patch embeddings),
+   and a second gated step under torch.profiler: its device time by
+   kernel, K12's kernels by name, beside the gated and ungated step times.
 10. Cache levels: a `TeacherTargetCache`; the first step misses and fills
    every level, a repeat hits the device full-target level (no K1 / K2 /
    K10 launch), the same images with resampled captions hit the device
@@ -109,13 +111,18 @@ Phases; each one passes or raises, and any failure exits non-zero:
    D=512, k=10; a 2.05 GB f32 store on the card) and the teacher's k-NN
    gate (Q=2,048, N=100,000, k=3) against its twin (f32 matmul without TF32
    and a stable sort), plus a ragged N, all-negative scores, k > N,
-   duplicated rows, k = 64, k = 150 (three rounds of 64) and 200 equal rows
-   at k = 150; scores within 1e-5 * max(1, |twin|), indices equal
-   wherever the twin's neighbouring scores are further apart than that,
-   exact ties to the lower row; CUDA-event times beside `torch.matmul` +
-   `torch.topk`. Phase 4's service searches through K12 (the selftest's
-   search, then 3 searches of 64 queries against a 1,000,000-row index,
-   timed end to end with the per-call copy of the keys to the card).
+   duplicated rows, k = 64, k = 150 (three rounds of 64), 200 equal rows
+   at k = 150, a TF32 trap (entries with bits below TF32's on both sides,
+   where one TF32 product errs by 3e-4), near ties 2-5x the tolerance
+   apart (indices equal to the twin's), ragged N at D = 8 and 16, and two
+   chunk plans giving equal bits (k = 10 and 100); scores within 1e-5 *
+   max(1, |twin|), indices equal wherever the twin's neighbouring scores
+   are further apart than that, exact ties to the lower row; CUDA-event
+   times beside `torch.matmul` + `torch.topk`, with the 3xTF32 bound and
+   the f32 CUDA-core one. Phase 4's service searches through K12 (the
+   selftest's search, then 3 searches of 64 queries against a
+   1,000,000-row index, timed end to end with the per-call copy of the keys
+   to the card).
 19. Retrieval eval: ViT-B/16 from `load_clip` (random weights, seed 0,
    bf16) embeds 1,000 seeded preprocessed images (`make_image_encoder`, K1 /
    K2) and 5,000 captions of 8-24 hash-tokenizer words (packed), then
@@ -162,7 +169,8 @@ Phases; each one passes or raises, and any failure exits non-zero:
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type (989 TFLOP/s bf16
-tensor cores, 67 TFLOP/s f32 CUDA cores) and the bytes it must move (each
+tensor cores, 67 TFLOP/s f32 CUDA cores, 495 TFLOP/s TF32 tensor cores
+for K12's three products per score) and the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s, from the
 shapes of this run; and `library_ms`, the time of one PyTorch call that
 computes the same function, where there is one
@@ -178,6 +186,7 @@ The second-to-last line is `{"kernels": [...]}` and the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -209,6 +218,7 @@ COS_BOUND = 0.99
 
 # The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W).
 BF16_PEAK, F32_PEAK, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
+TF32_PEAK = 495e12  # dense TF32 tensor cores: K12's 3xTF32 products
 
 SRC = "dclip_tpu_torch/kernels/csrc/"
 TPU = "dclip_tpu/kernels/vit_block.py"
@@ -379,9 +389,9 @@ class KernelTable:
         return r
 
 
-def work(bf16_flops=0.0, f32_flops=0.0, nbytes=0.0):
+def work(bf16_flops=0.0, f32_flops=0.0, nbytes=0.0, tf32_flops=0.0):
     """(ms at the operations' peaks, ms at the memory rate)."""
-    return (1e3 * (bf16_flops / BF16_PEAK + f32_flops / F32_PEAK),
+    return (1e3 * (bf16_flops / BF16_PEAK + f32_flops / F32_PEAK + tf32_flops / TF32_PEAK),
             1e3 * nbytes / HBM_BYTES_PER_S)
 
 
@@ -1389,8 +1399,34 @@ def gated_step(torch, np, trainer, batch, ungated_ms, card: str):
           f"({card})", flush=True)
     if launches != expected or not np.isfinite(loss):
         raise AssertionError(f"gated step: launches {launches} != {expected}, loss {loss}")
+    gated_profile(torch, trainer, batch, gated_ms, ungated_ms, card)
     trainer._init_knn_gate(None)
     return launches["topk_streamed"]
+
+
+def gated_profile(torch, trainer, batch, gated_ms, ungated_ms, card: str):
+    """One more gated step under torch.profiler: its device time by kernel,
+    K12's kernels (the query split, pass 1, the merge) by name, beside the
+    gated and ungated step times, to attribute the gate's extra time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step_on_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                   if e.device_type == cuda and e.self_device_time_total > 0
+                   and not e.key.startswith("dclip.")), key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms in rows)
+    k12 = [(key[:60], ms) for key, ms in rows if "topk" in key or "split_tf32" in key]
+    print(f"gated: profiled gated step: wall {wall_ms} ms, device {device_ms} ms; K12 kernels "
+          f"{json.dumps(k12)}, {sum(ms for _, ms in k12)} ms in all; timed gated step "
+          f"{gated_ms} ms, ungated mean {ungated_ms} ms ({card})", flush=True)
+    for key, ms in rows[:8]:
+        print(f"gated: {ms:9.3f} ms {key[:110]}", flush=True)
 
 
 def cache_levels_phase(torch, np, sd, tsd, card: str):
@@ -2333,17 +2369,31 @@ def topk_kernel_phase(torch, np, card: str, table: KernelTable):
         def library():  # f32 matmul: TF32 is off (main)
             return torch.topk(q @ s.T, k, dim=-1)
 
-        bound = work(f32_flops=2.0 * nq * n * d, nbytes=4.0 * (n * d + nq * d) + 8.0 * nq * k)
+        nbytes = 4.0 * (n * d + nq * d) + 8.0 * nq * k
+        # The kernel's arithmetic: three TF32 products per score (3xTF32);
+        # the f32 CUDA-core bound of the same scores is printed beside it.
+        bound = work(tf32_flops=3 * 2.0 * nq * n * d, nbytes=nbytes)
+        f32_bound = work(f32_flops=2.0 * nq * n * d, nbytes=nbytes)
         ms, plain_ms = time_pair(torch, lambda: tk.topk_streamed(q, s, k),
                                  lambda: tk.topk_streamed_reference(q, s, k), 5)
         lib_ms = time_one(torch, library, 5)
-        print(f"time topk_streamed[{name}]: kernel {ms} ms, plain {plain_ms} ms, bound "
-              f"{max(bound)} ms ({'operations' if bound[0] >= bound[1] else 'bytes'}), library "
-              f"(torch.matmul + torch.topk) {lib_ms} ms ({card})", flush=True)
+        print(f"time topk_streamed[{name}]: kernel {ms} ms, plain {plain_ms} ms, 3xTF32 bound "
+              f"{max(bound)} ms ({'operations' if bound[0] >= bound[1] else 'bytes'}; "
+              f"{100.0 * max(bound) / ms}% of it), f32 CUDA-core bound {max(f32_bound)} ms "
+              f"({100.0 * max(f32_bound) / ms}%), library (torch.matmul + torch.topk) {lib_ms} ms "
+              f"({card})", flush=True)
         table.timed("topk_streamed", ms, plain_ms, bound, lib_ms)
         del q, s, got, again
     torch.cuda.empty_cache()
 
+    # The CPU tests' inputs (tests/topk_cases.py): entries with bits below
+    # TF32's on both sides, where one TF32 product errs by 3e-4; scores
+    # 2-5x the tolerance apart.
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from topk_cases import near_ties, tf32_trap
+
+    trap = [torch.from_numpy(a).to(dev) for a in tf32_trap(seed=14)]
+    ties = [torch.from_numpy(a).to(dev) for a in near_ties(seed=15)]
     rng = np.random.RandomState(13)
     base = rng.standard_normal((3000, 64)).astype("float32")
     base /= np.linalg.norm(base, axis=-1, keepdims=True)
@@ -2359,6 +2409,10 @@ def topk_kernel_phase(torch, np, card: str, table: KernelTable):
         ("k = 64, D = 30 (padded)", unit(70, 30), unit(9_000, 30), 64),
         ("k = 150 (three rounds)", unit(70, 30), unit(9_000, 30), 150),
         ("one tie across round bounds", queries[:3], dup[:1].expand(200, -1).contiguous(), 150),
+        ("TF32 trap (3xTF32 needs both cross terms)", *trap, 20),
+        ("near ties 2-5x the tolerance apart", *ties, 16),
+        ("ragged N, D = 8", unit(5, 8), unit(1037, 8), 7),
+        ("ragged N, D = 16", unit(70, 16), unit(4099, 16), 10),
     ]
     for name, qe, se, k in edge:
         got = tk.topk_streamed(qe, se, k)
@@ -2372,7 +2426,32 @@ def topk_kernel_phase(torch, np, card: str, table: KernelTable):
         if name == "one tie across round bounds" and not torch.equal(
                 got[1], torch.arange(k, device=dev, dtype=torch.int32).expand(3, k)):
             raise AssertionError("200 equal rows: the rounds did not rank them in row order")
+        if name.startswith("near ties") and not torch.equal(
+                got[1], tk.topk_streamed_reference(qe, se, k)[1]):
+            raise AssertionError("near ties: the ranking differs from the twin's")
+    _chunk_plans_agree(torch, tk, unit(70, 512), unit(50_000, 512))
     torch.cuda.empty_cache()
+
+
+def _chunk_plans_agree(torch, tk, q, s):
+    """The same search under two chunk plans (2 and 4,000 resident blocks
+    assumed), in one round (k = 10) and in two (k = 100): equal bits."""
+    real = tk._slots
+    try:
+        for k in (10, 100):
+            out = []
+            for slots in (2, 4000):
+                tk._slots = lambda device_index, kr, slots=slots: slots
+                out.append(tk.topk_streamed(q, s, k))
+            same = torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+            plans = [tk.chunk_plan(q.shape[0], s.shape[0], min(k, tk.ROUND_K), slots)
+                     for slots in (2, 4000)]
+            print(f"kernel topk_streamed[chunk plans {plans[0]} vs {plans[1]}, k={k}]: "
+                  f"bit-equal {same}", flush=True)
+            if not same:
+                raise AssertionError(f"topk_streamed: two chunk plans differ at k={k}")
+    finally:
+        tk._slots = real
 
 
 def _eval_pixels(np, n, size, seed):

@@ -82,8 +82,10 @@ _SIGNATURES = {
     # x0, a0, s0, b0, y0, rows0, x1, a1, s1, b1, y1, rows1, d, eps, stream
     "dclip_add_layernorm_f32": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F,
                                 _P],
-    # queries, store, after_s, after_i, part_s, part_i, out_s, out_i, ld, nq,
-    # n, d, k, rows_per_chunk, chunks, stream
+    # x, out ([2, rows, d rounded up to 32]: the TF32 halves), rows, d, stream
+    "dclip_topk_split_tf32": [_P, _P, _I, _I, _P],
+    # split queries, store, after_s, after_i, part_s, part_i, out_s, out_i,
+    # ld, nq, n, d, k, rows_per_chunk, chunks, stream
     "dclip_topk_streamed_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P],
     # k, out: int blocks of pass 1 one SM holds

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the GEMM and the attention
-// forward and backward: mbarriers, TMA and cp.async tile loads, wgmma
-// shared-memory descriptors, the wgmma instructions those kernels issue,
-// and the fences around them.
+// Hopper (sm_90a) building blocks shared by the GEMM, the attention
+// forward and backward and the streamed top-k: mbarriers, TMA and cp.async
+// tile loads, wgmma shared-memory descriptors, the wgmma instructions those
+// kernels issue (bf16, and tf32 for the top-k), and the fences around them.
 //
 // Shared-memory tiles are 128-byte-swizzled rows of 64 bf16 (128 bytes),
 // eight rows (1,024 bytes) to a swizzle atom, every tile 1,024-byte
@@ -260,6 +260,53 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
         "n"(kTransB));
+}
+
+// -- TF32 ------------------------------------------------------------------------
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, as the f32 bit pattern with its low 13 bits clear: what
+// cvt.rna.tf32.f32 gives for finite x, in two integer operations where
+// ptxas expands that instruction into four (the sign-magnitude encoding
+// makes one add round the magnitude; a carry out of the mantissa bumps the
+// exponent, up to infinity).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// D[64 x 64] += A[64 x 8] B[8 x 64], tf32 in, f32 accumulate; A from
+// registers, B from shared memory, both K-major (tf32 takes no transpose).
+// a[0..3] hold this thread's A elements: rows lane/4 and lane/4 + 8 of the
+// warp's 16, columns lane % 4 and lane % 4 + 4, in the order (r, c),
+// (r + 8, c), (r, c + 4), (r + 8, c + 4). One k8 step moves a K-major
+// descriptor by 32 bytes, as a bf16 k16 step does.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t* a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads') over the `count` threads that
+// name it: one warpgroup synchronising without the rest of the block.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrive at barrier `id` without waiting: lets the threads that sync on it
+// (count in all, these included) go on.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // -- accumulator fragments -------------------------------------------------------

@@ -6,9 +6,12 @@ indices, descending, without the [Q, N] score matrix.
 The contract is the TPU kernel's: both operands in f32, k = min(k, N),
 scores f32 and indices int32 [Q, k], a tie going to the lower row index
 (the order of `jax.lax.top_k` and of the XLA `knn_search`), rows past N
-never selected. A round launches `csrc/topk.cu`'s two kernels: per (query
-tile, store chunk) a running top-64 (at most) over the chunk, then a merge
-of the chunks' lists per query. Any k: a k over 64 takes ceil(k / 64)
+never selected. The scores are 3xTF32 tensor-core products, within 1e-5
+of the f32 twin (`csrc/topk.cu`'s header). A search first splits the
+queries into their TF32 halves (one small launch), then each round
+launches `csrc/topk.cu`'s two kernels: per (query tile, store chunk) a
+running top-64 (at most) over the chunk, then a merge of the chunks'
+lists per query. Any k: a k over 64 takes ceil(k / 64)
 rounds, each a full pass over the store that keeps only the pairs behind
 the last one the round before found (the order is strict, so the rounds
 partition the ranking). The result does not depend on the chunking: a
@@ -74,10 +77,10 @@ def _slots(device_index: int, k: int) -> int:
     return max(1, blocks.value) * sms
 
 
-def _f32_operand(t: torch.Tensor, d4: int) -> torch.Tensor:
+def _f32_operand(t: torch.Tensor, d8: int) -> torch.Tensor:
     t = t.float()
-    if t.shape[1] != d4:  # zero columns add nothing to a dot product
-        t = torch.nn.functional.pad(t, (0, d4 - t.shape[1]))
+    if t.shape[1] != d8:  # zero columns add nothing to a dot product
+        t = torch.nn.functional.pad(t, (0, d8 - t.shape[1]))
     if not t.is_contiguous() or t.data_ptr() % 16:
         t = t.clone(memory_format=torch.contiguous_format)
     return t
@@ -99,9 +102,14 @@ def topk_streamed(queries: torch.Tensor, store: torch.Tensor,
     out_i = torch.empty((nq, max(k, 0)), dtype=torch.int32, device=dev)
     if nq == 0 or k <= 0:  # nothing to select: no launch
         return out_s, out_i
-    d4 = -(-d // 4) * 4
-    q, s = _f32_operand(queries, d4), _f32_operand(store, d4)
+    d8 = -(-d // 8) * 8  # whole TF32 k steps
+    q, s = _f32_operand(queries, d8), _f32_operand(store, d8)
     lib = load_library()
+    # q_big, q_small, their columns padded to 32 (one stage) and in k8-step order
+    split = torch.empty((2, nq, -(-d8 // 32) * 32), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        check(lib, lib.dclip_topk_split_tf32(q.data_ptr(), split.data_ptr(), nq, d8, _stream(q)),
+              "topk_streamed (query split)")
     for done in range(0, k, ROUND_K):
         kr = min(ROUND_K, k - done)
         rows, chunks = chunk_plan(nq, n, kr, _slots(dev.index, kr))
@@ -112,9 +120,9 @@ def topk_streamed(queries: torch.Tensor, store: torch.Tensor,
         after_i = out_i[:, done - 1].data_ptr() if done else None
         with torch.cuda.device(dev):
             code = lib.dclip_topk_streamed_f32(
-                q.data_ptr(), s.data_ptr(), after_s, after_i, part_s.data_ptr(),
+                split.data_ptr(), s.data_ptr(), after_s, after_i, part_s.data_ptr(),
                 part_i.data_ptr(), out_s[:, done].data_ptr(), out_i[:, done].data_ptr(), k,
-                nq, n, d4, kr, rows, chunks, _stream(q))
+                nq, n, d8, kr, rows, chunks, _stream(q))
         check(lib, code, "topk_streamed")
     LAUNCHES["topk_streamed"] += 1
     return out_s, out_i

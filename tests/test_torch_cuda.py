@@ -892,6 +892,71 @@ def test_topk_streamed_ties_and_negative_scores(cuda_device):
 
 
 @pytest.mark.requires_cuda
+def test_topk_streamed_tf32_trap(cuda_device):
+    """Entries with mantissa bits below TF32's on both sides: one TF32
+    product, or a 3xTF32 sum without either cross term, errs by >= 1e-4
+    here (tests/test_torch_topk.py shows it); the kernel stays within 1e-5."""
+    from dclip_tpu_torch.kernels import topk as tk
+    from topk_cases import tf32_trap
+
+    q, s = (torch.from_numpy(a).to(cuda_device) for a in tf32_trap())
+    got = tk.topk_streamed(q, s, 20)
+    _hold_topk(got, q, s, 20)
+    exact = (q.double() @ s.double().T).topk(20, dim=-1).values
+    assert (got[0].double() - exact).abs().max().item() <= TOPK_TOL
+
+
+@pytest.mark.requires_cuda
+def test_topk_streamed_near_ties(cuda_device):
+    """Scores 2-5x the tolerance apart: the kernel ranks them as the twin,
+    index for index."""
+    from dclip_tpu_torch.kernels import topk as tk
+    from topk_cases import near_ties
+
+    q, s = (torch.from_numpy(a).to(cuda_device) for a in near_ties())
+    got = tk.topk_streamed(q, s, 16)
+    _hold_topk(got, q, s, 16)
+    assert torch.equal(got[1], tk.topk_streamed_reference(q, s, 16)[1])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nq,n,d,k", [(5, 1037, 8, 7), (70, 4099, 16, 10), (3, 1153, 30, 5),
+                                      (65, 20_001, 512, 12)],
+                         ids=["d8", "d16", "d30_padded", "d512"])
+def test_topk_streamed_ragged_n(cuda_device, nq, n, d, k):
+    """N a multiple neither of the 128-row tile nor of the TMA box, at
+    D = 8 (one k8 step), 16, 30 (padded to 32) and 512."""
+    from dclip_tpu_torch.kernels import topk as tk
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d)
+    q = torch.randn((nq, d), generator=gen, device=cuda_device)
+    s = torch.randn((n, d), generator=gen, device=cuda_device)
+    got = tk.topk_streamed(q, s, k)
+    _hold_topk(got, q, s, k)
+    assert int(got[1].max()) < n
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("k", [10, 100])
+def test_topk_streamed_chunk_plans_agree_bitwise(cuda_device, monkeypatch, k):
+    """Two different chunk plans (how many store chunks the grid holds)
+    give the same scores and indices, bit for bit, in one round and in two."""
+    from dclip_tpu_torch.kernels import topk as tk
+
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    q = torch.randn((70, 512), generator=gen, device=cuda_device)
+    s = torch.randn((50_000, 512), generator=gen, device=cuda_device)
+    plans, results = [], []
+    for slots in (2, 4000):
+        monkeypatch.setattr(tk, "_slots", lambda device_index, kr, slots=slots: slots)
+        plans.append(tk.chunk_plan(70, 50_000, min(k, tk.ROUND_K), slots))
+        results.append(tk.topk_streamed(q, s, k))
+    assert plans[0] != plans[1]
+    assert torch.equal(results[0][0], results[1][0]) and torch.equal(results[0][1], results[1][1])
+    _hold_topk(results[0], q, s, k)
+
+
+@pytest.mark.requires_cuda
 def test_knn_search_launches_k12(cuda_device):
     """The search and the k-NN gate on CUDA tensors go through K12, once
     per call, and agree with their CPU results."""

@@ -7,7 +7,12 @@ the CPU:
   multiple; all-negative scores against padding);
 - a store with duplicated rows, and k > N;
 - the tie order of `ops.knn.knn_search` and `knn_or_projection`: ties go
-  to the lower store index, as `jax.lax.top_k` does.
+  to the lower store index, as `jax.lax.top_k` does;
+- the CUDA kernel's 3xTF32 arithmetic, emulated in plain f32 matmuls
+  (`topk_cases.scores_tf32`), against the Pallas kernel and the f32 twin at
+  D = 512, and on inputs built so that one TF32 product, or a 3xTF32 sum
+  without either cross term, misses 1e-5 by 10x: the precision argument of
+  `csrc/topk.cu`, checked where there is no card.
 
 Scores: both sides are f32 dot products summed in another order, held at
 atol 1e-5 (|score| <= ~30 here); indices exactly.
@@ -23,6 +28,7 @@ from dclip_tpu.ops.knn import knn_search as jax_knn_search
 from dclip_tpu_torch.kernels import topk as tk
 from dclip_tpu_torch.ops import knn
 from dclip_tpu_torch.ops.retrieval import stable_topk
+from topk_cases import THREE_TERMS, near_ties, scores_tf32, split_tf32, tf32_rna, tf32_trap
 
 SCORE_TOL = dict(rtol=0, atol=1e-5)
 
@@ -132,3 +138,73 @@ def test_stable_topk_and_chunk_plan():
 def test_knn_search_sharded_names_its_item():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         knn.knn_search_sharded(torch.zeros(1, 4), torch.zeros(2, 4), "data")
+
+
+# -- K12's 3xTF32 arithmetic, emulated ------------------------------------------
+
+TF32_TOL = 1e-5  # K12's contract: within 1e-5 * max(1, |twin|) of the f32 twin
+
+
+def _unit(rng, *shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 3 * 2**-12, 0.0, -0.0],
+                     dtype=torch.float32)
+    assert tf32_rna(x).tolist() == [1 + 2**-10, -(1 + 2**-10), 1.0, 1 + 2**-10, 0.0, 0.0]
+    v = torch.from_numpy(np.random.RandomState(20).standard_normal(4096).astype(np.float32))
+    big, small = split_tf32(v)
+    assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((small.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((v - big).abs() <= 2.0**-11 * v.abs()).all()
+    # What the split drops: x - big - small, under 2^-22 |x|.
+    assert ((v.double() - big.double() - small.double()).abs() <= 2.0**-22 * v.abs()).all()
+
+
+def test_tf32_emulation_matches_pallas_and_twin():
+    """The kernel's arithmetic on seeded unit rows at D = 512 (N cut to
+    2,000): every score within 1e-5 of the f32 twin, the top-k equal to the
+    Pallas kernel's and the twin's."""
+    rng = np.random.RandomState(21)
+    q, store = _unit(rng, 16, 512), _unit(rng, 2000, 512)
+    qt, st = torch.from_numpy(q), torch.from_numpy(store)
+    emu = scores_tf32(qt, st)
+    twin = qt @ st.T
+    assert (emu - twin).abs().max().item() <= TF32_TOL
+    got = stable_topk(emu, 10)
+    _hold(got, jax_topk_streamed(jnp.asarray(q), jnp.asarray(store), k=10, block_n=512,
+                                 interpret=True))
+    _hold(got, tk.topk_streamed_reference(qt, st, 10))
+
+
+@pytest.mark.parametrize("terms,holds", [
+    (THREE_TERMS, True),
+    (("big_big",), False),
+    (("big_small", "big_big"), False),
+    (("small_big", "big_big"), False),
+], ids=["3xtf32", "one_tf32_product", "no_store_small", "no_query_small"])
+def test_tf32_trap_needs_both_cross_terms(terms, holds):
+    """On entries with mantissa bits below TF32's, 3xTF32 stays within
+    1e-5 of the exact scores; one TF32 product, or either cross term
+    missing, errs by >= 1e-4 on the top scores."""
+    q, store = (torch.from_numpy(a) for a in tf32_trap())
+    exact = q.double() @ store.double().T
+    err = (scores_tf32(q, store, terms).double() - exact).abs().max().item()
+    if holds:
+        assert err <= TF32_TOL, err
+        assert (q @ store.T - exact).abs().max().item() <= TF32_TOL  # the f32 twin too
+    else:
+        assert err >= 1e-4, err
+
+
+def test_tf32_emulation_orders_near_ties():
+    """Scores 2-5x the tolerance apart near 1: the emulated ranking is the
+    twin's, index for index."""
+    q, store = (torch.from_numpy(a) for a in near_ties(n=3000))
+    want_s, want_i = tk.topk_streamed_reference(q, store, 16)
+    got_s, got_i = stable_topk(scores_tf32(q, store), 16)
+    assert torch.equal(got_i, want_i)
+    assert (got_s - want_s).abs().max().item() <= TF32_TOL
+    assert ((want_s[:, :-1] - want_s[:, 1:]) > 1.5e-5).all()  # the ties are that near
