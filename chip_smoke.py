@@ -40,7 +40,12 @@ Phases; each one passes or raises, and any failure exits non-zero:
    + padding, S=77 D=512 H=8), its stats-free mode, the attention
    backward (dq, dk, dv), the frozen-MLP forward (y, a1) and dx, the
    LayerNorm backward, and the distillation loss (parts; dsi, dst) at
-   B=256 against their plain twins, plus a ragged small case of each, with
+   B=256 against their plain twins, plus a ragged small case of each (the
+   loss also at B=4,096, timed on lines of their own outside the table;
+   two calls bit-identical at each B; beside the loss's eager per-call
+   times, which the wrapper's host time bounds at B=256, the device times
+   of it and its twin from CUDA graph replays of 20 calls, also outside
+   the table), with
    CUDA-event times in turns, the attention backward beside SDPA's and the
    LayerNorm backward beside `F.layer_norm`'s input gradient. Then the
    attention backward, untimed, at every edge of its tiles, blocks, narrow
@@ -50,8 +55,11 @@ Phases; each one passes or raises, and any failure exits non-zero:
    text tokens with the synthetic batch's content-token masks, 8 boxes with
    two all-invalid rows and random others, D=512, 8 heads, f32 inputs)
    holds the fused cross-attention, its attention core and its add +
-   LayerNorm pass against their twins, and times them; times the loader's
-   self-check kernel.
+   LayerNorm pass against their twins, and times them, the core also
+   beside two `scaled_dot_product_attention` calls (one a direction, with
+   boolean key masks); times the loader's self-check kernel. Every
+   torch.profiler window below also prints the device time of K10's and
+   K11's kernels by name.
 8. Training slice, cache-warm: the port's `DistillTrainer` at ViT-B/16
    (student = teacher CLIP, random weights from seed 0, bf16, kernels on,
    packed text, B=256, accumulate 1) on the synthetic batch (seed 0) with
@@ -174,7 +182,8 @@ for K12's three products per score) and the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s, from the
 shapes of this run; and `library_ms`, the time of one PyTorch call that
 computes the same function, where there is one
-(`scaled_dot_product_attention` and its backward; `F.layer_norm` and
+(`scaled_dot_product_attention` and its backward, and two of its calls
+for K10's core; `F.layer_norm` and
 its input gradient, and its weight gradients for the LayerNorm's; `torch.addmm`,
 `F.linear` and `torch.matmul` for the GEMM's NN, NT and TN modes, without
 their epilogues' activation and residual terms; `torch.matmul` +
@@ -313,6 +322,11 @@ GRAD_NOISE_RATIO = 0.1
 # max_patches=8, max_text_tokens=77).
 TEACHER_P = 8
 AGREE_B, TARGET_COS = 2, 0.99
+# K10's and K11's kernels, whose device time each profile prints by name.
+PROFILED_KERNELS = ("cross_attention_core_kernel", "add_layernorm_f32_kernel",
+                    "distill_tiles_kernel", "distill_grad_kernel")
+# K11 is timed at the step's batch and, alone, at this one (128 x 128 tiles).
+DL_BIG_B = 4096
 # The meta-teacher slice: the CLI's default batch and bench.py's.
 TEACHER_B = XATTN_TRAIN_B = (32, 256)
 TEACHER_LR = 1e-4
@@ -436,6 +450,45 @@ def time_one(torch, fn, iters: int) -> float:
         end.synchronize()
         out.append(start.elapsed_time(end) / iters)
     return sum(out) / 2
+
+
+_CAPTURE_STREAM = []  # one for the run: a stream that runs cuBLAS keeps a workspace of its own
+
+
+def time_graph(torch, fn, iters: int) -> float:
+    """Mean ms per call of `fn` replayed from a CUDA graph of `iters` calls:
+    the device's time without the host's per-call cost (a wrapper whose
+    host time exceeds its kernels' is timed by the host in `time_pair`)."""
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    side = _CAPTURE_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # a warm call on the capture stream
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def time_pair_graph(torch, kernel_fn, plain_fn, iters: int):
+    """`time_pair` with each side replayed from a CUDA graph (`time_graph`),
+    in turns plain, kernel, kernel, plain."""
+    ms = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        ms[which].append(time_graph(torch, kernel_fn if which == "kernel" else plain_fn, iters))
+    return sum(ms["kernel"]) / 2, sum(ms["plain"]) / 2
 
 
 def sdpa_calls(torch, q, k, v, heads, keep, g=None):
@@ -903,14 +956,22 @@ def train_kernel_phase(torch, np, card: str, table: KernelTable):
                 .to(dev).to(dtype))
 
     def record(name, err, timed, kernel_fn=None, plain_fn=None, iters=10, variant="",
-               bound=(0.0, 0.0), library_fn=None):
+               bound=(0.0, 0.0), library_fn=None, graph=False, table_row=True):
+        """Holds the error; when timed, prints the eager times (and with
+        `graph` the device times of CUDA graph replays beside them) and,
+        with `table_row`, puts the eager times in the kernels line."""
         table.error(name, err)
         if timed:
             ms, plain_ms = time_pair(torch, kernel_fn, plain_fn, iters)
             lib_ms = None if library_fn is None else time_one(torch, library_fn, iters)
             print(f"time {name}[{variant}]: kernel {ms} ms, plain {plain_ms} ms, bound "
                   f"{max(bound)} ms, library {lib_ms} ms ({card})", flush=True)
-            table.timed(name, ms, plain_ms, bound, lib_ms)
+            if graph:  # the device's time without the wrapper's host time
+                g_ms, g_plain_ms = time_pair_graph(torch, kernel_fn, plain_fn, iters)
+                print(f"time {name}[{variant}] device (CUDA graph of {iters} calls): kernel "
+                      f"{g_ms} ms, plain {g_plain_ms} ms ({card})", flush=True)
+            if table_row:
+                table.timed(name, ms, plain_ms, bound, lib_ms)
 
     seg, pad, _ = _text_masks(torch, np, dev)
     attn_cases = [  # (variant, b, s, d, heads, masks, timed)
@@ -1003,7 +1064,9 @@ def train_kernel_phase(torch, np, card: str, table: KernelTable):
                layer_norm_grad_call(torch, x, p["ln2_scale"], dh) if timed else None)
         del x, g, y, a1, y_ref, a1_ref, dx, dh
 
-    for variant, b, timed in (("b256", TRAIN_B, True), ("ragged", 5, False)):
+    # (variant, b, timed, in the kernels line): B=4096 is timed beside the step's batch.
+    for variant, b, timed, row in (("b256", TRAIN_B, True, True), ("ragged", 5, False, False),
+                                   (f"b{DL_BIG_B}", DL_BIG_B, True, False)):
         d = 512
         si, st = randn(b, d), randn(b, d)
         # Targets correlated with the student rows (cosine ~0.9), so li and
@@ -1027,7 +1090,8 @@ def train_kernel_phase(torch, np, card: str, table: KernelTable):
         inputs = 4.0 * b * d + 8.0 * b * d
         record("distill_loss_fwd", err, timed, lambda: dl.distill_loss_fwd(si, st, ti, tt),
                lambda: dl.distill_loss_fwd_reference(si, st, ti, tt), 20, variant,
-               work(f32_flops=2.0 * b * b * d + 10.0 * b * d, nbytes=inputs + 16.0))
+               work(f32_flops=2.0 * b * b * d + 10.0 * b * d, nbytes=inputs + 16.0),
+               graph=True, table_row=row)
         cts = torch.tensor([1.0, 1.0, 1.0], device=dev)
         got = dl.distill_loss_bwd(si, st, ti, tt, cts)
         want = dl.distill_loss_bwd_reference(si, st, ti, tt, cts)
@@ -1037,7 +1101,13 @@ def train_kernel_phase(torch, np, card: str, table: KernelTable):
         record("distill_loss_bwd", errb, timed, lambda: dl.distill_loss_bwd(si, st, ti, tt, cts),
                lambda: dl.distill_loss_bwd_reference(si, st, ti, tt, cts), 20, variant,
                work(f32_flops=6.0 * b * b * d + 20.0 * b * d,
-                    nbytes=inputs + 12.0 + 4.0 * b * d))
+                    nbytes=inputs + 12.0 + 4.0 * b * d), graph=True, table_row=row)
+        # No atomics on values: two calls on the same inputs give the same bits.
+        again = dl.distill_loss_bwd(si, st, ti, tt, cts)
+        if not (torch.equal(dl.distill_loss_fwd(si, st, ti, tt), parts)
+                and all(torch.equal(x, y) for x, y in zip(again, got))):
+            raise AssertionError(f"distill_loss[{variant}]: two calls differ")
+        print(f"kernel distill_loss[{variant}]: two calls bit-identical", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -1058,6 +1128,24 @@ def _teacher_sd(rng, torch, d, device):
         sd[f"cross_modal_attention.{norm}.weight"] = 1.0 + n(d, scale=0.1)
         sd[f"cross_modal_attention.{norm}.bias"] = n(d, scale=0.1)
     return {k: v.to(device) for k, v in sd.items()}
+
+
+def core_sdpa_calls(torch, qkv_t, qkv_i, text_mask, image_mask, heads):
+    """K10's core as two `scaled_dot_product_attention` calls, one a
+    direction, on the same f32 q | k | v views with boolean key masks (f32
+    out; a row with no valid key gives NaN there, not the uniform average)."""
+    F = torch.nn.functional
+    b, t, three_d = qkv_t.shape
+    p, d = qkv_i.shape[1], three_d // 3
+
+    def h(x):
+        return x.reshape(b, x.shape[1], heads, d // heads).transpose(1, 2)
+
+    qt, kt, vt = (h(qkv_t[..., i * d:(i + 1) * d]) for i in range(3))
+    qi, ki, vi = (h(qkv_i[..., i * d:(i + 1) * d]) for i in range(3))
+    keep_t, keep_i = (m[:, None, None, :] > 0 for m in (text_mask, image_mask))
+    return lambda: (F.scaled_dot_product_attention(qt, ki, vi, attn_mask=keep_i),
+                    F.scaled_dot_product_attention(qi, kt, vt, attn_mask=keep_t))
 
 
 def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
@@ -1122,9 +1210,11 @@ def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
     ms, plain_ms = time_pair(
         torch, lambda: xa.cross_attention_core(qkv_t, qkv_i, tmask, imask, heads),
         lambda: xa.cross_attention_core_reference(qkv_t, qkv_i, tmask, imask, heads), 20)
+    lib_ms = time_one(torch, core_sdpa_calls(torch, qkv_t, qkv_i, tmask, imask, heads), 20)
     print(f"time cross_attention_core: kernel {ms} ms, plain {plain_ms} ms, bound "
-          f"{max(bound)} ms ({card})", flush=True)
-    table.timed("cross_attention_core", ms, plain_ms, bound)
+          f"{max(bound)} ms, library (two SDPA calls, one a direction) {lib_ms} ms ({card})",
+          flush=True)
+    table.timed("cross_attention_core", ms, plain_ms, bound, lib_ms)
 
     a_t = torch.from_numpy(rng.standard_normal((b, t, d)).astype("float32")).to(dev)
     a_i = torch.from_numpy(rng.standard_normal((b, p, d)).astype("float32")).to(dev)
@@ -1531,6 +1621,10 @@ def profile_steps(torch, trainer, batch, card: str, steps: int = 2, spans=()):
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:20]:
         print(f"profile: {100.0 * us / device_us:6.2f}% {us / 1e3 / steps:9.3f} ms/step "
               f"x{count // steps:<5d} {key[:110]}", flush=True)
+    for kernel in PROFILED_KERNELS:
+        hit = [r for r in rows if kernel in r[0]]
+        print(f"profile: kernel {kernel}: {sum(r[1] for r in hit) / 1e3 / steps} ms/step "
+              f"x{sum(r[2] for r in hit) // steps} ({card})", flush=True)
 
 
 def grad_agreement_phase(torch, np, sd, tsd, what="grads", must_hold=(), **changes):

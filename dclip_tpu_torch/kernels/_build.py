@@ -72,10 +72,10 @@ _SIGNATURES = {
     # dq, dk, dv, lddq, lddk, lddv, b, s, heads, causal, stream
     "dclip_attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # si, st, ti, tt, part, out, b, d, temperature, weight, stream
-    "dclip_distill_loss_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
-    # si, st, ti, tt, part, cts, dsi, dst, b, d, temperature, stream
-    "dclip_distill_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # si, st, ti, tt, scratch, ticket, out, b, d, temperature, weight, stream
+    "dclip_distill_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # si, st, ti, tt, scratch, z, ticket, cts, dsi, dst, b, d, temperature, stream
+    "dclip_distill_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     # qkv_t, qkv_i, text_mask, image_mask (nullable), out_t, out_i, b, t, p,
     # d, heads, stream
     "dclip_cross_attention_core": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

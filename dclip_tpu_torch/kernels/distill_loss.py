@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 import torch
 
 from dclip_tpu_torch.kernels._build import check, load_library
-from dclip_tpu_torch.kernels.vit_block import _on_cpu, _require, _stream
+from dclip_tpu_torch.kernels.vit_block import _launch, _on_cpu, _require
 
 EPS = 1e-12
 PARTS = ("image_distill_loss", "text_distill_loss", "contrastive_loss", "loss")
@@ -87,6 +87,42 @@ def _check(si, st, ti, tt):
     return b, d
 
 
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _tiles(b: int) -> int:
+    """nt, the 32 x 32 tiles of Z a side (`kTile` in csrc/distill_loss.cu)."""
+    return -(-b // 32)
+
+
+# Per (device, stream): the completion tickets (1 + 2 nt int32, zeroed
+# when allocated and each set back to 0 by its last user in every launch)
+# and the scratch (`Scratch` in csrc/distill_loss.cu: 8 nt B + 9 round4(B)
+# floats), grown to the largest B seen. Launches on one stream run in
+# order, so no two eager calls in flight share them; no launch is spent
+# zeroing the tickets, and no host time allocating the scratch. A call
+# being captured into a CUDA graph gets a workspace of its own instead:
+# the graph may replay on any stream, beside eager calls on the one it
+# was captured on.
+_WORKSPACES: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tickets, scratch) for a call of batch b on the device's current stream."""
+    nt = _tiles(b)
+    n_tickets, n_scratch = 1 + 2 * nt, 8 * nt * b + 9 * _round4(b)
+    if torch.cuda.is_current_stream_capturing():  # the tickets zeroed by every replay
+        return (torch.zeros(n_tickets, dtype=torch.int32, device=device),
+                torch.empty(n_scratch, dtype=torch.float32, device=device))
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < n_tickets or ws[1].numel() < n_scratch:
+        ws = _WORKSPACES[key] = (torch.zeros(n_tickets, dtype=torch.int32, device=device),
+                                 torch.empty(n_scratch, dtype=torch.float32, device=device))
+    return ws
+
+
 def distill_loss_fwd(si, st, ti, tt, temperature: float = 0.05,
                      weight: float = 1.0) -> torch.Tensor:
     """[li, lt, lc, total] f32. CUDA: student rows bf16, teacher rows f32."""
@@ -94,12 +130,11 @@ def distill_loss_fwd(si, st, ti, tt, temperature: float = 0.05,
         return distill_loss_fwd_reference(si, st, ti, tt, temperature, weight)
     b, d = _check(si, st, ti, tt)
     lib = load_library()
-    part = torch.empty((5, b), dtype=torch.float32, device=si.device)
     out = torch.empty(4, dtype=torch.float32, device=si.device)
-    with torch.cuda.device(si.device):
-        code = lib.dclip_distill_loss_fwd(si.data_ptr(), st.data_ptr(), ti.data_ptr(),
-                                          tt.data_ptr(), part.data_ptr(), out.data_ptr(), b, d,
-                                          float(temperature), float(weight), _stream(si))
+    tickets, scratch = _workspace(si.device, b)
+    code = _launch(si.device, lib.dclip_distill_loss_fwd, si.data_ptr(), st.data_ptr(),
+                   ti.data_ptr(), tt.data_ptr(), scratch.data_ptr(), tickets.data_ptr(),
+                   out.data_ptr(), b, d, float(temperature), float(weight))
     check(lib, code, "distill_loss_fwd")
     LAUNCHES["distill_loss_fwd"] += 1
     return out
@@ -110,17 +145,18 @@ def distill_loss_bwd(si, st, ti, tt, cts, temperature: float = 0.05):
     if _on_cpu(si, st, ti, tt, cts):
         return distill_loss_bwd_reference(si, st, ti, tt, cts, temperature)
     b, d = _check(si, st, ti, tt)
-    cts = cts.to(torch.float32).contiguous()
+    if cts.dtype != torch.float32 or not cts.is_contiguous():
+        cts = cts.to(torch.float32).contiguous()
     if cts.shape != (3,):
         raise ValueError(f"cts: expected [3], got {tuple(cts.shape)}")
     lib = load_library()
-    part = torch.empty((5, b), dtype=torch.float32, device=si.device)
+    dev = si.device
+    z = torch.empty((b, _round4(b)), dtype=torch.float32, device=dev)
     dsi, dst = torch.empty_like(si), torch.empty_like(st)
-    with torch.cuda.device(si.device):
-        code = lib.dclip_distill_loss_bwd(si.data_ptr(), st.data_ptr(), ti.data_ptr(),
-                                          tt.data_ptr(), part.data_ptr(), cts.data_ptr(),
-                                          dsi.data_ptr(), dst.data_ptr(), b, d,
-                                          float(temperature), _stream(si))
+    tickets, scratch = _workspace(dev, b)
+    code = _launch(dev, lib.dclip_distill_loss_bwd, si.data_ptr(), st.data_ptr(), ti.data_ptr(),
+                   tt.data_ptr(), scratch.data_ptr(), z.data_ptr(), tickets.data_ptr(),
+                   cts.data_ptr(), dsi.data_ptr(), dst.data_ptr(), b, d, float(temperature))
     check(lib, code, "distill_loss_bwd")
     LAUNCHES["distill_loss_bwd"] += 1
     return dsi, dst

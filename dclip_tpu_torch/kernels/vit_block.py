@@ -91,7 +91,18 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _launch(device: torch.device, fn, *args):
+    """fn(*args, stream) on the current stream of a CUDA tensor's device,
+    switching the current device only when it differs: for a kernel of a
+    few microseconds the wrapper's host time is of the order of the
+    kernel's own, and the switch is a part of it."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
 
 
 # -- layernorm -----------------------------------------------------------------

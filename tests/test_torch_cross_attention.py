@@ -207,3 +207,37 @@ def test_reference_checkpoint_naming_loads_and_matches_torch_mha():
         got = port(torch.from_numpy(text), torch.from_numpy(image))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+# (T, P) key counts from the edges of the CUDA core's lane groups and block
+# shapes (1, 7, 8, 9, 31, 32, 33, 64, 77, 127, 128 on each side); D = 32
+# with 4 heads keeps the interpret-mode run short.
+EDGE_TP = [(1, 9), (7, 128), (8, 33), (9, 1), (31, 32), (32, 31), (33, 8), (64, 7),
+           (77, 64), (127, 77), (128, 127)]
+
+
+@pytest.mark.parametrize("masks", ["both", "none"])
+@pytest.mark.parametrize("t,p", EDGE_TP)
+def test_twin_matches_pallas_at_edge_key_counts(weights, t, p, masks):
+    """The f32 twin on packed f32 weights == `cross_attention_fused`
+    (interpret=True) at the key counts the CUDA core's tests use, with a
+    batch row that has no valid box and one with no valid token."""
+    params, sd, _ = weights
+    rng = np.random.RandomState(t * 131 + p)
+    text = rng.standard_normal((2, t, D)).astype(np.float32)
+    image = rng.standard_normal((2, p, D)).astype(np.float32)
+    tm = im = None
+    if masks == "both":
+        tm = (rng.rand(2, t) > 0.3).astype(np.float32)
+        im = (rng.rand(2, p) > 0.3).astype(np.float32)
+        im[0] = 0.0
+        tm[1] = 0.0
+    want = jax_cross_attention_fused(params["cross_modal_attention"], text, image, tm, im,
+                                     num_heads=H, interpret=True)
+    p32 = xa.pack_cross_attention(sd, torch.float32)
+    t_ = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    got = xa.cross_attention_reference(p32, torch.from_numpy(text), torch.from_numpy(image),
+                                       t_(tm), t_(im), num_heads=H)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)

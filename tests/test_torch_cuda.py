@@ -983,3 +983,124 @@ def test_knn_search_launches_k12(cuda_device):
                                   torch.from_numpy(-keys), 0.85)
     assert torch.equal(gate.source.cpu(), cgate.source)
     torch.testing.assert_close(gate.embeddings.cpu(), cgate.embeddings, rtol=0, atol=TOPK_TOL)
+
+
+# -- K10's core and K11 at the edges of their lane groups, blocks and tiles ------
+
+# (T, P, head_dim, heads): every count in {1, 7, 8, 9, 31, 32, 33, 64, 77,
+# 127, 128} on each side, which crosses each softmax lane-group width (1 to
+# 32 lanes a row, up to four keys a lane), odd and even counts of the 2 x 2
+# logit tiles and two-query output tiles, and the chunking of queries whose
+# probabilities exceed 16 KB (127 queries x 33 keys and up), with each
+# head_dim the kernel is built for (32, 64, 96, 128).
+CORE_EDGES = [(1, 128, 32, 2), (7, 77, 64, 2), (8, 33, 96, 2), (9, 64, 128, 1),
+              (31, 32, 32, 4), (32, 31, 64, 2), (33, 9, 96, 1), (64, 8, 128, 2),
+              (77, 7, 64, 8), (127, 1, 32, 2), (128, 128, 128, 2), (77, 8, 64, 8),
+              (33, 127, 64, 4)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("masks", ["masked", "none"])
+@pytest.mark.parametrize("t,p,hd,heads", CORE_EDGES)
+def test_cross_attention_core_edges(cuda_device, t, p, hd, heads, masks):
+    """K10's core against its twin; with masks, batch row 0 has no valid
+    box and row 1 no valid token, so every query of that row averages the
+    other stream's values uniformly."""
+    from dclip_tpu_torch.kernels import cross_attention as xa
+
+    rng = np.random.RandomState(1000 * t + p + hd)
+    b, d = 3, hd * heads
+    qkv_t = torch.from_numpy(rng.standard_normal((b, t, 3 * d)).astype(np.float32)).to(cuda_device)
+    qkv_i = torch.from_numpy(rng.standard_normal((b, p, 3 * d)).astype(np.float32)).to(cuda_device)
+    tmask = imask = None
+    if masks == "masked":
+        tmask = torch.from_numpy((rng.rand(b, t) > 0.3).astype(np.float32)).to(cuda_device)
+        imask = torch.from_numpy((rng.rand(b, p) > 0.3).astype(np.float32)).to(cuda_device)
+        imask[0] = 0.0
+        tmask[1] = 0.0
+    xa.reset_launches()
+    out_t, out_i = xa.cross_attention_core(qkv_t, qkv_i, tmask, imask, heads)
+    assert xa.LAUNCHES["cross_attention_core"] == 1
+    assert out_t.dtype == out_i.dtype == torch.bfloat16
+    want_t, want_i = xa.cross_attention_core_reference(qkv_t, qkv_i, tmask, imask, heads)
+    _close_rel(out_t, want_t, what="text queries")
+    _close_rel(out_i, want_i, what="image queries")
+    if masks == "masked":
+        _close_rel(out_t[0], qkv_i[0, :, 2 * d:].mean(0).expand(t, d), what="boxless row")
+        _close_rel(out_i[1], qkv_t[1, :, 2 * d:].mean(0).expand(p, d), what="tokenless row")
+    again = xa.cross_attention_core(qkv_t, qkv_i, tmask, imask, heads)
+    assert torch.equal(again[0], out_t) and torch.equal(again[1], out_i)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", [8, 64, 512, 1024])
+@pytest.mark.parametrize("b", [1, 5, 31, 32, 33, 63, 64, 65, 256, 257, 4096])
+def test_distill_loss_tile_edges(cuda_device, b, d):
+    """K11 at batch sizes on each side of its 32-row tiles and 8-row
+    gradient blocks, and up to 4,096 rows (128 x 128 tiles, one merge
+    block): parts within 1e-5 x max(1, |twin|) (lc is 0 at B = 1),
+    gradients within one bf16 ulp of the largest, two calls bit-identical."""
+    from dclip_tpu_torch.kernels import distill_loss as dl
+
+    rng = np.random.RandomState(b * 7 + d)
+    si, st = _bf16(rng, cuda_device, b, d), _bf16(rng, cuda_device, b, d)
+    ti, tt = (x.float() + 0.5 * torch.from_numpy(
+        rng.standard_normal((b, d)).astype(np.float32)).to(cuda_device) for x in (si, st))
+    dl.reset_launches()
+    parts = dl.distill_loss_fwd(si, st, ti, tt, 0.05, 0.7)
+    want = dl.distill_loss_fwd_reference(si, st, ti, tt, 0.05, 0.7)
+    torch.cuda.synchronize()
+    err = (parts - want).abs()
+    assert (err <= 1e-5 * want.abs().clamp(min=1.0)).all(), (parts.tolist(), want.tolist())
+    cts = torch.tensor([0.7, 1.3, 0.9], device=cuda_device)
+    grads = dl.distill_loss_bwd(si, st, ti, tt, cts, 0.05)
+    for got, ref in zip(grads, dl.distill_loss_bwd_reference(si, st, ti, tt, cts, 0.05)):
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+        e = (got.float() - ref.float()).abs().max().item()
+        assert e <= 2.0**-7 * ref.float().abs().max().item(), e
+    assert torch.equal(dl.distill_loss_fwd(si, st, ti, tt, 0.05, 0.7), parts)
+    again = dl.distill_loss_bwd(si, st, ti, tt, cts, 0.05)
+    assert torch.equal(again[0], grads[0]) and torch.equal(again[1], grads[1])
+    assert dl.LAUNCHES == {"distill_loss_fwd": 2, "distill_loss_bwd": 2}
+
+
+@pytest.mark.requires_cuda
+def test_distill_loss_graph_replays_beside_eager_calls(cuda_device):
+    """K11 captured into a CUDA graph and replayed on another stream while
+    eager calls on other inputs run on the capture stream: the graph has
+    tickets and scratch of its own, so both give the bits of a lone call."""
+    from dclip_tpu_torch.kernels import distill_loss as dl
+
+    rng = np.random.RandomState(11)
+    b, d = 257, 512
+
+    def inputs():
+        si, st = _bf16(rng, cuda_device, b, d), _bf16(rng, cuda_device, b, d)
+        return si, st, si.float() + 0.5, st.float() - 0.5
+
+    cts = torch.tensor([0.7, 1.3, 0.9], device=cuda_device)
+
+    def call(x):
+        return (dl.distill_loss_fwd(*x), *dl.distill_loss_bwd(*x, cts))
+
+    graphed, eager = inputs(), inputs()
+    want_graphed, want_eager = call(graphed), call(eager)
+    capture, other = torch.cuda.Stream(), torch.cuda.Stream()
+    capture.wait_stream(torch.cuda.current_stream())
+    other.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(capture):
+        call(graphed)  # the capture stream's own tickets exist before the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture):
+            got_graphed = call(graphed)
+    torch.cuda.synchronize()
+    for _ in range(10):
+        for _ in range(3):
+            with torch.cuda.stream(other):
+                graph.replay()
+            with torch.cuda.stream(capture):
+                got_eager = call(eager)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got_graphed, want_graphed))
+        assert all(torch.equal(g, w) for g, w in zip(got_eager, want_eager))
