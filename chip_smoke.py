@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training and eval paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training, eval and deployment paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -128,9 +128,11 @@ Phases; each one passes or raises, and any failure exits non-zero:
    are further apart than that, exact ties to the lower row; CUDA-event
    times beside `torch.matmul` + `torch.topk`, with the 3xTF32 bound and
    the f32 CUDA-core one. Phase 4's service searches through K12 (the
-   selftest's search, then 3 searches of 64 queries against a
-   1,000,000-row index, timed end to end with the per-call copy of the keys
-   to the card).
+   selftest's search, then a 1,000,000-row index: the first search after
+   the add, which copies the keys to the card once, and 3 searches of 64
+   queries over the device-resident keys, each timed end to end, with the
+   peak device memory; one search by the per-call-copy path timed beside
+   them; all results bit-equal to K12 over the store's keys on the card).
 19. Retrieval eval: ViT-B/16 from `load_clip` (random weights, seed 0,
    bf16) embeds 1,000 seeded preprocessed images (`make_image_encoder`, K1 /
    K2) and 5,000 captions of 8-24 hash-tokenizer words (packed), then
@@ -175,6 +177,25 @@ Phases; each one passes or raises, and any failure exits non-zero:
    in_proj biases by their q and v parts; the k part, zero in exact
    arithmetic, held below 0.1 of the q part's norm).
 
+25. Int8 serving: `ClipService(quantize="int8")` through the CLI's
+   `build_service` (ViT-B/16, random weights from seed 0, buckets
+   1,4,16,64, `--tokenizer_dir hash`): warmup, `--selftest`, no K1 / K2
+   launch, both towers unit-norm and finite with cosine >= 0.99 against the
+   f32 module route on the card on the same weights; `--bench` p50 and
+   throughput at concurrency 1 and 32 beside phase 5's bf16 lines; the
+   int8 weights' bytes against bf16 and f32.
+26. Export: `--export_dir` for buckets 1 and 64 on platform cuda, f32 and
+   int8, into a temporary directory: export time and each file's bytes;
+   the int8 params.npz under 0.45 of the f32 one and every program under
+   half its params.npz; `load_exported(device="cuda")` texts and images
+   against the live service of the same route and weights (the f32 module
+   route: cosine >= 0.999; int8: >= 0.99); ms per batch of each program.
+27. Student: a perturbed student saved by the port's `CheckpointManager`
+   and served through `--student_checkpoint`: its text embeddings move
+   from the base service's and equal a service given the same weights
+   directly; `cli.export_hf` writes its HF snapshot, which the port's
+   reader loads back bit-equal, `logit_scale` 0-d.
+
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type (989 TFLOP/s bf16
 tensor cores, 67 TFLOP/s f32 CUDA cores, 495 TFLOP/s TF32 tensor cores
@@ -194,6 +215,7 @@ The second-to-last line is `{"kernels": [...]}` and the last line is
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -367,7 +389,9 @@ def import_port_modules():
                  "dclip_tpu_torch.train.teacher_trainer", "dclip_tpu_torch.models.cross_modal",
                  "dclip_tpu_torch.models.encoding", "dclip_tpu_torch.eval.retrieval",
                  "dclip_tpu_torch.eval.zero_shot", "dclip_tpu_torch.data.embedding_store",
-                 "dclip_tpu_torch.data.tokenizer"):
+                 "dclip_tpu_torch.data.tokenizer", "dclip_tpu_torch.serve.quant",
+                 "dclip_tpu_torch.serve.export", "dclip_tpu_torch.models.hf_export",
+                 "dclip_tpu_torch.cli.export_hf"):
         importlib.import_module(name)
 
 
@@ -806,20 +830,25 @@ def slice_phase(torch, np, vb, cli_serve, card: str):
         raise AssertionError(f"image cosine {cos.min()} < {COS_BOUND}")
     launches["topk_streamed"] = search_phase(torch, np, service, card)
     print(f"slice: K12 launches {launches['topk_streamed']} (the selftest's search + "
-          f"{SEARCH_CALLS} index searches)", flush=True)
-    if launches["topk_streamed"] != 1 + SEARCH_CALLS:
-        raise AssertionError(f"K12 launches {launches['topk_streamed']} != {1 + SEARCH_CALLS}")
+          f"{1 + SEARCH_CALLS} index searches)", flush=True)
+    if launches["topk_streamed"] != 2 + SEARCH_CALLS:
+        raise AssertionError(f"K12 launches {launches['topk_streamed']} != {2 + SEARCH_CALLS}")
     return service, args, launches
 
 
 def search_phase(torch, np, service, card: str):
     """`ClipService.search` over a 1,000,000-row index of seeded unit keys:
-    SEARCH_CALLS searches of 64 text queries, each copying the host keys to
-    the card as the service does, timed end to end; every result equal to
-    K12's on a device-resident copy of the keys (deterministic). Returns
-    the K12 launch count after the searches."""
+    the first search after the add (it copies the keys to the card once),
+    then SEARCH_CALLS searches of 64 text queries over the device-resident
+    keys, each timed end to end, with the peak device memory; one search
+    by the per-call-copy path (keys copied to the card, K12, results to
+    the host: what each search paid before) timed beside them. Every
+    result equal, ids and score bits, to K12 over
+    `torch.as_tensor(store.keys)` on the card. Returns the K12 launch count
+    after the service's searches."""
     from dclip_tpu_torch.data.embedding_store import EmbeddingStore
     from dclip_tpu_torch.kernels import topk as tk
+    from dclip_tpu_torch.ops.knn import knn_search
     from dclip_tpu_torch.serve.service import ClipService
 
     dim = service.cfg.projection_dim
@@ -828,30 +857,48 @@ def search_phase(torch, np, service, card: str):
     keys_dev /= keys_dev.norm(dim=-1, keepdim=True)
     store = EmbeddingStore.from_arrays(keys_dev.cpu().numpy(),
                                        ids=[f"img{i}" for i in range(SEARCH_N)])
+    del keys_dev
+    torch.cuda.empty_cache()
     big = ClipService(service.model, service.cfg, service.tokenizer, index=store,
                       device=service.device)
     texts = [f"a photo of object {i} on a table" for i in range(SEARCH_Q)]
     queries = big.encode_texts(texts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     launched = tk.LAUNCHES["topk_streamed"]
-    seconds = []
+    t0 = time.perf_counter()
+    results = [big.search(queries, k=SEARCH_K)]
+    first = time.perf_counter() - t0
+    seconds, collections = [], []
     for _ in range(SEARCH_CALLS):
+        before = gc.get_stats()[2]["collections"]
         t0 = time.perf_counter()
-        hits = big.search(queries, k=SEARCH_K)
+        results.append(big.search(queries, k=SEARCH_K))
         seconds.append(time.perf_counter() - t0)
+        collections.append(gc.get_stats()[2]["collections"] - before)
     path_launches = tk.LAUNCHES["topk_streamed"]
-    if path_launches - launched != SEARCH_CALLS:
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if path_launches - launched != 1 + SEARCH_CALLS:
         raise AssertionError("ClipService.search did not launch K12 once per call")
-    # The comparison's own launch is not the path's: counted above.
-    want_s, want_i = tk.topk_streamed(torch.from_numpy(queries).cuda(), keys_dev, SEARCH_K)
-    got_i = np.asarray([[int(h[0][3:]) for h in row] for row in hits])
-    got_s = np.asarray([[h[1] for h in row] for row in hits], np.float32)
-    if not (np.array_equal(got_i, want_i.cpu().numpy())
-            and np.array_equal(got_s, want_s.cpu().numpy())):
-        raise AssertionError("ClipService.search differs from K12 on the device-resident keys")
+    # The per-call-copy path; its launch is the comparison's, not the path's.
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want_s, want_i = knn_search(torch.as_tensor(queries, device="cuda"),
+                                    torch.as_tensor(store.keys, device="cuda"), SEARCH_K)
+        want_s, want_i = want_s.cpu().numpy(), want_i.cpu().numpy()
+    per_call = time.perf_counter() - t0
+    for hits in results:
+        got_i = np.asarray([[int(h[0][3:]) for h in row] for row in hits])
+        got_s = np.asarray([[h[1] for h in row] for row in hits], np.float32)
+        if not (np.array_equal(got_i, want_i) and np.array_equal(got_s, want_s)):
+            raise AssertionError("ClipService.search differs from K12 over the store's keys")
     print(f"search: ClipService.search, {SEARCH_Q} queries x {SEARCH_N} keys x {dim}, "
-          f"k={SEARCH_K}, end to end with the host-to-card key copy: "
-          f"{json.dumps([1e3 * x for x in seconds])} ms ({card})", flush=True)
-    del big, store, keys_dev
+          f"k={SEARCH_K}, end to end: first after the add (one key copy) {1e3 * first} ms, "
+          f"then device-resident {json.dumps([1e3 * x for x in seconds])} ms (full garbage "
+          f"collections during each: {collections}); per-call key "
+          f"copy {1e3 * per_call} ms; peak device memory {peak} GiB; results bit-equal to "
+          f"K12 over torch.as_tensor(store.keys) ({card})", flush=True)
+    del big, store
     torch.cuda.empty_cache()
     return path_launches
 
@@ -2701,6 +2748,203 @@ def eval_zero_shot_phase(torch, np, card: str):
     torch.cuda.empty_cache()
 
 
+# -- the serving deployment path: int8, the exported artifact, the student ------
+
+SERVE_FLAGS = ["--model_preset", "vit-b-16", "--clip_weights", "random", "--seed", "0",
+               "--tokenizer_dir", "hash", "--device", "cuda"]
+DEPLOY_TEXTS = ["a photo of a dog", "a red car", "two cats on a sofa", "a mountain lake",
+                "a bowl of soup"]
+EXPORT_BUCKETS = (1, 64)
+INT8_COS, EXPORT_COS_F32, EXPORT_COS_INT8 = 0.99, 0.999, 0.99
+
+
+def _unit_cosines(np, a, b, what, bound):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    norms = np.linalg.norm(a, axis=-1)
+    if not (np.isfinite(a).all() and np.allclose(norms, 1.0, atol=1e-3)):
+        raise AssertionError(f"{what}: embeddings not finite and unit-norm: norms {norms}")
+    cos = (a * b).sum(-1) / (norms * np.linalg.norm(b, axis=-1))
+    print(f"{what}: per-row cosine min {cos.min()} mean {cos.mean()} bound {bound}", flush=True)
+    if not cos.min() >= bound:
+        raise AssertionError(f"{what}: cosine {cos.min()} < {bound}")
+
+
+def _f32_references(torch, np, model, tok, texts, u8):
+    """The f32 module route's text and image features on the card."""
+    from dclip_tpu_torch.ops.image_ops import normalize
+
+    ids, mask = tok.encode_batch(texts, max_length=model.cfg.text.max_length)
+    with torch.inference_mode():
+        t = model.get_text_features(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda())
+        i = model.image_features(normalize(torch.from_numpy(u8).cuda().float() / 255.0))
+    return t.float().cpu().numpy(), i.float().cpu().numpy()
+
+
+def int8_phase(torch, np, cli_serve, card: str, bf16_rows):
+    """Phase 25: `ClipService(quantize="int8")` through the CLI's
+    `build_service` at ViT-B/16 (buckets 1,4,16,64): warmup, the selftest,
+    no K1 / K2 launch, both towers unit-norm and within cosine 0.99 of the
+    f32 module route on the same weights, `--bench` lines at concurrency 1
+    and 32 beside phase 5's bf16 ones, and the weights' bytes."""
+    from dclip_tpu_torch.cli.common import load_clip
+    from dclip_tpu_torch.kernels import vit_block as vb
+    from dclip_tpu_torch.serve import quant
+
+    args = cli_serve.parse_args(SERVE_FLAGS + ["--buckets", "1,4,16,64", "--index_dim", "512",
+                                               "--quantize", "int8"])
+    t0 = time.perf_counter()
+    service = cli_serve.build_service(args)
+    print(f"int8: service built in {time.perf_counter() - t0} s", flush=True)
+    if service.model is not None or service.image_route != "int8":
+        raise AssertionError("int8: the service kept a float model")
+    cfg = service.cfg
+    u8 = np.random.RandomState(25).randint(0, 256, (8,) + (cfg.vision.image_size,) * 2 + (3,),
+                                           np.uint8)
+    vb.reset_launches()
+    print("int8: warmup", json.dumps(service.warmup()), f"({card})", flush=True)
+    if cli_serve.selftest(service, args) != 0:
+        raise AssertionError("int8: serve --selftest failed")
+    img, txt = service.encode_images(list(u8)), service.encode_texts(DEPLOY_TEXTS)
+    torch.cuda.synchronize()
+    if set(vb.LAUNCHES.values()) != {0}:
+        raise AssertionError(f"int8: block kernels launched {vb.LAUNCHES}")
+    print(f"int8: block kernel launches {json.dumps(vb.LAUNCHES)} (none expected)", flush=True)
+    _, f32 = load_clip("vit-b-16", "random", 0, "float32", "cuda")
+    want_t, want_i = _f32_references(torch, np, f32, service.tokenizer, DEPLOY_TEXTS, u8)
+    _unit_cosines(np, txt, want_t, "int8: text vs f32 module route on the card", INT8_COS)
+    _unit_cosines(np, img, want_i, "int8: image vs f32 module route on the card", INT8_COS)
+    rows = cli_serve.bench(service, args, concurrencies=(1, 32))
+    for row in rows:
+        bf16 = next(r for r in bf16_rows if (r["modality"], r["concurrency"])
+                    == (row["modality"], row["concurrency"]))
+        print(f"int8 vs bf16: {row['modality']} concurrency {row['concurrency']}: p50 "
+              f"{row['p50_ms']} vs {bf16['p50_ms']} ms, {row['requests_per_sec']} vs "
+              f"{bf16['requests_per_sec']} req/s ({card})", flush=True)
+    n_float = sum(v.numel() for k, v in f32.state_dict().items())
+    print(f"int8: weights {quant.tree_bytes(service.params)} bytes on the card against "
+          f"{2 * n_float} in bf16 and {4 * n_float} in f32", flush=True)
+    return service, f32
+
+
+def export_phase(torch, np, cli_serve, card: str, int8_service, f32):
+    """Phase 26: `--export_dir` for buckets 1 and 64 on platform cuda, with
+    f32 weights and int8, into a temporary directory: export time, each
+    file's bytes, the int8 params.npz under 0.45 of the f32 one, each
+    program under half its params.npz; `load_exported(device="cuda")`
+    texts and images against the live service of the same route and
+    weights (f32 module route: cosine 0.999; int8: 0.99); ms per batch of
+    the programs."""
+    import tempfile
+
+    from dclip_tpu_torch.ops.image_ops import normalize
+    from dclip_tpu_torch.serve import ClipService
+    from dclip_tpu_torch.serve.export import load_exported
+
+    cfg, tok = int8_service.cfg, int8_service.tokenizer
+    u8 = np.random.RandomState(26).randint(0, 256, (5,) + (cfg.vision.image_size,) * 2 + (3,),
+                                           np.uint8)
+    px = normalize(torch.from_numpy(u8).float() / 255.0).numpy()
+    ids, mask = tok.encode_batch(DEPLOY_TEXTS, max_length=cfg.text.max_length)
+    live = {None: ClipService(f32, cfg, tokenizer=tok, buckets=EXPORT_BUCKETS, device="cuda"),
+            "int8": int8_service}
+    sizes = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for quantize, bound in ((None, EXPORT_COS_F32), ("int8", EXPORT_COS_INT8)):
+            out = os.path.join(tmp, str(quantize))
+            argv = SERVE_FLAGS + ["--buckets", ",".join(map(str, EXPORT_BUCKETS)),
+                                  "--export_dir", out, "--export_platforms", "cuda"]
+            t0 = time.perf_counter()
+            if cli_serve.main(argv + (["--quantize", quantize] if quantize else [])) != 0:
+                raise AssertionError(f"export {quantize}: --export_dir failed")
+            seconds = time.perf_counter() - t0
+            sizes[quantize] = {n: os.path.getsize(os.path.join(out, n)) for n in os.listdir(out)}
+            print(f"export {quantize or 'f32'}: {seconds} s (weights built, traced, written), "
+                  f"files {json.dumps(sizes[quantize])}", flush=True)
+            params = sizes[quantize]["params.npz"]
+            big = {n: b for n, b in sizes[quantize].items() if n.endswith(".pt2") and b >= params / 2}
+            if big:
+                raise AssertionError(f"export {quantize}: programs {big} >= params.npz / 2")
+            loaded = load_exported(out, device="cuda")
+            what = f"export {quantize or 'f32'}: loaded on cuda vs the live service"
+            _unit_cosines(np, loaded.encode_texts_ids(ids, mask),
+                          live[quantize].encode_texts(DEPLOY_TEXTS), what + " (text)", bound)
+            _unit_cosines(np, loaded.encode_images(px), live[quantize].encode_images(list(u8)),
+                          what + " (image)", bound)
+            for (modality, b), fn in sorted(loaded._fns.items()):
+                if modality == "text":
+                    args = (torch.zeros((b, cfg.text.max_length), dtype=torch.int32,
+                                        device="cuda"),) * 2
+                else:
+                    args = (torch.zeros((b,) + (cfg.vision.image_size,) * 2 + (3,),
+                                        device="cuda"),)
+                with torch.inference_mode():
+                    ms = time_one(torch, lambda: fn(*args), 5)
+                print(f"export {quantize or 'f32'}: program {modality} b={b}: {ms} ms a batch "
+                      f"({card})", flush=True)
+            del loaded
+    ratio = sizes["int8"]["params.npz"] / sizes[None]["params.npz"]
+    print(f"export: int8 params.npz / f32 params.npz = {ratio} (bound 0.45)", flush=True)
+    if not ratio < 0.45:
+        raise AssertionError(f"export: int8 params.npz is {ratio} of the f32 one")
+    del live
+    torch.cuda.empty_cache()
+
+
+def student_phase(torch, np, cli_serve, card: str):
+    """Phase 27: a perturbed student (the text projection plus seeded
+    noise) saved with the port's `CheckpointManager` and served through
+    `--student_checkpoint`: its text embeddings differ from the base
+    service's and equal a service built on the same weights directly;
+    `cli.export_hf` writes its HF snapshot, which the port's reader loads
+    back bit-equal to the state dict, `logit_scale` 0-d."""
+    import tempfile
+
+    from dclip_tpu_torch.cli import export_hf
+    from dclip_tpu_torch.cli.common import load_clip
+    from dclip_tpu_torch.models.weights import load_state_dict_file
+    from dclip_tpu_torch.serve import ClipService
+    from dclip_tpu_torch.train.checkpoint import CheckpointManager
+
+    # The served model's build: compute dtype "auto" (bf16 on the card).
+    cfg, model = load_clip("vit-b-16", "random", 0, "auto", "cuda")
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    w = sd["text_projection.weight"]
+    sd["text_projection.weight"] = w + torch.from_numpy(
+        np.random.RandomState(27).standard_normal(tuple(w.shape)).astype(np.float32) * 0.02)
+    flags = SERVE_FLAGS + ["--buckets", "1,4"]
+    with tempfile.TemporaryDirectory() as tmp:
+        CheckpointManager(os.path.join(tmp, "ckpt")).save({"params": sd, "step": 1}, step=1,
+                                                          epoch=0)
+        served_svc = cli_serve.build_service(cli_serve.parse_args(
+            flags + ["--student_checkpoint", os.path.join(tmp, "ckpt")]))
+        served = served_svc.encode_texts(DEPLOY_TEXTS)
+        tok = served_svc.tokenizer
+        del served_svc
+        base = cli_serve.build_service(cli_serve.parse_args(flags)).encode_texts(DEPLOY_TEXTS)
+        model.load_state_dict(sd)
+        direct = ClipService(model, cfg, tokenizer=tok, buckets=(1, 4),
+                             device="cuda").encode_texts(DEPLOY_TEXTS)
+        moved = float(np.abs(served - base).max())
+        print(f"student: --student_checkpoint text embeddings moved by {moved} (max abs) from "
+              f"the base service's; equal to a service given the weights directly: "
+              f"{np.array_equal(served, direct)}", flush=True)
+        if not moved > 1e-3 or not np.array_equal(served, direct):
+            raise AssertionError("student: --student_checkpoint not applied as given")
+        snap = os.path.join(tmp, "snapshot")
+        t0 = time.perf_counter()
+        export_hf.main(["--model_preset", "vit-b-16", "--checkpoint", os.path.join(tmp, "ckpt"),
+                        "--out", snap])
+        seconds = time.perf_counter() - t0
+        back = load_state_dict_file(snap)
+        files = {n: os.path.getsize(os.path.join(snap, n)) for n in sorted(os.listdir(snap))}
+        if set(back) != set(sd) or back["logit_scale"].shape != () or not all(
+                torch.equal(back[k], v) for k, v in sd.items()):
+            raise AssertionError("student: the HF snapshot does not hold the checkpoint's weights")
+        print(f"student: export_hf wrote {json.dumps(files)} in {seconds} s; reloaded "
+              f"bit-equal, logit_scale shape {tuple(back['logit_scale'].shape)}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2741,7 +2985,7 @@ def main() -> int:
     kernel_phase(torch, vb, card, table)
     gemm_phase(torch, card)
     service, args, launches = slice_phase(torch, np, vb, cli_serve, card)
-    cli_serve.bench(service, args, concurrencies=(1, 32))
+    bf16_rows = cli_serve.bench(service, args, concurrencies=(1, 32))
     del service
     torch.cuda.empty_cache()
 
@@ -2778,6 +3022,10 @@ def main() -> int:
     teacher_launches = teacher_slice_phase(torch, np, sd, tsd, card)
     teacher_fit_phase(torch, np, sd, tsd, card)
     teacher_grad_phase(torch, np, sd, tsd)
+    int8_service, f32 = int8_phase(torch, np, cli_serve, card, bf16_rows)
+    export_phase(torch, np, cli_serve, card, int8_service, f32)
+    del int8_service, f32
+    student_phase(torch, np, cli_serve, card)
 
     counts = {**{n: launches[n] for n in KERNELS}, **{n: train_launches[n] for n in TRAIN_KERNELS},
               **{n: uncached_launches[n] for n in TEACHER_KERNELS if n in uncached_launches},

@@ -17,7 +17,10 @@ batches by serve.DynamicBatcher):
   GET  /v1/stats             -> batcher + service counters
 
 `--selftest` answers one request per route on an ephemeral port and exits
-0/1; `--bench` prints one JSON line per (modality, concurrency).
+0/1; `--bench` prints one JSON line per (modality, concurrency);
+`--quantize int8` serves int8 weights; `--student_checkpoint` serves a
+distilled student; `--export_dir` (with `--export_platforms`) writes the
+serving artifact of `serve.export` and exits.
 """
 from __future__ import annotations
 
@@ -33,19 +36,26 @@ from typing import Sequence
 import numpy as np
 
 
-def build_service(args):
-    from dclip_tpu_torch.cli.common import load_clip, load_tokenizer
-    from dclip_tpu_torch.serve import ClipService
+def load_model(args, compute_dtype: str = "auto"):
+    """(cfg, model) from the model flags, with `--student_checkpoint`'s
+    weights (a checkpoint of the port's `CheckpointManager`) loaded in."""
+    from dclip_tpu_torch.cli.common import load_clip, restore_student_params
 
-    if args.export_dir:
-        raise NotImplementedError(
-            "--export_dir: the serving artifact is not ported yet (ROADMAP "
-            "Queue 1, serving item: serve/export.py)"
-        )
     cfg, model = load_clip(
         args.model_preset, args.clip_weights, seed=args.seed,
-        compute_dtype="auto", device=args.device,
+        compute_dtype=compute_dtype, device=args.device,
     )
+    if args.student_checkpoint:
+        model.load_state_dict(restore_student_params(args.student_checkpoint,
+                                                     model.state_dict()))
+    return cfg, model
+
+
+def build_service(args):
+    from dclip_tpu_torch.cli.common import load_tokenizer
+    from dclip_tpu_torch.serve import ClipService
+
+    cfg, model = load_model(args)
     tokenizer = load_tokenizer(args.tokenizer_dir, max_length=cfg.text.max_length)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     index = None
@@ -61,6 +71,26 @@ def build_service(args):
         mesh=args.mesh_data if args.mesh_data != 1 else None,
         index=index, device=model.logit_scale.device,
     )
+
+
+def export(args) -> int:
+    """--export_dir: trace the encode functions for each bucket and platform
+    and write the artifact (`serve.export`: manifest, one program per
+    (modality, bucket, platform), params.npz). The model computes in f32:
+    the bf16 serving route on the card is the hand-written kernels', which
+    cannot be traced (`--quantize int8` traces the int8 forward instead)."""
+    from dclip_tpu_torch.serve.export import check_platforms, export_encoders
+
+    platforms = tuple(s for s in args.export_platforms.split(",") if s)
+    platforms = check_platforms(platforms) if platforms else None
+    cfg, model = load_model(args, compute_dtype="float32")
+    written = export_encoders(
+        model, cfg, args.export_dir,
+        batch_sizes=tuple(int(b) for b in args.buckets.split(",")),
+        platforms=platforms, quantize=args.quantize or None,
+    )
+    print(json.dumps({"export_dir": args.export_dir, "written": written}), flush=True)
+    return 0
 
 
 def _decode_images(payload):
@@ -224,13 +254,14 @@ def selftest(service, args) -> int:
     return 0 if ok else 1
 
 
-def bench(service, args, concurrencies: Sequence[int] = (1, 8, 32)) -> int:
+def bench(service, args, concurrencies: Sequence[int] = (1, 8, 32)) -> list:
     """Concurrent-load measurement of the serving path.
 
     K client threads each fire single-item requests back-to-back through
     the DynamicBatcher (the HTTP layer is excluded). One JSON line per
     (modality, concurrency): requests/s, p50/p99 latency, mean batch size
-    the batcher achieved, and the device the service runs on."""
+    the batcher achieved, the quantization and the device the service runs
+    on. Returns the lines' dicts."""
     import torch
 
     from dclip_tpu_torch.serve import DynamicBatcher
@@ -242,6 +273,7 @@ def bench(service, args, concurrencies: Sequence[int] = (1, 8, 32)) -> int:
     rng = np.random.RandomState(0)
     image = rng.randint(0, 255, (size, size, 3), np.uint8)
     text = "a photo of a dog catching a red frisbee in the park"
+    rows = []
     workloads = {
         "text": (text, service.encode_texts),
         "image": (image, service.encode_images),
@@ -274,7 +306,7 @@ def bench(service, args, concurrencies: Sequence[int] = (1, 8, 32)) -> int:
                 s = b.stats()
             lat_ms = sorted(x * 1e3 for x in lat)
             n = len(lat_ms)
-            print(json.dumps({
+            rows.append({
                 "modality": modality,
                 "concurrency": conc,
                 "requests": n,
@@ -282,9 +314,11 @@ def bench(service, args, concurrencies: Sequence[int] = (1, 8, 32)) -> int:
                 "p50_ms": lat_ms[n // 2],
                 "p99_ms": lat_ms[min(n - 1, int(n * 0.99))],
                 "mean_batch": s["mean_batch_size"],
+                "quantize": service.quantize,
                 "device": device,
-            }), flush=True)
-    return 0
+            })
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
 
 
 def parse_args(argv=None):
@@ -304,12 +338,20 @@ def parse_args(argv=None):
                    help=">0 enables the retrieval index endpoints")
     p.add_argument("--index_path", default="",
                    help="preload a saved EmbeddingStore (.npz or .dcs)")
+    p.add_argument("--student_checkpoint", default="",
+                   help="optional distilled-student checkpoint (the port's "
+                        "CheckpointManager file or directory)")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="not ported yet: any value but 1 raises")
+                   help="not ported yet (ROADMAP Queue 1 item 10): any value but 1 raises")
     p.add_argument("--quantize", default="", choices=["", "int8"],
-                   help="not ported yet: int8 raises")
+                   help="int8: weight-only quantized serving (serve.quant)")
     p.add_argument("--export_dir", default="",
-                   help="not ported yet: raises")
+                   help="write a serving artifact (torch.export programs per bucket + "
+                        "params.npz, serve.export) to this directory and exit; honors "
+                        "--buckets, --student_checkpoint and --quantize")
+    p.add_argument("--export_platforms", default="",
+                   help="comma-separated export targets, cpu and / or cuda (default: "
+                        "--device)")
     p.add_argument("--no_warmup", action="store_true")
     p.add_argument("--selftest", action="store_true",
                    help="start on an ephemeral port, run one request per "
@@ -322,11 +364,14 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.export_dir:
+        return export(args)
     service = build_service(args)
     if args.selftest:
         return selftest(service, args)
     if args.bench:
-        return bench(service, args)
+        bench(service, args)
+        return 0
     if not args.no_warmup:
         print("warming up:", json.dumps(service.warmup()), flush=True)
     from http.server import ThreadingHTTPServer

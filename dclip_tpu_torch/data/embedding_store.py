@@ -1,8 +1,8 @@
 """Append-only embedding store with npz and `.dcs` persistence.
 
-A copy of `dclip_tpu/data/embedding_store.py` without `device_arrays`
-(the JAX device put): the serving path moves `keys` to its device per
-search, as the JAX service does. It is copied, not imported, because
+A copy of `dclip_tpu/data/embedding_store.py`, with `device_arrays` as
+torch tensors on a device (the service keeps its index's keys there
+across searches). It is copied, not imported, because
 `dclip_tpu/data/__init__.py` imports jax. `.dcs` files go through the
 port's copy of the native runtime (`dclip_tpu_torch.native`), which keeps
 the JAX package's file layout, so both packages read each other's stores.
@@ -31,6 +31,7 @@ class EmbeddingStore:
         self._values: List[np.ndarray] = []
         self._positions: List[np.ndarray] = []
         self._ids: List[str] = []
+        self._values_are_keys = True  # no value given: pack one matrix for both
         self._packed: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
 
     def __len__(self) -> int:
@@ -50,9 +51,11 @@ class EmbeddingStore:
         norm = np.linalg.norm(key)
         key = key / max(norm, 1e-12)
         self._keys.append(key)
-        self._values.append(
-            key if value is None else np.asarray(value, np.float32).reshape(-1)
-        )
+        if value is None:
+            self._values.append(key)
+        else:
+            self._values.append(np.asarray(value, np.float32).reshape(-1))
+            self._values_are_keys = False
         self._positions.append(
             np.zeros(4, np.float32)
             if position is None
@@ -81,11 +84,9 @@ class EmbeddingStore:
     def _pack(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         if self._packed is None:
             if self._ids:
-                self._packed = (
-                    np.stack(self._keys),
-                    np.stack(self._values),
-                    np.stack(self._positions),
-                )
+                keys = np.stack(self._keys)
+                values = keys if self._values_are_keys else np.stack(self._values)
+                self._packed = (keys, values, np.stack(self._positions))
             else:
                 z = np.zeros((0, self.dim), np.float32)
                 self._packed = (z, z.copy(), np.zeros((0, 4), np.float32))
@@ -107,6 +108,23 @@ class EmbeddingStore:
     def ids(self) -> List[str]:
         return list(self._ids)
 
+    def device_arrays(self, device, mesh=None):
+        """(keys, values) as f32 tensors on `device`, to be reused across
+        queries (`dclip_tpu/data/embedding_store.py:113-124`). A store whose
+        values are its keys moves one matrix and returns it twice. `mesh`
+        (rows sharded over devices) waits for ROADMAP Queue 1 item 10."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "device_arrays(mesh=...): a store sharded across devices is ROADMAP "
+                "Queue 1 item 10 (multi-device)")
+        import torch
+
+        keys, values, _ = self._pack()
+        keys_t = torch.as_tensor(keys, dtype=torch.float32, device=device)
+        if values is keys:
+            return keys_t, keys_t
+        return keys_t, torch.as_tensor(values, dtype=torch.float32, device=device)
+
     @classmethod
     def from_arrays(cls, keys: np.ndarray, values: Optional[np.ndarray] = None,
                     positions: Optional[np.ndarray] = None,
@@ -122,6 +140,7 @@ class EmbeddingStore:
         store = cls(dim=keys.shape[1])
         store._keys, store._values, store._positions = list(keys), list(values), list(positions)
         store._ids = [str(i) for i in range(n)] if ids is None else list(ids)
+        store._values_are_keys = values is keys
         store._packed = (keys, values, positions)
         return store
 

@@ -67,6 +67,38 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                    causal: bool = False, padding_mask: Optional[torch.Tensor] = None,
+                    segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-head attention of projected q, k, v [B, S, D] (one dtype) ->
+    [B, S, D] in that dtype; masks as in `Attention.forward`. Logits and
+    softmax in f32, P V in the input dtype."""
+    b, s, d = q.shape
+    hd = d // heads
+    neg = torch.finfo(torch.float32).min
+    mask = None
+    if causal:
+        mask = torch.triu(torch.full((s, s), neg, device=q.device), diagonal=1)[None, None]
+    if padding_mask is not None:
+        pad = torch.where(padding_mask[:, None, None, :] > 0, 0.0, neg)
+        mask = pad if mask is None else mask + pad
+    if segment_ids is not None:
+        same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        seg = torch.where(same, 0.0, neg)
+        mask = seg if mask is None else mask + seg
+
+    def split(t):
+        return t.reshape(b, s, heads, hd).transpose(1, 2)
+
+    q, k, v = split(q), split(k), split(v)
+    # Logits accumulate and stay in f32 (JAX: preferred_element_type).
+    logits = (q * hd**-0.5).float() @ k.float().transpose(-1, -2)
+    if mask is not None:
+        logits = logits + mask
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return (probs @ v).transpose(1, 2).reshape(b, s, d)
+
+
 class MLP(nn.Module):
     def __init__(self, hidden: int, mlp_dim: int, device=None):
         super().__init__()
@@ -95,7 +127,6 @@ class Attention(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, S, D]; padding_mask [B, S] (1 = valid key); segment_ids
         [B, S] int (packed captions: attention within a segment)."""
-        b, s, d = x.shape
         if self.fused:
             qkv = F.linear(
                 x,
@@ -106,31 +137,9 @@ class Attention(nn.Module):
                                                    self.causal, segment_ids)
             return _linear(out, self.out_proj)
 
-        hd = d // self.heads
-        neg = torch.finfo(torch.float32).min
-        mask = None
-        if self.causal:
-            mask = torch.triu(torch.full((s, s), neg, device=x.device), diagonal=1)[None, None]
-        if padding_mask is not None:
-            pad = torch.where(padding_mask[:, None, None, :] > 0, 0.0, neg)
-            mask = pad if mask is None else mask + pad
-        if segment_ids is not None:
-            same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
-            seg = torch.where(same, 0.0, neg)
-            mask = seg if mask is None else mask + seg
-
-        def split(t):
-            return t.reshape(b, s, self.heads, hd).transpose(1, 2)
-
-        q = split(_linear(x, self.q_proj))
-        k = split(_linear(x, self.k_proj))
-        v = split(_linear(x, self.v_proj))
-        # Logits accumulate and stay in f32 (JAX: preferred_element_type).
-        logits = (q * hd**-0.5).float() @ k.float().transpose(-1, -2)
-        if mask is not None:
-            logits = logits + mask
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = (probs @ v).transpose(1, 2).reshape(b, s, d)
+        out = plain_attention(_linear(x, self.q_proj), _linear(x, self.k_proj),
+                              _linear(x, self.v_proj), self.heads, self.causal,
+                              padding_mask, segment_ids)
         return _linear(out, self.out_proj)
 
 

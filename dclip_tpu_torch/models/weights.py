@@ -124,9 +124,9 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
         else:
             raise FileNotFoundError(f"no model.safetensors or pytorch_model.bin in {path}")
     if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
+        from dclip_tpu_torch.models.hf_export import load_safetensors
 
-        sd = load_file(path)
+        sd = {k: torch.from_numpy(v) for k, v in load_safetensors(path).items()}
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
     # Older HF checkpoints carry the `position_ids` buffers; they are not

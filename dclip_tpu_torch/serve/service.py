@@ -13,14 +13,20 @@ image tower takes `models.encoding.image_route`, the JAX service's rule
 (`dclip_tpu/serve/service.py:96-118`): a bf16 model on CUDA runs the
 hand-written block kernels (`kernels.vit_block.fused_image_features`,
 K1 / K2) over weights packed once at construction; any other (f32, or on
-the CPU) runs the module path. Embeddings come back f32 and L2-normalized.
+the CPU) runs the module path. `quantize="int8"` serves both towers from
+int8 weights instead (`serve.quant`, `dclip_tpu/serve/service.py:120-141`):
+the quantized tree replaces the float weights and is moved to the device
+once, here. Embeddings come back f32 and L2-normalized.
 
 An optional in-memory retrieval index (`data.embedding_store
 .EmbeddingStore` + `ops.knn.knn_search` on the device) turns the service
-into a text->image search endpoint.
+into a text->image search endpoint. The index's keys stay on the device
+between searches: the first search after an add copies them there once
+(with a snapshot of the ids), later searches copy nothing.
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -33,6 +39,7 @@ from dclip_tpu_torch.data.embedding_store import EmbeddingStore
 from dclip_tpu_torch.models.encoding import image_forward, image_route
 from dclip_tpu_torch.ops.image_ops import normalize as clip_normalize
 from dclip_tpu_torch.ops.knn import knn_search
+from dclip_tpu_torch.serve import quant
 
 DEFAULT_BUCKETS = (1, 4, 16, 64)
 
@@ -45,6 +52,12 @@ def pad_to_bucket(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     raise ValueError(f"batch {n} exceeds the largest bucket {max(buckets)}")
+
+
+def normalized(emb: torch.Tensor) -> torch.Tensor:
+    """f32 rows scaled to unit L2 norm (the served embeddings)."""
+    emb = emb.float()
+    return emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-12)
 
 
 class ClipService:
@@ -64,29 +77,40 @@ class ClipService:
         """`model`: a `models.clip.CLIPModule` holding its weights (its
         `dtype` is the compute dtype). It is moved to `device` once, here,
         and, on the kernels' route, the image tower's weights are packed
-        once."""
-        if quantize is not None:
-            raise NotImplementedError(
-                "quantize: int8 serving is not ported yet (ROADMAP Queue 1, "
-                "serving item: --quantize int8, serve/quant.py)"
-            )
+        once. With `quantize="int8"` its weights are quantized on the host
+        and only the int8 tree (`self.params`) goes to the device; the
+        service then holds no float model (`self.model` is None)."""
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: multi-device serving is not ported yet (ROADMAP Queue 1, "
-                "serving item: --mesh_data)"
+                "mesh: multi-device serving is not ported yet (ROADMAP Queue 1 "
+                "item 10: --mesh_data)"
             )
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.buckets = tuple(sorted(buckets))
         self.normalize = normalize
         self.quantize = quantize
         self._lock = threading.Lock()  # encode calls + index mutations
-        self.image_route = image_route(self.device, self.model.dtype)
-        self._image_fn = image_forward(self.model)
+        if quantize == "int8":
+            self.model = None
+            self.params = quant.to_device(quant.quantize_clip(model, cfg), self.device)
+            self.image_route = "int8"
+            self._text_fn = functools.partial(quant.quantized_text_features, cfg, self.params)
+            self._image_fn = functools.partial(quant.quantized_image_features, cfg, self.params)
+        else:
+            self.model = model.to(self.device).eval()
+            self.image_route = image_route(self.device, self.model.dtype)
+            self._text_fn = self.model.get_text_features
+            self._image_fn = image_forward(self.model)
 
         self._index = None
+        # The index's keys on the device and its ids, built by the first
+        # search after an add and dropped by the next add (under _lock).
+        self._index_keys: Optional[torch.Tensor] = None
+        self._index_ids: Optional[List[str]] = None
         if index is not None:
             if index_dim is not None and index.dim != index_dim:
                 raise ValueError(f"index dim {index.dim} != index_dim {index_dim}")
@@ -101,10 +125,7 @@ class ClipService:
             self._index = EmbeddingStore(dim=index_dim)
 
     def _maybe_normalize(self, emb: torch.Tensor) -> torch.Tensor:
-        emb = emb.float()
-        if not self.normalize:
-            return emb
-        return emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        return normalized(emb) if self.normalize else emb.float()
 
     # -- encoding ----------------------------------------------------------
     # inference_mode sits inside these methods: grad mode is thread-local,
@@ -114,7 +135,7 @@ class ClipService:
         with torch.inference_mode():
             ids_t = torch.from_numpy(ids).to(self.device)
             mask_t = torch.from_numpy(mask).to(self.device)
-            emb = self.model.get_text_features(ids_t, mask_t)
+            emb = self._text_fn(ids_t, mask_t)
             return self._maybe_normalize(emb).cpu().numpy()
 
     def _image_batch(self, pixels_u8: np.ndarray) -> np.ndarray:
@@ -203,6 +224,7 @@ class ClipService:
             raise RuntimeError("ClipService built without index_dim")
         with self._lock:
             self._index.add_batch(list(ids), np.asarray(embeddings))
+            self._index_keys = self._index_ids = None
 
     def index_images(self, ids: Sequence[str], images: Sequence[np.ndarray]) -> None:
         self.add_to_index(ids, self.encode_images(images))
@@ -214,19 +236,21 @@ class ClipService:
     def search(self, queries: np.ndarray, k: int = 5) -> List[List[Tuple[str, float]]]:
         if self._index is None:
             raise RuntimeError("ClipService built without index_dim")
-        # Snapshot under the lock: the packed key matrix is rebuilt lazily,
-        # and a concurrent add must not be lost behind a stale pack.
+        # Snapshot under the lock: the device keys and ids are rebuilt
+        # lazily, and a concurrent add must not be lost behind a stale copy.
+        # Both are replaced, never written, so K12 runs outside the lock.
         with self._lock:
             if len(self._index) == 0:
                 return [[] for _ in range(len(queries))]
-            keys = self._index.keys
-            ids = self._index.ids
+            if self._index_keys is None:
+                self._index_keys, _ = self._index.device_arrays(self.device)
+                self._index_ids = self._index.ids
+            keys, ids = self._index_keys, self._index_ids
         if len(queries) == 0:
             return []
         with torch.inference_mode():
             q = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
-            scores, idx = knn_search(q, torch.as_tensor(keys, device=self.device),
-                                     min(k, keys.shape[0]))
+            scores, idx = knn_search(q, keys, min(k, keys.shape[0]))
             scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
         return [
             [(ids[j], float(s)) for j, s in zip(row_i, row_s)]

@@ -1104,3 +1104,142 @@ def test_distill_loss_graph_replays_beside_eager_calls(cuda_device):
         torch.cuda.synchronize()
         assert all(torch.equal(g, w) for g, w in zip(got_graphed, want_graphed))
         assert all(torch.equal(g, w) for g, w in zip(got_eager, want_eager))
+
+
+# -- the serving deployment path: int8, the exported artifact, the device index --
+
+
+def _tiny_clip(device, dtype=torch.float32, seed=0):
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.models.clip import CLIPModule
+    from dclip_tpu_torch.models.weights import random_state_dict
+
+    cfg = CLIPConfig.tiny_test()
+    model = CLIPModule(cfg, dtype=dtype, device="meta")
+    model.load_state_dict(random_state_dict(cfg, seed), assign=True)
+    return cfg, model.to(device).eval()
+
+
+def _text_inputs(cfg, n, seed):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, cfg.text.eos_token_id - 2, (n, cfg.text.max_length)).astype(np.int32)
+    mask = np.ones_like(ids)
+    ids[0, 5] = cfg.text.eos_token_id
+    ids[0, 6:], mask[0, 6:] = 0, 0
+    return ids, mask
+
+
+def _cosines(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+@pytest.mark.requires_cuda
+def test_int8_service_launches_no_block_kernel(cuda_device):
+    """`ClipService(quantize="int8")` on the card serves both towers from
+    the int8 tree (bf16 compute): no K1 / K2 launch, unit-norm embeddings
+    within cosine 0.99 of the f32 module route on the same weights."""
+    from dclip_tpu_torch.data.tokenizer import HashTokenizer
+    from dclip_tpu_torch.ops.image_ops import normalize
+    from dclip_tpu_torch.serve import ClipService
+
+    cfg, model = _tiny_clip(cuda_device)
+    tok = HashTokenizer(vocab_size=cfg.text.vocab_size, max_length=cfg.text.max_length)
+    svc = ClipService(model, cfg, tokenizer=tok, buckets=(1, 4), device=cuda_device,
+                      quantize="int8")
+    assert svc.params["vision_model"]["patch_embedding"]["q"].device.type == "cuda"
+    u8 = np.random.RandomState(8).randint(0, 256, (5,) + (cfg.vision.image_size,) * 2 + (3,),
+                                          np.uint8)
+    texts = ["a dog", "two cats", "a red car", "x", "y z"]
+    vb.reset_launches()
+    images, txt = svc.encode_images(list(u8)), svc.encode_texts(texts)
+    torch.cuda.synchronize()
+    assert set(vb.LAUNCHES.values()) == {0}
+    ids, mask = tok.encode_batch(texts, max_length=cfg.text.max_length)
+    with torch.no_grad():
+        want_i = model.image_features(normalize(
+            torch.from_numpy(u8).to(cuda_device).float() / 255.0)).cpu().numpy()
+        want_t = model.get_text_features(torch.from_numpy(ids).to(cuda_device),
+                                         torch.from_numpy(mask).to(cuda_device)).cpu().numpy()
+    for got, want in ((images, want_i), (txt, want_t)):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+        assert _cosines(got, want).min() >= 0.99
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_export_round_trip_on_the_card(cuda_device, tmp_path, quantize):
+    """`export_encoders(platforms=("cuda",))` and `load_exported(device=
+    "cuda")`: the programs carry no weights and give the live service's
+    embeddings (the f32 module route within 1e-5; int8 within 1e-3, the
+    same bf16 forward), across bucket chunks."""
+    from dclip_tpu_torch.serve import ClipService
+    from dclip_tpu_torch.serve.export import export_encoders, load_exported
+
+    cfg, model = _tiny_clip(cuda_device)
+    written = export_encoders(model, cfg, str(tmp_path), batch_sizes=(1, 4),
+                              platforms=("cuda",), quantize=quantize)
+    assert set(written) == {"params.npz"} | {f"{m}_b{b}.cuda.pt2" for m in ("text", "image")
+                                             for b in (1, 4)}
+    ep = torch.export.load(str(tmp_path / "text_b4.cuda.pt2"))
+    assert len(ep.state_dict) == 0 and len(ep.constants) == 0
+    loaded = load_exported(str(tmp_path), device="cuda")
+    svc = ClipService(model, cfg, buckets=(1, 4), device=cuda_device, quantize=quantize)
+    assert svc.image_route in ("module", "int8")
+    ids, mask = _text_inputs(cfg, 5, seed=9)
+    px = np.random.RandomState(9).standard_normal(
+        (5, cfg.vision.image_size, cfg.vision.image_size, 3)).astype(np.float32)
+    atol = 1e-5 if quantize is None else 1e-3
+    np.testing.assert_allclose(loaded.encode_texts_ids(ids, mask),
+                               svc._text_batch(ids, mask), rtol=0, atol=atol)
+    with torch.inference_mode():
+        want = svc._maybe_normalize(svc._image_fn(torch.from_numpy(px).to(cuda_device)))
+    np.testing.assert_allclose(loaded.encode_images(px), want.cpu().numpy(), rtol=0, atol=atol)
+
+
+@pytest.mark.requires_cuda
+def test_export_for_cpu_and_cuda_loads_on_both(cuda_device, tmp_path):
+    """One artifact traced for both platforms loads on each device, and the
+    two agree; a bf16 model (the kernels' route on the card) is refused."""
+    from dclip_tpu_torch.serve.export import export_encoders, load_exported
+
+    cfg, model = _tiny_clip(cuda_device)
+    export_encoders(model, cfg, str(tmp_path), batch_sizes=(2,), platforms=("cpu", "cuda"))
+    on_cpu, on_cuda = (load_exported(str(tmp_path), device=d) for d in ("cpu", "cuda"))
+    assert on_cuda.manifest["platforms"] == ["cpu", "cuda"]
+    ids, mask = _text_inputs(cfg, 3, seed=10)
+    np.testing.assert_allclose(on_cuda.encode_texts_ids(ids, mask),
+                               on_cpu.encode_texts_ids(ids, mask), rtol=0, atol=1e-5)
+    _, bf16 = _tiny_clip(cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="kernels"):
+        export_encoders(bf16, cfg, str(tmp_path / "bf16"), platforms=("cuda",))
+
+
+@pytest.mark.requires_cuda
+def test_device_resident_search_is_bit_equal(cuda_device):
+    """The service's device-resident index gives the per-call path's results
+    bit for bit (K12 over `torch.as_tensor(store.keys)` on the card), one
+    K12 launch per search, and sees each add."""
+    from dclip_tpu_torch.kernels import topk as tk
+    from dclip_tpu_torch.ops.knn import knn_search
+    from dclip_tpu_torch.serve import ClipService
+
+    cfg, model = _tiny_clip(cuda_device)
+    svc = ClipService(model, cfg, buckets=(1,), index_dim=64, device=cuda_device)
+    rng = np.random.RandomState(11)
+    rows = rng.standard_normal((3000, 64)).astype(np.float32)
+    queries = rng.standard_normal((9, 64)).astype(np.float32)
+    for lo, hi in ((0, 2000), (2000, 3000)):
+        svc.add_to_index([f"r{i}" for i in range(lo, hi)], rows[lo:hi])
+        tk.reset_launches()
+        first, again = svc.search(queries, k=7), svc.search(queries, k=7)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["topk_streamed"] == 2 and first == again
+        assert svc._index_keys.device.type == "cuda"
+        s, i = knn_search(torch.from_numpy(queries).to(cuda_device),
+                          torch.as_tensor(svc._index.keys, device=cuda_device), 7)
+        assert [[h[0] for h in row] for row in first] == [
+            [f"r{j}" for j in row] for row in i.cpu().numpy()]
+        assert np.array_equal(np.asarray([[h[1] for h in row] for row in first], np.float32),
+                              s.cpu().numpy())

@@ -98,11 +98,13 @@ def test_search_matches_jax_service(services):
 
 
 def test_service_refuses_what_is_not_ported():
+    """A mesh still waits for ROADMAP item 10; `quantize` other than int8
+    is a ValueError, as in the JAX service."""
     cfg = CLIPConfig.tiny_test()
     _, params = torch_parity.jax_clip(cfg, seed=0)
     model = torch_parity.port_clip(cfg, params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ClipService(model, cfg, quantize="int8", device="cpu")
+    with pytest.raises(ValueError, match="quantize"):
+        ClipService(model, cfg, quantize="fp4", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ClipService(model, cfg, mesh=2, device="cpu")
 
@@ -211,11 +213,166 @@ def test_cli_selftest_subprocess():
     assert '"id": "probe"' in out.stdout
 
 
-def test_cli_refuses_export_and_default_cuda_without_card(monkeypatch):
+def test_cli_refuses_export_and_default_cuda_without_card(monkeypatch, tmp_path):
+    """An export platform other than cpu / cuda is a ValueError; without a
+    card the default device (cuda) raises, with no fall-back to the CPU."""
     from dclip_tpu_torch.cli import serve as cli_serve
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_serve.main(["--device", "cpu", "--model_preset", "tiny", "--export_dir", "x"])
+    with pytest.raises(ValueError, match="platforms"):
+        cli_serve.main(["--device", "cpu", "--model_preset", "tiny", "--export_dir",
+                        str(tmp_path / "x"), "--export_platforms", "tpu"])
+    assert not (tmp_path / "x").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         cli_serve.main(["--model_preset", "tiny", "--selftest"])
+
+
+# -- the device-resident index ----------------------------------------------------
+
+
+def _unit_rows(n, dim, seed):
+    v = np.random.RandomState(seed).standard_normal((n, dim)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def _cpu_service(cfg, **kw):
+    _, params = torch_parity.jax_clip(cfg, seed=0)
+    return ClipService(torch_parity.port_clip(cfg, params), cfg, buckets=(1, 4),
+                       device="cpu", **kw)
+
+
+def test_search_equals_knn_over_the_store_keys():
+    """After each add, `search` returns what `knn_search` gives over the
+    store's host keys, equal ids and equal bits; the device keys and the id
+    snapshot are built once per add, not per search."""
+    from dclip_tpu_torch.ops.knn import knn_search
+
+    cfg = CLIPConfig.tiny_test()
+    svc = _cpu_service(cfg, index_dim=cfg.projection_dim)
+    queries = _unit_rows(6, cfg.projection_dim, seed=11)
+    rows = _unit_rows(30, cfg.projection_dim, seed=12)
+    for lo, hi in ((0, 7), (7, 30)):
+        svc.add_to_index([f"r{i}" for i in range(lo, hi)], rows[lo:hi])
+        assert svc._index_keys is None
+        hits = svc.search(queries, k=4)
+        keys, ids = svc._index_keys, svc._index_ids
+        assert svc.search(queries, k=4) == hits
+        assert svc._index_keys is keys and svc._index_ids is ids
+        scores, idx = knn_search(torch.from_numpy(queries),
+                                 torch.as_tensor(svc._index.keys), 4)
+        assert [[i for i, _ in row] for row in hits] == [
+            [f"r{j}" for j in row] for row in idx.numpy()]
+        assert np.array_equal(np.asarray([[s for _, s in row] for row in hits], np.float32),
+                              scores.numpy())
+
+
+def test_an_add_is_visible_to_the_next_search():
+    cfg = CLIPConfig.tiny_test()
+    svc = _cpu_service(cfg, index_dim=cfg.projection_dim)
+    rows = _unit_rows(4, cfg.projection_dim, seed=13)
+    svc.add_to_index(["a", "b", "c"], rows[:3])
+    assert [r[0][0] for r in svc.search(rows, k=1)][:3] == ["a", "b", "c"]
+    svc.add_to_index(["d"], rows[3:])
+    (hits,) = svc.search(rows[3:], k=1)
+    assert hits[0][0] == "d" and hits[0][1] == pytest.approx(1.0, abs=1e-6)
+
+
+def test_search_sees_concurrent_adds():
+    """`test_search_sees_concurrent_adds` of `tests/test_serve.py`, ported
+    to the device-resident index: one adder and two searchers race; a
+    search's device copy built before an add must not hide that add, so
+    every add is visible after the race."""
+    import sys
+    import threading
+
+    cfg = CLIPConfig.tiny_test()
+    svc = _cpu_service(cfg, index_dim=cfg.projection_dim)
+    vecs = _unit_rows(40, cfg.projection_dim, seed=7)
+    errors = []
+
+    def adder():
+        try:
+            for i in range(40):
+                svc.add_to_index([f"v{i}"], vecs[i:i + 1])
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    def searcher():
+        try:
+            for _ in range(60):
+                if svc.index_size:
+                    svc.search(vecs[:2], k=1)
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=adder)] + [
+            threading.Thread(target=searcher) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert svc.index_size == 40
+    (hits,) = svc.search(vecs[39:40], k=1)
+    assert hits[0][0] == "v39"
+    assert [row[0][0] for row in svc.search(vecs, k=1)] == [f"v{i}" for i in range(40)]
+
+
+def test_device_arrays_equal_the_store_arrays():
+    """`device_arrays` gives (keys, values) as f32 tensors on the device;
+    a store without explicit values moves one matrix for both; `mesh`
+    waits for ROADMAP item 10."""
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+
+    rows = _unit_rows(5, 8, seed=14)
+    store = EmbeddingStore(dim=8)
+    store.add_batch([f"k{i}" for i in range(5)], rows)
+    keys, values = store.device_arrays("cpu")
+    assert keys.dtype == torch.float32 and keys is values
+    np.testing.assert_array_equal(keys.numpy(), store.keys)
+    np.testing.assert_array_equal(values.numpy(), store.values)
+    vals = _unit_rows(5, 8, seed=15) * 3
+    store.add_batch(["x"], rows[:1], values=vals[:1])
+    keys, values = store.device_arrays(torch.device("cpu"))
+    assert keys.shape == values.shape == (6, 8)
+    np.testing.assert_array_equal(keys.numpy(), store.keys)
+    np.testing.assert_array_equal(values.numpy(), store.values)
+    np.testing.assert_array_equal(values.numpy()[5], vals[0])
+    loaded = EmbeddingStore.from_arrays(store.keys, store.values, ids=store.ids)
+    for got, want in zip(loaded.device_arrays("cpu"), (store.keys, store.values)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        store.device_arrays("cpu", mesh=object())
+
+
+def test_build_service_from_student_checkpoint(tmp_path):
+    """`--student_checkpoint` (`tests/test_serve.py:449-489`, ported): a
+    perturbed text projection saved by the port's `CheckpointManager`
+    changes the served text embeddings, which equal those of a service
+    given the same weights directly."""
+    from dclip_tpu_torch.cli import serve as cli_serve
+    from dclip_tpu_torch.cli.common import load_clip
+    from dclip_tpu_torch.train.checkpoint import CheckpointManager
+
+    flags = ["--device", "cpu", "--model_preset", "tiny", "--seed", "0", "--buckets", "1,4"]
+    cfg, model = load_clip("tiny", "random", seed=0, device="cpu")
+    sd = model.state_dict()
+    sd["text_projection.weight"] = sd["text_projection.weight"] + torch.from_numpy(
+        np.random.RandomState(5).randn(*sd["text_projection.weight"].shape).astype(np.float32))
+    CheckpointManager(str(tmp_path)).save({"params": sd, "step": 3}, step=3, epoch=0)
+    svc = cli_serve.build_service(cli_serve.parse_args(
+        flags + ["--student_checkpoint", str(tmp_path)]))
+    base = cli_serve.build_service(cli_serve.parse_args(flags))
+    texts = ["a dog in the park", "two cats"]
+    served, original = svc.encode_texts(texts), base.encode_texts(texts)
+    assert served.shape == original.shape
+    assert not np.allclose(served, original)
+    model.load_state_dict(sd)
+    direct = ClipService(model, cfg, tokenizer=base.tokenizer, buckets=(1, 4), device="cpu")
+    np.testing.assert_array_equal(served, direct.encode_texts(texts))
