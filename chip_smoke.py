@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training, eval and deployment paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: serving, training, eval,
+deployment and region proposals.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -80,6 +81,8 @@ Phases; each one passes or raises, and any failure exits non-zero:
    unit keys: the same launches plus one K12 (Q = 2,048 patch embeddings),
    and a second gated step under torch.profiler: its device time by
    kernel, K12's kernels by name, beside the gated and ungated step times.
+   Then one step with the gate's projection head too (`projection_params`,
+   seeded): the same launches, every patch a miss that takes source 1.
 10. Cache levels: a `TeacherTargetCache`; the first step misses and fills
    every level, a repeat hits the device full-target level (no K1 / K2 /
    K10 launch), the same images with resampled captions hit the device
@@ -195,6 +198,39 @@ Phases; each one passes or raises, and any failure exits non-zero:
    from the base service's and equal a service given the same weights
    directly; `cli.export_hf` writes its HF snapshot, which the port's
    reader loads back bit-equal, `logit_scale` 0-d.
+
+28. Detector: YOLOv8x (`DetectorConfig.v8x()`, 640 px, random weights from
+   seed 0, f32 with TF32 on process-wide: the detector pins f32
+   convolutions for its forward) on seeded images (smooth colour fields
+   with noise on top): `Detector.detect` at B = 1, 16, 32, the network and
+   decode + NMS apart on CUDA events and the host clock, images/s, peak
+   memory, beside the f32 bound from the module's own conv shapes (257.8
+   GFLOPs an image, checked against ultralytics' table, over 67 TFLOP/s),
+   a TF32 forward and a forward with `cudnn.benchmark` on (measurements
+   only); a torch.profiler window of one B=1 forward (kernel count, device
+   busy share, the top kernels); no hand-written kernel launches. The f32 logits of one image
+   against the same module on the CPU (within 1e-4 of the largest |cpu|
+   logit, the TF32 forward's error printed beside); decode against the CPU's on the
+   same logits and postprocess on identical decoded candidates (B=16),
+   indices, classes, masks, boxes and scores bit-equal.
+29. Region tokens: the top 8 detections of each of phase 28's 32 images
+   through `RegionTokenizer` at ViT-B/16 (random weights from seed 0, bf16,
+   K1 / K2) with a seeded projection head, over 100,000 seeded unit keys,
+   one of them planted for each region at a set cosine to its f32-route
+   embedding (0.60 to 0.99, by the region's rank along the batch's first
+   principal axis, so that neighbours get neighbouring cosines): exact K1 /
+   K2 / K12 launches and ms of `batch_tokenize` and of an 8-threshold
+   `evaluate_threshold` (one region encode, 8 K12); K12 at the gate's shape
+   against its plain twin on the CPU; the sweep against the plain
+   reference at every threshold, and moving; the region embeddings against
+   the f32 module route, raw and centred on the batch mean (cosine >= 0.99
+   both; another image's region in a region's place fails the centred
+   bound); the sources
+   against the reference's and the f32 route's; at a threshold above 1
+   every region on the projection branch (centred cosine >= 0.99). The
+   precache, build_index and tune_gate CLIs
+   read images with PIL, which the card machine lacks: the CPU tests run
+   them.
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type (989 TFLOP/s bf16
@@ -391,7 +427,11 @@ def import_port_modules():
                  "dclip_tpu_torch.eval.zero_shot", "dclip_tpu_torch.data.embedding_store",
                  "dclip_tpu_torch.data.tokenizer", "dclip_tpu_torch.serve.quant",
                  "dclip_tpu_torch.serve.export", "dclip_tpu_torch.models.hf_export",
-                 "dclip_tpu_torch.cli.export_hf"):
+                 "dclip_tpu_torch.cli.export_hf", "dclip_tpu_torch.ops.nms",
+                 "dclip_tpu_torch.models.detector", "dclip_tpu_torch.models.detector_import",
+                 "dclip_tpu_torch.models.projections", "dclip_tpu_torch.models.region_tokenizer",
+                 "dclip_tpu_torch.data.index", "dclip_tpu_torch.cli.precache",
+                 "dclip_tpu_torch.cli.build_index", "dclip_tpu_torch.cli.tune_gate"):
         importlib.import_module(name)
 
 
@@ -1521,8 +1561,8 @@ def gated_step(torch, np, trainer, batch, ungated_ms, card: str):
     gen = torch.Generator(device="cuda").manual_seed(7)
     keys = torch.randn((GATE_N, trainer.teacher_clip_config.projection_dim), generator=gen,
                        device="cuda")
-    trainer._init_knn_gate(EmbeddingStore.from_arrays((keys / keys.norm(dim=-1, keepdim=True))
-                                                      .cpu().numpy()))
+    store = EmbeddingStore.from_arrays((keys / keys.norm(dim=-1, keepdim=True)).cpu().numpy())
+    trainer._init_knn_gate(store)
     torch.cuda.synchronize()
     _reset_all_launches()
     t0 = time.perf_counter()
@@ -1537,7 +1577,51 @@ def gated_step(torch, np, trainer, batch, ungated_ms, card: str):
     if launches != expected or not np.isfinite(loss):
         raise AssertionError(f"gated step: launches {launches} != {expected}, loss {loss}")
     gated_profile(torch, trainer, batch, gated_ms, ungated_ms, card)
+    projected = projection_step(torch, np, trainer, batch, store, expected, gated_ms,
+                                ungated_ms, card)
     trainer._init_knn_gate(None)
+    return launches["topk_streamed"] + projected
+
+
+def projection_step(torch, np, trainer, batch, store, expected, gated_ms, ungated_ms, card):
+    """One more uncached step with the gate's projection head on
+    (`projection_params`, seeded `init_image_projection`) over the same
+    store: the gated step's launches, and every patch that misses the store
+    (all of them: its keys are random) takes the projection, source 1.
+    Returns its K12 launches."""
+    from dclip_tpu_torch.models.projections import init_image_projection
+    from dclip_tpu_torch.ops import knn
+
+    d = trainer.teacher_clip_config.projection_dim
+    trainer._init_knn_gate(store, init_image_projection(seed=0, clip_dim=d)[1], d)
+    sources = []
+    real_gate = knn.knn_or_projection
+
+    def recording_gate(*a, **k):
+        res = real_gate(*a, **k)
+        sources.append(res.source)
+        return res
+
+    knn.knn_or_projection = recording_gate
+    try:
+        torch.cuda.synchronize()
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step_on_batch(batch)["loss"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        knn.knn_or_projection = real_gate
+    launches = _all_launches()
+    src = torch.cat(sources).cpu()
+    counts = {int(s): int((src == s).sum()) for s in (0, 1, 2)}
+    print(f"gated: one uncached step with the projection head over {GATE_N} keys: {ms} ms "
+          f"(store only {gated_ms}, ungated mean {ungated_ms} ms), loss {loss}, sources "
+          f"{counts} (0 knn, 1 projection, 2 clip), launches {json.dumps(launches)} ({card})",
+          flush=True)
+    if launches != expected or not np.isfinite(loss) or counts[2] or not counts[1]:
+        raise AssertionError(f"projection step: launches {launches} != {expected}, loss {loss}, "
+                             f"sources {counts}")
     return launches["topk_streamed"]
 
 
@@ -2945,6 +3029,429 @@ def student_phase(torch, np, cli_serve, card: str):
     torch.cuda.empty_cache()
 
 
+# -- the region-proposal slice: YOLOv8x, region tokens, the projection gate ------
+
+# YOLOv8x at 640 (`DetectorConfig.v8x()`, the reference's proposal source):
+# B=1 is what precache runs per image, 16 and 32 the batched forward.
+DET_BATCHES, DET_ITERS = (1, 16, 32), 3
+# The card's f32 logits vs the same module on the CPU, one image: f32 sums
+# in other orders over ~100 convolutions with BatchNorm between, within
+# 1e-4 of the largest |cpu| logit of each output (a TF32 forward's error is
+# printed beside it). At random weights the logits are small, so the error
+# is taken relative to their scale, not to 1.
+DET_LOGIT_TOL = 1e-4
+# Decode on the card vs on the CPU from the same logits: coordinates up to
+# ~1,000 px, softmax sums of 16 bins.
+DET_BOX_TOL, DET_SCORE_TOL = 1e-3, 1e-6
+# Region tokens: the top 8 detections of each of 32 images, the default
+# threshold, 8 thresholds in the sweep (`evaluate_threshold`'s default,
+# 0.60 to 0.95). The store: 100,000 seeded unit keys, the first of them
+# planted, one for each valid region, at a cosine from REGION_PLANT_COS to
+# its f32-route embedding. A random ViT puts a batch's regions close
+# together, so a key near one region is near its neighbours too: the
+# cosines rise with the region's rank along the batch's first principal
+# axis, so that neighbours have neighbouring cosines and the thresholds
+# split hits from misses.
+REGION_P, REGION_STORE_N = 8, 100_000
+REGION_THRESHOLD = 0.85
+REGION_SWEEP = tuple(0.60 + 0.05 * i for i in range(8))
+REGION_PLANT_COS = (0.60, 0.99)
+# The sweep has to move: from its first threshold to its last, at least
+# this share of the valid regions turns from a hit into a miss.
+REGION_SWEEP_MOVE = 0.25
+# A source may differ from the reference's only where the top-1 similarity
+# lies within this much of the threshold.
+REGION_NEAR = 1e-3
+# The embeddings are compared centred on their route's batch mean, where
+# the regions lie apart; a region's embedding put in the place of another
+# image's nearest region has to fail that bound for at least this share of
+# the regions, or the comparison could not see rows mixed up across the
+# batch. (Crops of one image overlap and may lie closer.)
+REGION_SWAP_SHARE = 0.9
+
+
+def _conv_flops(torch, model, image_size: int) -> float:
+    """f32 FLOPs of one image through `model`'s convolutions (2 per
+    multiply-add, plus the bias adds), from a forward on the meta device."""
+    flops = [0.0]
+
+    def hook(mod, inp, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        flops[0] += 2.0 * out.numel() * (mod.in_channels // mod.groups) * k
+        flops[0] += out.numel() if mod.bias is not None else 0.0
+
+    from dclip_tpu_torch.models.detector import YOLO
+
+    meta = YOLO(model.cfg, device="meta")
+    handles = [m.register_forward_hook(hook) for m in meta.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        meta(torch.empty((1, image_size, image_size, 3), device="meta"))
+    for h in handles:
+        h.remove()
+    return flops[0]
+
+
+def _scene_images(torch, n: int, size: int, seed: int):
+    """[n, size, size, 3] in [0, 1] on the card: a smooth colour field (a
+    seeded 16 x 16 grid, bicubic upsampled) with 0.2 of uniform noise on
+    top, so that crops of other places and images differ in colour, as
+    crops of photographs do. Crops of pure noise all look alike to a random
+    ViT; so do crops of a 6 x 6 field, whose regions are too close together
+    for phase 29 to see rows mixed up across the batch."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grid = torch.rand((n, 3, 16, 16), generator=gen, device="cuda")
+    field = torch.nn.functional.interpolate(grid, size=(size, size), mode="bicubic",
+                                            align_corners=False).clamp(0, 1)
+    noise = torch.rand((n, size, size, 3), generator=gen, device="cuda")
+    return (0.8 * field.permute(0, 2, 3, 1) + 0.2 * noise).contiguous()
+
+
+def _detector_profile(torch, detector, images, card: str):
+    """One B=1 forward under torch.profiler (kernel count, device busy
+    share of the wall time, the top kernels), and the network timed with
+    `cudnn.benchmark` on (measurement only; the flag is restored)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = images[:1]
+    detector.logits(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        detector.logits(x)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == cuda and e.self_device_time_total > 0),
+                  key=lambda r: -r[2])
+    device_ms = sum(ms for _, _, ms in rows)
+    print(f"detector: profiled B=1 forward: wall {wall_ms} ms, {sum(n for _, n, _ in rows)} "
+          f"device kernels, device {device_ms} ms, busy {100.0 * device_ms / wall_ms}% "
+          f"({card})", flush=True)
+    for key, n, ms in rows[:6]:
+        print(f"detector: {ms:9.3f} ms x{n:<4d} {key[:100]}", flush=True)
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        bench_ms = {b: time_one(torch, lambda b=b: detector.logits(images[:b]), DET_ITERS)
+                    for b in (1, 16)}
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    print(f"detector: network with cudnn.benchmark on (measurement only): "
+          f"{json.dumps(bench_ms)} ms at B = 1, 16 ({card})", flush=True)
+
+
+def _max_rel_err(outs, refs) -> float:
+    """max over every scale's box and class logits of max |got - ref| / max |ref|."""
+    return max((g.float().cpu() - r).abs().max().item() / r.abs().max().item()
+               for pair, ref in zip(outs, refs) for g, r in zip(pair, ref))
+
+
+def detector_phase(torch, np, card: str):
+    """Phase 28: YOLOv8x at 640 px, random weights from seed 0, f32 on the
+    card: `Detector.detect` at B = 1, 16, 32 (the network and decode + NMS
+    apart, on CUDA events and the host clock; images/s, peak memory) beside
+    the f32 bound from the module's own conv shapes and a TF32 forward
+    (measurement only); the f32 logits against the same module on the CPU
+    on one image; decode against the CPU's on the same logits and
+    postprocess on identical decoded candidates, bit-equal. No hand-written
+    kernel runs on this path (the JAX detector is XLA). Returns the
+    detector's images and detections at B=32 for phase 29."""
+    from dclip_tpu_torch.models import detector as det
+
+    cfg = det.DetectorConfig.v8x()
+    sd = det.random_detector_state_dict(cfg, seed=0)
+    t0 = time.perf_counter()
+    detector = det.Detector(cfg, sd, "cuda")
+    print(f"detector: YOLOv8x built in {time.perf_counter() - t0} s, "
+          f"{sum(p.numel() for p in detector.model.parameters())} parameters", flush=True)
+    gflops = _conv_flops(torch, detector.model, cfg.image_size) / 1e9
+    print(f"detector: {gflops} GFLOPs an image at {cfg.image_size} px from the port's conv "
+          f"shapes (ultralytics' table: 257.8)", flush=True)
+    if abs(gflops - 257.8) > 0.5:
+        raise AssertionError(f"detector FLOP count {gflops} is not YOLOv8x's 257.8")
+    images = _scene_images(torch, max(DET_BATCHES), cfg.image_size, seed=0)
+    torch.backends.cudnn.allow_tf32 = True  # the process default: the detector pins f32 itself
+    _reset_all_launches()
+    out = None
+    for b in DET_BATCHES:
+        x = images[:b]
+
+        def tf32_forward():
+            with torch.inference_mode():
+                return detector.model(x)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        detector.detect(x)
+        torch.cuda.synchronize()
+        host, host_net = [], []
+        for _ in range(DET_ITERS):
+            t0 = time.perf_counter()
+            outs = detector.logits(x)
+            torch.cuda.synchronize()
+            host_net.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            out = detector.detect(x)
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        net_ms = time_one(torch, lambda: detector.logits(x), DET_ITERS)
+        post_ms = time_one(torch, lambda: det.postprocess(cfg, *det.decode_predictions(cfg, outs)),
+                           DET_ITERS)
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("the detector did not restore the process's TF32 flag")
+        tf32_ms = time_one(torch, tf32_forward, DET_ITERS)
+        bound_ms = 1e3 * b * gflops * 1e9 / F32_PEAK
+        detect_ms = sum(host) / len(host)
+        print(f"detector: B={b}: network {net_ms} ms (CUDA events; host {host_net}), decode + NMS "
+              f"{post_ms} ms, detect end to end {host} ms host, {1e3 * b / detect_ms} images/s; "
+              f"f32 bound {bound_ms} ms ({b * gflops} GFLOP / 67 TFLOP/s, "
+              f"{bound_ms / net_ms} of it); TF32 forward {tf32_ms} ms; peak {peak} GiB "
+              f"({card})", flush=True)
+    launches = {k: v for k, v in _all_launches().items() if v}
+    print(f"detector: hand-written kernel launches {json.dumps(launches)} (expected none)",
+          flush=True)
+    _detector_profile(torch, detector, images, card)
+    if launches:
+        raise AssertionError(f"the detector path launched {launches}")
+    picks = out.mask.sum(1)
+    print(f"detector: picks per image at B=32: min {picks.min().item()} mean "
+          f"{picks.mean().item()} of {cfg.max_detections}", flush=True)
+
+    # The f32 logits against the CPU's, one image; the TF32 forward beside.
+    x1 = images[:1]
+    t0 = time.perf_counter()
+    ref = det.Detector(cfg, sd, "cpu").logits(x1.cpu())
+    cpu_s = time.perf_counter() - t0
+    err = _max_rel_err(detector.logits(x1), ref)
+    with torch.inference_mode():
+        err_tf32 = _max_rel_err(detector.model(x1), ref)
+    scale = [(bx.abs().max().item(), c.abs().max().item()) for bx, c in ref]
+    print(f"detector: f32 logits card vs CPU (one image, CPU forward {cpu_s} s): max err "
+          f"{err} of the largest |cpu| logit (max |box|, |cls| per scale {scale}), bound "
+          f"{DET_LOGIT_TOL}; a TF32 forward: {err_tf32}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    if not err <= DET_LOGIT_TOL:
+        raise AssertionError(f"detector f32 logits err {err} > {DET_LOGIT_TOL}")
+
+    # Decode: card vs CPU on the same logits; postprocess on identical
+    # decoded candidates, bit-equal.
+    outs = detector.logits(images[:16])
+    with torch.inference_mode():
+        cand = det.decode_predictions(cfg, outs)
+        cpu_cand = det.decode_predictions(cfg, [(bx.cpu(), c.cpu()) for bx, c in outs])
+        box_err = (cand[0].cpu() - cpu_cand[0]).abs().max().item()
+        score_err = (cand[1].cpu() - cpu_cand[1]).abs().max().item()
+        got = det.postprocess(cfg, *cand)
+        want = det.postprocess(cfg, *(t.cpu() for t in cand))
+    equal = {name: torch.equal(g.cpu(), w) for name, g, w in zip(got._fields, got, want)}
+    print(f"detector: decode card vs CPU on the same logits: boxes {box_err} px (bound "
+          f"{DET_BOX_TOL}), scores {score_err} (bound {DET_SCORE_TOL}); postprocess on identical "
+          f"candidates (B=16, {int(want.mask.sum())} picks) equal: {json.dumps(equal)}",
+          flush=True)
+    if not (box_err <= DET_BOX_TOL and score_err <= DET_SCORE_TOL and all(equal.values())):
+        raise AssertionError("detector decode / postprocess differ from the CPU's")
+    return images, out
+
+
+def _tokenizer(model, store, pparams):
+    from dclip_tpu_torch.models.region_tokenizer import RegionTokenizer
+
+    return RegionTokenizer(model, store=store, projection_params=pparams,
+                           similarity_threshold=REGION_THRESHOLD,
+                           patch_size=model.cfg.vision.image_size)
+
+
+def _planted_keys(torch, emb, n: int, seed: int):
+    """n seeded unit keys [n, D] (numpy f32) on emb's device; key i < len(emb)
+    is planted at cosine c_i to the unit row emb[i]: c_i e_i + (1 - c_i^2)^0.5
+    u_i with u_i a seeded unit vector orthogonal to e_i, and c_i rising
+    over REGION_PLANT_COS with the row's rank along the first principal
+    axis of the centred rows. Returns (keys, c)."""
+    gen = torch.Generator(device=emb.device).manual_seed(seed)
+    keys = torch.randn((n, emb.shape[1]), generator=gen, device=emb.device)
+    keys = keys / keys.norm(dim=-1, keepdim=True)
+    m = emb.shape[0]
+    centred = emb - emb.mean(0)
+    axis = torch.linalg.svd(centred, full_matrices=False)[2][0]
+    rank = (centred @ axis).argsort().argsort().float() / max(m - 1, 1)
+    lo, hi = REGION_PLANT_COS
+    c = lo + (hi - lo) * rank
+    u = keys[:m] - (keys[:m] * emb).sum(-1, keepdim=True) * emb
+    u = u / u.norm(dim=-1, keepdim=True)
+    keys[:m] = c[:, None] * emb + (1 - c * c).sqrt()[:, None] * u
+    return keys.cpu().numpy(), c
+
+
+def _centred(x):
+    x = x - x.mean(0)
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def region_token_phase(torch, np, images, detections, card: str, table: KernelTable):
+    """Phase 29: the top 8 YOLOv8x boxes of each of 32 images through
+    `RegionTokenizer` at ViT-B/16 (random weights from seed 0, bf16: K1 / K2)
+    with a seeded projection head, over a store of 100,000 seeded unit keys,
+    one planted for each valid region (`_planted_keys`): exact K1 / K2 / K12
+    launches for `batch_tokenize` and for an 8-threshold
+    `evaluate_threshold` (one region encode, 8 K12), ms of each; K12 at the
+    gate's shape against its plain twin on the CPU, on the same queries and
+    keys; the sweep against the plain reference's top-1 similarities at
+    every threshold (the hit shares equal but for rows within 1e-3 of the
+    threshold), and moving; the region embeddings against the f32 module
+    route on the card, raw and centred on the batch mean (cosine >= 0.99;
+    another image's region in a region's place has to fail the centred
+    bound); the sources at
+    the default threshold against the reference's and the f32 route's, no
+    source 2; at a threshold above 1 every region takes the projection head
+    on both routes (centred cosine >= 0.99). Returns the K1 / K2 and K12
+    launches of both timed calls."""
+    from dclip_tpu_torch.cli.common import load_clip
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+    from dclip_tpu_torch.models.clip import CLIPModule
+    from dclip_tpu_torch.models.projections import init_image_projection
+    from dclip_tpu_torch.ops import knn
+
+    cfg, model = load_clip("vit-b-16", "random", 0, "bfloat16", "cuda")
+    f32 = CLIPModule(cfg, dtype=torch.float32, device="meta")
+    f32.load_state_dict(model.state_dict(), strict=True, assign=True)
+    f32.eval()
+    boxes = detections.boxes[:, :REGION_P].contiguous()
+    mask = detections.mask[:, :REGION_P].contiguous()
+    b = boxes.shape[0]
+    valid = mask.reshape(-1) > 0
+    nv = int(valid.sum())
+    print(f"regions: {b} images x {REGION_P} boxes, {nv} valid", flush=True)
+    _, pparams = init_image_projection(seed=0, clip_dim=cfg.projection_dim)
+    raw32 = _tokenizer(f32, None, None)._queries(images, boxes, mask)[0]
+    keys, planted = _planted_keys(torch, raw32[valid], REGION_STORE_N, seed=3)
+    store = EmbeddingStore.from_arrays(keys)
+    tok = _tokenizer(model, store, pparams)
+    tok32 = _tokenizer(f32, store, pparams)
+    layers = cfg.vision.num_layers
+    encode = {"layernorm": 2 * layers, "gemm_bias_act_residual": 4 * layers,
+              "attention": layers, "attention_block": layers, "mlp_block": layers,
+              "encoder_forward": 1, "image_features": 1}
+    launches = {}
+    calls = (("batch_tokenize", lambda: tok.batch_tokenize(images, boxes, mask), 1),
+             ("evaluate_threshold",
+              lambda: tok.evaluate_threshold(images, boxes, mask, REGION_SWEEP), len(REGION_SWEEP)))
+    for what, call, k12 in calls:
+        call()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(3):
+            _reset_all_launches()
+            t0 = time.perf_counter()
+            result = call()
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t0))
+        got = {k: v for k, v in _all_launches().items() if v}
+        expected = dict(encode, topk_streamed=k12)
+        print(f"regions: {what}: {host} ms host ({b * REGION_P} crops, {REGION_STORE_N} keys), "
+              f"launches {json.dumps(got)} ({card})", flush=True)
+        if got != expected:
+            raise AssertionError(f"{what}: launches {got} != {expected}")
+        launches[what] = got
+    sweep = result
+
+    # K12 at the gate's shape against its plain twin on the CPU.
+    raw16 = tok._queries(images, boxes, mask)[0]
+    keys_cpu = torch.from_numpy(keys)
+    got = knn.knn_search(raw16, tok._store_keys, tok.top_k)
+    _hold_topk(torch, f"region gate {raw16.shape[0]}x{REGION_STORE_N}x{cfg.projection_dim} "
+               f"k={tok.top_k}", tuple(t.cpu() for t in got), raw16.cpu(), keys_cpu,
+               tok.top_k, table)
+
+    # The sweep against the plain reference's top-1 similarities.
+    top1 = knn.knn_search(raw16.cpu(), keys_cpu, 1)[0][:, 0][valid.cpu()]
+    top1_32 = knn.knn_search(raw32.cpu(), keys_cpu, 1)[0][:, 0][valid.cpu()]
+    if not (top1_32 >= planted.cpu() - TOPK_TOL).all():
+        raise AssertionError("a region's planted key is not at its set cosine")
+    print(f"regions: planted cosines {REGION_PLANT_COS[0]} to {REGION_PLANT_COS[1]}; reference "
+          f"top-1 of the bf16 queries min {top1.min().item()} mean {top1.mean().item()} max "
+          f"{top1.max().item()}", flush=True)
+    print("regions: sweep", json.dumps(sweep), flush=True)
+    fractions = []
+    for th in REGION_SWEEP:
+        row = sweep[round(float(th), 2)]
+        hits, near = top1 >= th, (top1 - th).abs() <= REGION_NEAR
+        lo, hi = (hits & ~near).sum().item() / nv, (hits | near).sum().item() / nv
+        want_sim = top1[hits].mean().item() if hits.any() else 0.0
+        print(f"regions: sweep at {th}: knn_fraction {row['knn_fraction']}, reference "
+              f"{hits.sum().item() / nv} ({int(near.sum())} rows within {REGION_NEAR}); mean "
+              f"similarity {row['mean_similarity']}, reference {want_sim}", flush=True)
+        if not lo <= row["knn_fraction"] <= hi or (
+                not near.any() and abs(row["mean_similarity"] - want_sim) > TOPK_TOL):
+            raise AssertionError(f"the sweep at {th} differs from the plain reference")
+        fractions.append(row["knn_fraction"])
+    moved = fractions[0] - fractions[-1]
+    if any(a < c for a, c in zip(fractions, fractions[1:])) or moved < REGION_SWEEP_MOVE:
+        raise AssertionError(f"the sweep does not move: knn fractions {fractions} (at least "
+                             f"{REGION_SWEEP_MOVE} of the regions must turn into misses)")
+
+    # The bf16 route against the f32 module route on the card, raw and
+    # centred on the batch mean.
+    q16, q32 = raw16[valid].float(), raw32[valid]
+    cos = (q16 * q32).sum(-1)
+    c16, c32 = _centred(q16), _centred(q32)
+    ccos = (c16 * c32).sum(-1)
+    image = torch.arange(b, device=valid.device).repeat_interleave(REGION_P)[valid]
+    others = c32 @ c32.T
+    others.fill_diagonal_(-2.0)
+    swap = (others.max(1).values < COS_BOUND).float().mean().item()
+    others[image[:, None] == image[None, :]] = -2.0
+    swap_images = (others.max(1).values < COS_BOUND).float().mean().item()
+    print(f"regions: bf16 kernels vs f32 module route, {nv} regions: cosine min "
+          f"{cos.min().item()} mean {cos.mean().item()}; centred on the batch mean min "
+          f"{ccos.min().item()} mean {ccos.mean().item()}; bound {COS_BOUND}. The nearest "
+          f"region of another image in a region's place fails the centred bound for "
+          f"{swap_images} of the regions, the nearest of any image for {swap} (raw cosine to "
+          f"the nearest other: mean "
+          f"{(q32 @ q32.T).fill_diagonal_(-2.0).max(1).values.mean().item()})", flush=True)
+    if not (cos.min().item() >= COS_BOUND and ccos.min().item() >= COS_BOUND):
+        raise AssertionError(f"region embeddings cosine {cos.min().item()} / centred "
+                             f"{ccos.min().item()} < {COS_BOUND}")
+    if swap_images < REGION_SWAP_SHARE:
+        raise AssertionError(f"the regions lie too close together for the centred cosine to "
+                             f"see rows mixed up ({swap_images} < {REGION_SWAP_SHARE})")
+
+    # The sources at the default threshold: the reference's and the f32 route's.
+    src = tok.batch_tokenize(images, boxes, mask).source.reshape(-1)[valid].cpu()
+    src32 = tok32.batch_tokenize(images, boxes, mask).source.reshape(-1)[valid].cpu()
+    want = torch.where(top1 >= REGION_THRESHOLD, knn.SOURCE_KNN, knn.SOURCE_PROJECTION)
+    near = (top1 - REGION_THRESHOLD).abs() <= REGION_NEAR
+    lo, hi = torch.minimum(top1, top1_32), torch.maximum(top1, top1_32)
+    between = (lo - REGION_NEAR <= REGION_THRESHOLD) & (REGION_THRESHOLD <= hi + REGION_NEAR)
+    counts = {int(v): int((src == v).sum()) for v in (0, 1, 2)}
+    print(f"regions: sources at {REGION_THRESHOLD} {counts} (0 knn, 1 projection, 2 clip); "
+          f"{int((src != want).sum())} differ from the reference's ({int(near.sum())} rows within "
+          f"{REGION_NEAR} of the threshold), {int((src != src32).sum())} from the f32 route's "
+          f"({int(between.sum())} rows with the threshold between the routes' top-1)", flush=True)
+    if counts[2] or ((src != want) & ~near).any() or ((src != src32) & ~between).any() \
+            or not (counts[0] and counts[1]):
+        raise AssertionError(f"region sources {counts}: a clip source, a difference away from "
+                             "the threshold, or no hit or no miss")
+    # Nothing reaches a threshold above 1: every valid region takes the
+    # projection head, on both routes.
+    ours = tok.batch_tokenize(images, boxes, mask, threshold=1.01)
+    theirs = tok32.batch_tokenize(images, boxes, mask, threshold=1.01)
+    e16 = _centred(ours.embeddings.reshape(-1, cfg.projection_dim)[valid].float())
+    e32 = _centred(theirs.embeddings.reshape(-1, cfg.projection_dim)[valid])
+    proj_cos = (e16 * e32).sum(-1)
+    print(f"regions: at threshold 1.01 every region takes the projection: "
+          f"{bool((ours.source.reshape(-1)[valid] == knn.SOURCE_PROJECTION).all())}; centred "
+          f"cosine bf16 vs f32 route min {proj_cos.min().item()} bound {COS_BOUND}", flush=True)
+    if not ((ours.source.reshape(-1)[valid] == knn.SOURCE_PROJECTION).all()
+            and proj_cos.min().item() >= COS_BOUND):
+        raise AssertionError("the projection branch: a miss did not take source 1, or its "
+                             f"centred cosine {proj_cos.min().item()} < {COS_BOUND}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3026,12 +3533,19 @@ def main() -> int:
     export_phase(torch, np, cli_serve, card, int8_service, f32)
     del int8_service, f32
     student_phase(torch, np, cli_serve, card)
+    det_images, detections = detector_phase(torch, np, card)
+    region_launches = region_token_phase(torch, np, det_images, detections, card, table)
+    del det_images, detections
+    region = {n: sum(r.get(n, 0) for r in region_launches.values())
+              for n in list(KERNELS) + ["topk_streamed"]}
 
-    counts = {**{n: launches[n] for n in KERNELS}, **{n: train_launches[n] for n in TRAIN_KERNELS},
+    counts = {**{n: launches[n] + region[n] for n in KERNELS},
+              **{n: train_launches[n] for n in TRAIN_KERNELS},
               **{n: uncached_launches[n] for n in TEACHER_KERNELS if n in uncached_launches},
               "loader_self_check": loader_launches["loader_self_check"],
               **{n: fused_launches[n] for n in TRAINABLE_KERNELS},
-              "topk_streamed": launches["topk_streamed"] + uncached_launches["topk_streamed"],
+              "topk_streamed": (launches["topk_streamed"] + uncached_launches["topk_streamed"]
+                                + region["topk_streamed"]),
               "cross_attention_trainable": teacher_launches["cross_attention_trainable"]}
     sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS, **TRAINABLE_KERNELS,
                **TOPK_KERNELS, **TEACHER_TRAIN_KERNELS}

@@ -9,19 +9,23 @@ module layout so each counterpart is found under the same path:
              first use) behind Python wrappers with plain PyTorch twins
   models/    CLIP dual encoder with HF `CLIPModel` parameter names, the
              meta-teacher (cross-modal attention, region and token
-             encoders), and the weight bridge from Flax params / random init
+             encoders), the YOLOv8 detector and its ultralytics import,
+             the projection heads, the RegionTokenizer, and the weight
+             bridge from Flax params / random init
   ops/       CLIP pixel normalization and region crop-resize, teacher
              aggregation, exact k-NN search and its gate, losses, caption
-             packing
+             packing, fixed-shape NMS
   data/      tokenizers, embedding store, detection cache, the corpus
-             input pipeline (MultiModalPipeline), image preprocessing
+             input pipeline (MultiModalPipeline), image preprocessing, the
+             patch-index builder
   serve/     dynamic request batcher, bucket-padded ClipService
   train/     DistillTrainer (teacher targets with their caches, student
              step), TeacherTrainer (the meta-teacher), masked Adam /
              AdamW, epoch loop, checkpoints
   native/    the `.dcs` KV store and host top-k (C++, built with g++)
   cli/       serve, train_teacher, train_distill, flickr30k_eval,
-             zero_shot_eval, karpathy (`python -m dclip_tpu_torch.cli.<name>`)
+             zero_shot_eval, karpathy, export_hf, precache, build_index,
+             tune_gate (`python -m dclip_tpu_torch.cli.<name>`)
 
 This package imports `torch` and never `jax`, and nothing of the JAX
 package `dclip_tpu`: what it needs of it (the config dataclasses, the

@@ -74,7 +74,9 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--compact_patches", action=argparse.BooleanOptionalAction, default=None,
                    help="region-encode only valid patch slots (auto: on CUDA)")
     p.add_argument("--projection_weights", default=None,
-                   help="the k-NN gate's projection branch: not ported yet, raises")
+                   help="ImageProjectionModule weights enabling the projection branch of "
+                        "the k-NN gate: a port-format file (models.projections."
+                        "save_image_projection, torch.save); flax msgpack is not read")
     p.add_argument("--knn_store", default=None,
                    help="EmbeddingStore (.npz / .dcs) enabling the k-NN gate over patch "
                         "embeddings")
@@ -89,9 +91,6 @@ def check_waiting_flags(args) -> None:
     """The flags whose paths are not ported yet raise, naming their item."""
     if args.multihost:
         raise NotImplementedError("--multihost is not ported yet: ROADMAP Queue 1 item 10")
-    if args.projection_weights:
-        raise NotImplementedError("--projection_weights (models/projections.py) is not "
-                                  "ported yet: ROADMAP Queue 1 item 9")
     if args.decode_backend == "native":
         raise NotImplementedError("--decode_backend native (native/jpeg_decode.cc) is not "
                                   "ported yet: ROADMAP Queue 1 item 5")
@@ -114,6 +113,18 @@ def load_knn_store(path):
     store = EmbeddingStore.load(path)
     print(f"KNN gate enabled: {len(store)} stored embeddings")
     return store
+
+
+def load_projection_params(path, embed_dim: int):
+    """The projection head's state dict from `--projection_weights`, or None
+    when the flag is unset or the file is absent (as the JAX CLIs)."""
+    if not (path and os.path.exists(path)):
+        return None
+    from dclip_tpu_torch.models.projections import load_image_projection
+
+    _, params = load_image_projection(path, embed_dim)
+    print("Projection branch enabled for the knn gate")
+    return params
 
 
 def make_pipeline(args, path, tokenizer, cache, clip_cfg, batch_size, max_patches, seed,

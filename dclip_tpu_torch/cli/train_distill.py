@@ -15,9 +15,9 @@ or a torch `.pth` / `.bin` state dict of the reference teacher (its
 seeded random weights. Checkpoints: `CheckpointManager(checkpoint_dir,
 prefix="distill", save_top_k=10, monitor="train_loss")`. `--remat`
 raises (ROADMAP Queue 1 item 5); `--tiled_frozen_mlp` is accepted and
-changes nothing, since K6 tiles at every width. `--multihost`,
-`--projection_weights` and `--decode_backend native` raise as in
-`cli.train_teacher`.
+changes nothing, since K6 tiles at every width. `--projection_weights`
+reads a port-format file, and `--multihost` and `--decode_backend native`
+raise, as in `cli.train_teacher`.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from dclip_tpu_torch.cli.common import (
     load_clip_state_dict,
     load_detection_cache,
     load_knn_store,
+    load_projection_params,
     load_tokenizer,
     make_pipeline,
     mesh_config,
@@ -155,7 +156,9 @@ def main(argv=None) -> int:
             None if args.teacher_cache == "memory" else args.teacher_cache)
     trainer = DistillTrainer(cfg, student_sd, teacher_clip_sd, teacher_sd, student_cfg,
                              teacher_clip_cfg, device=args.device, teacher_cache=teacher_cache,
-                             knn_store=load_knn_store(args.knn_store))
+                             knn_store=load_knn_store(args.knn_store),
+                             projection_params=load_projection_params(
+                                 args.projection_weights, cfg.teacher.embed_dim))
     ckpts = CheckpointManager(cfg.checkpoint_dir, prefix="distill", save_top_k=cfg.save_top_k,
                               monitor="train_loss")  # ModelCheckpoint(monitor="train_loss")
     start_epoch = trainer.resume(ckpts) if args.resume else 0

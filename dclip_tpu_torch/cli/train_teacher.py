@@ -12,9 +12,10 @@ name. One checkpoint per epoch (`train.checkpoint.CheckpointManager`,
 `save_top_k=0`: every epoch kept), named with its val loss; the best is
 printed at the end; `--resume` starts after the latest. `--pe_cache`
 ('memory' or a native store path) caches the frozen region embeddings
-across epochs. `--multihost` (item 10), `--projection_weights` (item 9)
-and `--decode_backend native` (item 5) raise, naming their ROADMAP Queue 1
-items.
+across epochs. `--projection_weights` is a port-format
+`ImageProjectionModule` file (`models.projections`), not flax msgpack.
+`--multihost` (item 10) and `--decode_backend native` (item 5) raise,
+naming their ROADMAP Queue 1 items.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from dclip_tpu_torch.cli.common import (
     load_clip_state_dict,
     load_detection_cache,
     load_knn_store,
+    load_projection_params,
     load_tokenizer,
     make_pipeline,
     mesh_config,
@@ -107,6 +109,8 @@ def main(argv=None) -> int:
 
         pe_cache = TeacherTargetCache(None if args.pe_cache == "memory" else args.pe_cache)
     trainer = TeacherTrainer(cfg, clip_sd, clip_cfg, knn_store=load_knn_store(args.knn_store),
+                             projection_params=load_projection_params(
+                                 args.projection_weights, cfg.teacher.embed_dim),
                              pe_cache=pe_cache, device=args.device)
     ckpts = CheckpointManager(os.path.dirname(cfg.output_path) or ".",
                               prefix=os.path.basename(cfg.output_path),

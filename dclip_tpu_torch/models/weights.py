@@ -22,10 +22,16 @@ The meta-teacher's weights (`models.teacher.PatchTextAggregation`, torch
 `import_torch_cross_modal`) or `random_teacher_state_dict`, which draws
 them by the same value rule in the JAX tree's order, so it equals the
 bridge of the JAX package's random teacher of the same seed.
+
+The detector's (`models.detector.YOLO`) and the k-NN gate's projection
+head's (`models.projections.ImageProjectionModule`) come across from the
+JAX modules' variables by `detector_state_dict_from_jax` and
+`projection_state_dict_from_jax`.
 """
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -178,3 +184,45 @@ def random_teacher_state_dict(teacher_cfg, seed: int = 0) -> Dict[str, torch.Ten
     for norm in _TEACHER_NORMS:
         cm[norm] = {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
     return teacher_state_dict_from_jax({"cross_modal_attention": cm})
+
+
+def detector_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX `FlaxYOLO`'s variables `{"params": ..., "batch_stats": ...}`
+    -> the port's `models.detector.YOLO` state dict: conv kernels HWIO ->
+    OIHW, BatchNorm `scale` / `bias` -> `bn.weight` / `bn.bias`, the
+    `batch_stats` `mean` / `var` -> `bn.running_mean` / `bn.running_var`
+    (with a zero `num_batches_tracked`), flax's `m{j}` bottlenecks ->
+    `m.{j}`."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(path, value, collection):
+        prefix = ".".join(re.sub(r"^m(\d+)$", r"m.\1", p) for p in path[:-1])
+        leaf = path[-1]
+        if leaf == "kernel":
+            sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(value), (3, 2, 0, 1)))
+        elif collection == "batch_stats":
+            sd[f"{prefix}.running_{leaf}"] = _t(value)
+            sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        else:
+            sd[f"{prefix}.{'weight' if leaf == 'scale' else leaf}"] = _t(value)
+
+    def walk(tree, path, collection):
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, path + (key,), collection)
+            else:
+                put(path + (key,), value, collection)
+
+    for collection in ("params", "batch_stats"):
+        walk(variables[collection], (), collection)
+    return sd
+
+
+def projection_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX projection module's params (`{"fc1": {"kernel", "bias"}, ...}`,
+    Dense kernels [in, out]) -> `fc*.weight` [out, in] / `fc*.bias`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+        sd[f"{name}.bias"] = _t(p["bias"])
+    return sd

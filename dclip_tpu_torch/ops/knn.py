@@ -7,13 +7,15 @@ without the [Q, N] score matrix: on CUDA tensors it launches K12
 `topk_streamed`), on CPU tensors its plain twin. Both break ties as
 `jax.lax.top_k` does: the lower store index first. Gate semantics, per
 query:
-  top-1 score >= threshold -> the stored neighbour's value   (source 0)
-  else                     -> the raw normalized query       (source 2)
-(source 1, the projection head's output, waits for ROADMAP Queue 1 item 9).
+  top-1 score >= threshold -> the stored neighbour's value        (source 0)
+  else, with a projection  -> the normalized projection head output (source 1)
+  else                     -> the raw normalized query            (source 2)
+The projection head (`models.projections.projection_apply_fn`) is plain
+f32 PyTorch, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,16 +49,30 @@ def knn_search_sharded(queries, store_shard, axis: str, k: int = 3, n_valid=None
         "(multi-device); knn_search covers one device")
 
 
-def knn_or_projection(queries: torch.Tensor, store_keys: Optional[torch.Tensor],
-                      store_values: Optional[torch.Tensor], similarity_threshold: float = 0.85,
-                      k: int = 3) -> KNNResult:
-    """queries [Q, D] CLIP embeddings; store_keys / store_values [N, D]. The
-    projection branch (source 1) waits for `models/projections.py` (ROADMAP
-    Queue 1 item 9): a miss falls back to the raw normalized query."""
+def knn_or_projection(
+    queries: torch.Tensor,
+    positions: Optional[torch.Tensor],
+    store_keys: Optional[torch.Tensor],
+    store_values: Optional[torch.Tensor],
+    projection_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]],
+    similarity_threshold: float = 0.85,
+    k: int = 3,
+) -> KNNResult:
+    """queries [Q, D] CLIP embeddings; positions [Q, 4] normalized box
+    coordinates (zeros when None); store_keys / store_values [N, D] (values
+    default to the keys); projection_fn(queries, positions) -> [Q, D]."""
     q = l2_normalize(queries.float())
     qn = q.shape[0]
+    if projection_fn is not None:
+        if positions is None:
+            positions = torch.zeros((qn, 4), dtype=torch.float32, device=q.device)
+        fallback = l2_normalize(projection_fn(q, positions.float()).float())
+        fb_source = SOURCE_PROJECTION
+    else:
+        fallback, fb_source = q, SOURCE_CLIP
     if store_keys is None or store_keys.shape[0] == 0:
-        return KNNResult(q, torch.full((qn,), SOURCE_CLIP, dtype=torch.int32, device=q.device),
+        return KNNResult(fallback,
+                         torch.full((qn,), fb_source, dtype=torch.int32, device=q.device),
                          torch.zeros((qn,), dtype=torch.float32, device=q.device))
     if store_values is None:
         store_values = store_keys
@@ -65,7 +81,7 @@ def knn_or_projection(queries: torch.Tensor, store_keys: Optional[torch.Tensor],
     hit = top1_score >= similarity_threshold
     retrieved = store_values[top1_idx.long()].float()
     return KNNResult(
-        torch.where(hit[:, None], retrieved, q),
-        torch.where(hit, SOURCE_KNN, SOURCE_CLIP).to(torch.int32),
+        torch.where(hit[:, None], retrieved, fallback),
+        torch.where(hit, SOURCE_KNN, fb_source).to(torch.int32),
         torch.where(hit, top1_score, torch.zeros_like(top1_score)),
     )

@@ -17,14 +17,17 @@ import numpy as np
 import torch
 
 
-def apply_knn_gate(pe: torch.Tensor, store_keys, store_values, threshold: float,
-                   patch_mask: torch.Tensor) -> torch.Tensor:
-    """Route patch embeddings pe [B, P, D] through the k-NN / raw-CLIP gate
-    (`ops.knn.knn_or_projection`); masked slots stay zero."""
+def apply_knn_gate(pe: torch.Tensor, positions, store_keys, store_values, projection_fn,
+                   threshold: float, patch_mask: torch.Tensor) -> torch.Tensor:
+    """Route patch embeddings pe [B, P, D] through the k-NN / projection /
+    raw-CLIP gate (`ops.knn.knn_or_projection`); positions [B, P, 4] are the
+    boxes normalized to the frame (None: zeros); masked slots stay zero."""
     from dclip_tpu_torch.ops.knn import knn_or_projection
 
     b, p, d = pe.shape
-    res = knn_or_projection(pe.reshape(b * p, d), store_keys, store_values, threshold)
+    res = knn_or_projection(pe.reshape(b * p, d),
+                            None if positions is None else positions.reshape(b * p, 4),
+                            store_keys, store_values, projection_fn, threshold)
     return res.embeddings.reshape(b, p, d) * patch_mask[..., None]
 
 
@@ -106,22 +109,33 @@ class BaseTrainer:
 
     # -- the k-NN gate of the teacher's patch embeddings (both trainers) --------
 
-    def _init_knn_gate(self, knn_store) -> None:
+    def _init_knn_gate(self, knn_store, projection_params=None, embed_dim: int = 512) -> None:
         """Optional k-NN gate over the raw patch embeddings: an
-        `EmbeddingStore` of (key, value) rows on the device (the projection
-        branch, `projection_params`, is ROADMAP Queue 1 item 9)."""
-        self._knn_keys = self._knn_values = None
+        `EmbeddingStore` of (key, value) rows on the device and, with
+        `projection_params` (an `ImageProjectionModule` state dict), the
+        position-conditioned projection branch for the queries below the
+        threshold. Without a store the gate is off, as in the JAX trainers."""
+        self._knn_keys = self._knn_values = self._projection_fn = None
+        self._projection_params = projection_params
         if knn_store is not None and len(knn_store) > 0:
-            self._knn_keys = torch.as_tensor(knn_store.keys, dtype=torch.float32).to(self.device)
-            self._knn_values = torch.as_tensor(knn_store.values,
-                                               dtype=torch.float32).to(self.device)
+            self._knn_keys, self._knn_values = knn_store.device_arrays(self.device)
+        if projection_params is not None:
+            from dclip_tpu_torch.models.projections import (
+                ImageProjectionModule,
+                projection_apply_fn,
+            )
+
+            self._projection_fn = projection_apply_fn(
+                ImageProjectionModule(embed_dim, device="meta"), projection_params, self.device)
 
     def _maybe_knn_gate(self, pe: torch.Tensor, batch) -> torch.Tensor:
-        """`apply_knn_gate` at the teacher config's threshold, or `pe` as it
-        is without a store."""
+        """`apply_knn_gate` at the teacher config's threshold with the boxes
+        normalized by the teacher frame, or `pe` as it is without a store."""
         if self._knn_keys is None:
             return pe
-        return apply_knn_gate(pe, self._knn_keys, self._knn_values,
+        frame = batch["teacher_pixels"].shape[1]
+        return apply_knn_gate(pe, batch["boxes"] / float(frame), self._knn_keys,
+                              self._knn_values, self._projection_fn,
                               self.cfg.teacher.similarity_threshold, batch["box_mask"])
 
     def _num_epochs(self) -> int:

@@ -41,9 +41,8 @@ loss without the caches and without gradients. The stages run under
 breakdown of a step; outside a profile they cost a few microseconds.
 
 What waits, each raising NotImplementedError that names its ROADMAP
-item: `remat` (Queue 1 item 5), the projection head of the k-NN gate
-(item 9), and a mesh with dp or mp > 1, `dp_equivalent` or preemption
-(Queue 1 item 10).
+item: `remat` (Queue 1 item 5), and a mesh with dp or mp > 1,
+`dp_equivalent` or preemption (Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -239,7 +238,9 @@ class DistillTrainer(BaseTrainer):
         `random_state_dict`); `teacher_state_dict`: the meta-teacher's
         `cross_modal_attention.*` state dict (`teacher_state_dict_from_jax` /
         `random_teacher_state_dict`). The trainer copies all three to
-        `device` in f32; `knn_store`: an `EmbeddingStore` for the k-NN gate."""
+        `device` in f32; `knn_store`: an `EmbeddingStore` for the k-NN gate;
+        `projection_params`: an `ImageProjectionModule` state dict for its
+        projection branch (`models.projections`)."""
         self.cfg = cfg
         self.student_config = student_config or CLIPConfig.from_name(cfg.student_model)
         self.teacher_clip_config = teacher_clip_config or CLIPConfig.from_name(
@@ -257,9 +258,6 @@ class DistillTrainer(BaseTrainer):
             )
         if dp_equivalent or cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.model_parallel != 1:
             raise _waits("a mesh with dp or mp > 1 (and dp_equivalent)", "Queue 1 item 10")
-        if projection_params is not None:
-            raise _waits("the projection head of the k-NN gate (models/projections.py)",
-                         "Queue 1 item 9")
         self.device = resolve_device(device)
         cfg = self.cfg = resolve_fast_paths(cfg, self.device)
         if cfg.remat:
@@ -277,7 +275,7 @@ class DistillTrainer(BaseTrainer):
         self.teacher_clip_state_dict = teacher_clip_state_dict
         self.teacher_state_dict = teacher_state_dict
         self._make_teacher(teacher_clip_state_dict, teacher_state_dict)
-        self._init_knn_gate(knn_store)
+        self._init_knn_gate(knn_store, projection_params, cfg.teacher.embed_dim)
         self.step = 0
         self.teacher_cache = teacher_cache
         # Device-resident level 0 in front of the host cache: a hit costs
@@ -376,10 +374,11 @@ class DistillTrainer(BaseTrainer):
 
     def _teacher_fingerprint(self) -> str:
         """Digest of everything that determines teacher targets: teacher
-        config, CLIP preset, every weight byte, and the k-NN store."""
+        config, CLIP preset, every weight byte, the k-NN store and the
+        projection head."""
         return fingerprint_objects(repr(self.cfg.teacher), self.cfg.teacher_clip_model,
                                    self.teacher_state_dict, self.teacher_clip_state_dict,
-                                   self._knn_keys, self._knn_values)
+                                   self._knn_keys, self._knn_values, self._projection_params)
 
     # -- teacher forward (frozen) ---------------------------------------------
 

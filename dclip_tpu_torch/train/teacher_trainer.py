@@ -31,8 +31,7 @@ The stages run under `torch.profiler` ranges: `dclip.crop`,
 `dclip.optimizer` and `dclip.teacher_train_step` around the update.
 
 What waits, each raising NotImplementedError that names its ROADMAP item:
-the projection head of the k-NN gate (Queue 1 item 9), a mesh with dp or
-mp > 1 and preemption (Queue 1 item 10).
+a mesh with dp or mp > 1 and preemption (Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -93,14 +92,12 @@ class TeacherTrainer(BaseTrainer):
         start from, else random weights drawn from `cfg.seed`
         (`models.weights.random_teacher_state_dict`); `pe_cache`: a
         `TeacherTargetCache` for the frozen patch embeddings;
-        `knn_store`: an `EmbeddingStore` for the k-NN gate. Everything is
-        copied to `device` in f32."""
+        `knn_store`: an `EmbeddingStore` for the k-NN gate;
+        `projection_params`: an `ImageProjectionModule` state dict for its
+        projection branch. Everything is copied to `device` in f32."""
         self.clip_config = clip_config or CLIPConfig.from_name(cfg.clip_model)
         if cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.model_parallel != 1:
             raise _waits("a mesh with dp or mp > 1", "Queue 1 item 10")
-        if projection_params is not None:
-            raise _waits("the projection head of the k-NN gate (models/projections.py)",
-                         "Queue 1 item 9")
         self.device = resolve_device(device)
         cfg = self.cfg = resolve_fast_paths(cfg, self.device)
         self._dtype = resolve_dtype(cfg.compute_dtype, self.device)
@@ -140,13 +137,13 @@ class TeacherTrainer(BaseTrainer):
         self._train_step = make_train_step(self._loss, self.teacher, self.optimizer)
         self.step = 0
         self._compact = bool(cfg.compact_patches)
-        self._init_knn_gate(knn_store)
+        self._init_knn_gate(knn_store, projection_params, cfg.teacher.embed_dim)
         self.pe_cache = pe_cache
         if pe_cache is not None and not pe_cache.salt:
             # Everything that determines the (gated) patch embeddings.
             pe_cache.salt = fingerprint_objects(repr(cfg.teacher), cfg.clip_model,
                                                 self.clip_state_dict, self._knn_keys,
-                                                self._knn_values)
+                                                self._knn_values, self._projection_params)
         # Device-resident level 0 in front of the host pe cache: an epoch-1
         # hit costs one [B] index upload instead of the rows' copy.
         self._dev_pe = None

@@ -971,16 +971,16 @@ def test_knn_search_launches_k12(cuda_device):
     tk.reset_launches()
     s, i = knn.knn_search(torch.from_numpy(queries).to(cuda_device),
                           torch.from_numpy(keys).to(cuda_device), 5)
-    gate = knn.knn_or_projection(torch.from_numpy(queries).to(cuda_device),
+    gate = knn.knn_or_projection(torch.from_numpy(queries).to(cuda_device), None,
                                  torch.from_numpy(keys).to(cuda_device),
-                                 torch.from_numpy(-keys).to(cuda_device), 0.85)
+                                 torch.from_numpy(-keys).to(cuda_device), None, 0.85)
     torch.cuda.synchronize()
     assert tk.LAUNCHES == {"topk_streamed": 2}
     cs, ci = knn.knn_search(torch.from_numpy(queries), torch.from_numpy(keys), 5)
     assert torch.equal(i.cpu(), ci) and i[0, 0].item() == 3 and i[0, 1].item() == 250
     torch.testing.assert_close(s.cpu(), cs, rtol=0, atol=TOPK_TOL)
-    cgate = knn.knn_or_projection(torch.from_numpy(queries), torch.from_numpy(keys),
-                                  torch.from_numpy(-keys), 0.85)
+    cgate = knn.knn_or_projection(torch.from_numpy(queries), None, torch.from_numpy(keys),
+                                  torch.from_numpy(-keys), None, 0.85)
     assert torch.equal(gate.source.cpu(), cgate.source)
     torch.testing.assert_close(gate.embeddings.cpu(), cgate.embeddings, rtol=0, atol=TOPK_TOL)
 
@@ -1243,3 +1243,72 @@ def test_device_resident_search_is_bit_equal(cuda_device):
             [f"r{j}" for j in row] for row in i.cpu().numpy()]
         assert np.array_equal(np.asarray([[h[1] for h in row] for row in first], np.float32),
                               s.cpu().numpy())
+
+
+# -- the detector: its f32 pin, and NMS on the card against the CPU -----------------
+
+
+def _detector_pair(cuda_device, width=16, size=128):
+    """The same random detector on the card and on the CPU, and images."""
+    from dclip_tpu_torch.models import detector as det
+
+    cfg = det.DetectorConfig(width=width, image_size=size)
+    sd = det.random_detector_state_dict(cfg, seed=0)
+    images = np.random.RandomState(0).rand(2, size, size, 3).astype(np.float32)
+    return cfg, det.Detector(cfg, sd, cuda_device), det.Detector(cfg, sd, "cpu"), images
+
+
+@pytest.mark.requires_cuda
+def test_detector_pins_f32_convolutions(cuda_device):
+    """With TF32 on process-wide, the detector's convolutions still run in
+    f32: its logits stay within 1e-4 (relative to the largest) of the CPU's,
+    ten times closer than the same forward with TF32 allowed, and the flag
+    is on again afterwards."""
+    _, gpu, cpu, images = _detector_pair(cuda_device)
+    want = cpu.logits(images)
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        pinned = gpu.logits(images)
+        assert torch.backends.cudnn.allow_tf32 is True
+        with torch.inference_mode():
+            tf32 = gpu.model(torch.from_numpy(images).to(cuda_device))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+    def rel_err(outs):
+        return max((g.cpu() - w).abs().max().item() / w.abs().max().item()
+                   for pair, ref in zip(outs, want) for g, w in zip(pair, ref))
+
+    assert rel_err(pinned) <= 1e-4, rel_err(pinned)
+    assert rel_err(tf32) >= 10 * rel_err(pinned), (rel_err(tf32), rel_err(pinned))
+
+
+@pytest.mark.requires_cuda
+def test_nms_and_postprocess_on_the_card_equal_the_cpu(cuda_device):
+    """Batched class-aware NMS, and postprocess of identical decoded
+    candidates: indices, classes, masks, boxes and scores bit-equal."""
+    from dclip_tpu_torch.models import detector as det
+    from dclip_tpu_torch.ops import nms
+
+    rng = np.random.RandomState(3)
+    boxes = rng.rand(4, 256, 4).astype(np.float32) * 100
+    boxes[..., 2:] += boxes[..., :2] + 1
+    boxes[:, 50:60] = boxes[:, 40:50] + 0.5  # near-duplicates
+    scores = rng.rand(4, 256).astype(np.float32)
+    scores[:, 100:110] = 0.9  # ties
+    classes = rng.randint(0, 5, size=(4, 256))
+    want = nms.batched_class_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                 torch.from_numpy(classes), 0.45, 0.25, 32, 612.0)
+    got = nms.batched_class_nms(*(torch.from_numpy(a).to(cuda_device)
+                                  for a in (boxes, scores, classes)), 0.45, 0.25, 32, 612.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    cfg, gpu, cpu, images = _detector_pair(cuda_device)
+    with torch.inference_mode():
+        cand = det.decode_predictions(cfg, cpu.logits(images))
+        want = det.postprocess(cfg, *cand)
+        got = det.postprocess(cfg, *(t.to(cuda_device) for t in cand))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert want.mask.sum() > 0

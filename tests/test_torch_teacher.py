@@ -138,7 +138,7 @@ def test_knn_or_projection_matches_jax(store):
     if store == "empty":
         keys = values = np.zeros((0, 8), np.float32)
     want = jax_gate(queries, None, keys, values, None, 0.85)
-    got = knn.knn_or_projection(_t(queries), _t(keys), _t(values), 0.85)
+    got = knn.knn_or_projection(_t(queries), None, _t(keys), _t(values), None, 0.85)
     np.testing.assert_allclose(got.embeddings.numpy(), np.asarray(want.embeddings), **AGG_TOL)
     np.testing.assert_array_equal(got.source.numpy(), np.asarray(want.source))
     np.testing.assert_allclose(got.similarity.numpy(), np.asarray(want.similarity), **AGG_TOL)
@@ -363,6 +363,57 @@ def test_knn_gate_targets_match_jax(slice_setup):
     got = tr._teacher_targets(tr._device_batch(s["batch"]))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **EMB_TOL)
+
+
+def test_projection_gate_step_matches_jax(slice_setup):
+    """With `projection_params` and a store that no patch reaches (threshold
+    0.999), every valid slot takes the projection head's output (source 1,
+    positions = the boxes over the teacher frame): the targets and one
+    uncached step's update equal the JAX trainer's."""
+    from dclip_tpu.data.embedding_store import EmbeddingStore as JaxStore
+    from dclip_tpu.train.distill_trainer import DistillTrainer as JaxDistillTrainer
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+    from dclip_tpu_torch.models.weights import projection_state_dict_from_jax
+
+    s = slice_setup
+    cfg = s["cfg"]
+    d = cfg.projection_dim
+    keys = np.random.RandomState(10).standard_normal((6, d)).astype(np.float32)
+    stores = []
+    for cls in (JaxStore, EmbeddingStore):
+        st = cls(dim=d)
+        st.add_batch([str(i) for i in range(6)], keys)
+        stores.append(st)
+    pparams = torch_parity.jax_projection_params(d, seed=11)
+    dcfg = dataclasses.replace(s["dcfg"], teacher=dataclasses.replace(
+        s["dcfg"].teacher, similarity_threshold=0.999))
+    jt = JaxDistillTrainer(dcfg, {"params": s["params"]}, {"params": s["params"]},
+                           s["tparams"], cfg, cfg, mesh=s["jt"].mesh, knn_store=stores[0],
+                           projection_params=pparams)
+    want_targets = jt._teacher_targets(jt.teacher_clip_variables, jt.teacher_params,
+                                       jt._device_batch(s["batch"]))
+    want = jt.train_step_on_batch(s["batch"])
+    params = state_dict_from_jax(jax.device_get(jt.state.params), cfg)
+    sd = state_dict_from_jax(s["params"], cfg)
+    tr = DistillTrainer(dcfg, sd, sd, teacher_state_dict_from_jax(s["tparams"]), cfg, cfg,
+                        device="cpu", knn_store=stores[1],
+                        projection_params=projection_state_dict_from_jax(pparams))
+    batch = tr._device_batch(s["batch"])
+    for g, w in zip(tr._teacher_targets(batch), want_targets):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **EMB_TOL)
+    pe = tr._encode_patches_only(batch)
+    frame = batch["teacher_pixels"].shape[1]
+    res = knn.knn_or_projection(pe.reshape(-1, d), (batch["boxes"] / frame).reshape(-1, 4),
+                                tr._knn_keys, tr._knn_values, tr._projection_fn, 0.999)
+    valid = batch["box_mask"].reshape(-1) > 0
+    assert (res.source[valid] == knn.SOURCE_PROJECTION).all()
+    got = tr.train_step_on_batch(s["batch"])
+    for name in want:
+        np.testing.assert_allclose(got[name].item(), float(want[name]), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+    for name, p in tr.student.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), params[name].reshape(p.shape).numpy(),
+                                   err_msg=name, **EMB_TOL)
 
 
 def test_three_cache_levels(slice_setup):

@@ -303,6 +303,37 @@ def test_knn_gate_matches_jax(setup):
                                **LOSS_TOL)
 
 
+def test_projection_gate_matches_jax(setup):
+    """With `projection_params` and a threshold no patch reaches, every valid
+    slot takes the projection head's output (source 1): the gated patch
+    embeddings and one step's update equal the JAX trainer's."""
+    from dclip_tpu.data.embedding_store import EmbeddingStore as JaxStore
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+    from dclip_tpu_torch.models.weights import projection_state_dict_from_jax
+
+    cfg = setup["cfg"]
+    batch = setup["batches"][0]
+    keys = np.random.RandomState(8).standard_normal((10, cfg.projection_dim)).astype(np.float32)
+    stores = []
+    for cls in (JaxStore, EmbeddingStore):
+        st = cls(dim=cfg.projection_dim)
+        st.add_batch([f"s{i}" for i in range(10)], keys)
+        stores.append(st)
+    pparams = torch_parity.jax_projection_params(cfg.projection_dim, seed=9)
+    changes = {"teacher": dataclasses.replace(setup["tcfg"].teacher, similarity_threshold=1.5)}
+    jt = _jax_trainer(setup, changes=changes, knn_store=stores[0], projection_params=pparams)
+    tr = _port_trainer(setup, changes, knn_store=stores[1],
+                       projection_params=projection_state_dict_from_jax(pparams))
+    want = np.asarray(jt._patch_embeddings(batch, jt._device_batch(batch)))
+    got = tr._patch_embeddings(batch, tr._device_batch(batch, tr._LOSS_FIELDS))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    valid = batch["box_mask"] > 0
+    np.testing.assert_allclose(np.linalg.norm(got.numpy()[valid], axis=-1), 1.0, rtol=1e-5)
+    jt.train_step_on_batch(batch)
+    tr.train_step_on_batch(batch)
+    _assert_params_match(tr, jt, 1, "projection gate")
+
+
 @pytest.mark.parametrize("device_level", [False, True], ids=["host_only", "device_level"])
 def test_pe_cache_hits_equal_misses(setup, monkeypatch, device_level):
     """The pe cache (and its device level in front): the first pass misses
@@ -401,8 +432,10 @@ def test_masked_mean_and_what_waits(setup):
     mask = np.array([[1, 1, 0, 0, 0], [0, 0, 0, 0, 0], [1, 1, 1, 1, 1]], np.float32)
     np.testing.assert_allclose(masked_mean(_t(x), _t(mask)).numpy(),
                                np.asarray(jax_masked_mean(x, mask)), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port_trainer(setup, projection_params={"w": 1})
+    from dclip_tpu_torch.models.projections import init_image_projection
+
+    params = init_image_projection(0, setup["cfg"].projection_dim)[1]
+    assert _port_trainer(setup, projection_params=params)._projection_fn is not None
     with pytest.raises(NotImplementedError, match="item 10"):
         _port_trainer(setup, {"mesh": MeshConfig(data_parallel=2)})
     with pytest.raises(NotImplementedError, match="item 10"):

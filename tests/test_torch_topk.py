@@ -116,8 +116,8 @@ def test_knn_or_projection_tie_order_matches_jax():
     values = rng.standard_normal((keys.shape[0], 8)).astype(np.float32)
     queries = np.concatenate([keys[20:30], rng.standard_normal((3, 8))]).astype(np.float32)
     want = jax_gate(queries, None, keys, values, None, 0.85)
-    got = knn.knn_or_projection(torch.from_numpy(queries), torch.from_numpy(keys),
-                                torch.from_numpy(values), 0.85)
+    got = knn.knn_or_projection(torch.from_numpy(queries), None, torch.from_numpy(keys),
+                                torch.from_numpy(values), None, 0.85)
     np.testing.assert_array_equal(got.source.numpy(), np.asarray(want.source))
     np.testing.assert_allclose(got.similarity.numpy(), np.asarray(want.similarity), **SCORE_TOL)
     np.testing.assert_array_equal(got.embeddings.numpy()[:10], values[20:30])

@@ -172,8 +172,8 @@ def test_student_steps_match_jax_trainer(setup, packed):
 def test_cache_miss_raises_not_implemented(setup):
     """A cache miss no longer raises: it computes the teacher targets (those
     of the JAX trainer's miss path, tests/test_torch_teacher.py), with or
-    without cache keys. What still waits on the miss path raises: the
-    projection head of the k-NN gate."""
+    without cache keys; with the k-NN gate's projection head too (its
+    numbers against JAX's: tests/test_torch_teacher.py)."""
     cfg = setup["cfg"]
     s = cfg.vision.image_size
     rng = np.random.RandomState(9)
@@ -192,10 +192,17 @@ def test_cache_miss_raises_not_implemented(setup):
     # `other` filled B full targets and B patch-embedding rows (on top of the
     # 2 B rows `_port_trainer` puts); `no_ids` has no keys and put nothing.
     assert cached == [4 * B, 2 * B]
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+    from dclip_tpu_torch.models.projections import init_image_projection
+
     sd = state_dict_from_jax(setup["params"], cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        DistillTrainer(setup["dcfg"], sd, sd, teacher_state_dict_from_jax(setup["tparams"]),
-                       cfg, cfg, device="cpu", projection_params={})
+    store = EmbeddingStore.from_arrays(np.eye(3, cfg.projection_dim, dtype=np.float32))
+    tr = DistillTrainer(setup["dcfg"], sd, sd, teacher_state_dict_from_jax(setup["tparams"]),
+                        cfg, cfg, device="cpu", knn_store=store,
+                        projection_params=init_image_projection(0, cfg.projection_dim)[1])
+    assert tr._projection_fn is not None
+    metrics = tr.train_step_on_batch(no_ids)
+    assert tr.step == 1 and all(np.isfinite(v.item()) for v in metrics.values())
 
 
 @pytest.mark.parametrize("change,match", [

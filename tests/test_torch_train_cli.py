@@ -166,8 +166,7 @@ def test_the_waiting_flags_raise(workspace):
 
     base = ["--train_file", str(workspace / "syn_train.json"), "--model_preset", "tiny",
             "--device", "cpu"]
-    for flags, item in ((["--multihost"], "item 10"), (["--projection_weights", "p"], "item 9"),
-                        (["--decode_backend", "native"], "item 5"),
+    for flags, item in ((["--multihost"], "item 10"), (["--decode_backend", "native"], "item 5"),
                         (["--mesh_data", "2"], "item 10")):
         for cli in (train_teacher, train_distill):
             with pytest.raises(NotImplementedError, match=item):
@@ -175,3 +174,57 @@ def test_the_waiting_flags_raise(workspace):
     with pytest.raises(NotImplementedError, match="item 5"):
         train_distill.main(base + ["--remat", "--checkpoint_dir",
                                    str(workspace / "remat_ckpts")])
+
+
+@pytest.mark.parametrize("cli_name", ["train_teacher", "train_distill"])
+def test_projection_weights_reach_the_gate(workspace, tmp_path, monkeypatch, capsys, cli_name):
+    """`--projection_weights` (a port-format `ImageProjectionModule` file)
+    with `--knn_store`: the trainer gets the head, and every patch that
+    misses the store takes the projection branch (source 1)."""
+    import importlib
+
+    from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+    from dclip_tpu_torch.models.projections import init_image_projection, save_image_projection
+    from dclip_tpu_torch.ops import knn
+
+    cli = importlib.import_module(f"dclip_tpu_torch.cli.{cli_name}")
+    trainer_name = "TeacherTrainer" if cli_name == "train_teacher" else "DistillTrainer"
+    base = getattr(cli, trainer_name)
+    built, sources = [], []
+
+    class Recording(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            built.append(self)
+
+    real_gate = knn.knn_or_projection
+
+    def recording_gate(*a, **k):
+        res = real_gate(*a, **k)
+        sources.append(res.source)
+        return res
+
+    monkeypatch.setattr(cli, trainer_name, Recording)
+    monkeypatch.setattr(knn, "knn_or_projection", recording_gate)
+    params = init_image_projection(seed=0, clip_dim=16)[1]
+    save_image_projection(str(tmp_path / "proj.pt"), params)
+    keys = np.random.RandomState(1).standard_normal((5, 16)).astype(np.float32)
+    EmbeddingStore.from_arrays(keys / np.linalg.norm(keys, axis=-1, keepdims=True)).save(
+        str(tmp_path / "store.npz"))
+    common = ["--train_file", str(workspace / "syn_train.json"), "--detection_cache",
+              str(workspace / "precache.npz"), "--max_patches", "4", "--teacher_image_size",
+              "32", "--model_preset", "tiny", "--device", "cpu", "--knn_store",
+              str(tmp_path / "store.npz"), "--projection_weights", str(tmp_path / "proj.pt")]
+    if cli_name == "train_teacher":
+        argv = common + ["--output_path", str(tmp_path / "t" / "teacher"), "--epochs", "1",
+                         "--batch_size", "4"]
+    else:
+        argv = common + ["--train_batch_size", "4", "--phase1_epochs", "1",
+                         "--checkpoint_dir", str(tmp_path / "d"), "--accumulate_grad_batches",
+                         "1"]
+    assert cli.main(argv) == 0
+    assert "Projection branch enabled" in capsys.readouterr().out
+    (tr,) = built
+    assert tr._projection_fn is not None and tr.step == 2
+    assert all(torch.equal(tr._projection_params[k], params[k]) for k in params)
+    assert sources and all((s == knn.SOURCE_PROJECTION).all() for s in sources)

@@ -120,3 +120,15 @@ def jax_teacher_params(d: int, seed: int = 0):
 
     return {"cross_modal_attention": {"text_to_image": mha(), "image_to_text": mha(),
                                       "norm_text": ln(), "norm_image": ln()}}
+
+
+def jax_projection_params(d: int, seed: int = 0, hidden: int = 1024):
+    """A JAX `ImageProjectionModule` param tree (fc1: d + 4 -> hidden, fc2,
+    fc3: hidden -> d) filled from numpy: 1/sqrt(fan_in) kernels, biases
+    N(0, 0.1)."""
+    rng = np.random.RandomState(seed)
+
+    def dense(i, o):
+        return {"kernel": _normal(rng, (i, o), i**-0.5), "bias": _normal(rng, (o,), 0.1)}
+
+    return {"fc1": dense(d + 4, hidden), "fc2": dense(hidden, hidden), "fc3": dense(hidden, d)}
