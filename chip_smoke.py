@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: serving, training, eval,
-deployment and region proposals.
+deployment, region proposals and the ViT-L/14 distillation run from files.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -102,7 +102,9 @@ Phases; each one passes or raises, and any failure exits non-zero:
    weight-gradient backward) against their twins, plus a ragged small case
    of each, with CUDA-event times in turns.
 14. K7 at ViT-L/14 widths: the frozen-MLP pair (K6, which K7 folds into)
-   forward and dx at [32, 257, 1024], mlp 4096, against its twin, timed.
+   forward and dx at [32, 257, 1024], mlp 4096, against its twin, timed:
+   the kernels line's `mlp_frozen_{fwd,bwd}[l14]` rows, whose launches are
+   phase 31's.
 15. Training slice, fused cache-warm: the slice of phase 8 with
    `fused_text_mlp` (K8) and `fused_attn_block` (K9): 2 warm-up and 5 timed
    steps, exact launch counts by the blocks' skip rules, peak memory, a
@@ -232,6 +234,38 @@ Phases; each one passes or raises, and any failure exits non-zero:
    read images with PIL, which the card machine lacks: the CPU tests run
    them.
 
+30. Doctor: `cli.doctor.collect()` (versions, the card's name and power
+   limit, a matmul, the kernel library's self-check, the native KV store's
+   and the JPEG decoder's builds), printed.
+31. ViT-L/14 distillation, the reference's student: student and teacher
+   CLIP at `vit-l-14` (full width and depth, random weights from seed 0,
+   bf16, kernels on, packed text) with `TeacherConfig(768, 8 heads, 8
+   boxes, 77 tokens)` at B=256: the cache-warm step (targets of seeded unit
+   vectors in an in-memory cache) and the uncached step (2,048 crops
+   through the L/14 teacher), each with remat off and on, 2 warm-up and 3
+   timed steps: ms per step, images/s, peak device memory (reset for each),
+   exact launch counts (under remat every forward kernel of a student layer
+   twice a step, the backward kernels once), the trainable parameters with
+   remat bit-equal to those without (else the differing tensors named and
+   the updates held to the gradient-agreement bounds). The L/14 teacher
+   targets against the f32 module route on the CPU (cosine >= 0.99, B=2).
+   `TeacherTrainer` at L/14, B=32 (the teacher CLI's default): 2 warm-up
+   and 3 timed steps, exact launches, peak memory. K10 at D=768 (8 heads
+   of 96), `cross_attention_trainable` at D=768, B=32, and K11 at D=768,
+   B=256 against their twins, timed: the kernels line's `[d768]` rows,
+   whose launches are this phase's.
+32. Files: the committed JPEG fixtures (`tests/data/`) through the native
+   decoder (shapes, ranges, original sizes, exact and scaled DCT); the PNG
+   and the CMYK JPEG, which need PIL (raising without it, naming the
+   file); a corpus of 64 items and a validation file of 8 over the JPEGs
+   with a detection cache written by `DetectionCache.put`; the host's
+   decode images/s with its CPU's name; then `cli.train_teacher` (one
+   epoch) and `cli.train_distill` (`--remat`, `--teacher_checkpoint` the
+   teacher's) at `--model_preset vit-l-14 --decode_backend native`, at
+   their default batch: checkpoints exist and losses are finite. Where
+   the machine cannot build the decoder, `decode_backend="native"` must
+   raise naming it, and nothing falls back to PIL.
+
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type (989 TFLOP/s bf16
 tensor cores, 67 TFLOP/s f32 CUDA cores, 495 TFLOP/s TF32 tensor cores
@@ -353,8 +387,10 @@ TRAIN_B, TEXT_S, TEXT_D, TEXT_HEADS, TEXT_MLP = 256, 77, 512, 8, 2048
 # sums of the same products in another order, within 1e-4 of the largest
 # |twin| (csrc/gemm.cu TN mode, csrc/reduce.cu, the LayerNorm sums).
 SUM_TOL = 1e-4
-# K7 at ViT-L/14 widths (CLIPConfig.vit_l_14().vision, B=32).
-L14_B, L14_S, L14_D, L14_MLP = 32, 257, 1024, 4096
+# ViT-L/14 widths (CLIPConfig.vit_l_14()): the vision tower, where K6 runs
+# at K7's widths, and the text tower.
+L14_S, L14_D, L14_HEADS, L14_MLP = 257, 1024, 16, 4096
+L14_TEXT_D, L14_TEXT_HEADS = 768, 12
 EVAL_BATCH = 256  # the retrieval eval's image batch
 # The kernel phase's cases: (label, B, S, D, heads, MLP, timed). ViT-B/16 at
 # the serving batch, a ragged B=1 and the retrieval eval's batch; ViT-L/14
@@ -362,7 +398,7 @@ EVAL_BATCH = 256  # the retrieval eval's image batch
 # zero-shot batch.
 BLOCK_CASES = (("B/16", B, S, D, HEADS, MLP, True), ("B/16", 1, S, D, HEADS, MLP, False),
                ("B/16", EVAL_BATCH, S, D, HEADS, MLP, False),
-               ("L/14", ZS_BATCH, L14_S, L14_D, 16, L14_MLP, True))
+               ("L/14", ZS_BATCH, L14_S, L14_D, L14_HEADS, L14_MLP, True))
 # The GEMM phase: the rows of a ViT-B/16 layer's projections at the serving
 # bucket of 64 images, the cache-warm student at B=256, and the teacher ViT
 # over 2,048 region crops (B=256 x 8 boxes); TN at K9's weight gradients
@@ -373,6 +409,9 @@ GEMM_TN_CASES = (("K9 dwqkv", TRAIN_B * S, 3 * D, D), ("K9 dwo", TRAIN_B * S, D,
 FIT_B, FIT_EPOCHS, FIT_STEPS = 32, 2, 2
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 GRAD_B, GRAD_COS_GLOBAL, GRAD_COS_TENSOR = 8, 0.99, 0.95
+# The L/14 student's gradients are held at this batch (the f32 CPU side
+# costs about 4x a B/16 row).
+L14_GRAD_B = 4
 # k_proj.bias gradients are rounding noise (see grad_agreement_phase); their
 # norm must stay below this share of the layer's q_proj.bias gradient.
 GRAD_NOISE_RATIO = 0.1
@@ -388,6 +427,45 @@ DL_BIG_B = 4096
 # The meta-teacher slice: the CLI's default batch and bench.py's.
 TEACHER_B = XATTN_TRAIN_B = (32, 256)
 TEACHER_LR = 1e-4
+# The ViT-L/14 slice (phases 30-32): the reference's student, with the
+# teacher CLIP at the same preset and TeacherConfig(768, 8 heads, 8 boxes,
+# 77 tokens), so K10 runs at head_dim 96. Each configuration of phase 31
+# takes WARMUP_STEPS and these timed steps.
+L14_XATTN_D, L14_XATTN_HEADS, L14_TIMED_STEPS = 768, 8, 3
+# Phase 32's inputs: the committed fixtures (tests/data/make_jpeg_fixtures.py)
+# as a corpus of FILES_ITEMS items and a validation file of FILES_VAL.
+FIXTURES = "tests/data/"
+FILES_JPEGS = ("rgb_640x480.jpg", "rgb_375x500.jpg", "rgb_53x37.jpg", "rgb_224x224.jpg",
+               "gray_121x90.jpg", "progressive_300x200.jpg")
+FILES_PIL_ONLY = ("rgb_40x30.png", "cmyk_50x40.jpg")
+FILES_ITEMS, FILES_VAL = 64, 8
+FILES_DEVICE, FILES_PRESET = "cuda", "vit-l-14"
+# Rows of the kernels line with phase 31's launches: K10 and K10' at D=768
+# (head_dim 96) and K11 at D=768, held and timed there; K4 / K3 / K5, K6 at
+# K7's widths and its LayerNorm backward at the L/14 student's shapes (B=256),
+# held and timed in the training kernel phase.
+L14_ROWS = {
+    "cross_attention[d768]": TEACHER_KERNELS["cross_attention"],
+    "cross_attention_core[d768]": TEACHER_KERNELS["cross_attention_core"],
+    "add_layernorm_f32[d768]": TEACHER_KERNELS["add_layernorm_f32"],
+    "distill_loss_fwd[d768]": TRAIN_KERNELS["distill_loss_fwd"],
+    "distill_loss_bwd[d768]": TRAIN_KERNELS["distill_loss_bwd"],
+    "cross_attention_trainable[d768]": TEACHER_TRAIN_KERNELS["cross_attention_trainable"],
+    "mlp_frozen_fwd[l14]": ("dclip_tpu_torch/kernels/mlp_frozen.py",
+                            "dclip_tpu/kernels/mlp_frozen.py:201"),
+    "mlp_frozen_bwd[l14]": ("dclip_tpu_torch/kernels/mlp_frozen.py",
+                            "dclip_tpu/kernels/mlp_frozen.py:242"),
+    "layernorm_bwd[l14]": TRAIN_KERNELS["layernorm_bwd"],
+    "self_attention_fwd_stats[l14]": TRAIN_KERNELS["self_attention_fwd_stats"],
+    "self_attention_fused[l14]": TRAIN_KERNELS["self_attention_fused"],
+    "self_attention_bwd_stats[l14]": TRAIN_KERNELS["self_attention_bwd_stats"],
+}
+
+
+def _width_suffix(d: int) -> str:
+    """The kernels line's rows of K10, K10' and K11 at width `d`: the
+    B/16 teacher's (512) unnamed, another width's named `[d<width>]`."""
+    return "" if d == TEXT_D else f"[d{d}]"
 
 
 def card_line() -> str:
@@ -431,7 +509,11 @@ def import_port_modules():
                  "dclip_tpu_torch.models.detector", "dclip_tpu_torch.models.detector_import",
                  "dclip_tpu_torch.models.projections", "dclip_tpu_torch.models.region_tokenizer",
                  "dclip_tpu_torch.data.index", "dclip_tpu_torch.cli.precache",
-                 "dclip_tpu_torch.cli.build_index", "dclip_tpu_torch.cli.tune_gate"):
+                 "dclip_tpu_torch.cli.build_index", "dclip_tpu_torch.cli.tune_gate",
+                 "dclip_tpu_torch.cli.doctor", "dclip_tpu_torch.native",
+                 "dclip_tpu_torch.data.pipeline", "dclip_tpu_torch.data.corpus",
+                 "dclip_tpu_torch.data.detection_cache", "dclip_tpu_torch.cli.train_teacher",
+                 "dclip_tpu_torch.cli.train_distill"):
         importlib.import_module(name)
 
 
@@ -478,6 +560,60 @@ def gemm_work(m, k, n, extra_mn=0):
     [m, n] tensors moved (residual, saved pre-activation)."""
     return work(bf16_flops=2.0 * m * k * n,
                 nbytes=2.0 * (m * k + k * n + m * n * (1 + extra_mn)) + 4.0 * n)
+
+
+def distill_loss_cases(torch, randn, card: str, table: KernelTable, d: int, cases):
+    """K11 forward (the four parts) and backward (dsi, dst) against their
+    twins at width `d` for each (variant, B, timed, in the kernels line),
+    two calls bit-identical; rows `distill_loss_{fwd,bwd}` + `_width_suffix(d)`.
+    `randn(*shape, scale, dtype)` draws the inputs on the card."""
+    from dclip_tpu_torch.kernels import distill_loss as dl
+
+    dev = torch.device("cuda")
+    suffix = _width_suffix(d)
+    for variant, b, timed, row in cases:
+        si, st = randn(b, d), randn(b, d)
+        # Targets correlated with the student rows (cosine ~0.9), so li and
+        # lt sit far from 1 and a dropped cosine term moves them.
+        ti = si.float() + randn(b, d, scale=0.5, dtype=torch.float32)
+        tt = st.float() + randn(b, d, scale=0.5, dtype=torch.float32)
+        parts = dl.distill_loss_fwd(si, st, ti, tt)
+        want = dl.distill_loss_fwd_reference(si, st, ti, tt)
+        torch.cuda.synchronize()
+        if not (want[0] < 0.5 and want[1] < 0.5):
+            raise AssertionError(f"distill_loss_fwd[{variant}]: li, lt {want[:2].tolist()} "
+                                 f"not far from 1")
+        # f32 throughout on identical bf16/f32 inputs: only the summation
+        # order differs, so each part within DL_RTOL of its twin.
+        rel = ((parts - want).abs() / want.abs()).tolist()
+        print(f"kernel distill_loss_fwd[{variant}]: parts {parts.tolist()} twin "
+              f"{want.tolist()} rel_err {rel} bound {DL_RTOL}", flush=True)
+        if parts.shape != want.shape or not all(r <= DL_RTOL for r in rel):
+            raise AssertionError(f"distill_loss_fwd[{variant}]: rel_err {rel} > {DL_RTOL}")
+        err = (parts - want).abs().max().item()
+        inputs = 4.0 * b * d + 8.0 * b * d
+        _record(torch, card, table, "distill_loss_fwd" + suffix, err, timed,
+                lambda: dl.distill_loss_fwd(si, st, ti, tt),
+                lambda: dl.distill_loss_fwd_reference(si, st, ti, tt), 20, variant,
+                work(f32_flops=2.0 * b * b * d + 10.0 * b * d, nbytes=inputs + 16.0),
+                graph=True, table_row=row)
+        cts = torch.tensor([1.0, 1.0, 1.0], device=dev)
+        got = dl.distill_loss_bwd(si, st, ti, tt, cts)
+        want = dl.distill_loss_bwd_reference(si, st, ti, tt, cts)
+        errb = max(_bound_check(torch, f"distill_loss_bwd[{variant}] {n}", a, w, DL_BWD_TOL,
+                                with_one=False)
+                   for n, a, w in zip(("dsi", "dst"), got, want))
+        _record(torch, card, table, "distill_loss_bwd" + suffix, errb, timed,
+                lambda: dl.distill_loss_bwd(si, st, ti, tt, cts),
+                lambda: dl.distill_loss_bwd_reference(si, st, ti, tt, cts), 20, variant,
+                work(f32_flops=6.0 * b * b * d + 20.0 * b * d,
+                     nbytes=inputs + 12.0 + 4.0 * b * d), graph=True, table_row=row)
+        # No atomics on values: two calls on the same inputs give the same bits.
+        again = dl.distill_loss_bwd(si, st, ti, tt, cts)
+        if not (torch.equal(dl.distill_loss_fwd(si, st, ti, tt), parts)
+                and all(torch.equal(x, y) for x, y in zip(again, got))):
+            raise AssertionError(f"distill_loss[{variant}]: two calls differ")
+        print(f"kernel distill_loss[{variant}]: two calls bit-identical", flush=True)
 
 
 def time_pair(torch, kernel_fn, plain_fn, iters: int):
@@ -1028,10 +1164,29 @@ def attention_bwd_edges(torch, np, va, table: KernelTable):
                 raise AssertionError(f"attention_bwd[edge S={s} {what}]: two calls differ")
 
 
+def _record(torch, card, table, name, err, timed, kernel_fn=None, plain_fn=None, iters=10,
+            variant="", bound=(0.0, 0.0), library_fn=None, graph=False, table_row=True):
+    """Holds the error; when timed, prints the eager times (and with `graph`
+    the device times of CUDA graph replays beside them) and, with
+    `table_row`, puts the eager times in the kernels line."""
+    table.error(name, err)
+    if timed:
+        ms, plain_ms = time_pair(torch, kernel_fn, plain_fn, iters)
+        lib_ms = None if library_fn is None else time_one(torch, library_fn, iters)
+        print(f"time {name}[{variant}]: kernel {ms} ms, plain {plain_ms} ms, bound "
+              f"{max(bound)} ms, library {lib_ms} ms ({card})", flush=True)
+        if graph:  # the device's time without the wrapper's host time
+            g_ms, g_plain_ms = time_pair_graph(torch, kernel_fn, plain_fn, iters)
+            print(f"time {name}[{variant}] device (CUDA graph of {iters} calls): kernel "
+                  f"{g_ms} ms, plain {g_plain_ms} ms ({card})", flush=True)
+        if table_row:
+            table.timed(name, ms, plain_ms, bound, lib_ms)
+
+
 def train_kernel_phase(torch, np, card: str, table: KernelTable):
     """The training kernels against their twins at the cache-warm step's
-    shapes, plus a ragged small case of each; CUDA-event times."""
-    from dclip_tpu_torch.kernels import distill_loss as dl
+    shapes, ViT-B/16 and (the `[l14]` rows) ViT-L/14 at B=256, plus a
+    ragged small case of each; CUDA-event times."""
     from dclip_tpu_torch.kernels import mlp_frozen as mf
     from dclip_tpu_torch.kernels import vit_attention as va
 
@@ -1042,36 +1197,26 @@ def train_kernel_phase(torch, np, card: str, table: KernelTable):
         return (torch.from_numpy(rng.standard_normal(shape).astype("float32") * scale)
                 .to(dev).to(dtype))
 
-    def record(name, err, timed, kernel_fn=None, plain_fn=None, iters=10, variant="",
-               bound=(0.0, 0.0), library_fn=None, graph=False, table_row=True):
-        """Holds the error; when timed, prints the eager times (and with
-        `graph` the device times of CUDA graph replays beside them) and,
-        with `table_row`, puts the eager times in the kernels line."""
-        table.error(name, err)
-        if timed:
-            ms, plain_ms = time_pair(torch, kernel_fn, plain_fn, iters)
-            lib_ms = None if library_fn is None else time_one(torch, library_fn, iters)
-            print(f"time {name}[{variant}]: kernel {ms} ms, plain {plain_ms} ms, bound "
-                  f"{max(bound)} ms, library {lib_ms} ms ({card})", flush=True)
-            if graph:  # the device's time without the wrapper's host time
-                g_ms, g_plain_ms = time_pair_graph(torch, kernel_fn, plain_fn, iters)
-                print(f"time {name}[{variant}] device (CUDA graph of {iters} calls): kernel "
-                      f"{g_ms} ms, plain {g_plain_ms} ms ({card})", flush=True)
-            if table_row:
-                table.timed(name, ms, plain_ms, bound, lib_ms)
+    def record(*args, **kw):
+        _record(torch, card, table, *args, **kw)
 
     seg, pad, _ = _text_masks(torch, np, dev)
-    attn_cases = [  # (variant, b, s, d, heads, masks, timed)
-        ("vision", TRAIN_B, S, D, HEADS, {}, True),
-        ("text_packed", seg.shape[0], TEXT_S, TEXT_D, TEXT_HEADS,
-         {"causal": True, "segment_ids": seg}, True),
-        ("text_unpacked", TRAIN_B, TEXT_S, TEXT_D, TEXT_HEADS,
-         {"causal": True, "padding_mask": pad}, True),
+    packed, unpacked = {"causal": True, "segment_ids": seg}, {"causal": True, "padding_mask": pad}
+    attn_cases = [  # (variant, b, s, d, heads, masks, timed, row suffix)
+        ("vision", TRAIN_B, S, D, HEADS, {}, True, ""),
+        ("text_packed", seg.shape[0], TEXT_S, TEXT_D, TEXT_HEADS, packed, True, ""),
+        ("text_unpacked", TRAIN_B, TEXT_S, TEXT_D, TEXT_HEADS, unpacked, True, ""),
         ("ragged", 3, 50, 128, 2, {"padding_mask": (torch.arange(50, device=dev)[None]
                                                      < torch.tensor([[50], [17], [1]],
-                                                                    device=dev)).float()}, False),
+                                                                    device=dev)).float()},
+         False, ""),
+        ("l14_vision", TRAIN_B, L14_S, L14_D, L14_HEADS, {}, True, "[l14]"),
+        ("l14_text_packed", seg.shape[0], TEXT_S, L14_TEXT_D, L14_TEXT_HEADS, packed, True,
+         "[l14]"),
+        ("l14_text_unpacked", TRAIN_B, TEXT_S, L14_TEXT_D, L14_TEXT_HEADS, unpacked, True,
+         "[l14]"),
     ]
-    for variant, b, s, d, heads, kw, timed in attn_cases:
+    for variant, b, s, d, heads, kw, timed, row in attn_cases:
         qkv = randn(b, s, 3 * d)
         q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
         g = randn(b, s, d)
@@ -1097,13 +1242,13 @@ def train_kernel_phase(torch, np, card: str, table: KernelTable):
         if not rel <= REL_TOL:
             raise AssertionError(f"rinv[{variant}] relative error {rel} > {REL_TOL}")
         lib_fwd = sdpa_calls(torch, q, k, v, heads, keep) if timed else None
-        record("self_attention_fwd_stats", err, timed,
+        record("self_attention_fwd_stats" + row, err, timed,
                lambda: va.self_attention_fwd_stats(q, k, v, heads, **kw),
                lambda: va.attention_reference(q, k, v, heads, stats=True, **kw), 10, variant,
                fwd_bound, lib_fwd)
         o3 = va.self_attention_fused(q, k, v, heads, **kw)
         err3 = _bound_check(torch, f"attention_fused[{variant}]", o3, o_ref, REL_TOL)
-        record("self_attention_fused", err3, timed,
+        record("self_attention_fused" + row, err3, timed,
                lambda: va.self_attention_fused(q, k, v, heads, **kw),
                lambda: va.attention_reference(q, k, v, heads, **kw), 10, variant,
                fused_bound, lib_fwd)
@@ -1111,90 +1256,56 @@ def train_kernel_phase(torch, np, card: str, table: KernelTable):
         want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, **kw)
         errb = max(_bound_check(torch, f"attention_bwd[{variant}] {n}", a, w, BWD_TOL)
                    for n, a, w in zip(("dq", "dk", "dv"), grads, want))
-        record("self_attention_bwd_stats", errb, timed,
+        record("self_attention_bwd_stats" + row, errb, timed,
                lambda: va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw),
                lambda: va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, **kw),
                5, variant, bwd_bound,
                sdpa_calls(torch, q, k, v, heads, keep, g) if timed else None)
         del qkv, q, k, v, g, o, m, r, o_ref, m_ref, r_ref, grads, want, lib_fwd
+        torch.cuda.empty_cache()
     attention_bwd_edges(torch, np, va, table)
 
-    for variant, b, timed in (("vision", TRAIN_B, True), ("ragged", 1, False)):
-        mrows = b * S
-        lw = layer_weights(rng, torch, dev)
+    # (variant, b, s, d, mlp, timed, row suffix): ViT-L/14's is K7's widths.
+    for variant, b, s, d, mlp, timed, row in (
+            ("vision", TRAIN_B, S, D, MLP, True, ""), ("ragged", 1, S, D, MLP, False, ""),
+            ("l14_vision", TRAIN_B, L14_S, L14_D, L14_MLP, True, "[l14]")):
+        mrows = b * s
+        lw = layer_weights(rng, torch, dev, d, mlp)
         p = mf.pack_frozen_mlp(lw["ln2_scale"], lw["ln2_bias"], lw["fc1_w"].t(), lw["fc1_b"],
                                lw["fc2_w"].t(), lw["fc2_b"], torch.bfloat16)
-        x, g = randn(b, S, D), randn(b, S, D)
+        x, g = randn(b, s, d), randn(b, s, d)
         y, a1 = mf.mlp_frozen_fwd(x, p)
         y_ref, a1_ref = mf.mlp_frozen_fwd_reference(x, p)
         err = max(_bound_check(torch, f"mlp_frozen_fwd[{variant}] y", y, y_ref, REL_TOL),
                   _bound_check(torch, f"mlp_frozen_fwd[{variant}] a1", a1, a1_ref, REL_TOL))
-        weights = 4.0 * D * MLP + 4.0 * (MLP + 3 * D)
-        record("mlp_frozen_fwd", err, timed, lambda: mf.mlp_frozen_fwd(x, p),
+        weights = 4.0 * d * mlp + 4.0 * (mlp + 3 * d)
+        record("mlp_frozen_fwd" + row, err, timed, lambda: mf.mlp_frozen_fwd(x, p),
                lambda: mf.mlp_frozen_fwd_reference(x, p), 5, variant,
-               work(bf16_flops=4.0 * mrows * D * MLP,
-                    nbytes=4.0 * mrows * D + 2.0 * mrows * MLP + weights))
+               work(bf16_flops=4.0 * mrows * d * mlp,
+                    nbytes=4.0 * mrows * d + 2.0 * mrows * mlp + weights))
         dx = mf.mlp_frozen_bwd(x, g, a1, p)
         errb = _bound_check(torch, f"mlp_frozen_bwd[{variant}] dx", dx,
                             mf.mlp_frozen_bwd_reference(x, g, a1_ref, p), BWD_TOL)
-        record("mlp_frozen_bwd", errb, timed, lambda: mf.mlp_frozen_bwd(x, g, a1, p),
+        record("mlp_frozen_bwd" + row, errb, timed, lambda: mf.mlp_frozen_bwd(x, g, a1, p),
                lambda: mf.mlp_frozen_bwd_reference(x, g, a1_ref, p), 5, variant,
-               work(bf16_flops=4.0 * mrows * D * MLP,
-                    nbytes=6.0 * mrows * D + 2.0 * mrows * MLP + 4.0 * D * MLP + 4.0 * D))
-        dh = randn(b, S, D, dtype=torch.float32)
+               work(bf16_flops=4.0 * mrows * d * mlp,
+                    nbytes=6.0 * mrows * d + 2.0 * mrows * mlp + 4.0 * d * mlp + 4.0 * d))
+        dh = randn(b, s, d, dtype=torch.float32)
         errl = _bound_check(torch, f"layernorm_bwd[{variant}]",
                             mf.layernorm_bwd(x, g, dh, p["ln2_scale"]),
                             mf.layernorm_bwd_reference(x, g, dh, p["ln2_scale"]), REL_TOL)
-        record("layernorm_bwd", errl, timed, lambda: mf.layernorm_bwd(x, g, dh, p["ln2_scale"]),
+        record("layernorm_bwd" + row, errl, timed,
+               lambda: mf.layernorm_bwd(x, g, dh, p["ln2_scale"]),
                lambda: mf.layernorm_bwd_reference(x, g, dh, p["ln2_scale"]), 20, variant,
-               work(f32_flops=12.0 * mrows * D, nbytes=10.0 * mrows * D + 4.0 * D),
+               work(f32_flops=12.0 * mrows * d, nbytes=10.0 * mrows * d + 4.0 * d),
                layer_norm_grad_call(torch, x, p["ln2_scale"], dh) if timed else None)
-        del x, g, y, a1, y_ref, a1_ref, dx, dh
+        del x, g, y, a1, y_ref, a1_ref, dx, dh, p, lw
+        torch.cuda.empty_cache()
 
     # (variant, b, timed, in the kernels line): B=4096 is timed beside the step's batch.
-    for variant, b, timed, row in (("b256", TRAIN_B, True, True), ("ragged", 5, False, False),
-                                   (f"b{DL_BIG_B}", DL_BIG_B, True, False)):
-        d = 512
-        si, st = randn(b, d), randn(b, d)
-        # Targets correlated with the student rows (cosine ~0.9), so li and
-        # lt sit far from 1 and a dropped cosine term moves them.
-        ti = si.float() + randn(b, d, scale=0.5, dtype=torch.float32)
-        tt = st.float() + randn(b, d, scale=0.5, dtype=torch.float32)
-        parts = dl.distill_loss_fwd(si, st, ti, tt)
-        want = dl.distill_loss_fwd_reference(si, st, ti, tt)
-        torch.cuda.synchronize()
-        if not (want[0] < 0.5 and want[1] < 0.5):
-            raise AssertionError(f"distill_loss_fwd[{variant}]: li, lt {want[:2].tolist()} "
-                                 f"not far from 1")
-        # f32 throughout on identical bf16/f32 inputs: only the summation
-        # order differs, so each part within DL_RTOL of its twin.
-        rel = ((parts - want).abs() / want.abs()).tolist()
-        print(f"kernel distill_loss_fwd[{variant}]: parts {parts.tolist()} twin "
-              f"{want.tolist()} rel_err {rel} bound {DL_RTOL}", flush=True)
-        if parts.shape != want.shape or not all(r <= DL_RTOL for r in rel):
-            raise AssertionError(f"distill_loss_fwd[{variant}]: rel_err {rel} > {DL_RTOL}")
-        err = (parts - want).abs().max().item()
-        inputs = 4.0 * b * d + 8.0 * b * d
-        record("distill_loss_fwd", err, timed, lambda: dl.distill_loss_fwd(si, st, ti, tt),
-               lambda: dl.distill_loss_fwd_reference(si, st, ti, tt), 20, variant,
-               work(f32_flops=2.0 * b * b * d + 10.0 * b * d, nbytes=inputs + 16.0),
-               graph=True, table_row=row)
-        cts = torch.tensor([1.0, 1.0, 1.0], device=dev)
-        got = dl.distill_loss_bwd(si, st, ti, tt, cts)
-        want = dl.distill_loss_bwd_reference(si, st, ti, tt, cts)
-        errb = max(_bound_check(torch, f"distill_loss_bwd[{variant}] {n}", a, w, DL_BWD_TOL,
-                                with_one=False)
-                   for n, a, w in zip(("dsi", "dst"), got, want))
-        record("distill_loss_bwd", errb, timed, lambda: dl.distill_loss_bwd(si, st, ti, tt, cts),
-               lambda: dl.distill_loss_bwd_reference(si, st, ti, tt, cts), 20, variant,
-               work(f32_flops=6.0 * b * b * d + 20.0 * b * d,
-                    nbytes=inputs + 12.0 + 4.0 * b * d), graph=True, table_row=row)
-        # No atomics on values: two calls on the same inputs give the same bits.
-        again = dl.distill_loss_bwd(si, st, ti, tt, cts)
-        if not (torch.equal(dl.distill_loss_fwd(si, st, ti, tt), parts)
-                and all(torch.equal(x, y) for x, y in zip(again, got))):
-            raise AssertionError(f"distill_loss[{variant}]: two calls differ")
-        print(f"kernel distill_loss[{variant}]: two calls bit-identical", flush=True)
+    distill_loss_cases(torch, randn, card, table, TEXT_D,
+                       (("b256", TRAIN_B, True, True), ("ragged", 5, False, False),
+                        (f"b{DL_BIG_B}", DL_BIG_B, True, False)))
     torch.cuda.empty_cache()
 
 
@@ -1235,16 +1346,17 @@ def core_sdpa_calls(torch, qkv_t, qkv_i, text_mask, image_mask, heads):
                     F.scaled_dot_product_attention(qi, kt, vt, attn_mask=keep_t))
 
 
-def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
-    """K10 at the teacher tail's shapes, its two CUDA kernels, and the
-    loader's self-check kernel, against their twins; CUDA-event times."""
+def xattn_kernel_phase(torch, np, card: str, table: KernelTable, d=TEXT_D, heads=TEXT_HEADS):
+    """K10 at the teacher tail's shapes and width `d`, and its two CUDA
+    kernels, against their twins; CUDA-event times in the rows named
+    with `_width_suffix(d)`."""
     from dclip_tpu_torch.core import CLIPConfig
-    from dclip_tpu_torch.kernels import _build
     from dclip_tpu_torch.kernels import cross_attention as xa
 
     dev = torch.device("cuda")
+    suffix = _width_suffix(d)
     rng = np.random.RandomState(3)
-    b, t, p, d, heads = TRAIN_B, TEXT_S, TEACHER_P, TEXT_D, TEXT_HEADS
+    b, t, p = TRAIN_B, TEXT_S, TEACHER_P
     w = xa.pack_cross_attention(_teacher_sd(rng, torch, d, dev), torch.bfloat16)
     _, _, batch = _text_masks(torch, np, dev)
     ids, am = batch["input_ids"], batch["attention_mask"]
@@ -1269,7 +1381,7 @@ def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
     if got[0].dtype != torch.float32:
         raise AssertionError(f"cross_attention: f32 inputs gave {got[0].dtype}")
     # The two boxless rows: every text query averages the image values.
-    table.error("cross_attention", err)
+    table.error("cross_attention" + suffix, err)
     gemm_flops = 2.0 * b * (t + p) * d * 3 * d + 2.0 * rows * d * d
     core_flops = 8.0 * b * t * p * d
     bound = work(bf16_flops=gemm_flops, f32_flops=core_flops + 10.0 * rows * d,
@@ -1278,9 +1390,9 @@ def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
                                                                       imask, heads),
                              lambda: xa.cross_attention_reference(w, text, image, tmask, imask,
                                                                   heads), 20)
-    print(f"time cross_attention: kernel {ms} ms, plain {plain_ms} ms, bound {max(bound)} ms "
-          f"({card})", flush=True)
-    table.timed("cross_attention", ms, plain_ms, bound)
+    print(f"time cross_attention{suffix}: kernel {ms} ms, plain {plain_ms} ms, bound "
+          f"{max(bound)} ms ({card})", flush=True)
+    table.timed("cross_attention" + suffix, ms, plain_ms, bound)
 
     qkv_t = (text.bfloat16() @ w["w_text"]).float() + w["b_text"]
     qkv_i = (image.bfloat16() @ w["w_image"]).float() + w["b_image"]
@@ -1292,16 +1404,16 @@ def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
     uniform = qkv_i[:2, :, 2 * d:].mean(1, keepdim=True).expand_as(boxless)
     _bound_check(torch, "cross_attention_core[boxless rows: uniform average]", out[0][:2],
                  uniform, REL_TOL)
-    table.error("cross_attention_core", err)
+    table.error("cross_attention_core" + suffix, err)
     bound = work(f32_flops=core_flops, nbytes=12.0 * rows * d + 4.0 * rows + 2.0 * rows * d)
     ms, plain_ms = time_pair(
         torch, lambda: xa.cross_attention_core(qkv_t, qkv_i, tmask, imask, heads),
         lambda: xa.cross_attention_core_reference(qkv_t, qkv_i, tmask, imask, heads), 20)
     lib_ms = time_one(torch, core_sdpa_calls(torch, qkv_t, qkv_i, tmask, imask, heads), 20)
-    print(f"time cross_attention_core: kernel {ms} ms, plain {plain_ms} ms, bound "
+    print(f"time cross_attention_core{suffix}: kernel {ms} ms, plain {plain_ms} ms, bound "
           f"{max(bound)} ms, library (two SDPA calls, one a direction) {lib_ms} ms ({card})",
           flush=True)
-    table.timed("cross_attention_core", ms, plain_ms, bound, lib_ms)
+    table.timed("cross_attention_core" + suffix, ms, plain_ms, bound, lib_ms)
 
     a_t = torch.from_numpy(rng.standard_normal((b, t, d)).astype("float32")).to(dev)
     a_i = torch.from_numpy(rng.standard_normal((b, p, d)).astype("float32")).to(dev)
@@ -1311,16 +1423,24 @@ def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
     err = max(_bound_check(torch, f"add_layernorm_f32[{i}]", g,
                            xa.add_layernorm_reference(x, a, s, bb), REL_TOL)
               for i, (g, (x, a), s, bb) in enumerate(zip(out, streams, scales, biases)))
-    table.error("add_layernorm_f32", err)
+    table.error("add_layernorm_f32" + suffix, err)
     bound = work(f32_flops=10.0 * rows * d, nbytes=12.0 * rows * d + 16.0 * d)
     ms, plain_ms = time_pair(
         torch, lambda: xa.add_layernorm_f32(streams, scales, biases),
         lambda: [xa.add_layernorm_reference(x, a, s, bb)
                  for (x, a), s, bb in zip(streams, scales, biases)], 20)
-    print(f"time add_layernorm_f32: kernel {ms} ms, plain {plain_ms} ms, bound {max(bound)} ms "
-          f"({card})", flush=True)
-    table.timed("add_layernorm_f32", ms, plain_ms, bound)
+    print(f"time add_layernorm_f32{suffix}: kernel {ms} ms, plain {plain_ms} ms, bound "
+          f"{max(bound)} ms ({card})", flush=True)
+    table.timed("add_layernorm_f32" + suffix, ms, plain_ms, bound)
+    torch.cuda.empty_cache()
 
+
+def loader_self_check_phase(torch, card: str, table: KernelTable):
+    """K13, the loader's self-check kernel, against its twin; CUDA-event
+    times."""
+    from dclip_tpu_torch.kernels import _build
+
+    dev = torch.device("cuda")
     x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128) * 0.25 - 7.0
     err = (_build.probe_x2(x) - _build.probe_x2_reference(x)).abs().max().item()
     if err != 0.0:
@@ -1332,7 +1452,6 @@ def xattn_kernel_phase(torch, np, card: str, table: KernelTable):
     print(f"time loader_self_check: kernel {ms} ms, plain {plain_ms} ms, bound {max(bound)} ms "
           f"({card})", flush=True)
     table.timed("loader_self_check", ms, plain_ms, bound)
-    torch.cuda.empty_cache()
 
 
 # -- the training slices --------------------------------------------------------------
@@ -1387,39 +1506,50 @@ def _distill_config(batch_size, **changes):
                       teacher=_teacher_config()), **changes)
 
 
-def _batch(np, batch_size, seed=0, first=0):
+def _batch(np, batch_size, seed=0, first=0, clip_cfg=None, teacher_cfg=None):
     from dclip_tpu_torch.cli.common import synthetic_distill_batch
     from dclip_tpu_torch.core import CLIPConfig
 
-    batch = synthetic_distill_batch(CLIPConfig.vit_b_16(), _teacher_config(), batch_size,
+    batch = synthetic_distill_batch(clip_cfg or CLIPConfig.vit_b_16(),
+                                    teacher_cfg or _teacher_config(), batch_size,
                                     np.random.RandomState(seed))
     batch["index"] = np.arange(first, first + batch_size, dtype=np.int64)
     return batch
 
 
-def _distill_trainer(torch, np, sd, tsd, device, batch_size, **changes):
-    """The port's DistillTrainer at ViT-B/16 with the batch's full teacher
-    targets (seeded unit vectors) in an in-memory cache."""
+def _distill_trainer(torch, np, sd, tsd, device, batch_size, l14=False, cached=True,
+                     **changes):
+    """The port's DistillTrainer at ViT-B/16, or with `l14` at ViT-L/14
+    (student = teacher CLIP, `_l14_teacher_config()`), on the synthetic
+    batch; `cached`: the batch's full teacher targets (seeded unit vectors)
+    in an in-memory cache, else no cache (every step computes them)."""
     from dclip_tpu_torch.core import CLIPConfig
     from dclip_tpu_torch.train.distill_trainer import DistillTrainer, TeacherTargetCache
 
-    cfg = CLIPConfig.vit_b_16()
-    batch = _batch(np, batch_size)
-    targets = np.random.RandomState(2).standard_normal(
-        (batch_size, 2, cfg.projection_dim)).astype(np.float32)
-    targets /= np.linalg.norm(targets, axis=-1, keepdims=True)
-    cache = TeacherTargetCache(salt="chip-smoke")  # a salt: no teacher fingerprint pass
-    trainer = DistillTrainer(_distill_config(batch_size, **changes), sd, sd, tsd, cfg, cfg,
-                             device=device, teacher_cache=cache)
-    cache.put_batch(cache.keys_for(batch), targets)
+    cfg = CLIPConfig.vit_l_14() if l14 else CLIPConfig.vit_b_16()
+    batch = _batch(np, batch_size, clip_cfg=cfg,
+                   teacher_cfg=_l14_teacher_config() if l14 else None)
+    # A salt: no teacher fingerprint pass.
+    cache = TeacherTargetCache(salt="chip-smoke") if cached else None
+    config = (_l14_distill_config if l14 else _distill_config)(batch_size, **changes)
+    trainer = DistillTrainer(config, sd, sd, tsd, cfg, cfg, device=device, teacher_cache=cache)
+    if cached:
+        targets = np.random.RandomState(2).standard_normal(
+            (batch_size, 2, cfg.projection_dim)).astype(np.float32)
+        targets /= np.linalg.norm(targets, axis=-1, keepdims=True)
+        cache.put_batch(cache.keys_for(batch), targets)
     return trainer, batch
 
 
 def _student_per_step(trainer):
+    """Per layer: K4 and K6's forward (its LayerNorm and two GEMMs), K5 and
+    K6's backward (two GEMMs, the LayerNorm backward); under remat the
+    backward runs every layer's forward kernels again."""
     v, t = trainer.student_config.vision.num_layers, trainer.student_config.text.num_layers
-    return {"layernorm": v, "gemm_bias_act_residual": 4 * v,
-            "self_attention_fwd_stats": v + t, "self_attention_bwd_stats": v + t,
-            "mlp_frozen_fwd": v, "mlp_frozen_bwd": v, "layernorm_bwd": v,
+    f = 2 if trainer.cfg.remat else 1
+    return {"layernorm": f * v, "gemm_bias_act_residual": (2 * f + 2) * v,
+            "self_attention_fwd_stats": f * (v + t), "self_attention_bwd_stats": v + t,
+            "mlp_frozen_fwd": f * v, "mlp_frozen_bwd": v, "layernorm_bwd": v,
             "distill_loss_fwd": 1, "distill_loss_bwd": 1}
 
 
@@ -1428,7 +1558,8 @@ def _expected(per_step, steps):
     return {k: per_step.get(k, 0) * steps for k in names}
 
 
-def _run_steps(torch, np, trainer, batch, what, card, batch_size=TRAIN_B):
+def _run_steps(torch, np, trainer, batch, what, card, batch_size=TRAIN_B,
+               timed_steps=TIMED_STEPS):
     """Warm-up steps, then timed steps on the host clock ending in a
     synchronize; CUDA events between steps give each step's span on the
     device clock without a host synchronize."""
@@ -1436,10 +1567,10 @@ def _run_steps(torch, np, trainer, batch, what, card, batch_size=TRAIN_B):
     for _ in range(WARMUP_STEPS):
         losses.append(trainer.train_step_on_batch(batch)["loss"])
     torch.cuda.synchronize()
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed_steps + 1)]
     t0 = time.perf_counter()
     marks[0].record()
-    for i in range(TIMED_STEPS):
+    for i in range(timed_steps):
         losses.append(trainer.train_step_on_batch(batch)["loss"])
         marks[i + 1].record()
     torch.cuda.synchronize()
@@ -1451,9 +1582,9 @@ def _run_steps(torch, np, trainer, batch, what, card, batch_size=TRAIN_B):
     print(f"{what}: losses", json.dumps(losses), flush=True)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{what}: training loss not finite and falling: {losses}")
-    ms = 1000.0 * seconds / TIMED_STEPS
-    print(f"{what}: step {ms} ms, {batch_size * TIMED_STEPS / seconds} images/s (B={batch_size}, "
-          f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; {card})", flush=True)
+    ms = 1000.0 * seconds / timed_steps
+    print(f"{what}: step {ms} ms, {batch_size * timed_steps / seconds} images/s (B={batch_size}, "
+          f"{timed_steps} steps after {WARMUP_STEPS} warm-up; {card})", flush=True)
     return ms
 
 
@@ -1687,29 +1818,33 @@ def cache_levels_phase(torch, np, sd, tsd, card: str):
     torch.cuda.empty_cache()
 
 
-def target_agreement_phase(torch, np, sd, tsd):
+def target_agreement_phase(torch, np, sd, tsd, l14=False):
     """Teacher targets at B=2, full width and depth: bf16 kernels on the card
-    vs the f32 modules on the CPU, on the same weights."""
+    vs the f32 modules on the CPU, on the same weights; ViT-B/16, or with
+    `l14` ViT-L/14 and the 768-wide meta-teacher."""
     from dclip_tpu_torch.core import CLIPConfig
     from dclip_tpu_torch.train.distill_trainer import DistillTrainer
 
-    cfg = CLIPConfig.vit_b_16()
-    batch = _batch(np, AGREE_B)
+    cfg = CLIPConfig.vit_l_14() if l14 else CLIPConfig.vit_b_16()
+    config = _l14_distill_config if l14 else _distill_config
+    tag = "l14 targets" if l14 else "targets"
+    batch = _batch(np, AGREE_B, clip_cfg=cfg,
+                   teacher_cfg=_l14_teacher_config() if l14 else None)
     batch["box_mask"][1, 5:] = 0.0
     targets = {}
     for device, changes in (("cuda", {}),
                             ("cpu", {"use_pallas": False, "compute_dtype": "float32"})):
-        trainer = DistillTrainer(_distill_config(AGREE_B, **changes), sd, sd, tsd, cfg, cfg,
+        trainer = DistillTrainer(config(AGREE_B, **changes), sd, sd, tsd, cfg, cfg,
                                  device=device)
         t0 = time.perf_counter()
         got = trainer._teacher_targets(trainer._device_batch(batch))
         targets[device] = [x.double().cpu() for x in got]
-        print(f"targets: {device} ({'kernels, bf16' if device == 'cuda' else 'modules, f32'}) "
+        print(f"{tag}: {device} ({'kernels, bf16' if device == 'cuda' else 'modules, f32'}) "
               f"{time.perf_counter() - t0} s", flush=True)
         del trainer
     for name, a, b in zip(("teacher_img", "teacher_txt"), targets["cuda"], targets["cpu"]):
         cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
-        print(f"targets: {name} per-row cosine {cos.tolist()} bound {TARGET_COS}", flush=True)
+        print(f"{tag}: {name} per-row cosine {cos.tolist()} bound {TARGET_COS}", flush=True)
         if not torch.isfinite(a).all() or not cos.min().item() >= TARGET_COS:
             raise AssertionError(f"{name}: cosine {cos.tolist()} < {TARGET_COS}")
     torch.cuda.empty_cache()
@@ -1758,14 +1893,15 @@ def profile_steps(torch, trainer, batch, card: str, steps: int = 2, spans=()):
               f"x{sum(r[2] for r in hit) // steps} ({card})", flush=True)
 
 
-def grad_agreement_phase(torch, np, sd, tsd, what="grads", must_hold=(), **changes):
-    """One step's trainable gradients, B=8: bf16 kernels on the card vs
-    f32 twins on the CPU. `changes` go to the DistillConfig; the trainer
-    enters epoch 0 first (its unfreeze stages at epoch 0 apply); each of
-    `must_hold` must name some held tensor."""
+def grad_agreement_phase(torch, np, sd, tsd, what="grads", must_hold=(), batch_size=GRAD_B,
+                         **changes):
+    """One step's trainable gradients: bf16 kernels on the card vs f32
+    twins on the CPU. `changes` go to `_distill_trainer` (`l14`) and the
+    DistillConfig; the trainer enters epoch 0 first (its unfreeze stages
+    at epoch 0 apply); each of `must_hold` must name some held tensor."""
     grads = {}
     for device, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
-        trainer, batch = _distill_trainer(torch, np, sd, tsd, device, GRAD_B,
+        trainer, batch = _distill_trainer(torch, np, sd, tsd, device, batch_size,
                                           compute_dtype=dtype, use_pallas=True, **changes)
         trainer._on_epoch_start(0)
         t0 = time.perf_counter()
@@ -1812,7 +1948,7 @@ def grad_agreement_phase(torch, np, sd, tsd, what="grads", must_hold=(), **chang
                              f"({worst_name}), k_proj.bias noise ratio {ratio}")
 
 
-# -- the fused-trainable configuration (K8, K9), K7 at L/14, fit and resume -------------
+# -- the fused-trainable configuration (K8, K9), fit and resume --------------------------
 
 
 def trainable_kernel_phase(torch, np, card: str, table: KernelTable):
@@ -2025,50 +2161,6 @@ def _trainable_parts(torch, to, table, timed, sum_check, variant, timed_case, nt
               " (F.layer_norm backward: input, scale and bias gradients)")
 
 
-def l14_frozen_mlp_phase(torch, np, card: str):
-    """K7's proof: the port's K6 (its GEMMs tile at every width) at ViT-L/14
-    widths, forward (y, a1) and dx against the twin, timed with its bound.
-    Printed only: L/14 is not on this slice's path, so it adds nothing to
-    the kernel table's K6 rows."""
-    from dclip_tpu_torch.kernels import mlp_frozen as mf
-
-    dev = torch.device("cuda")
-    rng = np.random.RandomState(14)
-    b, s, d, mlp = L14_B, L14_S, L14_D, L14_MLP
-
-    def randn(*shape, base=0.0, scale=1.0, dtype=torch.float32):
-        t = (base + scale * rng.standard_normal(shape)).astype("float32")
-        return torch.from_numpy(t).to(dev).to(dtype)
-
-    p = mf.pack_frozen_mlp(randn(d, base=1.0, scale=0.1), randn(d, scale=0.1),
-                           randn(mlp, d, scale=d**-0.5), randn(mlp, scale=0.1),
-                           randn(d, mlp, scale=mlp**-0.5), randn(d, scale=0.1), torch.bfloat16)
-    x, g = randn(b, s, d, dtype=torch.bfloat16), randn(b, s, d, dtype=torch.bfloat16)
-    y, a1 = mf.mlp_frozen_fwd(x, p)
-    y_ref, a1_ref = mf.mlp_frozen_fwd_reference(x, p)
-    _bound_check(torch, "k7_l14 mlp_frozen_fwd y", y, y_ref, REL_TOL)
-    _bound_check(torch, "k7_l14 mlp_frozen_fwd a1", a1, a1_ref, REL_TOL)
-    dx = mf.mlp_frozen_bwd(x, g, a1, p)
-    _bound_check(torch, "k7_l14 mlp_frozen_bwd dx", dx, mf.mlp_frozen_bwd_reference(x, g, a1_ref, p),
-                 BWD_TOL)
-    m = b * s
-    weights = 4.0 * d * mlp + 4.0 * (mlp + 3 * d)
-    for name, kernel_fn, plain_fn, bound in (
-            ("mlp_frozen_fwd", lambda: mf.mlp_frozen_fwd(x, p),
-             lambda: mf.mlp_frozen_fwd_reference(x, p),
-             work(bf16_flops=4.0 * m * d * mlp, nbytes=4.0 * m * d + 2.0 * m * mlp + weights)),
-            ("mlp_frozen_bwd", lambda: mf.mlp_frozen_bwd(x, g, a1, p),
-             lambda: mf.mlp_frozen_bwd_reference(x, g, a1_ref, p),
-             work(bf16_flops=4.0 * m * d * mlp,
-                  nbytes=6.0 * m * d + 2.0 * m * mlp + 4.0 * d * mlp + 4.0 * d))):
-        ms, plain_ms = time_pair(torch, kernel_fn, plain_fn, 5)
-        print(f"time k7_l14 {name}[{b}x{s}x{d}, mlp {mlp}]: kernel {ms} ms, plain {plain_ms} ms, "
-              f"bound {max(bound)} ms ({'operations' if bound[0] >= bound[1] else 'bytes'}) "
-              f"({card})", flush=True)
-    del x, g, y, a1, y_ref, a1_ref, dx, p
-    torch.cuda.empty_cache()
-
-
 def _fused_changes(**more):
     return dict(fused_text_mlp=True, fused_attn_block=True, **more)
 
@@ -2227,13 +2319,13 @@ def fit_phase(torch, np, sd, tsd, card: str):
 # -- the meta-teacher training path: K10's trainable form, TeacherTrainer ----------------
 
 
-def _xattn_trainable_case(torch, np, rng, b, dev):
-    """Live f32 teacher parameters (`CrossModalAttention` names), bf16
-    inputs zeroed at masked slots, the synthetic batch's content-token
-    masks and P=8 box masks with two boxless rows."""
+def _xattn_trainable_case(torch, np, rng, b, dev, d=TEXT_D):
+    """Live f32 teacher parameters (`CrossModalAttention` names) of width
+    `d`, bf16 inputs zeroed at masked slots, the synthetic batch's
+    content-token masks and P=8 box masks with two boxless rows."""
     from dclip_tpu_torch.core import CLIPConfig
 
-    sd = _teacher_sd(rng, torch, TEXT_D, dev)
+    sd = _teacher_sd(rng, torch, d, dev)
     params = {k[len("cross_modal_attention."):]: v.requires_grad_() for k, v in sd.items()}
     batch = _batch(np, b)
     ids, am = batch["input_ids"], batch["attention_mask"]
@@ -2245,30 +2337,31 @@ def _xattn_trainable_case(torch, np, rng, b, dev):
     imask = torch.from_numpy(imask_np).to(dev)
 
     def stream(n, mask):
-        x = torch.from_numpy(rng.standard_normal((b, n, TEXT_D)).astype("float32")).to(dev)
+        x = torch.from_numpy(rng.standard_normal((b, n, d)).astype("float32")).to(dev)
         return (x * mask[..., None]).bfloat16()
 
     return params, stream(TEXT_S, tmask), stream(TEACHER_P, imask), tmask, imask
 
 
-def xattn_trainable_phase(torch, np, card: str, table: KernelTable):
-    """`cross_attention_trainable` at the teacher step's shapes (B=32, 256):
-    the forward (K10 on weights packed from the live parameters) against
-    its f32 twin, the gradients against the twin's (autograd through the
-    f32 module on the card), CUDA-event times of forward and backward, and
-    two Adam steps that show the forward reads the updated weights."""
+def xattn_trainable_phase(torch, np, card: str, table: KernelTable, d=TEXT_D, h=TEXT_HEADS,
+                          batches=XATTN_TRAIN_B):
+    """`cross_attention_trainable` at the teacher step's shapes (B=32, 256)
+    and width `d`: the forward (K10 on weights packed from the live
+    parameters) against its f32 twin, the gradients against the twin's
+    (autograd through the f32 module on the card), CUDA-event times of
+    forward and backward in the row named with `_width_suffix(d)`."""
     from torch.func import functional_call
 
     from dclip_tpu_torch.kernels import cross_attention as xa
     from dclip_tpu_torch.models.cross_modal import CrossModalAttention
-    from dclip_tpu_torch.train.optim import make_optimizer
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(23)
-    module = CrossModalAttention(TEXT_D, TEXT_HEADS, device="meta")
-    d, t, p, h = TEXT_D, TEXT_S, TEACHER_P, TEXT_HEADS
-    for b in XATTN_TRAIN_B:
-        params, text, image, tmask, imask = _xattn_trainable_case(torch, np, rng, b, dev)
+    suffix = _width_suffix(d)
+    module = CrossModalAttention(d, h, device="meta")
+    t, p = TEXT_S, TEACHER_P
+    for b in batches:
+        params, text, image, tmask, imask = _xattn_trainable_case(torch, np, rng, b, dev, d)
         names = list(params)
         text.requires_grad_()
         image.requires_grad_()
@@ -2279,7 +2372,7 @@ def xattn_trainable_phase(torch, np, card: str, table: KernelTable):
                   for name, g, r in zip(("text", "image"), out, want))
         if out[0].dtype != torch.bfloat16:
             raise AssertionError(f"cross_attention_trainable: bf16 inputs gave {out[0].dtype}")
-        table.error("cross_attention_trainable", err)
+        table.error("cross_attention_trainable" + suffix, err)
         gt = torch.randn(text.shape, device=dev).bfloat16()
         gi = torch.randn(image.shape, device=dev).bfloat16()
         wrt = [text, image] + [params[n] for n in names]
@@ -2314,16 +2407,27 @@ def xattn_trainable_phase(torch, np, card: str, table: KernelTable):
         fwd_ms, twin_ms = time_pair(torch, fwd, twin, 10)
         bwd_ms = time_one(torch, lambda: torch.autograd.grad(out, wrt, (gt, gi),
                                                              retain_graph=True), 5)
-        print(f"time cross_attention_trainable[B={b}]: forward kernel {fwd_ms} ms, twin "
+        print(f"time cross_attention_trainable{suffix}[B={b}]: forward kernel {fwd_ms} ms, twin "
               f"{twin_ms} ms, bound {max(fwd_bound)} ms ({gemm_flops / 1e9} GFLOP bf16 + "
               f"{core_flops / 1e9} GFLOP f32); backward (f32 recompute through the module, "
               f"the same code behind either forward) {bwd_ms} ms, bound {max(bwd_bound)} ms "
               f"({3.0 * (gemm_flops + core_flops) / 1e9} GFLOP f32) ({card})", flush=True)
-        table.timed("cross_attention_trainable", fwd_ms + bwd_ms, twin_ms + bwd_ms,
+        table.timed("cross_attention_trainable" + suffix, fwd_ms + bwd_ms, twin_ms + bwd_ms,
                     tuple(a + c for a, c in zip(fwd_bound, bwd_bound)))
         del out, grads, ref, ref_grads
+    torch.cuda.empty_cache()
 
-    # Two Adam steps at B=32: after the first, K10 runs on a fresh pack.
+
+def xattn_update_phase(torch, np):
+    """Two Adam steps of `cross_attention_trainable`'s parameters at B=32:
+    after the first, K10 runs on a fresh pack of the updated weights, and
+    the pack made before the update fails the bound."""
+    from dclip_tpu_torch.kernels import cross_attention as xa
+    from dclip_tpu_torch.train.optim import make_optimizer
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(24)
+    h = TEXT_HEADS
     params, text, image, tmask, imask = _xattn_trainable_case(torch, np, rng, XATTN_TRAIN_B[0],
                                                               dev)
     stale = xa.pack_cross_attention(params, torch.bfloat16, prefix="")
@@ -2350,9 +2454,10 @@ def xattn_trainable_phase(torch, np, card: str, table: KernelTable):
     torch.cuda.empty_cache()
 
 
-def _teacher_trainer(sd, tsd, device, batch_size, pe_cache=None, **changes):
+def _teacher_trainer(sd, tsd, device, batch_size, pe_cache=None, l14=False, **changes):
     """The port's TeacherTrainer at ViT-B/16 (random CLIP weights from seed
-    0) with the meta-teacher of `_teacher_config()` (random, seed 0)."""
+    0) with the meta-teacher of `_teacher_config()` (random, seed 0); with
+    `l14`, ViT-L/14 and `_l14_teacher_config()`."""
     import dataclasses
 
     from dclip_tpu_torch.core import CLIPConfig
@@ -2361,8 +2466,11 @@ def _teacher_trainer(sd, tsd, device, batch_size, pe_cache=None, **changes):
 
     cfg = dataclasses.replace(
         TeacherTrainConfig(batch_size=batch_size, learning_rate=TEACHER_LR, seed=0,
-                           clip_model="vit-b-16", teacher=_teacher_config()), **changes)
-    return TeacherTrainer(cfg, sd, CLIPConfig.vit_b_16(), tsd, pe_cache=pe_cache, device=device)
+                           clip_model="vit-l-14" if l14 else "vit-b-16",
+                           teacher=_l14_teacher_config() if l14 else _teacher_config()),
+        **changes)
+    clip_cfg = CLIPConfig.vit_l_14() if l14 else CLIPConfig.vit_b_16()
+    return TeacherTrainer(cfg, sd, clip_cfg, tsd, pe_cache=pe_cache, device=device)
 
 
 def _teacher_per_step(trainer, region_encode=True):
@@ -3452,6 +3560,293 @@ def region_token_phase(torch, np, images, detections, card: str, table: KernelTa
     return launches
 
 
+# -- the ViT-L/14 slice: the doctor, L/14 distillation, the files route ---------------
+
+
+def doctor_phase(card: str) -> dict:
+    """Phase 30: `cli.doctor.collect()` on this machine; returns its JPEG
+    decoder entry."""
+    from dclip_tpu_torch.cli import doctor
+
+    info = doctor.collect()
+    print("doctor:", json.dumps(info), flush=True)
+    if not info["ok"] or info["devices"]["platform"] != "gpu" \
+            or info["kernels"]["self_check"].get("max_abs_err") != 0.0:
+        raise AssertionError(f"doctor: {info}")
+    return info["native_runtime"]["jpeg_decoder"]
+
+
+def _l14_teacher_config():
+    from dclip_tpu_torch.core import TeacherConfig
+
+    return TeacherConfig(embed_dim=L14_XATTN_D, num_heads=L14_XATTN_HEADS,
+                         max_patches=TEACHER_P, max_text_tokens=TEXT_S)
+
+
+def _l14_distill_config(batch_size, **changes):
+    import dataclasses
+
+    return dataclasses.replace(_distill_config(batch_size, **changes), student_model="vit-l-14",
+                               teacher_clip_model="vit-l-14", teacher=_l14_teacher_config())
+
+
+def _hold_remat(torch, what, params, steps):
+    """Remat's parameters against those without it: bit-equal (the kernels
+    use no atomics and the recompute runs the same kernels on the same
+    inputs), or the tensors that differ are named."""
+    off, on = params[False], params[True]
+    differ = [n for n in off if not torch.equal(off[n], on[n])]
+    if differ:
+        raise AssertionError(f"{what}: remat on and off differ in {len(differ)} of {len(off)} "
+                             f"trainable tensors after {steps} steps: {differ}")
+    print(f"{what}: remat on and off give bit-equal parameters after {steps} steps "
+          f"({len(off)} trainable tensors)", flush=True)
+
+
+def l14_distill_phase(torch, np, card: str, table: KernelTable) -> dict:
+    """Phase 31: the ViT-L/14 distillation step at B=256, cache-warm and
+    uncached, each with remat off and on; the L/14 teacher targets and the
+    student's gradients (B=4) against the f32 route; the L/14 teacher
+    trainer at B=32; K10 and K10' (head_dim
+    96) and K11 at D=768 against their twins. Returns the launches of the
+    five runs, summed."""
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.models.weights import random_state_dict, random_teacher_state_dict
+
+    t0 = time.perf_counter()
+    sd = random_state_dict(CLIPConfig.vit_l_14(), seed=0)
+    tsd = random_teacher_state_dict(_l14_teacher_config(), seed=0)
+    print(f"l14: random weights from seed 0 in {time.perf_counter() - t0} s", flush=True)
+    steps = WARMUP_STEPS + L14_TIMED_STEPS
+    counts: dict = {}
+    summary = []
+    for label, cached, per_step in (("cache-warm", True, _student_per_step),
+                                    ("uncached", False, _uncached_per_step)):
+        params = {}
+        for remat in (False, True):
+            what = f"l14 {label} remat {'on' if remat else 'off'}"
+            trainer, batch = _distill_trainer(torch, np, sd, tsd, "cuda", TRAIN_B, l14=True,
+                                              cached=cached, remat=remat)
+            if trainer.student.vision_model.encoder.remat != remat or not trainer._use_kernels:
+                raise AssertionError(f"{what}: expected the kernels on and remat {remat}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_launches()
+            ms = _run_steps(torch, np, trainer, batch, what, card, timed_steps=L14_TIMED_STEPS)
+            launches = _all_launches()
+            expected = _expected(per_step(trainer), steps)
+            print(f"{what}: launches", json.dumps(launches), "expected", json.dumps(expected),
+                  flush=True)
+            if launches != expected:
+                raise AssertionError(f"{what}: launch counts {launches} != {expected}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"{what}: peak device memory {peak} GiB ({card})", flush=True)
+            summary.append((label, remat, ms, TRAIN_B * 1000.0 / ms, peak))
+            for k, n in launches.items():
+                counts[k] = counts.get(k, 0) + n
+            params[remat] = {n: p.detach().cpu() for n, p in trainer.student.named_parameters()
+                             if p.requires_grad}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        _hold_remat(torch, f"l14 {label}", params, steps)
+        del params
+    for label, remat, ms, ips, peak in summary:
+        print(f"l14 summary: {label} remat {'on' if remat else 'off'}: {ms} ms/step, {ips} "
+              f"images/s, peak {peak} GiB (ViT-L/14, B={TRAIN_B}; {card})", flush=True)
+    for label in ("cache-warm", "uncached"):
+        off, on = (r[2] for r in summary if r[0] == label)
+        print(f"l14 summary: {label} remat costs {on / off} x the step without ({card})",
+              flush=True)
+    target_agreement_phase(torch, np, sd, tsd, l14=True)
+    grad_agreement_phase(torch, np, sd, tsd, "l14 grads", batch_size=L14_GRAD_B, l14=True)
+
+    # The meta-teacher's training at L/14, at the teacher CLI's default batch.
+    b = TEACHER_B[0]
+    trainer = _teacher_trainer(sd, tsd, "cuda", b, l14=True)
+    batch = _batch(np, b, clip_cfg=CLIPConfig.vit_l_14(), teacher_cfg=_l14_teacher_config())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    _run_steps(torch, np, trainer, batch, f"l14 teacher B={b}", card, batch_size=b,
+               timed_steps=L14_TIMED_STEPS)
+    launches = _all_launches()
+    expected = _expected(_teacher_per_step(trainer), steps)
+    print(f"l14 teacher B={b}: launches", json.dumps(launches), "expected",
+          json.dumps(expected), flush=True)
+    if launches != expected:
+        raise AssertionError(f"l14 teacher launch counts {launches} != {expected}")
+    print(f"l14 teacher B={b}: peak device memory {torch.cuda.max_memory_allocated() / 2**30} "
+          f"GiB ({card})", flush=True)
+    for k, n in launches.items():
+        counts[k] = counts.get(k, 0) + n
+    del trainer, sd, tsd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    xattn_trainable_phase(torch, np, card, table, d=L14_XATTN_D, h=L14_XATTN_HEADS,
+                          batches=TEACHER_B[:1])
+    xattn_kernel_phase(torch, np, card, table, d=L14_XATTN_D, heads=L14_XATTN_HEADS)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(31)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.from_numpy(rng.standard_normal(shape).astype("float32") * scale)
+                .to(dev).to(dtype))
+
+    distill_loss_cases(torch, randn, card, table, L14_XATTN_D, (("b256", TRAIN_B, True, True),))
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _fixture_size(name: str):
+    """(w, h) from a fixture's name, `<kind>_<w>x<h>.<ext>`."""
+    w, h = name.rsplit("_", 1)[1].split(".")[0].split("x")
+    return int(w), int(h)
+
+
+def _host_cpu() -> str:
+    try:
+        with open("/proc/cpuinfo") as f:
+            names = [line.split(":", 1)[1].strip() for line in f if line.startswith("model name")]
+    except OSError:
+        return "unknown host CPU"
+    return f"{names[0]} x{len(names)}" if names else "unknown host CPU"
+
+
+def files_phase(torch, np, card: str, jpeg: dict):
+    """Phase 32: both training CLIs at `FILES_PRESET` (ViT-L/14) on
+    `FILES_DEVICE` from the committed JPEG fixtures through the native
+    decoder, or, where this machine cannot build it, the clean raise of
+    `decode_backend="native"`."""
+    import tempfile
+
+    from dclip_tpu_torch import native
+    from dclip_tpu_torch.cli import train_distill, train_teacher
+    from dclip_tpu_torch.data.corpus import load_corpus
+    from dclip_tpu_torch.data.detection_cache import DetectionCache
+    from dclip_tpu_torch.data.pipeline import MultiModalPipeline
+    from dclip_tpu_torch.data.tokenizer import HashTokenizer
+
+    tok = HashTokenizer(vocab_size=1000, max_length=TEXT_S)
+    if not jpeg["available"]:
+        print(f"files: this machine cannot build or load the JPEG decoder: {jpeg['error']}",
+              flush=True)
+        try:
+            MultiModalPipeline([], tok, decode_backend="native")
+        except RuntimeError as e:
+            print(f"files: decode_backend='native' raises: {e}", flush=True)
+            if "native JPEG decoder" not in str(e):
+                raise AssertionError(f"files: the raise does not name the decoder: {e}") from e
+            return
+        raise AssertionError("files: decode_backend='native' did not raise without a decoder")
+
+    fixtures = {n: os.path.abspath(FIXTURES + n) for n in FILES_JPEGS + FILES_PIL_ONLY}
+    # The decoder alone: shapes, ranges and original sizes, fixture by fixture.
+    from dclip_tpu_torch.data.pipeline import _CLIP_MEAN_F32, _CLIP_STD_F32
+
+    for name in FILES_JPEGS:
+        with open(fixtures[name], "rb") as f:
+            data = f.read()
+        for fast in (False, True):
+            out = native.decode_preprocess(data, 224, 224, fast=fast, mean=_CLIP_MEAN_F32,
+                                           std=_CLIP_STD_F32)
+            if out is None or out[2] != _fixture_size(name) or out[0].shape != (224, 224, 3) \
+                    or out[1].shape != (224, 224, 3) or not np.isfinite(out[0]).all() \
+                    or not 0.0 <= out[1].min() <= out[1].max() <= 1.0:
+                raise AssertionError(f"files: decode of {name} (fast={fast}): "
+                                     f"{None if out is None else (out[0].shape, out[2])}")
+    print(f"files: {len(FILES_JPEGS)} fixtures decode natively (exact and scaled DCT), "
+          "original sizes from the frames", flush=True)
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    for name in FILES_PIL_ONLY:  # the per-item rule: these need PIL
+        pipe = MultiModalPipeline([{"image_path": fixtures[name], "captions": ["x"]}], tok,
+                                  decode_backend="native")
+        if have_pil:
+            pipe._load_item(0, 0)
+            print(f"files: {name} took the PIL route (PIL is installed here)", flush=True)
+            continue
+        try:
+            pipe._load_item(0, 0)
+        except ImportError as e:
+            if name not in str(e):
+                raise AssertionError(f"files: {name}: the error does not name it: {e}") from e
+            print(f"files: {name} needs PIL, which this machine lacks: {e}", flush=True)
+        else:
+            raise AssertionError(f"files: {name} loaded without PIL")
+
+    with tempfile.TemporaryDirectory(prefix="dclip_files_") as root:
+        rng = np.random.RandomState(32)
+        items = [{"image_path": fixtures[FILES_JPEGS[i % len(FILES_JPEGS)]],
+                  "captions": [f"photo {i} of a scene with {w}" for w in
+                               rng.choice(["dogs", "a red car", "two people", "trees"], 2)]}
+                 for i in range(FILES_ITEMS + FILES_VAL)]
+        train_file = os.path.join(root, "files_train.json")
+        with open(train_file, "w") as f:
+            json.dump(items[:FILES_ITEMS], f)
+        with open(os.path.join(root, "files_val.json"), "w") as f:
+            json.dump(items[FILES_ITEMS:], f)
+        cache = DetectionCache()
+        for name in FILES_JPEGS:  # 8 boxes of a 4 x 2 grid, in the frame's pixels
+            w, h = _fixture_size(name)
+            boxes = [[w * c / 4, h * r / 2, w * (c + 1) / 4, h * (r + 1) / 2]
+                     for r in range(2) for c in range(4)]
+            cache.put(fixtures[name], np.asarray(boxes, np.float32),
+                      np.linspace(0.9, 0.2, 8).astype(np.float32))
+        npz = os.path.join(root, "precache.npz")
+        cache.save(npz)
+
+        pipe = MultiModalPipeline(load_corpus(train_file), tok, DetectionCache.load(npz),
+                                  batch_size=32, max_patches=TEACHER_P, image_size=224,
+                                  teacher_image_size=224, max_text_tokens=TEXT_S,
+                                  decode_backend="native")
+        t0 = time.perf_counter()
+        batches = list(pipe.epoch(0))
+        seconds = time.perf_counter() - t0
+        pipe.close()
+        for b in batches:
+            if b.pixel_values.shape != (32, 224, 224, 3) or b.teacher_pixels.min() < 0 \
+                    or b.teacher_pixels.max() > 1 or not np.isfinite(b.pixel_values).all() \
+                    or b.box_mask.sum() != 32 * TEACHER_P or b.boxes.max() > 224.0 + 1e-3:
+                raise AssertionError("files: a batch of the native route is malformed")
+        print(f"files: host decode of {FILES_ITEMS} items (native, 8 threads, 224 px student "
+              f"and teacher) {seconds} s, {FILES_ITEMS / seconds} images/s on the host "
+              f"({_host_cpu()}; host CPU, not the card)", flush=True)
+
+        preset = FILES_PRESET
+        common = ["--detection_cache", npz, "--model_preset", preset, "--decode_backend",
+                  "native", "--device", FILES_DEVICE]
+        t0 = time.perf_counter()
+        if train_teacher.main(["--train_file", train_file, "--epochs", "1", "--output_path",
+                               os.path.join(root, "models", "teacher")] + common) != 0:
+            raise AssertionError("files: train_teacher failed")
+        print(f"files: train_teacher ({preset}, --decode_backend native, 1 epoch of "
+              f"{FILES_ITEMS} items at its default batch) {time.perf_counter() - t0} s ({card})",
+              flush=True)
+        index = json.load(open(os.path.join(root, "models", "checkpoints.json")))
+        teacher_ckpt = index[-1]["path"]
+        t0 = time.perf_counter()
+        if train_distill.main(["--train_file", train_file, "--phase1_epochs", "1",
+                               "--accumulate_grad_batches", "1", "--checkpoint_dir",
+                               os.path.join(root, "ckpts"), "--teacher_checkpoint",
+                               teacher_ckpt, "--remat"] + common) != 0:
+            raise AssertionError("files: train_distill failed")
+        print(f"files: train_distill ({preset}, --remat, --decode_backend native, 1 epoch at "
+              f"its default batch) {time.perf_counter() - t0} s ({card})", flush=True)
+        distill = json.load(open(os.path.join(root, "ckpts", "checkpoints.json")))
+        for what, entries in (("teacher", index), ("distill", distill)):
+            losses = [v for e in entries for v in e["metrics"].values()]
+            print(f"files: {what} checkpoints {[os.path.basename(e['path']) for e in entries]}, "
+                  f"losses {losses}", flush=True)
+            if not entries or not all(os.path.exists(e["path"]) for e in entries) \
+                    or not losses or not all(np.isfinite(losses)):
+                raise AssertionError(f"files: {what} checkpoints or losses: {entries}")
+
+
 def main() -> int:
     import torch
 
@@ -3488,7 +3883,7 @@ def main() -> int:
 
     table = KernelTable(list(KERNELS) + list(TRAIN_KERNELS) + list(TEACHER_KERNELS)
                         + list(TRAINABLE_KERNELS) + list(TOPK_KERNELS)
-                        + list(TEACHER_TRAIN_KERNELS))
+                        + list(TEACHER_TRAIN_KERNELS) + list(L14_ROWS))
     kernel_phase(torch, vb, card, table)
     gemm_phase(torch, card)
     service, args, launches = slice_phase(torch, np, vb, cli_serve, card)
@@ -3498,9 +3893,10 @@ def main() -> int:
 
     train_kernel_phase(torch, np, card, table)
     xattn_kernel_phase(torch, np, card, table)
+    loader_self_check_phase(torch, card, table)
     xattn_trainable_phase(torch, np, card, table)
+    xattn_update_phase(torch, np)
     trainable_kernel_phase(torch, np, card, table)
-    l14_frozen_mlp_phase(torch, np, card)
     topk_kernel_phase(torch, np, card, table)
     eval_retrieval_phase(torch, np, card)
     eval_zero_shot_phase(torch, np, card)
@@ -3538,6 +3934,9 @@ def main() -> int:
     del det_images, detections
     region = {n: sum(r.get(n, 0) for r in region_launches.values())
               for n in list(KERNELS) + ["topk_streamed"]}
+    jpeg = doctor_phase(card)
+    l14_launches = l14_distill_phase(torch, np, card, table)
+    files_phase(torch, np, card, jpeg)
 
     counts = {**{n: launches[n] + region[n] for n in KERNELS},
               **{n: train_launches[n] for n in TRAIN_KERNELS},
@@ -3546,9 +3945,10 @@ def main() -> int:
               **{n: fused_launches[n] for n in TRAINABLE_KERNELS},
               "topk_streamed": (launches["topk_streamed"] + uncached_launches["topk_streamed"]
                                 + region["topk_streamed"]),
-              "cross_attention_trainable": teacher_launches["cross_attention_trainable"]}
+              "cross_attention_trainable": teacher_launches["cross_attention_trainable"],
+              **{n: l14_launches[n.split("[")[0]] for n in L14_ROWS}}
     sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS, **TRAINABLE_KERNELS,
-               **TOPK_KERNELS, **TEACHER_TRAIN_KERNELS}
+               **TOPK_KERNELS, **TEACHER_TRAIN_KERNELS, **L14_ROWS}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **table.entry(name)}
                for name, (src, rep) in sources.items()]

@@ -16,20 +16,22 @@ module layout so each counterpart is found under the same path:
              aggregation, exact k-NN search and its gate, losses, caption
              packing, fixed-shape NMS
   data/      tokenizers, embedding store, detection cache, the corpus
-             input pipeline (MultiModalPipeline), image preprocessing, the
-             patch-index builder
+             builders, the input pipeline (MultiModalPipeline), image
+             preprocessing, the patch-index builder
   serve/     dynamic request batcher, bucket-padded ClipService
   train/     DistillTrainer (teacher targets with their caches, student
              step), TeacherTrainer (the meta-teacher), masked Adam /
              AdamW, epoch loop, checkpoints
-  native/    the `.dcs` KV store and host top-k (C++, built with g++)
-  cli/       serve, train_teacher, train_distill, flickr30k_eval,
-             zero_shot_eval, karpathy, export_hf, precache, build_index,
-             tune_gate (`python -m dclip_tpu_torch.cli.<name>`)
+  native/    the `.dcs` KV store and host top-k, and the libjpeg decoder
+             of the input pipeline (C++, built with g++)
+  cli/       serve, build_corpus, train_teacher, train_distill,
+             flickr30k_eval, zero_shot_eval, karpathy, export_hf, precache,
+             build_index, tune_gate, doctor (`python -m
+             dclip_tpu_torch.cli.<name>`)
 
 This package imports `torch` and never `jax`, and nothing of the JAX
 package `dclip_tpu`: what it needs of it (the config dataclasses, the
-native store) it keeps as its own copies.
+native sources) it keeps as its own copies.
 """
 from dclip_tpu_torch.core import CLIPConfig, from_name
 

@@ -62,7 +62,10 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fast_decode", action="store_true",
                    help="scaled DCT JPEG decode (PIL draft; training only)")
     p.add_argument("--decode_backend", choices=("pil", "native"), default="pil",
-                   help="'native' (C++ libjpeg) is not ported yet and raises")
+                   help="'native' = C++ libjpeg decode + fused resample/normalize (GIL-"
+                        "released, so decode threads scale over cores; non-JPEG, CMYK and "
+                        "corrupt files take the PIL route per item; a decoder that cannot be "
+                        "built raises). 'pil' keeps HF bit-parity")
     p.add_argument("--multihost", action="store_true",
                    help="multi-process runs: not ported yet, raises")
     p.add_argument("--max_patches", type=int, default=8)
@@ -91,9 +94,6 @@ def check_waiting_flags(args) -> None:
     """The flags whose paths are not ported yet raise, naming their item."""
     if args.multihost:
         raise NotImplementedError("--multihost is not ported yet: ROADMAP Queue 1 item 10")
-    if args.decode_backend == "native":
-        raise NotImplementedError("--decode_backend native (native/jpeg_decode.cc) is not "
-                                  "ported yet: ROADMAP Queue 1 item 5")
 
 
 def load_detection_cache(path):

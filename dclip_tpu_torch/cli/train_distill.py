@@ -14,10 +14,12 @@ or a torch `.pth` / `.bin` state dict of the reference teacher (its
 `cross_modal_attention.*` keys); without one the teacher starts from
 seeded random weights. Checkpoints: `CheckpointManager(checkpoint_dir,
 prefix="distill", save_top_k=10, monitor="train_loss")`. `--remat`
-raises (ROADMAP Queue 1 item 5); `--tiled_frozen_mlp` is accepted and
-changes nothing, since K6 tiles at every width. `--projection_weights`
-reads a port-format file, and `--multihost` and `--decode_backend native`
-raise, as in `cli.train_teacher`.
+recomputes each encoder layer's activations in the backward
+(`torch.utils.checkpoint`, the JAX CLI's `nn.remat`); `--tiled_frozen_mlp`
+is accepted and changes nothing, since K6 tiles at every width.
+`--projection_weights` reads a port-format file; `--decode_backend native`
+and `--multihost` behave as in `cli.train_teacher`. `--model_preset
+vit-l-14` gives the reference's L/14 run: `TeacherConfig(embed_dim=768)`.
 """
 from __future__ import annotations
 
@@ -80,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiled_frozen_mlp", action="store_true",
                    help="accepted for the JAX CLI's contract; K6 tiles at every width")
     p.add_argument("--remat", action="store_true",
-                   help="activation recomputation: not ported yet, raises")
+                   help="recompute each encoder layer's activations in the backward "
+                        "(less device memory, one more forward per layer)")
     p.add_argument("--unfreeze_text_at_epoch", type=int, default=None,
                    help="freeze the student text encoder until this epoch")
     add_data_args(p)

@@ -14,8 +14,9 @@ printed at the end; `--resume` starts after the latest. `--pe_cache`
 ('memory' or a native store path) caches the frozen region embeddings
 across epochs. `--projection_weights` is a port-format
 `ImageProjectionModule` file (`models.projections`), not flax msgpack.
-`--multihost` (item 10) and `--decode_backend native` (item 5) raise,
-naming their ROADMAP Queue 1 items.
+`--decode_backend native` decodes JPEG files with the port's libjpeg
+decoder (`native/jpeg_decode.cc`), the route of a machine without PIL.
+`--multihost` raises, naming ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 

@@ -1,16 +1,319 @@
-"""Corpus / eval JSON loading (counterpart of `dclip_tpu/data/corpus.py:316-321`).
+"""Training-corpus builder (counterpart of `dclip_tpu/data/corpus.py`):
+the reference's `json_creation/big_teacher_data.py`, host Python only.
 
-Only `load_corpus` is ported; the corpus builders wait (ROADMAP Queue 1).
+The artifact contract of the reference: a JSON list of `{"image_path",
+"captions": [...], "dataset", "boxes": [...]}` records (:86-91), shuffled,
+a 90/10 train/val split (:376-381), the per-source target counts (COCO
+50K / VG 25K / Flickr 15K / CC 10K, :40-45) and the stats printout
+(:401-428). As in the JAX package: records whose image file is missing
+are skipped; the shuffle is a seeded `random.Random`; VG boxes keep the
+reference's `{"x", "y", "width", "height"}` form. Every builder reads local
+annotation files. The Conceptual Captions live fetch (`allow_network`,
+`dclip_tpu/data/fetch.py`) is ROADMAP Queue 1 item 8 and raises; CC images
+already on disk are read, under the names the fetch would give them
+(`cc_image_filename`, copied from `fetch.py:135-143`).
 """
 from __future__ import annotations
 
+import csv
 import json
-from typing import List
+import os
+import random
+from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+DEFAULT_TARGETS = {
+    "coco": 50_000,
+    "visual_genome": 25_000,
+    "flickr30k": 15_000,
+    "conceptual_captions": 10_000,
+}
+
+
+@dataclass
+class CorpusPaths:
+    coco_images_dir: Optional[str] = None
+    coco_annotations_file: Optional[str] = None
+    vg_images_dir: Optional[str] = None
+    vg_annotations_file: Optional[str] = None
+    flickr_images_dir: Optional[str] = None
+    flickr_annotations_file: Optional[str] = None
+    cc_images_dir: Optional[str] = None
+    cc_annotations_file: Optional[str] = None
+    # None = scan the whole CC TSV until the target is met; set to
+    # targets["conceptual_captions"] * 5 for the reference's exact row cap
+    # (big_teacher_data.py:263 — its 5x oversampling can undershoot).
+    cc_max_scan_rows: Optional[int] = None
+    # The CC live fetch's gate (the JAX package's data.fetch): True raises
+    # until that module is ported; False (default) reads images on disk.
+    allow_network: bool = False
+    cc_transport: Optional[object] = None  # the fetch's injectable transport
+    targets: Dict[str, int] = field(default_factory=lambda: dict(DEFAULT_TARGETS))
+
+
+def cc_image_filename(row_idx: int, url: str) -> str:
+    """The reference's URL-derived CC filename (big_teacher_data.py:280-289):
+    `cc_<row:07d>_<url basename sans query>`, cleaned to [alnum._-], with a
+    `.jpg` fallback when the URL has no usable basename."""
+    base = url.split("/")[-1].split("?")[0]
+    name = f"cc_{row_idx:07d}_{base}"
+    if not base:
+        name = f"cc_{row_idx:07d}.jpg"
+    return "".join(c for c in name if c.isalnum() or c in "._-")
+
+
+def _available(images_dir: Optional[str], ann_file: Optional[str], name: str) -> bool:
+    if not images_dir or not ann_file:
+        print(f"Skipping {name}: path not provided")
+        return False
+    if not os.path.exists(images_dir) or not os.path.exists(ann_file):
+        print(f"{name} directory or annotations file not found. Skipping.")
+        return False
+    return True
+
+
+def process_coco(
+    images_dir: str, annotations_file: str, target_count: int = 50_000
+) -> List[dict]:
+    """COCO captions-annotation JSON -> records (reference :47-98)."""
+    if not _available(images_dir, annotations_file, "MSCOCO"):
+        return []
+    with open(annotations_file) as f:
+        coco = json.load(f)
+    by_id: Dict[int, dict] = {
+        img["id"]: {"file_name": img["file_name"], "captions": []}
+        for img in coco["images"]
+    }
+    for ann in coco["annotations"]:
+        if ann["image_id"] in by_id:
+            by_id[ann["image_id"]]["captions"].append(ann["caption"])
+    results = []
+    for img in by_id.values():
+        path = os.path.join(images_dir, img["file_name"])
+        if not os.path.exists(path) or not img["captions"]:
+            continue
+        results.append(
+            {"image_path": path, "captions": img["captions"], "dataset": "coco", "boxes": []}
+        )
+        if len(results) >= target_count:
+            break
+    return results
+
+
+def process_visual_genome(
+    images_dir: str, annotations_file: str, target_count: int = 25_000
+) -> List[dict]:
+    """VG region_descriptions JSON -> records with region boxes (ref :100-165)."""
+    if not _available(images_dir, annotations_file, "Visual Genome"):
+        return []
+    with open(annotations_file) as f:
+        regions = json.load(f)
+    results = []
+    for image_data in regions:
+        image_id = image_data["id"]
+        path = os.path.join(images_dir, f"{image_id}.jpg")
+        if not os.path.exists(path):
+            for ext in ("png", "jpeg"):
+                alt = os.path.join(images_dir, f"{image_id}.{ext}")
+                if os.path.exists(alt):
+                    path = alt
+                    break
+            else:
+                continue
+        captions, boxes = [], []
+        for region in image_data.get("regions", []):
+            if "phrase" not in region:
+                continue
+            captions.append(region["phrase"])
+            if all(k in region for k in ("x", "y", "width", "height")):
+                boxes.append(
+                    {
+                        "x": region["x"],
+                        "y": region["y"],
+                        "width": region["width"],
+                        "height": region["height"],
+                    }
+                )
+        if captions:
+            results.append(
+                {
+                    "image_path": path,
+                    "captions": captions,
+                    "dataset": "visual_genome",
+                    "boxes": boxes,
+                }
+            )
+        if len(results) >= target_count:
+            break
+    return results
+
+
+def process_flickr30k(
+    images_dir: str, annotations_file: str, target_count: int = 15_000
+) -> List[dict]:
+    """Pipe-delimited results.csv (image_name|comment_number|comment)
+    -> records (reference :167-226)."""
+    if not _available(images_dir, annotations_file, "Flickr30K"):
+        return []
+    captions_by_image: Dict[str, List[str]] = defaultdict(list)
+    with open(annotations_file, encoding="utf-8") as f:
+        for i, line in enumerate(f):
+            line = line.strip()
+            if i == 0 and "image_name" in line and "comment" in line:
+                continue
+            parts = line.split("|")
+            if len(parts) >= 3:
+                captions_by_image[parts[0].strip()].append(parts[2].strip())
+    results = []
+    for image_name, captions in captions_by_image.items():
+        path = os.path.join(images_dir, image_name)
+        if not os.path.exists(path):
+            continue
+        results.append(
+            {"image_path": path, "captions": captions, "dataset": "flickr30k", "boxes": []}
+        )
+        if len(results) >= target_count:
+            break
+    return results
+
+
+def process_conceptual_captions(
+    images_dir: str,
+    annotations_file: str,
+    target_count: int = 10_000,
+    max_scan_rows: Optional[int] = None,
+) -> List[dict]:
+    """CC TSV (caption\\turl) -> records for images ALREADY on disk.
+
+    The reference downloads each URL live (:228-350); zero-egress means we
+    instead expect a prior fetch step to have materialized images named by
+    row index (`cc_<row>.jpg`) or URL basename in `images_dir`.
+
+    Oversampling semantics: the reference scans at most `target_count * 5`
+    TSV rows to absorb download failures (big_teacher_data.py:263,
+    `max_lines = min(total_lines, target_count * 5)`) — so with a >80%
+    failure rate it can UNDERSHOOT the target. Default here is to scan the
+    whole TSV until `target_count` on-disk images are found (a superset of
+    the reference's behavior); pass `max_scan_rows=target_count * 5` for
+    the reference's exact row cap.
+    """
+    if not _available(images_dir, annotations_file, "Conceptual Captions"):
+        return []
+    results = []
+    with open(annotations_file, encoding="utf-8") as f:
+        reader = csv.reader(f, delimiter="\t")
+        for row_idx, row in enumerate(reader):
+            if max_scan_rows is not None and row_idx >= max_scan_rows:
+                break
+            if len(row) < 2:
+                continue
+            caption, url = row[0], row[1]
+            candidates = [
+                os.path.join(images_dir, f"cc_{row_idx}.jpg"),
+                os.path.join(images_dir, os.path.basename(url.split("?")[0])),
+                # Images a prior --allow_network fetch materialized use the
+                # reference's URL-derived naming (fetch.cc_image_filename).
+                os.path.join(images_dir, cc_image_filename(row_idx, url)),
+            ]
+            path = next((c for c in candidates if os.path.exists(c)), None)
+            if path is None:
+                continue
+            results.append(
+                {
+                    "image_path": path,
+                    "captions": [caption],
+                    "dataset": "conceptual_captions",
+                    "boxes": [],
+                }
+            )
+            if len(results) >= target_count:
+                break
+    return results
+
+
+def combine_datasets(
+    paths: CorpusPaths,
+    train_json: str,
+    val_json: str,
+    seed: int = 42,
+    val_fraction: float = 0.1,
+) -> Tuple[Optional[str], Optional[str]]:
+    """Build, shuffle, 90/10-split, and write the corpus (reference :352-399)."""
+    all_data: List[dict] = []
+    all_data += process_coco(
+        paths.coco_images_dir or "", paths.coco_annotations_file or "",
+        paths.targets.get("coco", 0),
+    ) if paths.coco_images_dir else []
+    all_data += process_visual_genome(
+        paths.vg_images_dir or "", paths.vg_annotations_file or "",
+        paths.targets.get("visual_genome", 0),
+    ) if paths.vg_images_dir else []
+    all_data += process_flickr30k(
+        paths.flickr_images_dir or "", paths.flickr_annotations_file or "",
+        paths.targets.get("flickr30k", 0),
+    ) if paths.flickr_images_dir else []
+    if paths.cc_images_dir:
+        if paths.allow_network:
+            raise NotImplementedError(
+                "the Conceptual Captions fetch (allow_network, data/fetch.py) is not ported "
+                "yet: ROADMAP Queue 1 item 8")
+        all_data += process_conceptual_captions(
+            paths.cc_images_dir, paths.cc_annotations_file or "",
+            paths.targets.get("conceptual_captions", 0),
+            max_scan_rows=paths.cc_max_scan_rows,
+        )
+
+    if not all_data:
+        print("Warning: No datasets were successfully processed!")
+        return None, None
+
+    random.Random(seed).shuffle(all_data)
+    split_idx = int(len(all_data) * (1.0 - val_fraction))
+    train_data, val_data = all_data[:split_idx], all_data[split_idx:]
+    for payload, out in ((train_data, train_json), (val_data, val_json)):
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w", encoding="utf-8") as f:
+            json.dump(payload, f, indent=2)
+    print(f"Saved {len(train_data)} training examples to {train_json}")
+    print(f"Saved {len(val_data)} validation examples to {val_json}")
+    print_dataset_stats(train_data)
+    return train_json, val_json
+
+
+def print_dataset_stats(data: Sequence[dict]) -> None:
+    """Same statistics block as the reference (:401-428)."""
+    dataset_counts: Dict[str, int] = {}
+    caption_lengths: List[int] = []
+    images_with_boxes = 0
+    for item in data:
+        ds = item.get("dataset", "unknown")
+        dataset_counts[ds] = dataset_counts.get(ds, 0) + 1
+        for caption in item["captions"]:
+            caption_lengths.append(len(caption.split()))
+        if item.get("boxes"):
+            images_with_boxes += 1
+    n = max(len(data), 1)
+    print("\n=== Dataset Statistics ===")
+    print(f"Total images: {len(data)}")
+    print(
+        f"Images with bounding boxes: {images_with_boxes} "
+        f"({images_with_boxes / n * 100:.2f}%)"
+    )
+    print("\nDistribution by dataset:")
+    for ds, count in dataset_counts.items():
+        print(f"- {ds}: {count} ({count / n * 100:.2f}%)")
+    total_caps = sum(len(item["captions"]) for item in data)
+    print("\nCaption statistics:")
+    print(f"- Total captions: {total_caps}")
+    print(f"- Avg captions per image: {total_caps / n:.2f}")
+    if caption_lengths:
+        print(f"- Avg caption length: {sum(caption_lengths) / len(caption_lengths):.2f} words")
 
 
 def load_corpus(path: str) -> List[dict]:
-    """Load a corpus / eval JSON, dropping items with no captions (the
-    filter the retrieval eval applies, reference flickr30k_eval.py:97-100)."""
+    """Load a corpus/eval JSON, dropping empty-caption items (the filter the
+    retrieval eval applies at flickr30k_eval.py:97-100)."""
     with open(path) as f:
         data = json.load(f)
     return [d for d in data if d.get("captions")]

@@ -25,11 +25,17 @@ index), so the worker count never changes the stream. `shard_index` /
 `shard_count` split every global batch into equal row ranges. An
 unreadable image gives zero tensors, as the JAX pipeline's.
 
-PIL is imported only on the PIL route (`require_pil`), so the module
-imports on a machine without it. `decode_backend="native"` (the C++
-libjpeg decoder, `dclip_tpu/native/jpeg_decode.cc`) is ROADMAP Queue 1
-item 5 and raises. `resize_crop_uint8` also serves the serving path,
-`preprocess_image` the eval paths.
+`decode_backend="native"` decodes JPEG files with the port's C++
+libjpeg decoder (`native/jpeg_decode.cc`, `native.decode_preprocess`):
+one call, the GIL released, so the thread pool scales over cores. The
+per-item rule is the JAX pipeline's (`dclip_tpu/data/pipeline.py:
+342-373`): a file whose first two bytes are not the JPEG SOI, or that
+libjpeg cannot decode to RGB (CMYK, truncated, corrupt), takes the PIL
+route. PIL is imported only on that route (`require_pil`), so a corpus of
+JPEGs loads on a machine without PIL, and an item that needs PIL there
+raises, naming its path. A decoder that cannot be built or loaded raises
+when the pipeline is made; it never falls back to PIL. `resize_crop_uint8`
+also serves the serving path, `preprocess_image` the eval paths.
 """
 from __future__ import annotations
 
@@ -44,14 +50,18 @@ import numpy as np
 from dclip_tpu_torch.data.detection_cache import DetectionCache
 from dclip_tpu_torch.ops.image_ops import CLIP_MEAN, CLIP_STD
 
+_CLIP_MEAN_F32 = np.asarray(CLIP_MEAN, np.float32)
+_CLIP_STD_F32 = np.asarray(CLIP_STD, np.float32)
 
-def require_pil():
+
+def require_pil(what: str = "image preprocessing"):
+    """PIL's `Image`, or an ImportError that says what needed it."""
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            "image preprocessing needs PIL, which this installation lacks; the native "
-            "JPEG decoder that replaces it is ROADMAP Queue 1 item 5") from e
+            f"{what} needs PIL, which this installation lacks; JPEG files decode without it "
+            "through decode_backend='native'") from e
     return Image
 
 
@@ -116,9 +126,10 @@ class StarvationMonitor:
     `--num_workers` (`dclip_tpu/data/pipeline.py:117-188`)."""
 
     def __init__(self, num_workers: int = 0, warmup_batches: int = 4, threshold: float = 0.3,
-                 min_batches: int = 8, fast_decode: bool = False):
+                 min_batches: int = 8, fast_decode: bool = False, decode_backend: str = "pil"):
         self.num_workers = num_workers
         self.fast_decode = fast_decode
+        self.decode_backend = decode_backend
         self.warmup_batches = warmup_batches
         self.threshold = threshold
         self.min_batches = min_batches
@@ -152,8 +163,12 @@ class StarvationMonitor:
                 f"{wait_frac * 100:.0f}% of step time (decode supply ~{supply:.0f} img/s vs "
                 f"compute demand ~{demand:.0f} img/s). Suggest --num_workers {suggested} "
                 f"(currently {self.num_workers})"
-                f"{'' if self.fast_decode else ' and/or --fast_decode (scaled DCT decode)'}.")
+                f"{'' if self.fast_decode else _FAST_HINT}"
+                f"{'' if self.decode_backend == 'native' else _NATIVE_HINT}.")
 
+
+_FAST_HINT = " and/or --fast_decode (scaled DCT decode)"
+_NATIVE_HINT = " and/or --decode_backend native (C++ decode, GIL-free threads)"
 
 _WORKER_PIPELINE: Optional["MultiModalPipeline"] = None
 
@@ -179,12 +194,12 @@ class MultiModalPipeline:
                  shuffle: bool = True, num_workers: int = 0, monitor_starvation: bool = True,
                  fast_decode: bool = False, decode_backend: str = "pil", shard_index: int = 0,
                  shard_count: int = 1):
-        if decode_backend == "native":
-            raise NotImplementedError(
-                "decode_backend='native' (the C++ libjpeg decoder, native/jpeg_decode.cc) is "
-                "not ported yet: ROADMAP Queue 1 item 5")
-        if decode_backend != "pil":
+        if decode_backend not in ("pil", "native"):
             raise ValueError(f"decode_backend must be 'pil' or 'native', got {decode_backend!r}")
+        if decode_backend == "native":
+            from dclip_tpu_torch import native
+
+            native.load_jpeg()  # build now: a missing libjpeg raises here, not mid-epoch
         if shard_count > 1:
             if batch_size % shard_count:
                 raise ValueError(f"batch_size {batch_size} not divisible by shard_count "
@@ -216,7 +231,8 @@ class MultiModalPipeline:
         self.shard_count = shard_count
         self._local_bs = batch_size // shard_count
         self._pool = None
-        self._starvation_monitor = (StarvationMonitor(num_workers, fast_decode=fast_decode)
+        self._starvation_monitor = (StarvationMonitor(num_workers, fast_decode=fast_decode,
+                                                      decode_backend=decode_backend)
                                     if monitor_starvation else None)
 
     def _get_pool(self):
@@ -254,29 +270,58 @@ class MultiModalPipeline:
 
     # -- per item -------------------------------------------------------------------
 
+    def _decode_native(self, path: str):
+        """(student, teacher, (w, h)) from the native decoder; the zero
+        tensors for a file that cannot be opened or read (PIL could not
+        read it either); or None for an item it does not serve: a file
+        whose first two bytes are not the JPEG SOI (read no further), or
+        bytes libjpeg cannot decode to RGB. The call releases the GIL."""
+        from dclip_tpu_torch import native
+
+        try:
+            with open(path, "rb") as f:
+                head = f.read(2)
+                if head != b"\xff\xd8":
+                    return None
+                data = head + f.read()
+        except OSError:
+            return self._zero_pixels()
+        return native.decode_preprocess(data, self.image_size, self.teacher_image_size,
+                                        fast=self.fast_decode, mean=_CLIP_MEAN_F32,
+                                        std=_CLIP_STD_F32)
+
+    def _zero_pixels(self):
+        """The reference's zero tensors for an unreadable image, with the
+        teacher frame as its size."""
+        t = self.teacher_image_size
+        return (np.zeros((self.image_size, self.image_size, 3), np.float32),
+                np.zeros((t, t, 3), np.float32), (t, t))
+
     def _load_item(self, idx: int, epoch: int) -> dict:
-        Image = require_pil()
         item = self.items[idx]
         rng = np.random.RandomState((self.seed * 1_000_003 + epoch * 9176 + idx) % (2**31))
         captions = item["captions"]
         caption = captions[rng.randint(len(captions))] if captions else ""
-        try:
-            with Image.open(item["image_path"]) as im:
-                # The box rescale needs the original frame size, read before
-                # draft shrinks the decode.
-                w, h = im.size
-                if self.fast_decode:
-                    t = max(self.image_size, self.teacher_image_size)
-                    im.draft("RGB", (t, t))  # a no-op for non-JPEGs
-                im = im.convert("RGB")
-                pixel_values = preprocess_image(im, self.image_size)
-                teacher_pixels = squash_resize(im, self.teacher_image_size)
-        except Exception:
-            # The reference's zero tensors for an unreadable image.
-            w = h = self.teacher_image_size
-            pixel_values = np.zeros((self.image_size, self.image_size, 3), np.float32)
-            teacher_pixels = np.zeros((self.teacher_image_size, self.teacher_image_size, 3),
-                                      np.float32)
+        decoded = (self._decode_native(item["image_path"])
+                   if self.decode_backend == "native" else None)
+        if decoded is not None:
+            pixel_values, teacher_pixels, (w, h) = decoded
+        else:
+            Image = require_pil(f"{item['image_path']} (not served by the native JPEG decoder)"
+                                if self.decode_backend == "native" else "image preprocessing")
+            try:
+                with Image.open(item["image_path"]) as im:
+                    # The box rescale needs the original frame size, read
+                    # before draft shrinks the decode.
+                    w, h = im.size
+                    if self.fast_decode:
+                        t = max(self.image_size, self.teacher_image_size)
+                        im.draft("RGB", (t, t))  # a no-op for non-JPEGs
+                    im = im.convert("RGB")
+                    pixel_values = preprocess_image(im, self.image_size)
+                    teacher_pixels = squash_resize(im, self.teacher_image_size)
+            except Exception:
+                pixel_values, teacher_pixels, (w, h) = self._zero_pixels()
         boxes, conf, mask = self.cache.get_fixed([item["image_path"]], self.max_patches)
         boxes, conf, mask = boxes[0], conf[0], mask[0]
         sx = self.teacher_image_size / max(w, 1)

@@ -176,7 +176,8 @@ def attention_block_trainable_bwd(x, g, h, qkv, attn, m, rinv, p: Mapping[str, t
 
 class _AttnBlockTrainable(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, eps):
+    def forward(ctx, x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, eps,
+                packed):
         weights = (ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo)
         ctx.num_heads, ctx.eps = num_heads, eps
         ctx.dtypes = [t.dtype for t in (x,) + weights]
@@ -186,7 +187,8 @@ class _AttnBlockTrainable(torch.autograd.Function):
             ctx.save_for_backward(x, q, k, v, attn, m, rinv, *weights)
             ctx.packed = None
             return o
-        ctx.packed = pack_trainable_attn(*weights, dtype=x.dtype)
+        ctx.packed = packed if packed is not None else pack_trainable_attn(*weights,
+                                                                           dtype=x.dtype)
         o, h, qkv, attn, m, rinv = attention_block_trainable_fwd(x, ctx.packed, num_heads, eps)
         ctx.save_for_backward(x, h, qkv, attn, m, rinv)
         return o
@@ -204,13 +206,14 @@ class _AttnBlockTrainable(torch.autograd.Function):
             grads = attention_block_trainable_bwd(x, g, h, qkv, attn, m, rinv, ctx.packed,
                                                   ctx.num_heads, ctx.eps, needs)
         return tuple(None if t is None else t.to(dt) for t, dt in zip(grads, ctx.dtypes)) \
-            + (None, None)
+            + (None, None, None)
 
 
 def attention_block_trainable(x: torch.Tensor, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
-                              num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+                              num_heads: int, eps: float = 1e-5, packed=None) -> torch.Tensor:
     """x + out_proj(MHA(LN1(x))) over x [B, S, D] without masks,
     differentiable in x and the ten weights (HF layout, any dtype;
-    gradients in the weights' dtype)."""
+    gradients in the weights' dtype). `packed`: this call's
+    `pack_trainable_attn` of the same weights, made here when None."""
     return _AttnBlockTrainable.apply(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
-                                     num_heads, eps)
+                                     num_heads, eps, packed)

@@ -156,7 +156,8 @@ def mlp_trainable_bwd(x, g, a1, h, act, p: Mapping[str, torch.Tensor], eps: floa
 
 class _MLPTrainable(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias, eps):
+    def forward(ctx, x, ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias, eps,
+                packed):
         weights = (ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias)
         ctx.eps = eps
         ctx.dtypes = [t.dtype for t in (x,) + weights]
@@ -165,7 +166,8 @@ class _MLPTrainable(torch.autograd.Function):
             ctx.save_for_backward(x, a1, *weights)
             ctx.packed = None
             return y
-        ctx.packed = pack_trainable_mlp(*weights, dtype=x.dtype)
+        ctx.packed = packed if packed is not None else pack_trainable_mlp(*weights,
+                                                                          dtype=x.dtype)
         y, a1, h, act = mlp_trainable_fwd(x, ctx.packed, eps)
         ctx.save_for_backward(x, a1, h, act)
         return y
@@ -181,13 +183,14 @@ class _MLPTrainable(torch.autograd.Function):
             x, a1, h, act = ctx.saved_tensors
             grads = mlp_trainable_bwd(x, g, a1, h, act, ctx.packed, ctx.eps, needs)
         return tuple(None if t is None else t.to(dt) for t, dt in zip(grads, ctx.dtypes)) \
-            + (None,)
+            + (None, None)
 
 
 def mlp_block_trainable(x: torch.Tensor, ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
-                        fc2_bias, eps: float = 1e-5) -> torch.Tensor:
+                        fc2_bias, eps: float = 1e-5, packed=None) -> torch.Tensor:
     """x + fc2(quick_gelu(fc1(LN(x)))) over x [B, S, D], differentiable in
     x and the six weights (HF layout, any dtype; gradients in the weights'
-    dtype). CUDA: x bf16, D % 32 == 0, mlp % 32 == 0."""
+    dtype). CUDA: x bf16, D % 32 == 0, mlp % 32 == 0. `packed`: this
+    call's `pack_trainable_mlp` of the same weights, made here when None."""
     return _MLPTrainable.apply(x, ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight, fc2_bias,
-                               eps)
+                               eps, packed)

@@ -33,6 +33,13 @@ attention logits / softmax run in f32.
   weight (`clip.py:466-484`); a layer whose call carries a causal, padding
   or segment mask keeps the per-op attention. Parameter names do not
   change with any flag.
+- `remat=True` (both towers) runs each encoder layer under
+  `torch.utils.checkpoint` (non-reentrant), JAX's per-layer `nn.remat`
+  (`clip.py:279-280`): a layer keeps only its input for the backward,
+  which runs its forward again, so every forward kernel of a layer
+  launches twice per training step and every backward kernel once. The
+  weights K8 / K9 cast for the step are cast once before the layer and
+  handed to both forwards (`EncoderLayer.step_packs`).
 On CPU tensors every kernel wrapper runs its plain f32 twin.
 """
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dclip_tpu_torch.core.config import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
 from dclip_tpu_torch.kernels import (
@@ -164,22 +172,50 @@ class EncoderLayer(nn.Module):
             ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias,
             dtype)
 
-    def forward(self, x: torch.Tensor, padding_mask=None, segment_ids=None) -> torch.Tensor:
+    def _attn_block_fused(self, padding_mask, segment_ids) -> bool:
+        return self.fused_trainable_attn_block and not self.self_attn.causal \
+            and padding_mask is None and segment_ids is None
+
+    @torch.no_grad()
+    def step_packs(self, x: torch.Tensor, padding_mask=None, segment_ids=None) -> dict:
+        """The weights K9 and K8 cast for one call, made once for a layer
+        run under remat, so that its second forward does not cast them
+        again; empty on the CPU (the twins read the weights as they are)."""
+        if x.device.type == "cpu":
+            return {}
+        packs = {}
+        if self._attn_block_fused(padding_mask, segment_ids):
+            attn, ln = self.self_attn, self.layer_norm1
+            packs["attn"] = attn_block_trainable.pack_trainable_attn(
+                ln.weight, ln.bias, attn.q_proj.weight, attn.q_proj.bias, attn.k_proj.weight,
+                attn.k_proj.bias, attn.v_proj.weight, attn.v_proj.bias, attn.out_proj.weight,
+                attn.out_proj.bias, dtype=x.dtype)
+        if self.fused_trainable_mlp:
+            ln, mlp = self.layer_norm2, self.mlp
+            packs["mlp"] = mlp_trainable.pack_trainable_mlp(
+                ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias,
+                dtype=x.dtype)
+        return packs
+
+    def forward(self, x: torch.Tensor, padding_mask=None, segment_ids=None,
+                packs: Optional[dict] = None) -> torch.Tensor:
+        """`packs`: from `step_packs`, or None to cast the weights here."""
+        packs = packs or {}
         attn = self.self_attn
-        if self.fused_trainable_attn_block and not attn.causal and padding_mask is None \
-                and segment_ids is None:
+        if self._attn_block_fused(padding_mask, segment_ids):
             ln = self.layer_norm1
             x = attn_block_trainable.attention_block_trainable(
                 x, ln.weight, ln.bias, attn.q_proj.weight, attn.q_proj.bias,
                 attn.k_proj.weight, attn.k_proj.bias, attn.v_proj.weight, attn.v_proj.bias,
-                attn.out_proj.weight, attn.out_proj.bias, attn.heads, ln.eps)
+                attn.out_proj.weight, attn.out_proj.bias, attn.heads, ln.eps,
+                packed=packs.get("attn"))
         else:
             x = x + attn(_layer_norm(x, self.layer_norm1), padding_mask, segment_ids)
         ln, mlp = self.layer_norm2, self.mlp
         if self.fused_trainable_mlp:
             return mlp_trainable.mlp_block_trainable(
                 x, ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
-                mlp.fc2.bias, ln.eps)
+                mlp.fc2.bias, ln.eps, packed=packs.get("mlp"))
         if self.fused_frozen_mlp:
             if self.frozen_mlp_weights is None:
                 raise RuntimeError("fused_frozen_mlp: call pack_frozen_mlp(dtype) first")
@@ -193,8 +229,9 @@ class Encoder(nn.Module):
     def __init__(self, num_layers: int, hidden: int, heads: int, mlp_dim: int,
                  eps: float, device=None, fused: bool = False, causal: bool = False,
                  fused_frozen_mlp: bool = False, fused_trainable_mlp: bool = False,
-                 fused_trainable_attn_block: bool = False):
+                 fused_trainable_attn_block: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             EncoderLayer(hidden, heads, mlp_dim, eps, device, fused, causal, fused_frozen_mlp,
                          fused_trainable_mlp, fused_trainable_attn_block)
@@ -202,8 +239,15 @@ class Encoder(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, padding_mask=None, segment_ids=None) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, padding_mask, segment_ids)
+            if remat:
+                # The layers draw no random numbers: no RNG state to replay.
+                x = checkpoint(layer, x, padding_mask, segment_ids,
+                               layer.step_packs(x, padding_mask, segment_ids),
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x, padding_mask, segment_ids)
         return x
 
 
@@ -216,7 +260,8 @@ class CLIPTextEmbeddings(nn.Module):
 
 class CLIPTextEncoder(nn.Module):
     def __init__(self, cfg: CLIPTextConfig, dtype: torch.dtype = torch.float32, device=None,
-                 fused_attention: bool = False, fused_trainable_mlp: bool = False):
+                 fused_attention: bool = False, fused_trainable_mlp: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -225,7 +270,7 @@ class CLIPTextEncoder(nn.Module):
         self.encoder = Encoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                                cfg.mlp_dim, cfg.layer_norm_eps, device,
                                fused=fused_attention, causal=True,
-                               fused_trainable_mlp=fused_trainable_mlp)
+                               fused_trainable_mlp=fused_trainable_mlp, remat=remat)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                              device=device)
 
@@ -286,7 +331,7 @@ class CLIPVisionEncoder(nn.Module):
 
     def __init__(self, cfg: CLIPVisionConfig, device=None, dtype: torch.dtype = torch.float32,
                  fused_attention: bool = False, fused_frozen_mlp: bool = False,
-                 fused_trainable_attn_block: bool = False):
+                 fused_trainable_attn_block: bool = False, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -295,7 +340,8 @@ class CLIPVisionEncoder(nn.Module):
         self.encoder = Encoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                                cfg.mlp_dim, cfg.layer_norm_eps, device,
                                fused=fused_attention, fused_frozen_mlp=fused_frozen_mlp,
-                               fused_trainable_attn_block=fused_trainable_attn_block)
+                               fused_trainable_attn_block=fused_trainable_attn_block,
+                               remat=remat)
         self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                            device=device)
 
@@ -320,14 +366,15 @@ class CLIPModule(nn.Module):
     def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32, device=None,
                  fused_attention: bool = False, fused_frozen_mlp: bool = False,
                  fused_trainable_text_mlp: bool = False,
-                 fused_trainable_attn_block: bool = False):
+                 fused_trainable_attn_block: bool = False, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.text_model = CLIPTextEncoder(cfg.text, dtype, device, fused_attention,
-                                          fused_trainable_text_mlp)
+                                          fused_trainable_text_mlp, remat)
         self.vision_model = CLIPVisionEncoder(cfg.vision, device, dtype, fused_attention,
-                                              fused_frozen_mlp, fused_trainable_attn_block)
+                                              fused_frozen_mlp, fused_trainable_attn_block,
+                                              remat)
         self.text_projection = nn.Linear(cfg.text.hidden_size, cfg.projection_dim,
                                          bias=False, device=device)
         self.visual_projection = nn.Linear(cfg.vision.hidden_size, cfg.projection_dim,

@@ -1,12 +1,22 @@
-"""ctypes bindings for the host runtime `dclip_native.cc`: the mmap KV store
-(`.dcs`) and the host top-k.
+"""ctypes bindings for the host runtime: `dclip_native.cc` (the mmap KV
+store `.dcs` and the host top-k) and `jpeg_decode.cc` (libjpeg decode +
+resample + normalize of one image in one call).
 
-The KV-store and top-k part of `dclip_tpu/native/__init__.py`, with the
-port's own copy of the C++ source. The library is compiled with g++ at
-first use into `native/_build/` (git-ignored), never next to the JAX
-package's `.so`. As in the JAX package the library is optional on the
-host: `available()` gates every use, the teacher cache then keeps its
-rows in memory and `topk_ip` takes numpy.
+Counterpart of `dclip_tpu/native/__init__.py`, with the port's own copies
+of both C++ sources. Each library is compiled with g++ at first use into
+`native/_build/` (git-ignored), never next to the JAX package's `.so`; the
+JPEG decoder builds apart (it links libjpeg), so either can exist without
+the other.
+
+- The KV store and top-k are optional on the host, as in the JAX package:
+  `available()` gates every use, the teacher cache then keeps its rows in
+  memory and `topk_ip` takes numpy.
+- The JPEG decoder is not: a caller that asks for it (`decode_preprocess`,
+  `load_jpeg`) gets the library or a RuntimeError carrying g++'s or the
+  loader's message (a missing `jpeglib.h` or `libjpeg`). The JAX package
+  prints and degrades to PIL instead (`dclip_tpu/native/__init__.py:
+  119-131`); the port builds from source or raises (ROADMAP Queue 3,
+  differences by design). `jpeg_available()` asks without raising.
 """
 from __future__ import annotations
 
@@ -24,29 +34,47 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "dclip_native.cc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 _LIB_PATH = os.path.join(BUILD_DIR, "libdclip_native.so")
+_JPEG_SRC = os.path.join(_HERE, "jpeg_decode.cc")
+_JPEG_LIB_PATH = os.path.join(BUILD_DIR, "libdclip_jpeg.so")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_jpeg_lib: Optional[ctypes.CDLL] = None
+_jpeg_error: Optional[str] = None
 
 _P, _U64, _I64 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64
 _FP = ctypes.POINTER(ctypes.c_float)
 
 
-def _compile() -> bool:
+def _stale(lib_path: str, src: str) -> bool:
+    return not os.path.exists(lib_path) or os.path.getmtime(lib_path) < os.path.getmtime(src)
+
+
+def _build_so(lib_path: str, args: List[str]) -> Optional[str]:
     """g++ to a per-process temp path, then an atomic rename: concurrent
-    builders never load a half-written library."""
+    builders (spawned pipeline workers) never load a half-written library.
+    None on success, else what went wrong, with g++'s stderr."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.tmp.{os.getpid()}"
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, _SRC, "-lpthread"]
+    tmp = f"{lib_path}.tmp.{os.getpid()}"
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, *args]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _LIB_PATH)
-        return True
-    except (subprocess.SubprocessError, FileNotFoundError, OSError) as e:
-        print(f"dclip_native build failed ({e}); using fallbacks")
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+        if out.returncode == 0:
+            os.replace(tmp, lib_path)
+            return None
+        return f"{' '.join(cmd)} exited {out.returncode}: {out.stderr.strip()}"
+    except (subprocess.SubprocessError, OSError) as e:
+        return f"{' '.join(cmd)}: {e}"
+    finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-        return False
+
+
+def _compile() -> bool:
+    error = _build_so(_LIB_PATH, [_SRC, "-lpthread"])
+    if error is not None:
+        print(f"dclip_native build failed ({error}); using fallbacks")
+    return error is None
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -55,8 +83,7 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH) or \
-                os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC):
+        if _stale(_LIB_PATH, _SRC):
             if not _compile():
                 return None
         lib = ctypes.CDLL(_LIB_PATH)
@@ -81,6 +108,71 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def load_jpeg() -> ctypes.CDLL:
+    """The JPEG decode library, built at first use; raises RuntimeError
+    with the build's or the loader's message when it cannot be had (the
+    verdict is kept for the process, so a failing build runs once)."""
+    global _jpeg_lib, _jpeg_error
+    with _lock:
+        if _jpeg_lib is None and _jpeg_error is None:
+            # The JAX package's flags: -march=native is safe because the
+            # library is built on the machine that loads it, never shipped.
+            _jpeg_error = _build_so(_JPEG_LIB_PATH, ["-march=native", "-funroll-loops",
+                                                     _JPEG_SRC, "-ljpeg"]) \
+                if _stale(_JPEG_LIB_PATH, _JPEG_SRC) else None
+            if _jpeg_error is None:
+                try:
+                    lib = ctypes.CDLL(_JPEG_LIB_PATH)
+                except OSError as e:  # e.g. the libjpeg runtime is missing
+                    _jpeg_error = f"loading {_JPEG_LIB_PATH}: {e}"
+                else:
+                    lib.dcj_decode_preprocess.restype = ctypes.c_int
+                    lib.dcj_decode_preprocess.argtypes = [
+                        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, _FP, _FP, _FP, _FP, ctypes.POINTER(ctypes.c_int)]
+                    _jpeg_lib = lib
+        if _jpeg_lib is None:
+            raise RuntimeError(f"the native JPEG decoder (native/jpeg_decode.cc, needs "
+                               f"jpeglib.h and libjpeg) is unavailable: {_jpeg_error}")
+        return _jpeg_lib
+
+
+def jpeg_available() -> bool:
+    """Whether the JPEG decode library builds and loads here."""
+    try:
+        load_jpeg()
+    except RuntimeError:
+        return False
+    return True
+
+
+def decode_preprocess(data: bytes, student_size: int, teacher_size: int, fast: bool = False,
+                      mean: Optional[np.ndarray] = None, std: Optional[np.ndarray] = None
+                      ) -> Optional[Tuple[np.ndarray, np.ndarray, Tuple[int, int]]]:
+    """Decode a JPEG and make both pipeline tensors in one native call
+    (`dclip_tpu/native/__init__.py:150-173`'s contract).
+
+    Returns (student [S, S, 3] f32, normalized with `mean` / `std` when
+    given, teacher [T, T, 3] f32 in [0, 1], (orig_w, orig_h)), or None
+    when libjpeg cannot decode the bytes to RGB (not a JPEG, CMYK,
+    truncated or corrupt): the pipeline then takes its PIL route. `fast`:
+    libjpeg's scaled DCT, the largest 1/2^k shrink whose shortest side
+    still covers both sizes. Raises RuntimeError when the library cannot
+    be built or loaded. The GIL is released for the call (ctypes)."""
+    lib = load_jpeg()
+    student = np.empty((student_size, student_size, 3), np.float32)
+    teacher = np.empty((teacher_size, teacher_size, 3), np.float32)
+    wh = (ctypes.c_int * 2)()
+    consts = [None if x is None else np.ascontiguousarray(x, np.float32) for x in (mean, std)]
+    rc = lib.dcj_decode_preprocess(
+        data, len(data), student_size, teacher_size, 1 if fast else 0,
+        *(ctypes.cast(None, _FP) if c is None else c.ctypes.data_as(_FP) for c in consts),
+        student.ctypes.data_as(_FP), teacher.ctypes.data_as(_FP), wh)
+    if rc != 0:
+        return None
+    return student, teacher, (int(wh[0]), int(wh[1]))
 
 
 class NativeKVStore:

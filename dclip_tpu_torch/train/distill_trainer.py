@@ -40,9 +40,16 @@ loss without the caches and without gradients. The stages run under
 `dclip.student_step`, and those of `models.teacher`) for a profile's
 breakdown of a step; outside a profile they cost a few microseconds.
 
-What waits, each raising NotImplementedError that names its ROADMAP
-item: `remat` (Queue 1 item 5), and a mesh with dp or mp > 1,
-`dp_equivalent` or preemption (Queue 1 item 10).
+`cfg.remat` runs the student's encoder layers under activation
+recomputation (`models.clip`, JAX's `nn.remat`): the same numbers, less
+device memory, one more forward of each layer per step. It is a property
+of the student build only, so every rebuild of the unfreeze schedule keeps
+it, a checkpoint does not record it (one saved with it resumes without it
+and the other way round), and the teacher-target fingerprint does not
+read it.
+
+What waits, raising NotImplementedError that names its ROADMAP item: a
+mesh with dp or mp > 1, `dp_equivalent` or preemption (Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -260,8 +267,6 @@ class DistillTrainer(BaseTrainer):
             raise _waits("a mesh with dp or mp > 1 (and dp_equivalent)", "Queue 1 item 10")
         self.device = resolve_device(device)
         cfg = self.cfg = resolve_fast_paths(cfg, self.device)
-        if cfg.remat:
-            raise _waits("remat", "Queue 1 item 5")
         self._student_dtype = resolve_dtype(cfg.compute_dtype, self.device)
         self._use_kernels = bool(cfg.use_pallas)
         if self._use_kernels and self.device.type == "cuda" \
@@ -322,15 +327,17 @@ class DistillTrainer(BaseTrainer):
         the vision LN2 + MLP blocks run the frozen-MLP kernel (K6) exactly
         while the mask freezes them, the text LN2 + MLP blocks run K8 with
         `fused_text_mlp` and the vision attention blocks K9 with
-        `fused_attn_block`. There are no VMEM gates (`mlp_frozen_fit`,
+        `fused_attn_block`; both towers recompute their layers in the
+        backward with `cfg.remat`. There are no VMEM gates (`mlp_frozen_fit`,
         `mlp_trainable_fit`, `attn_block_fit` on the TPU): the kernels tile,
-        so every width runs on them."""
+        so every width runs on them, ViT-L/14's included."""
         kernels = self._use_kernels
         fused_frozen = kernels and self._vision_mlp_frozen()
         model = CLIPModule(self.student_config, dtype=self._student_dtype, device="meta",
                            fused_attention=kernels, fused_frozen_mlp=fused_frozen,
                            fused_trainable_text_mlp=kernels and bool(self.cfg.fused_text_mlp),
-                           fused_trainable_attn_block=kernels and bool(self.cfg.fused_attn_block))
+                           fused_trainable_attn_block=kernels and bool(self.cfg.fused_attn_block),
+                           remat=bool(self.cfg.remat))
         model.load_state_dict(self._on_device(state_dict), strict=True, assign=True)
         for name, p in model.named_parameters():
             p.requires_grad_(self._trainable_mask[name])

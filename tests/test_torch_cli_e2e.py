@@ -1,0 +1,144 @@
+"""The port's CLIs chained on the CPU at the tiny preset, the counterpart of
+the JAX package's `tests/test_cli_e2e.py` (which is `slow`): build_corpus
+-> precache -> train_teacher -> train_distill (`--remat`, `--decode_backend
+native`) -> flickr30k_eval -> zero_shot_eval, on copies of the committed
+JPEG fixtures (`tests/data/`) under COCO-style annotations."""
+import json
+import os
+import pickle
+import shutil
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(REPO, "tests", "data")
+JPEGS = ("rgb_640x480.jpg", "rgb_375x500.jpg", "rgb_53x37.jpg", "rgb_224x224.jpg",
+         "gray_121x90.jpg", "progressive_300x200.jpg")
+MODEL = ["--model_preset", "tiny", "--device", "cpu"]
+SMALL = ["--max_patches", "4", "--teacher_image_size", "32"]
+
+
+@pytest.fixture
+def workspace(tmp_path, monkeypatch):
+    """12 COCO images (each fixture JPEG twice) with 3 captions each, 2
+    annotated images missing on disk, and a CIFAR-10 test batch."""
+    coco = tmp_path / "coco"
+    coco.mkdir()
+    images, annotations = [], []
+    for i in range(14):
+        name = f"COCO_{i:06d}.jpg"
+        images.append({"id": i, "file_name": name})
+        annotations += [{"image_id": i, "caption": f"photo {i} of a scene number {j}"}
+                        for j in range(3)]
+        if i < 12:
+            shutil.copy(os.path.join(DATA, JPEGS[i % len(JPEGS)]), coco / name)
+    (tmp_path / "captions.json").write_text(json.dumps({"images": images,
+                                                        "annotations": annotations}))
+    rng = np.random.RandomState(0)
+    cdir = tmp_path / "cifar" / "cifar-10-batches-py"
+    cdir.mkdir(parents=True)
+    with open(cdir / "test_batch", "wb") as f:
+        pickle.dump({b"data": (rng.rand(8, 3072) * 255).astype("uint8"),
+                     b"labels": list(rng.randint(0, 10, 8))}, f)
+    with open(cdir / "batches.meta", "wb") as f:
+        pickle.dump({b"label_names": [f"c{i}".encode() for i in range(10)]}, f)
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+def test_the_cli_chain_from_jpeg_files(workspace, capsys):
+    from dclip_tpu_torch.cli import (
+        build_corpus,
+        flickr30k_eval,
+        precache,
+        train_distill,
+        train_teacher,
+        zero_shot_eval,
+    )
+
+    # 1. The corpus: 12 images on disk of 14 annotated, a 10 / 2 split.
+    assert build_corpus.main(["--output_dir", "data", "--coco_images", "coco",
+                              "--coco_annotations", "captions.json", "--val_fraction",
+                              "0.15"]) == 0
+    train = json.load(open("data/teacher_train.json"))
+    val = json.load(open("data/teacher_val.json"))
+    assert (len(train), len(val)) == (10, 2)
+    assert all(it["dataset"] == "coco" and len(it["captions"]) == 3 for it in train)
+
+    # 2. Region proposals and the patch index.
+    assert precache.main(["--json_file", "data/teacher_train.json", "--cache_dir", "cache",
+                          "--build_index", "--batch_size", "16", "--model_preset", "tiny",
+                          "--device", "cpu"]) == 0
+    assert os.path.exists("cache/teacher_train_precache.npz")
+    assert os.path.exists("cache/teacher_train_patch_index.npz")
+
+    # 3. The meta-teacher, from the JPEGs through the native decoder.
+    assert train_teacher.main(["--train_file", "data/teacher_train.json", "--epochs", "1",
+                               "--batch_size", "5", "--learning_rate", "1e-3",
+                               "--output_path", "models/teacher", "--detection_cache",
+                               "cache/teacher_train_precache.npz", "--decode_backend", "native"]
+                              + SMALL + MODEL) == 0
+    teacher = [f for f in os.listdir("models") if f.endswith(".pt")]
+    assert len(teacher) == 1 and "val" in teacher[0]
+
+    # 4. Distillation with remat, from the same JPEGs.
+    assert train_distill.main(["--train_file", "data/teacher_train.json",
+                               "--train_batch_size", "5", "--phase1_epochs", "1",
+                               "--checkpoint_dir", "ckpts", "--accumulate_grad_batches", "1",
+                               "--teacher_checkpoint", os.path.join("models", teacher[0]),
+                               "--detection_cache", "cache/teacher_train_precache.npz",
+                               "--decode_backend", "native", "--remat"] + SMALL + MODEL) == 0
+    student = [f for f in os.listdir("ckpts") if f.endswith(".pt")]
+    assert len(student) == 1
+
+    # 5. Retrieval eval of the base and the distilled student.
+    eval_items = [{"image_path": it["image_path"], "image_id": i, "captions": it["captions"]}
+                  for i, it in enumerate(train + val)]
+    with open("eval.json", "w") as f:
+        json.dump(eval_items, f)
+    capsys.readouterr()
+    assert flickr30k_eval.main(["--dataset_json", "eval.json", "--max_images", "12",
+                                "--model", "both", "--checkpoint",
+                                os.path.join("ckpts", student[0]), "--batch_size", "12"]
+                               + MODEL) == 0
+    assert "R@1" in capsys.readouterr().out
+
+    # 6. Zero-shot eval, with the reference's results file.
+    assert zero_shot_eval.main(["--dataset", "cifar10", "--data_dir", "cifar", "--model", "both",
+                                "--checkpoint", os.path.join("ckpts", student[0]),
+                                "--batch_size", "8"] + MODEL) == 0
+    body = open("cifar_zero_shot_results.txt").read()
+    assert body.startswith("Zero-Shot CIFAR Results")
+    assert "Base CLIP Top-1:" in body and "Relative Change:" in body
+
+
+@pytest.mark.parametrize("decoder", [True, False], ids=["decoder", "no_decoder"])
+def test_chip_smoke_files_phase_on_the_cpu(decoder, monkeypatch, capsys):
+    """`chip_smoke.py` phase 32 at the tiny preset on the CPU: with the
+    decoder, both training CLIs from the fixtures; without it (the card
+    machine's case), the clean raise of decode_backend="native"."""
+    import importlib.util
+
+    import torch
+
+    from dclip_tpu_torch import native
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.chdir(REPO)  # the phase reads the fixtures by their repository path
+    jpeg = {"available": True, "error": None}
+    if not decoder:
+        jpeg = {"available": False, "error": "jpeg_decode.cc:37: jpeglib.h: No such file"}
+        monkeypatch.setattr(native, "_jpeg_lib", None)
+        monkeypatch.setattr(native, "_jpeg_error", jpeg["error"])
+    monkeypatch.setattr(smoke, "FILES_DEVICE", "cpu")
+    monkeypatch.setattr(smoke, "FILES_PRESET", "tiny")
+    smoke.files_phase(torch, np, "cpu", jpeg)
+    printed = capsys.readouterr().out
+    if decoder:
+        assert "files: teacher checkpoints" in printed and "files: distill checkpoints" in printed
+    else:
+        assert "decode_backend='native' raises" in printed and "jpeglib.h" in printed

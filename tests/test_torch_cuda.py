@@ -1312,3 +1312,120 @@ def test_nms_and_postprocess_on_the_card_equal_the_cpu(cuda_device):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert want.mask.sum() > 0
+
+
+# -- the ViT-L/14 slice: remat on the card, K10 and K11 at the L/14 widths -------------
+
+
+def _remat_trainer(device, remat, flags):
+    """A DistillTrainer on the card at a small config the kernels take
+    (head_dim 64 in both towers, 32 in the meta-teacher), its batch's
+    targets in the cache, two-step-ready."""
+    from dclip_tpu_torch.cli.common import synthetic_distill_batch
+    from dclip_tpu_torch.core import CLIPConfig, DistillConfig, TeacherConfig
+    from dclip_tpu_torch.core.config import CLIPTextConfig, CLIPVisionConfig
+    from dclip_tpu_torch.models.weights import random_state_dict, random_teacher_state_dict
+    from dclip_tpu_torch.train.distill_trainer import DistillTrainer, TeacherTargetCache
+
+    cfg = CLIPConfig(
+        text=CLIPTextConfig(vocab_size=1000, hidden_size=128, num_layers=2, num_heads=2,
+                            mlp_dim=512, max_length=16, eos_token_id=999),
+        vision=CLIPVisionConfig(image_size=64, patch_size=16, hidden_size=128, num_layers=2,
+                                num_heads=2, mlp_dim=512),
+        projection_dim=64)
+    tcfg = TeacherConfig(embed_dim=64, num_heads=2, max_patches=3, max_text_tokens=16)
+    dcfg = DistillConfig(train_batch_size=8, accumulate_grad_batches=1, learning_rate=1e-3,
+                         teacher=tcfg, packed_text=True, remat=remat, **flags)
+    sd = random_state_dict(cfg, 0)
+    batch = synthetic_distill_batch(cfg, tcfg, 8, np.random.RandomState(0))
+    batch["index"] = np.arange(8, dtype=np.int64)
+    cache = TeacherTargetCache(salt="remat")
+    tr = DistillTrainer(dcfg, sd, sd, random_teacher_state_dict(tcfg, 0), cfg, cfg,
+                        device=device, teacher_cache=cache)
+    targets = np.random.RandomState(1).standard_normal((8, 2, 64)).astype(np.float32)
+    cache.put_batch(cache.keys_for(batch), targets / np.linalg.norm(targets, axis=-1,
+                                                                    keepdims=True))
+    return tr, batch
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("flags", [{}, {"fused_text_mlp": True, "fused_attn_block": True}],
+                         ids=["default", "fused"])
+def test_remat_is_bit_equal_on_the_card(cuda_device, monkeypatch, flags):
+    """Two bf16 steps with remat on and off: parameters bit-equal (no kernel
+    sums with atomics); every forward kernel of a student layer launches
+    twice a step under remat and every backward kernel once; K8 / K9's
+    weights are cast once a layer a step either way."""
+    from dclip_tpu_torch.kernels import (
+        attn_block_trainable,
+        mlp_frozen,
+        mlp_trainable,
+        vit_attention,
+    )
+
+    packs = {"n": 0}
+    for mod, name in ((attn_block_trainable, "pack_trainable_attn"),
+                      (mlp_trainable, "pack_trainable_mlp")):
+        real = getattr(mod, name)
+
+        def counted(*a, _real=real, **k):
+            packs["n"] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, name, counted)
+    runs = {}
+    for remat in (False, True):
+        tr, batch = _remat_trainer(cuda_device, remat, flags)
+        packs["n"] = 0
+        for mod in (vit_attention, mlp_frozen, mlp_trainable, attn_block_trainable):
+            mod.reset_launches()
+        for _ in range(2):
+            tr.train_step_on_batch(batch)
+        torch.cuda.synchronize()
+        launches = {**vit_attention.LAUNCHES, **mlp_frozen.LAUNCHES, **mlp_trainable.LAUNCHES,
+                    **attn_block_trainable.LAUNCHES}
+        runs[remat] = ({n: p.detach().clone() for n, p in tr.student.named_parameters()},
+                       launches, packs["n"])
+    (p0, l0, n0), (p1, l1, n1) = runs[False], runs[True]
+    for name, p in p0.items():
+        assert torch.equal(p, p1[name]), name
+    fwd = ("self_attention_fwd_stats", "mlp_frozen_fwd", "mlp_trainable_fwd",
+           "attn_block_trainable_fwd")
+    for name, n in l0.items():
+        assert l1[name] == (2 * n if name in fwd else n), (name, n, l1[name])
+    assert l0["self_attention_fwd_stats"] > 0 and l0["self_attention_bwd_stats"] > 0
+    assert n1 == n0 == (2 * 4 if flags else 0)
+
+
+@pytest.mark.requires_cuda
+def test_k10_at_head_dim_96_and_k11_at_768(cuda_device):
+    """The L/14 run's widths: K10 at D=768 with 8 heads of 96 (B=32, 77
+    tokens, 8 boxes, masks), K11 at D=768, B=256, against their twins."""
+    from dclip_tpu_torch.kernels import cross_attention as xa
+    from dclip_tpu_torch.kernels import distill_loss as dl
+
+    rng = np.random.RandomState(768)
+    b, t, p, d, heads = 32, 77, 8, 768, 8
+    w = xa.pack_cross_attention(_teacher_sd(rng, d, cuda_device), torch.bfloat16)
+    tmask = torch.from_numpy((np.arange(t)[None] < rng.randint(2, t + 1, (b, 1)))
+                             .astype(np.float32)).to(cuda_device)
+    imask = torch.from_numpy((rng.rand(b, p) > 0.25).astype(np.float32)).to(cuda_device)
+    imask[:2] = 0.0
+    text = _bf16(rng, cuda_device, b, t, d).float() * tmask[..., None]
+    image = _bf16(rng, cuda_device, b, p, d).float() * imask[..., None]
+    got = xa.cross_attention_fused(w, text, image, tmask, imask, num_heads=heads)
+    want = xa.cross_attention_reference(w, text, image, tmask, imask, num_heads=heads)
+    for name, g, r in zip(("text", "image"), got, want):
+        _close_rel(g, r, what=f"K10 d768 {name}")
+    si, st = _bf16(rng, cuda_device, 256, d), _bf16(rng, cuda_device, 256, d)
+    ti, tt = (x.float() + 0.5 * torch.from_numpy(
+        rng.standard_normal((256, d)).astype(np.float32)).to(cuda_device) for x in (si, st))
+    parts = dl.distill_loss_fwd(si, st, ti, tt)
+    ref = dl.distill_loss_fwd_reference(si, st, ti, tt)
+    torch.cuda.synchronize()
+    assert ((parts - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all()
+    cts = torch.tensor([1.0, 1.0, 1.0], device=cuda_device)
+    for g, r in zip(dl.distill_loss_bwd(si, st, ti, tt, cts),
+                    dl.distill_loss_bwd_reference(si, st, ti, tt, cts)):
+        torch.cuda.synchronize()
+        assert (g.float() - r.float()).abs().max().item() <= 2.0**-7 * r.float().abs().max().item()

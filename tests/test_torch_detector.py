@@ -287,7 +287,7 @@ def test_as_detect_fn_needs_pil(pair, monkeypatch):
         return real_import(name, *args, **kw)
 
     monkeypatch.setattr(builtins, "__import__", no_pil)
-    with pytest.raises(ImportError, match="Queue 1 item 5"):
+    with pytest.raises(ImportError, match="needs PIL, which this installation lacks"):
         pair["port"].as_detect_fn()
 
 

@@ -213,3 +213,36 @@ def test_checkpoint_manager_index_names_and_retention(tmp_path):
     state, step = reopened.restore_latest_or_none()
     assert step == 4 and torch.equal(state["w"], torch.full((2,), 4.0))
     assert CheckpointManager(str(tmp_path / "none")).restore_latest_or_none() is None
+
+
+def test_remat_fit_across_a_stage_equals_the_run_without(setup):
+    """`remat` is kept through the stage's rebuild of the student (K6 off,
+    K8 / K9 on both sides of it), and two epochs give the parameters of
+    the run without it, bit for bit."""
+    runs = []
+    for remat in (False, True):
+        tr = _port_trainer(setup, remat=remat, **STAGE)
+        tr.fit(_Pipe(setup["batches"]))
+        assert tr.student.vision_model.encoder.remat == remat
+        assert tr.student.text_model.encoder.remat == remat
+        assert not tr.student.vision_model.encoder.layers[0].fused_frozen_mlp
+        runs.append(dict(tr.student.named_parameters()))
+    for name, p in runs[0].items():
+        assert torch.equal(p, runs[1][name]), name
+
+
+@pytest.mark.parametrize("saved,resumed", [(True, False), (False, True)],
+                         ids=["remat_to_plain", "plain_to_remat"])
+def test_a_remat_checkpoint_resumes_without_remat(setup, tmp_path, saved, resumed):
+    """The checkpoint does not record `remat`: one saved with it resumes in
+    a trainer without it (and the other way round), and the next update
+    equals the uninterrupted run's."""
+    tr = _port_trainer(setup, remat=saved, **STAGE)
+    ckpts = CheckpointManager(str(tmp_path), save_top_k=2)
+    tr.fit(_Pipe(setup["batches"]), checkpoints=ckpts)
+    fresh = _port_trainer(setup, remat=resumed, **STAGE)
+    assert fresh.resume(ckpts) == 2 and fresh.student.vision_model.encoder.remat == resumed
+    for t in (tr, fresh):
+        t.train_step_on_batch(setup["batches"][1])
+    for (n, a), (_, b) in zip(tr.student.named_parameters(), fresh.student.named_parameters()):
+        assert torch.equal(a, b), n

@@ -1,7 +1,9 @@
 """The port's host data path against the JAX package's, on a corpus of PNGs
 written to tmp_path: `data.pipeline.MultiModalPipeline` (every field of
 every batch over two epochs; thread and spawn-process decode; with and
-without the tail batch; a two-way shard split; an unreadable image),
+without the tail batch; a two-way shard split; an unreadable image; the
+native JPEG route on a mixed corpus of the committed fixtures, and without
+PIL),
 `data.detection_cache` (an npz written by the JAX `build_cache` with
 `GridProposalDetector`, read by the port, and the other way round) and
 `core.metrics.MetricsLogger` (its CSV and printed lines)."""
@@ -99,17 +101,125 @@ def test_shard_split_equals_the_halves(corpus):
 
 
 def test_unreadable_image_gives_zeros_and_native_waits(corpus):
+    """An unreadable image gives zeros on both routes: the native one hands
+    it to PIL, as the JAX pipeline does (its PNGs too)."""
     items, _ = corpus
-    mine, _ = _pipes(corpus)
-    item = mine._load_item(len(items) - 1, 0)
-    assert not item["pixel_values"].any() and not item["teacher_pixels"].any()
-    assert item["pixel_values"].shape == (24, 24, 3) and not item["box_mask"].any()
-    readable = mine._load_item(0, 0)
-    assert readable["teacher_pixels"].max() > 0 and readable["box_mask"].sum() == 5
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pl.MultiModalPipeline(items, HashTokenizer(1000, 16), decode_backend="native")
+    for backend in ("pil", "native"):
+        mine, _ = _pipes(corpus, decode_backend=backend)
+        item = mine._load_item(len(items) - 1, 0)
+        assert not item["pixel_values"].any() and not item["teacher_pixels"].any()
+        assert item["pixel_values"].shape == (24, 24, 3) and not item["box_mask"].any()
+        readable = mine._load_item(0, 0)
+        assert readable["teacher_pixels"].max() > 0 and readable["box_mask"].sum() == 5
     assert pl.content_key_for(items[0]["image_path"]) == jpl.content_key_for(
         items[0]["image_path"])
+
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+FIXTURE_JPEGS = ("rgb_640x480.jpg", "rgb_375x500.jpg", "rgb_53x37.jpg", "rgb_224x224.jpg",
+                 "gray_121x90.jpg", "progressive_300x200.jpg")
+
+
+@pytest.fixture(scope="module")
+def mixed_corpus(corpus, tmp_path_factory):
+    """The fixtures' JPEGs, their PNG and CMYK JPEG, a PNG of `corpus`, a
+    JPEG cut inside its headers and the unreadable file, with a detection
+    cache over those PIL can read (boxes in each image's own frame)."""
+    items, _ = corpus
+    root = tmp_path_factory.mktemp("mixed")
+    cut = root / "cut.jpg"
+    with open(os.path.join(DATA, "rgb_224x224.jpg"), "rb") as f:
+        cut.write_bytes(f.read()[:300])
+    paths = [os.path.join(DATA, n) for n in FIXTURE_JPEGS + ("rgb_40x30.png", "cmyk_50x40.jpg")]
+    paths += [items[0]["image_path"], str(cut), items[-1]["image_path"]]
+    mixed = [{"image_path": p, "captions": [f"caption {i}", f"other {i}"]}
+             for i, p in enumerate(paths)]
+    cache_path = str(root / "precache.npz")
+    jdc.build_cache(paths[:-2], jdc.GridProposalDetector(), cache_path)  # PIL reads these
+    return mixed, cache_path
+
+
+@pytest.mark.parametrize("fast_decode", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("num_workers", [0, 2], ids=["threads", "spawn_2"])
+def test_native_batches_equal_the_jax_pipeline(mixed_corpus, num_workers, fast_decode):
+    """decode_backend="native" on both sides, two epochs field for field:
+    the JPEGs through the two decoders, the PNGs, the CMYK JPEG, the cut
+    JPEG and the unreadable file through PIL, per item."""
+    kw = dict(KW, batch_size=3, image_size=32, teacher_image_size=28, decode_backend="native",
+              fast_decode=fast_decode, num_workers=num_workers)
+    mine, theirs = _pipes(mixed_corpus, **kw)
+    try:
+        assert len(mine) == len(theirs) == 3
+        for epoch in (0, 1):
+            got = list(mine.epoch(epoch))
+            _assert_batches_equal(got, list(theirs.epoch(epoch)))
+        assert all(b.pixel_values.shape == (3, 32, 32, 3) for b in got)
+    finally:
+        mine.close()
+        theirs.close()
+
+
+def _without_pil(monkeypatch):
+    import builtins
+    import sys
+
+    real_import = builtins.__import__
+
+    def no_pil(name, *args, **kw):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("no PIL here")
+        return real_import(name, *args, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+
+
+def test_a_jpeg_corpus_loads_without_pil(mixed_corpus, monkeypatch):
+    """Only an item the native route did not serve reaches PIL: a corpus of
+    JPEGs and a missing file loads with PIL's import failing, equal to the
+    batches made with PIL present (and the missing file's item to the JAX
+    pipeline's: zero tensors); a PNG, a CMYK JPEG or a cut JPEG then
+    raises, naming its path."""
+    mixed, cache_path = mixed_corpus
+    missing = {"image_path": os.path.join(os.path.dirname(cache_path), "missing.jpg"),
+               "captions": ["a file that is not there"]}
+    jpegs = mixed[:len(FIXTURE_JPEGS)] + [missing]
+    kw = dict(KW, batch_size=3, image_size=32, teacher_image_size=28, decode_backend="native")
+
+    def pipe(cls=pl.MultiModalPipeline, tok=HashTokenizer, cache=dc.DetectionCache):
+        return cls(jpegs, tok(1000, 16), cache.load(cache_path), **kw)
+
+    want = list(pipe().epoch(0))
+    theirs = pipe(jpl.MultiModalPipeline, JaxHashTokenizer, jdc.DetectionCache)._load_item(
+        len(jpegs) - 1, 0)
+    _without_pil(monkeypatch)
+    _assert_batches_equal(list(pipe().epoch(0)), want)
+    got = pipe()._load_item(len(jpegs) - 1, 0)
+    assert not got["pixel_values"].any() and not got["teacher_pixels"].any()
+    for key, value in theirs.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
+    items = {os.path.basename(it["image_path"]): it for it in mixed}
+    for name in ("rgb_40x30.png", "cmyk_50x40.jpg", "cut.jpg"):
+        pipe = pl.MultiModalPipeline([items[name]], HashTokenizer(1000, 16), **kw)
+        with pytest.raises(ImportError, match=f"{name}.*needs PIL"):
+            pipe._load_item(0, 0)
+    with pytest.raises(ImportError, match="needs PIL"):
+        pl.MultiModalPipeline(jpegs, HashTokenizer(1000, 16), **dict(kw, decode_backend="pil")
+                              )._load_item(0, 0)
+
+
+def test_starvation_warning_matches_jax():
+    """The JAX line, the native backend's hint included; the port states no
+    speed-up for --fast_decode (the JAX one's was measured on another host)."""
+    for backend in ("pil", "native"):
+        lines = []
+        for cls in (pl.StarvationMonitor, jpl.StarvationMonitor):
+            m = cls(num_workers=2, decode_backend=backend)
+            for _ in range(20):
+                m.record(0.5, 1.0, 8)
+            lines.append(m.check(80, 4.0))
+        assert lines[0] == lines[1].replace(", ~2-4x per core", "") and lines[0] is not None
+        assert ("--decode_backend native" in lines[0]) == (backend == "pil")
 
 
 def test_detection_cache_reads_the_jax_npz_and_back(corpus, tmp_path):

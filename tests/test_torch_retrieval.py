@@ -187,9 +187,9 @@ def test_preprocess_image_matches_jax_and_needs_pil(monkeypatch):
     im = Image.fromarray((np.random.RandomState(6).rand(30, 45, 3) * 255).astype("uint8"))
     np.testing.assert_array_equal(preprocess_image(im, 24), jax_preprocess(im, 24))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="Queue 1 item 5"):
+    with pytest.raises(ImportError, match="needs PIL, which this installation lacks"):
         preprocess_image(im, 24)
-    with pytest.raises(ImportError, match="Queue 1 item 5"):
+    with pytest.raises(ImportError, match="needs PIL, which this installation lacks"):
         ev.embed_images(None, ["any.png"], image_size=24)
 
 

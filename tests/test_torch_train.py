@@ -129,31 +129,21 @@ def test_trainable_leaf_set_matches_jax_mask(setup):
     assert tr.student.vision_model.encoder.layers[0].fused_frozen_mlp
 
 
-@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
-def test_student_steps_match_jax_trainer(setup, packed):
-    """One and two student steps with accumulate_grad_batches=2: the loss
-    parts, every trainable gradient, and the parameters after each step
-    (unchanged after the first, one AdamW update after the second).
-
-    The JAX gradients come from the trainer's own step: with two mini-steps
-    per update, the first step from the initial state leaves its raw
-    gradient in the MultiSteps accumulator (optax's running mean of one
-    value); both steps differentiate at the initial parameters."""
+def _hold_steps_to_jax(setup, jt, init_state, tr):
+    """Two steps of the port's trainer `tr` against the JAX trainer `jt`
+    from `init_state`: loss parts, every trainable gradient, parameters."""
     import jax
 
-    jt, cfg = setup["jt"], setup["cfg"]
-    jt._packed_text = packed
+    cfg = setup["cfg"]
     want_grads = []
     for batch in reversed(setup["batches"]):  # the second batch's gradient first
-        jt.state = jax.device_put(*setup["init_state"])
+        jt.state = jax.device_put(*init_state)
         jt.train_step_on_batch(batch)
         want_grads.insert(0, jax.device_get(jt.state.opt_state.acc_grads))
-    jt.state = jax.device_put(*setup["init_state"])
-    tr = _port_trainer(setup, packed_text=packed)
+    jt.state = jax.device_put(*init_state)
     for step, batch in enumerate(setup["batches"]):
         want = jt.train_step_on_batch(batch)
         got = tr.train_step_on_batch(batch)
-        assert ("packed_ids" in jt._maybe_pack_text(batch, {})) == packed
         for name in want:
             np.testing.assert_allclose(got[name].item(), float(want[name]), err_msg=name,
                                        **LOSS_TOL)
@@ -167,6 +157,49 @@ def test_student_steps_match_jax_trainer(setup, packed):
             np.testing.assert_allclose(p.detach().numpy(), params[name].reshape(p.shape).numpy(),
                                        err_msg=f"step {step} param {name}", **PARAM_TOL)
     assert tr.step == 2 and tr.optimizer.count == 1
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_student_steps_match_jax_trainer(setup, packed):
+    """One and two student steps with accumulate_grad_batches=2: the loss
+    parts, every trainable gradient, and the parameters after each step
+    (unchanged after the first, one AdamW update after the second).
+
+    The JAX gradients come from the trainer's own step: with two mini-steps
+    per update, the first step from the initial state leaves its raw
+    gradient in the MultiSteps accumulator (optax's running mean of one
+    value); both steps differentiate at the initial parameters."""
+    jt = setup["jt"]
+    jt._packed_text = packed
+    tr = _port_trainer(setup, packed_text=packed)
+    assert ("packed_ids" in jt._maybe_pack_text(setup["batches"][0], {})) == packed
+    _hold_steps_to_jax(setup, jt, setup["init_state"], tr)
+
+
+def test_remat_steps_match_the_jax_remat_trainer(setup):
+    """`remat=True` on both sides (JAX: `nn.remat` per encoder layer; the
+    port: `torch.utils.checkpoint` per layer), packed text, at the step
+    tolerance of the test above."""
+    import jax
+
+    from dclip_tpu.parallel.mesh import make_mesh
+    from dclip_tpu.train.distill_trainer import DistillTrainer as JaxDistillTrainer
+    from dclip_tpu.train.distill_trainer import TeacherTargetCache as JaxCache
+
+    cfg, params = setup["cfg"], setup["params"]
+    mesh1 = make_mesh(MeshConfig(data_parallel=1, model_parallel=1),
+                      devices=jax.devices("cpu")[:1])
+    cache = JaxCache()
+    jt = JaxDistillTrainer(dataclasses.replace(setup["dcfg"], remat=True), {"params": params},
+                           {"params": params}, setup["tparams"], cfg, cfg, mesh=mesh1,
+                           teacher_cache=cache)
+    for b, tg in zip(setup["batches"], setup["targets"]):
+        cache.put_batch(cache.keys_for(b), tg)
+    assert jt.student.remat
+    init_state = (jax.device_get(jt.state), jax.tree_util.tree_map(lambda a: a.sharding, jt.state))
+    tr = _port_trainer(setup, remat=True)
+    assert tr.student.vision_model.encoder.remat and tr.student.text_model.encoder.remat
+    _hold_steps_to_jax(setup, jt, init_state, tr)
 
 
 def test_cache_miss_raises_not_implemented(setup):
@@ -206,14 +239,83 @@ def test_cache_miss_raises_not_implemented(setup):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"remat": True}, "Queue 1 item 5"),
+    ({"remat": True}, None),
     ({"mesh": MeshConfig(data_parallel=2)}, "item 10"),
 ])
 def test_waiting_options_raise(setup, change, match):
     """The K8 / K9 flags and the unfreeze schedule run now
-    (tests/test_torch_train_fused.py, tests/test_torch_fit.py)."""
+    (tests/test_torch_train_fused.py, tests/test_torch_fit.py), and so
+    does `remat` (below); a mesh of more than one device still raises."""
+    if match is None:
+        tr = _port_trainer(setup, **change)
+        assert tr.student.vision_model.encoder.remat and tr.student.text_model.encoder.remat
+        return
     with pytest.raises(NotImplementedError, match=match):
         _port_trainer(setup, **change)
+
+
+def _count_layer_forwards(monkeypatch):
+    from dclip_tpu_torch.models import clip
+
+    calls = {"n": 0}
+    real = clip.EncoderLayer.forward
+
+    def counted(self, *args, **kw):
+        calls["n"] += 1
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(clip.EncoderLayer, "forward", counted)
+    return calls
+
+
+@pytest.mark.parametrize("flags", [{}, {"fused_text_mlp": True, "fused_attn_block": True}],
+                         ids=["default", "fused"])
+def test_remat_keeps_the_numbers_bit_for_bit(setup, flags, monkeypatch):
+    """Two steps (one AdamW update) with and without `remat`, through the
+    CPU twins of K4 / K5, K6, and with the flags K8 / K9: loss parts,
+    gradients and parameters bit-equal. Under remat every layer's forward
+    runs twice a step (the backward's recompute), and not under no_grad."""
+    cfg = setup["cfg"]
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    runs = []
+    for remat in (False, True):
+        calls = _count_layer_forwards(monkeypatch)
+        tr = _port_trainer(setup, remat=remat, **flags)
+        metrics = [tr.train_step_on_batch(b) for b in setup["batches"]]
+        assert calls["n"] == 2 * layers * (2 if remat else 1)
+        runs.append((metrics, {n: (p.detach().clone(), None if p.grad is None else p.grad.clone())
+                               for n, p in tr.student.named_parameters()}))
+        with torch.no_grad():
+            calls["n"] = 0
+            tr.student.image_features(torch.from_numpy(setup["batches"][0]["pixel_values"]))
+            assert calls["n"] == cfg.vision.num_layers
+    (m0, p0), (m1, p1) = runs
+    for a, b in zip(m0, m1):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    for name, (param, grad) in p0.items():
+        assert torch.equal(param, p1[name][0]), name
+        assert (grad is None and p1[name][1] is None) or torch.equal(grad, p1[name][1]), name
+
+
+def test_remat_keeps_only_layer_inputs(setup):
+    """The activations autograd keeps through the student's forward: with
+    remat, only each checkpointed layer's input (and what lies outside the
+    layers), a fraction of what it keeps without."""
+    batch = setup["batches"][0]
+    saved = []
+    for remat in (False, True):
+        tr = _port_trainer(setup, remat=remat)
+        nbytes = []
+
+        def pack(t):
+            nbytes.append(t.numel() * t.element_size())
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = tr.student.image_features(torch.from_numpy(batch["pixel_values"])).sum()
+        loss.backward()
+        saved.append(sum(nbytes))
+    assert saved[1] < 0.5 * saved[0], saved
 
 
 def test_waiting_entry_points_raise(setup):

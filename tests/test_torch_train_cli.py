@@ -161,19 +161,47 @@ def test_train_distill_reads_a_reference_pth(tmp_path):
         load_teacher_state_dict(str(tmp_path / "bad.pth"), tcfg, seed=0)
 
 
-def test_the_waiting_flags_raise(workspace):
+def test_the_waiting_flags_raise(workspace, monkeypatch):
+    """`--multihost` and a mesh still raise, naming item 10; `--decode_backend
+    native` and `--remat` run now: both CLIs take the native route (the
+    PNGs here through its per-item PIL route; JPEGs: tests/
+    test_torch_cli_e2e.py), and the distillation trainer runs with remat."""
     from dclip_tpu_torch.cli import train_distill, train_teacher
+    from dclip_tpu_torch.data import pipeline
 
     base = ["--train_file", str(workspace / "syn_train.json"), "--model_preset", "tiny",
             "--device", "cpu"]
-    for flags, item in ((["--multihost"], "item 10"), (["--decode_backend", "native"], "item 5"),
-                        (["--mesh_data", "2"], "item 10")):
+    for flags, item in ((["--multihost"], "item 10"), (["--mesh_data", "2"], "item 10")):
         for cli in (train_teacher, train_distill):
             with pytest.raises(NotImplementedError, match=item):
                 cli.main(base + flags)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train_distill.main(base + ["--remat", "--checkpoint_dir",
-                                   str(workspace / "remat_ckpts")])
+    backends = []
+    real_init = pipeline.MultiModalPipeline.__init__
+
+    def recording(self, *a, **k):
+        real_init(self, *a, **k)
+        backends.append(self.decode_backend)
+
+    monkeypatch.setattr(pipeline.MultiModalPipeline, "__init__", recording)
+    small = ["--max_patches", "4", "--teacher_image_size", "32", "--decode_backend", "native"]
+    assert train_teacher.main(base + small + [
+        "--epochs", "1", "--batch_size", "4", "--val_file", "",
+        "--output_path", str(workspace / "native_teacher" / "teacher")]) == 0
+    built = []
+
+    class Recording(train_distill.DistillTrainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            built.append(self)
+
+    monkeypatch.setattr(train_distill, "DistillTrainer", Recording)
+    assert train_distill.main(base + small + [
+        "--remat", "--phase1_epochs", "1", "--train_batch_size", "4",
+        "--accumulate_grad_batches", "1", "--checkpoint_dir", str(workspace / "remat_ckpts")]) == 0
+    (tr,) = built
+    assert tr.cfg.remat and tr.student.vision_model.encoder.remat and tr.step == 2
+    assert backends == ["native", "native"]
+    assert any(f.startswith("distill_epoch0") for f in os.listdir(workspace / "remat_ckpts"))
 
 
 @pytest.mark.parametrize("cli_name", ["train_teacher", "train_distill"])
