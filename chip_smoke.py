@@ -266,6 +266,26 @@ Phases; each one passes or raises, and any failure exits non-zero:
    the machine cannot build the decoder, `decode_backend="native"` must
    raise naming it, and nothing falls back to PIL.
 
+33. Data parallelism (run after phase 23): a one-rank NCCL group made by
+   `cli.common.init_multihost` from the env triple on a free port (the
+   backend, `torch.cuda.nccl.version()`, the preemption guard's flag
+   gather on the card): (a) `DistillTrainer(dp_equivalent=True)` in the
+   group at ViT-B/16, B=256, 3 uncached steps then the same batches
+   cache-warm (after a warm-up step on a batch of its own), against the
+   trainer without a group on the same seed:
+   losses, the gradients summed by the all-reduce and every parameter
+   bit-equal (else the largest differences printed), the same launches
+   (K11 once a step, over the gathered batch), ms per step of both; (b)
+   `TeacherTrainer` in the group at B=32, 3 steps, held the same way; (c)
+   `knn_search_sharded` over 1,000,000 seeded unit keys with `n_valid`
+   one row short (that row a query's copy) against `knn_search` (K12) over
+   the valid rows: equal scores and indices, then 3 calls of each timed in
+   turns; (d) `fit_with_preemption` at
+   B=32, 2 epochs of 4 steps, SIGTERM to the process when batch 3 is
+   drawn: the stop at step boundary 2, one `preempt` checkpoint whose
+   parameters are bit-equal to 2 uninterrupted steps'. The group is
+   destroyed at the end. Its launches add to the kernels line's rows.
+
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type (989 TFLOP/s bf16
 tensor cores, 67 TFLOP/s f32 CUDA cores, 495 TFLOP/s TF32 tensor cores
@@ -427,6 +447,15 @@ DL_BIG_B = 4096
 # The meta-teacher slice: the CLI's default batch and bench.py's.
 TEACHER_B = XATTN_TRAIN_B = (32, 256)
 TEACHER_LR = 1e-4
+# Phase 33, the data-parallel path in a one-rank NCCL group: the distill
+# step's batch and steps (uncached, then cache-warm), the teacher step's,
+# the sharded search's store (one row short of valid) and the preempted
+# fit (epochs of steps, SIGTERM when this batch is drawn).
+# (tests/test_torch_cli_e2e.py runs the phase on the CPU at the tiny preset.)
+DP_DEVICE, DP_PRESET = "cuda", "vit-b-16"
+DP_B, DP_TEACHER_B, DP_STEPS = 256, 32, 3
+DP_SEARCH_N, DP_SEARCH_D, DP_SEARCH_Q, DP_SEARCH_K = 1_000_000, 512, 64, 10
+DP_FIT_B, DP_FIT_EPOCHS, DP_FIT_STEPS, DP_KILL_AT = 32, 2, 4, 2
 # The ViT-L/14 slice (phases 30-32): the reference's student, with the
 # teacher CLIP at the same preset and TeacherConfig(768, 8 heads, 8 boxes,
 # 77 tokens), so K10 runs at head_dim 96. Each configuration of phase 31
@@ -2454,10 +2483,11 @@ def xattn_update_phase(torch, np):
     torch.cuda.empty_cache()
 
 
-def _teacher_trainer(sd, tsd, device, batch_size, pe_cache=None, l14=False, **changes):
+def _teacher_trainer(sd, tsd, device, batch_size, pe_cache=None, l14=False, mesh=None,
+                     **changes):
     """The port's TeacherTrainer at ViT-B/16 (random CLIP weights from seed
     0) with the meta-teacher of `_teacher_config()` (random, seed 0); with
-    `l14`, ViT-L/14 and `_l14_teacher_config()`."""
+    `l14`, ViT-L/14 and `_l14_teacher_config()`; `mesh` as the trainer's."""
     import dataclasses
 
     from dclip_tpu_torch.core import CLIPConfig
@@ -2470,7 +2500,7 @@ def _teacher_trainer(sd, tsd, device, batch_size, pe_cache=None, l14=False, **ch
                            teacher=_l14_teacher_config() if l14 else _teacher_config()),
         **changes)
     clip_cfg = CLIPConfig.vit_l_14() if l14 else CLIPConfig.vit_b_16()
-    return TeacherTrainer(cfg, sd, clip_cfg, tsd, pe_cache=pe_cache, device=device)
+    return TeacherTrainer(cfg, sd, clip_cfg, tsd, pe_cache=pe_cache, device=device, mesh=mesh)
 
 
 def _teacher_per_step(trainer, region_encode=True):
@@ -2601,6 +2631,265 @@ def teacher_fit_phase(torch, np, sd, tsd, card: str):
     del trainer, fresh
     torch.cuda.empty_cache()
 
+
+# -- the data-parallel path: torch.distributed over NCCL, one rank ---------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _hold_bit_equal(torch, what, got, want):
+    """Two {name: tensor} dicts bit-equal, else the largest differences
+    printed and an AssertionError."""
+    diffs = {k: (got[k].float() - want[k].float()).abs().max().item() for k in want
+             if not torch.equal(got[k], want[k])}
+    if set(got) != set(want) or diffs:
+        worst = sorted(diffs.items(), key=lambda kv: -kv[1])[:5]
+        print(f"dp: {what}: {len(diffs)} tensors differ, largest {json.dumps(worst)}",
+              flush=True)
+        raise AssertionError(f"dp: {what} not bit-equal to the run without a group: {worst}")
+
+
+def _grads(torch, module, names):
+    return {n: (p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p))
+            for n, p in module.named_parameters() if n in names}
+
+
+def _dp_run(torch, trainer, module, names, warmup, batches, card, what):
+    """One step on `warmup`, then steps over `batches` (host clock to a
+    synchronize each): losses, the trainable gradients of the last step,
+    every parameter, ms per step, launches of the counted steps."""
+    sync = torch.cuda.synchronize if DP_DEVICE == "cuda" else (lambda: None)
+    trainer.train_step_on_batch(warmup)
+    _reset_all_launches()
+    losses, ms = [], []
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step_on_batch(b)["loss"])
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = _all_launches()
+    out = {"losses": torch.stack([x.float() for x in losses]),
+           "grads": _grads(torch, module, names),
+           "params": {n: p.detach().clone() for n, p in module.named_parameters()},
+           "ms": ms, "launches": launches}
+    print(f"dp: {what}: ms per step {json.dumps(ms)} ({card}); losses "
+          f"{json.dumps([float(x) for x in losses])}", flush=True)
+    return out
+
+
+def dp_phase(torch, np, sd, tsd, card: str) -> dict:
+    """Phase 33: the data-parallel path at `DP_PRESET` (ViT-B/16) in a
+    one-rank group on `DP_DEVICE` (NCCL on the card) made by
+    `init_multihost` from the env triple on a free port: (a) the distill
+    step with `dp_equivalent=True`, (b) the teacher step, each against the
+    trainer without a group on the same seed, bit for bit; (c)
+    `knn_search_sharded` against `knn_search`; (d) a preempted fit. `sd` /
+    `tsd`: the CLIP's and the meta-teacher's state dicts. Returns the
+    launches of (a) - (d)."""
+    import dataclasses
+    import shutil
+    import signal
+    import tempfile
+
+    from dclip_tpu_torch.cli.common import fit_with_preemption, init_multihost
+    from dclip_tpu_torch.core import CLIPConfig, TeacherConfig
+    from dclip_tpu_torch.core.config import TeacherTrainConfig
+    from dclip_tpu_torch.ops.knn import knn_search, knn_search_sharded
+    from dclip_tpu_torch.parallel.mesh import collective_device, local_mesh, make_mesh
+    from dclip_tpu_torch.parallel.multihost import allgather_flags
+    from dclip_tpu_torch.train import TeacherTrainer
+    from dclip_tpu_torch.train.checkpoint import CheckpointManager
+    from dclip_tpu_torch.train.distill_trainer import DistillTrainer, TeacherTargetCache
+
+    on_card = DP_DEVICE == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = CLIPConfig.from_name(DP_PRESET)
+    d = cfg.projection_dim
+    tcfg = TeacherConfig(embed_dim=d, num_heads=TEXT_HEADS if d % 64 == 0 else 4,
+                         max_patches=TEACHER_P, max_text_tokens=cfg.text.max_length)
+
+    def distill_config(batch_size, **changes):
+        return _distill_config(batch_size, student_model=DP_PRESET, teacher_clip_model=DP_PRESET,
+                               teacher=tcfg, use_pallas=True, **changes)
+
+    def batch(b, seed, first):
+        return _batch(np, b, seed=seed, first=first, clip_cfg=cfg, teacher_cfg=tcfg)
+
+    triple = {"DCLIP_COORDINATOR": f"127.0.0.1:{_free_port()}", "DCLIP_NUM_PROCESSES": "1",
+              "DCLIP_PROCESS_ID": "0"}
+    saved_env = {k: os.environ.get(k) for k in triple}
+    os.environ.update(triple)
+    t0 = time.perf_counter()
+    device = init_multihost(DP_DEVICE)
+    group = make_mesh()
+    print(f"dp: init_multihost: {torch.distributed.get_backend()} group of "
+          f"{torch.distributed.get_world_size()} on {device} in {time.perf_counter() - t0} s"
+          + (f", NCCL {torch.cuda.nccl.version()}" if on_card else ""), flush=True)
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    try:
+        if not group.distributed or collective_device(group).type != device.type:
+            raise AssertionError(f"dp: expected a group on {device.type}")
+        if allgather_flags(True) != [True]:
+            raise AssertionError("dp: the preemption guard's flag gather failed")
+
+        # (a) The distill step: after a warm-up step on a batch of its own, 3
+        # uncached steps (each batch misses and fills the caches), then the
+        # same batches cache-warm (device full level).
+        batches = [batch(DP_B, 10 + i, i * DP_B) for i in range(DP_STEPS)]
+        warmup = batch(DP_B, 9, 100 * DP_B)
+        runs = {}
+        for what, mesh, eq in (("without a group", local_mesh(), False),
+                               ("in the group, dp_equivalent", group, True)):
+            trainer = DistillTrainer(distill_config(DP_B), sd, sd, tsd, cfg, cfg, device=device,
+                                     teacher_cache=TeacherTargetCache(salt="chip-smoke-dp"),
+                                     mesh=mesh, dp_equivalent=eq)
+            if trainer._dp != eq:
+                raise AssertionError(f"dp: the trainer {what} took the wrong path")
+            runs[what] = _dp_run(torch, trainer, trainer.student,
+                                 set(trainer._trainable_names()), warmup, batches + batches,
+                                 card, f"distill B={DP_B} {what}")
+            del trainer
+            if on_card:
+                torch.cuda.empty_cache()
+        plain, dp = runs["without a group"], runs["in the group, dp_equivalent"]
+        steps = 2 * DP_STEPS
+        per_step = {k: v / steps for k, v in dp["launches"].items() if v}
+        print(f"dp: distill launches per step in the group {json.dumps(per_step)}; ms per "
+              f"step uncached {sum(dp['ms'][:DP_STEPS]) / DP_STEPS} vs "
+              f"{sum(plain['ms'][:DP_STEPS]) / DP_STEPS} without a group, cache-warm "
+              f"{sum(dp['ms'][DP_STEPS:]) / DP_STEPS} vs {sum(plain['ms'][DP_STEPS:]) / DP_STEPS}"
+              f" ({card})", flush=True)
+        if dp["launches"] != plain["launches"] or on_card and not (
+                dp["launches"]["distill_loss_fwd"] == dp["launches"]["distill_loss_bwd"] == steps):
+            raise AssertionError(f"dp: distill launches {dp['launches']} != "
+                                 f"{plain['launches']}, or K11 not once a step")
+        _hold_bit_equal(torch, "distill losses", {"l": dp["losses"]}, {"l": plain["losses"]})
+        _hold_bit_equal(torch, "distill gradients", dp["grads"], plain["grads"])
+        _hold_bit_equal(torch, "distill parameters", dp["params"], plain["params"])
+        print("dp: distill losses, gradients and parameters bit-equal to the run without a "
+              "group", flush=True)
+        add(dp["launches"])
+
+        # (b) The teacher step at B=32.
+        tbatches = [batch(DP_TEACHER_B, 20 + i, i * DP_TEACHER_B) for i in range(DP_STEPS + 1)]
+        truns = {}
+        for what, mesh in (("without a group", local_mesh()), ("in the group", group)):
+            config = dataclasses.replace(TeacherTrainConfig(
+                batch_size=DP_TEACHER_B, learning_rate=TEACHER_LR, seed=0, clip_model=DP_PRESET,
+                teacher=tcfg), use_pallas=True)
+            trainer = TeacherTrainer(config, sd, cfg, tsd, device=device, mesh=mesh)
+            truns[what] = _dp_run(torch, trainer, trainer.teacher,
+                                  set(trainer._trainable_names()), tbatches[0], tbatches[1:],
+                                  card, f"teacher B={DP_TEACHER_B} {what}")
+            del trainer
+        tplain, tdp = truns["without a group"], truns["in the group"]
+        if tdp["launches"] != tplain["launches"]:
+            raise AssertionError(f"dp: teacher launches {tdp['launches']} != "
+                                 f"{tplain['launches']}")
+        _hold_bit_equal(torch, "teacher losses", {"l": tdp["losses"]}, {"l": tplain["losses"]})
+        _hold_bit_equal(torch, "teacher gradients", tdp["grads"], tplain["grads"])
+        _hold_bit_equal(torch, "teacher parameters", tdp["params"], tplain["params"])
+        print("dp: teacher losses, gradients and parameters bit-equal to the run without a "
+              "group", flush=True)
+        add(tdp["launches"])
+
+        # (c) knn_search_sharded over the group's one shard, n_valid one row
+        # short; the padding row is a query's copy, so it would win if searched.
+        gen = torch.Generator(device=device).manual_seed(33)
+        keys = torch.randn(DP_SEARCH_N, DP_SEARCH_D, device=device, generator=gen)
+        keys /= keys.norm(dim=1, keepdim=True)
+        queries = torch.randn(DP_SEARCH_Q, DP_SEARCH_D, device=device, generator=gen)
+        queries /= queries.norm(dim=1, keepdim=True)
+        keys[-1] = queries[0]
+        n_valid = DP_SEARCH_N - 1
+        want = knn_search(queries, keys[:n_valid], DP_SEARCH_K)
+        _reset_all_launches()
+        got = knn_search_sharded(queries, keys, group, DP_SEARCH_K, n_valid=n_valid)
+        search_launches = _all_launches()
+        times = {"sharded": [], "plain": []}  # in turns: sharded, plain, plain, sharded
+        for which in ("sharded", "plain", "plain", "sharded", "sharded", "plain"):
+            sync()
+            t0 = time.perf_counter()
+            if which == "sharded":
+                knn_search_sharded(queries, keys, group, DP_SEARCH_K, n_valid=n_valid)
+            else:
+                knn_search(queries, keys[:n_valid], DP_SEARCH_K)
+            sync()
+            times[which].append(1e3 * (time.perf_counter() - t0))
+        print(f"dp: knn_search_sharded Q={DP_SEARCH_Q} N={DP_SEARCH_N} (n_valid {n_valid}) "
+              f"k={DP_SEARCH_K}: ms {json.dumps(times['sharded'])} vs knn_search "
+              f"{json.dumps(times['plain'])} (host clock to a synchronize, after one call of "
+              f"each; {card}), K12 launches of one call {search_launches['topk_streamed']}",
+              flush=True)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])) \
+                or (got[1] == n_valid).any() \
+                or on_card and search_launches["topk_streamed"] < 1:
+            raise AssertionError("dp: knn_search_sharded != knn_search over the valid rows")
+        add(search_launches)
+        del keys, queries, got, want
+
+        # (d) fit_with_preemption: SIGTERM when batch DP_KILL_AT of epoch 0 is
+        # drawn; the guard stops at that step boundary.
+        fbatches = [batch(DP_FIT_B, 40 + i, i * DP_FIT_B) for i in range(DP_FIT_STEPS)]
+
+        class Pipeline:
+            def epoch(self, epoch):
+                for i, b in enumerate(fbatches):
+                    if epoch == 0 and i == DP_KILL_AT:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    yield b
+
+        directory = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+        try:
+            config = distill_config(DP_FIT_B, phase1_epochs=DP_FIT_EPOCHS)
+            trainer = DistillTrainer(config, sd, sd, tsd, cfg, cfg, device=device, mesh=group)
+            ckpts = CheckpointManager(directory, save_top_k=2)
+            _reset_all_launches()
+            preempted = fit_with_preemption(trainer, Pipeline(), None, ckpts, None)
+            add(_all_launches())
+            entries = [e for e in ckpts._index if e.get("tag") == "preempt"]
+            print(f"dp: fit_with_preemption returned {preempted} at step {trainer.step}; "
+                  f"checkpoints {[os.path.basename(e['path']) for e in ckpts._index]}",
+                  flush=True)
+            if not (preempted and trainer.step == DP_KILL_AT and len(entries) == 1
+                    and entries[0]["step"] == DP_KILL_AT and ckpts.latest() is None):
+                raise AssertionError("dp: the preempted fit did not stop at its step boundary "
+                                     "with one preempt checkpoint")
+            saved = torch.load(entries[0]["path"], map_location=device,
+                               weights_only=True)["params"]
+            del trainer
+            ref = DistillTrainer(config, sd, sd, tsd, cfg, cfg, device=device, mesh=local_mesh())
+            for b in fbatches[:DP_KILL_AT]:
+                ref.train_step_on_batch(b)
+            _hold_bit_equal(torch, "preempt checkpoint", saved,
+                            {n: p.detach() for n, p in ref.student.named_parameters()})
+            print(f"dp: the preempt checkpoint's parameters bit-equal to {DP_KILL_AT} "
+                  "uninterrupted steps", flush=True)
+            del ref
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+    finally:
+        torch.distributed.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if on_card:
+        torch.cuda.empty_cache()
+    return total
 
 def teacher_grad_phase(torch, np, sd, tsd):
     """One teacher step's gradients at full width and depth, B=8: bf16
@@ -3924,6 +4213,7 @@ def main() -> int:
     fit_phase(torch, np, sd, tsd, card)
     teacher_launches = teacher_slice_phase(torch, np, sd, tsd, card)
     teacher_fit_phase(torch, np, sd, tsd, card)
+    dp_launches = dp_phase(torch, np, sd, tsd, card)
     teacher_grad_phase(torch, np, sd, tsd)
     int8_service, f32 = int8_phase(torch, np, cli_serve, card, bf16_rows)
     export_phase(torch, np, cli_serve, card, int8_service, f32)
@@ -3947,6 +4237,11 @@ def main() -> int:
                                 + region["topk_streamed"]),
               "cross_attention_trainable": teacher_launches["cross_attention_trainable"],
               **{n: l14_launches[n.split("[")[0]] for n in L14_ROWS}}
+    # Phase 33 runs the same kernels on the data-parallel path (K11 over the
+    # gathered batch): its launches add to each kernel's row.
+    for name in counts:
+        if "[" not in name:
+            counts[name] += dp_launches.get(name, 0)
     sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS, **TRAINABLE_KERNELS,
                **TOPK_KERNELS, **TEACHER_TRAIN_KERNELS, **L14_ROWS}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

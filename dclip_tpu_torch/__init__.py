@@ -13,15 +13,18 @@ module layout so each counterpart is found under the same path:
              the projection heads, the RegionTokenizer, and the weight
              bridge from Flax params / random init
   ops/       CLIP pixel normalization and region crop-resize, teacher
-             aggregation, exact k-NN search and its gate, losses, caption
+             aggregation, exact k-NN search (sharded over ranks too) and
+             its gate, losses and their global-batch forms, caption
              packing, fixed-shape NMS
+  parallel/  data parallelism: one process per card in a
+             torch.distributed process group (the JAX mesh's counterpart)
   data/      tokenizers, embedding store, detection cache, the corpus
              builders, the input pipeline (MultiModalPipeline), image
              preprocessing, the patch-index builder
   serve/     dynamic request batcher, bucket-padded ClipService
   train/     DistillTrainer (teacher targets with their caches, student
              step), TeacherTrainer (the meta-teacher), masked Adam /
-             AdamW, epoch loop, checkpoints
+             AdamW, epoch loop, checkpoints, SIGTERM preemption
   native/    the `.dcs` KV store and host top-k, and the libjpeg decoder
              of the input pipeline (C++, built with g++)
   cli/       serve, build_corpus, train_teacher, train_distill,

@@ -6,9 +6,12 @@ Every entry point takes the same flags as the JAX package's:
                    (seeded N(0, 0.02) weights; there is no download path)
   --tokenizer_dir  dir containing vocab.json + merges.txt, or 'hash'
 plus `--device` (default `cuda`; `cpu` only when asked for) and, for the
-trainers, `--mesh_data` / `--mesh_model` (one device: -1 or 1, and 1).
-`restore_student_params` reads the port's own checkpoints;
-`fit_with_preemption` runs a trainer's `fit` (no preemption guard yet).
+trainers, `--mesh_data` (the data axis over the ranks of a process group)
+and `--mesh_model` (1; tensor parallelism is ROADMAP Queue 1 item 13).
+`--multihost` starts one process per card in a `torch.distributed` group
+(`init_multihost`). `restore_student_params` reads the port's own
+checkpoints; `fit_with_preemption` runs a trainer's `fit` under a SIGTERM
+guard.
 """
 from __future__ import annotations
 
@@ -40,18 +43,77 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mesh_data", type=int, default=-1,
-                   help="data-parallel mesh size (-1: all devices; the port runs on one)")
-    p.add_argument("--mesh_model", type=int, default=1, help="model-parallel mesh size")
+                   help="data-parallel mesh size: the ranks of the process group (-1: all "
+                        "of them); one process per card, so N > 1 needs --multihost with N "
+                        "processes")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="model-parallel mesh size (1; tensor parallelism is not ported yet)")
 
 
 def mesh_config(args) -> MeshConfig:
-    """The `MeshConfig` of the flags; any other than one device raises."""
+    """The `MeshConfig` of the flags; `parallel.mesh.make_mesh` checks it
+    against the process group. `--mesh_model` other than 1 raises."""
     dp, mp = getattr(args, "mesh_data", -1), getattr(args, "mesh_model", 1)
-    if dp not in (-1, 1) or mp != 1:
+    if mp != 1:
         raise NotImplementedError(
-            f"--mesh_data {dp} --mesh_model {mp}: a mesh of more than one device is not "
-            "ported yet: ROADMAP Queue 1 item 10")
+            f"--mesh_model {mp}: tensor parallelism is not ported yet: ROADMAP Queue 1 "
+            "item 13")
     return MeshConfig(data_parallel=dp, model_parallel=mp)
+
+
+def add_multihost_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--multihost", action="store_true",
+                   help="one process per card in a torch.distributed group: the "
+                        "DCLIP_COORDINATOR / DCLIP_NUM_PROCESSES / DCLIP_PROCESS_ID triple, "
+                        "else torchrun's variables; NCCL on cuda, gloo with --device cpu")
+
+
+def init_multihost(device="cuda", timeout: float = 600.0) -> torch.device:
+    """`torch.distributed` init for `--multihost` runs (counterpart of
+    `dclip_tpu/cli/common.py:185-210`); returns this process's device.
+
+    The DCLIP_COORDINATOR (host:port) / DCLIP_NUM_PROCESSES /
+    DCLIP_PROCESS_ID triple spells out the group and must be set together
+    (a partial triple is an explicit error); without it torchrun's
+    variables (`env://`). On CUDA the backend is NCCL, after
+    `torch.cuda.set_device(local rank)` and the card's context: LOCAL_RANK
+    when set, else the process id modulo the visible cards. gloo runs only
+    when the caller asked for the CPU; a failed NCCL init raises."""
+    import datetime
+
+    import torch.distributed as dist
+
+    coord = os.environ.get("DCLIP_COORDINATOR")
+    if coord:
+        missing = [k for k in ("DCLIP_NUM_PROCESSES", "DCLIP_PROCESS_ID")
+                   if not os.environ.get(k)]
+        if missing:
+            raise SystemExit(
+                "DCLIP_COORDINATOR is set but " + ", ".join(missing)
+                + " is not — the multihost env triple (DCLIP_COORDINATOR, "
+                "DCLIP_NUM_PROCESSES, DCLIP_PROCESS_ID) must be set together")
+    want = torch.device(device)
+    if want.type == "cuda":
+        resolve_device("cuda")  # raises without a card
+        rank = int(os.environ["DCLIP_PROCESS_ID"] if coord else os.environ.get("RANK", "0"))
+        local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+        dev = torch.device("cuda", local)
+        torch.zeros(1, device=dev)  # the context exists before NCCL's first call
+        backend = "nccl"
+    elif want.type == "cpu":
+        dev, backend = want, "gloo"
+    else:
+        raise ValueError(f"unsupported device {str(want)!r}; use 'cuda' or 'cpu'")
+    kwargs = {"backend": backend, "timeout": datetime.timedelta(seconds=timeout)}
+    if coord:
+        kwargs.update(init_method=f"tcp://{coord}",
+                      world_size=int(os.environ["DCLIP_NUM_PROCESSES"]),
+                      rank=int(os.environ["DCLIP_PROCESS_ID"]))
+    else:
+        kwargs["init_method"] = "env://"
+    dist.init_process_group(**kwargs)
+    return dev
 
 
 def add_data_args(p: argparse.ArgumentParser) -> None:
@@ -66,8 +128,6 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
                         "released, so decode threads scale over cores; non-JPEG, CMYK and "
                         "corrupt files take the PIL route per item; a decoder that cannot be "
                         "built raises). 'pil' keeps HF bit-parity")
-    p.add_argument("--multihost", action="store_true",
-                   help="multi-process runs: not ported yet, raises")
     p.add_argument("--max_patches", type=int, default=8)
     p.add_argument("--teacher_image_size", type=int, default=224)
     p.add_argument("--compute_dtype", default="auto", choices=["auto", "float32", "bfloat16"],
@@ -88,12 +148,23 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
                                       "(default: on whenever there is a host cache)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--metrics_csv", default=None)
+    add_multihost_arg(p)
 
 
-def check_waiting_flags(args) -> None:
-    """The flags whose paths are not ported yet raise, naming their item."""
+def start_processes(args) -> torch.device:
+    """The CLIs' device: with `--multihost`, this rank's after
+    `init_multihost`, else `--device`."""
     if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet: ROADMAP Queue 1 item 10")
+        return init_multihost(args.device)
+    return resolve_device(args.device)
+
+
+def stop_processes(args) -> None:
+    """With `--multihost`, destroy the process group `start_processes` made."""
+    import torch.distributed as dist
+
+    if args.multihost and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def load_detection_cache(path):
@@ -129,16 +200,22 @@ def load_projection_params(path, embed_dim: int):
 
 def make_pipeline(args, path, tokenizer, cache, clip_cfg, batch_size, max_patches, seed,
                   drop_remainder=True):
-    """The corpus JSON at `path` as a `data.pipeline.MultiModalPipeline`."""
+    """The corpus JSON at `path` as a `data.pipeline.MultiModalPipeline`
+    yielding this rank's rows of each global batch of `batch_size`
+    (`parallel.multihost.process_data_shard`); a tail batch cannot be
+    split across processes, so several drop it."""
     from dclip_tpu_torch.data.corpus import load_corpus
     from dclip_tpu_torch.data.pipeline import MultiModalPipeline
+    from dclip_tpu_torch.parallel.multihost import process_data_shard
 
+    shard_index, shard_count = process_data_shard()
     return MultiModalPipeline(
         load_corpus(path), tokenizer, cache, batch_size=batch_size,
-        drop_remainder=drop_remainder, max_patches=max_patches,
+        drop_remainder=drop_remainder or shard_count > 1, max_patches=max_patches,
         image_size=clip_cfg.vision.image_size, teacher_image_size=args.teacher_image_size,
         max_text_tokens=clip_cfg.text.max_length, seed=seed, num_workers=args.num_workers,
-        fast_decode=args.fast_decode, decode_backend=args.decode_backend)
+        fast_decode=args.fast_decode, decode_backend=args.decode_backend,
+        shard_index=shard_index, shard_count=shard_count)
 
 
 def load_clip_state_dict(preset: str, weights: str, seed: int = 0
@@ -249,9 +326,40 @@ def restore_student_params(checkpoint: str, template: Mapping[str, torch.Tensor]
 
 def fit_with_preemption(trainer, train_pipe, val_pipe, checkpoints, logger,
                         start_epoch: int = 0) -> bool:
-    """Run `trainer.fit`; True if preempted (counterpart of
-    `dclip_tpu/cli/common.py:214-233`). The SIGTERM guard is ROADMAP Queue 1
-    item 10, so this runs `fit` without one and returns False."""
-    trainer.fit(train_pipe, val_pipe, checkpoints=checkpoints, logger=logger,
-                start_epoch=start_epoch)
+    """Run `trainer.fit` under a `PreemptionGuard`; True if preempted
+    (counterpart of `dclip_tpu/cli/common.py:214-233`). A SIGTERM stops
+    training at the next step boundary (every rank at the same one), saves
+    a tagged `preempt` checkpoint and returns True, so the CLIs exit 0 and
+    a later `--resume` restarts from the last epoch checkpoint."""
+    from dclip_tpu_torch.train.preemption import Preempted, PreemptionGuard
+
+    try:
+        with PreemptionGuard() as guard:
+            trainer.fit(train_pipe, val_pipe, checkpoints=checkpoints, logger=logger,
+                        start_epoch=start_epoch, preemption=guard)
+    except Preempted as e:
+        print(f"Preempted (SIGTERM): {e}; state saved, exiting cleanly")
+        return True
     return False
+
+
+def eval_mesh(args):
+    """The eval CLIs' mesh: with `--multihost`, every rank of the group
+    (`--mesh_data` 1 or -1, or the group's size); without it None for
+    `--mesh_data` 1, else `make_mesh`'s ValueError for more ranks than one
+    process has."""
+    from dclip_tpu_torch.parallel.mesh import make_mesh
+
+    if not args.multihost and args.mesh_data == 1:
+        return None
+    dp = -1 if args.mesh_data == 1 else args.mesh_data
+    return make_mesh(MeshConfig(data_parallel=dp))
+
+
+def rank_path(path: str) -> str:
+    """`path` for this process: under a process group of several ranks,
+    `<path>.rank<r>`, so no two ranks write one file."""
+    from dclip_tpu_torch.parallel.multihost import process_data_shard
+
+    rank, world = process_data_shard()
+    return path if world == 1 else f"{path}.rank{rank}"

@@ -342,7 +342,7 @@ def parse_args(argv=None):
                    help="optional distilled-student checkpoint (the port's "
                         "CheckpointManager file or directory)")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="not ported yet (ROADMAP Queue 1 item 10): any value but 1 raises")
+                   help="not ported yet (ROADMAP Queue 1 item 13): any value but 1 raises")
     p.add_argument("--quantize", default="", choices=["", "int8"],
                    help="int8: weight-only quantized serving (serve.quant)")
     p.add_argument("--export_dir", default="",

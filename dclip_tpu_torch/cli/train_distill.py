@@ -18,7 +18,9 @@ recomputes each encoder layer's activations in the backward
 (`torch.utils.checkpoint`, the JAX CLI's `nn.remat`); `--tiled_frozen_mlp`
 is accepted and changes nothing, since K6 tiles at every width.
 `--projection_weights` reads a port-format file; `--decode_backend native`
-and `--multihost` behave as in `cli.train_teacher`. `--model_preset
+and `--multihost` behave as in `cli.train_teacher` (a `--teacher_cache`
+path gets one file per rank: the cache keys come from the rank's own
+rows). `--model_preset
 vit-l-14` gives the reference's L/14 run: `TeacherConfig(embed_dim=768)`.
 """
 from __future__ import annotations
@@ -33,7 +35,6 @@ from dclip_tpu_torch.cli.common import (
     add_device_arg,
     add_mesh_args,
     add_model_args,
-    check_waiting_flags,
     fit_with_preemption,
     load_clip_state_dict,
     load_detection_cache,
@@ -42,7 +43,10 @@ from dclip_tpu_torch.cli.common import (
     load_tokenizer,
     make_pipeline,
     mesh_config,
+    rank_path,
     restore_student_params,
+    start_processes,
+    stop_processes,
 )
 from dclip_tpu_torch.core.config import DistillConfig, TeacherConfig
 from dclip_tpu_torch.core.metrics import MetricsLogger
@@ -112,7 +116,7 @@ def load_teacher_state_dict(path, teacher_cfg, seed):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    check_waiting_flags(args)
+    device = start_processes(args)
     teacher_clip_cfg, teacher_clip_sd = load_clip_state_dict(args.model_preset,
                                                              args.clip_weights, args.seed)
     student_preset = args.student_preset or args.model_preset
@@ -156,16 +160,18 @@ def main(argv=None) -> int:
     teacher_cache = None
     if args.teacher_cache:
         teacher_cache = TeacherTargetCache(
-            None if args.teacher_cache == "memory" else args.teacher_cache)
+            None if args.teacher_cache == "memory" else rank_path(args.teacher_cache))
     trainer = DistillTrainer(cfg, student_sd, teacher_clip_sd, teacher_sd, student_cfg,
-                             teacher_clip_cfg, device=args.device, teacher_cache=teacher_cache,
+                             teacher_clip_cfg, device=device, teacher_cache=teacher_cache,
                              knn_store=load_knn_store(args.knn_store),
                              projection_params=load_projection_params(
                                  args.projection_weights, cfg.teacher.embed_dim))
     ckpts = CheckpointManager(cfg.checkpoint_dir, prefix="distill", save_top_k=cfg.save_top_k,
                               monitor="train_loss")  # ModelCheckpoint(monitor="train_loss")
     start_epoch = trainer.resume(ckpts) if args.resume else 0
-    logger = MetricsLogger(args.metrics_csv, print_every=cfg.log_every)
+    # Every rank prints its log lines; only the primary writes the CSV.
+    logger = MetricsLogger(args.metrics_csv if trainer.is_primary else None,
+                           print_every=cfg.log_every)
     try:
         fit_with_preemption(trainer, train_pipe, val_pipe, ckpts, logger, start_epoch)
     finally:
@@ -175,6 +181,7 @@ def main(argv=None) -> int:
                 pipe.close()
         if teacher_cache is not None:
             teacher_cache.close()
+        stop_processes(args)
     return 0
 
 

@@ -16,7 +16,11 @@ across epochs. `--projection_weights` is a port-format
 `ImageProjectionModule` file (`models.projections`), not flax msgpack.
 `--decode_backend native` decodes JPEG files with the port's libjpeg
 decoder (`native/jpeg_decode.cc`), the route of a machine without PIL.
-`--multihost` raises, naming ROADMAP Queue 1 item 10.
+`--multihost` runs one process per card (`cli.common.init_multihost`):
+each rank reads its rows of every global batch of `--batch_size`, only
+rank 0 writes checkpoints and the metrics CSV, a `--pe_cache` path gets
+one file per rank (`<path>.rank<r>`), and a SIGTERM to any rank stops
+every rank at one step boundary with a `preempt` checkpoint and exit 0.
 """
 from __future__ import annotations
 
@@ -28,7 +32,6 @@ from dclip_tpu_torch.cli.common import (
     add_device_arg,
     add_mesh_args,
     add_model_args,
-    check_waiting_flags,
     fit_with_preemption,
     load_clip_state_dict,
     load_detection_cache,
@@ -37,6 +40,9 @@ from dclip_tpu_torch.cli.common import (
     load_tokenizer,
     make_pipeline,
     mesh_config,
+    rank_path,
+    start_processes,
+    stop_processes,
 )
 from dclip_tpu_torch.core.config import TeacherConfig, TeacherTrainConfig
 from dclip_tpu_torch.core.metrics import MetricsLogger
@@ -67,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    check_waiting_flags(args)
+    device = start_processes(args)
     clip_cfg, clip_sd = load_clip_state_dict(args.model_preset, args.clip_weights, args.seed)
     tokenizer = load_tokenizer(args.tokenizer_dir, clip_cfg.text.max_length)
 
@@ -108,16 +114,19 @@ def main(argv=None) -> int:
     if args.pe_cache:
         from dclip_tpu_torch.train.distill_trainer import TeacherTargetCache
 
-        pe_cache = TeacherTargetCache(None if args.pe_cache == "memory" else args.pe_cache)
+        pe_cache = TeacherTargetCache(
+            None if args.pe_cache == "memory" else rank_path(args.pe_cache))
     trainer = TeacherTrainer(cfg, clip_sd, clip_cfg, knn_store=load_knn_store(args.knn_store),
                              projection_params=load_projection_params(
                                  args.projection_weights, cfg.teacher.embed_dim),
-                             pe_cache=pe_cache, device=args.device)
+                             pe_cache=pe_cache, device=device)
     ckpts = CheckpointManager(os.path.dirname(cfg.output_path) or ".",
                               prefix=os.path.basename(cfg.output_path),
                               save_top_k=0)  # the teacher keeps every epoch
     start_epoch = trainer.resume(ckpts) if args.resume else 0
-    logger = MetricsLogger(args.metrics_csv, print_every=cfg.log_every)
+    # Every rank prints its log lines; only the primary writes the CSV.
+    logger = MetricsLogger(args.metrics_csv if trainer.is_primary else None,
+                           print_every=cfg.log_every)
     try:
         fit_with_preemption(trainer, train_pipe, val_pipe, ckpts, logger, start_epoch)
     finally:
@@ -127,7 +136,8 @@ def main(argv=None) -> int:
                 pipe.close()
         if pe_cache is not None:
             pe_cache.close()
-    best = ckpts.best()
+        stop_processes(args)
+    best = ckpts.best() if trainer.is_primary else None
     if best:
         print(f"Best model: {best['path']} (val_loss={best['metrics']['val_loss']:.4f})")
     return 0

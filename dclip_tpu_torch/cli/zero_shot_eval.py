@@ -9,6 +9,9 @@ the reference's names and bodies.
 
 --checkpoint is a checkpoint of the port's trainer (`train.checkpoint`),
 or a directory of them (the latest); flax msgpack files are not read.
+`--multihost` (one process per card) splits each image batch over the
+ranks; the accuracies are exact, and only rank 0 prints the table and
+writes the results file.
 """
 from __future__ import annotations
 
@@ -17,11 +20,14 @@ import argparse
 from dclip_tpu_torch.cli.common import (
     add_device_arg,
     add_model_args,
+    add_multihost_arg,
+    eval_mesh,
     load_clip,
     load_tokenizer,
     restore_student_params,
+    start_processes,
+    stop_processes,
 )
-from dclip_tpu_torch.cli.flickr30k_eval import MESH_WAITS
 from dclip_tpu_torch.eval.zero_shot import (
     CIFAR_PROMPT,
     IMAGENET_PROMPT,
@@ -51,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels; float32 (default) matches the reference numerics")
     p.add_argument("--max_images", type=int, default=None)
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="not ported yet: any value but 1 raises")
+                   help="ranks to shard each image batch over (-1: every rank of "
+                        "--multihost's group); accuracies are exact")
     p.add_argument("--results_file", default=None,
                    help="defaults to the reference filename for the dataset")
     p.add_argument("--classnames_file", default=None,
@@ -59,6 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "the default)")
     add_model_args(p, default_preset="vit-l-14")
     add_device_arg(p)
+    add_multihost_arg(p)
     return p
 
 
@@ -86,10 +94,16 @@ def _batches(args, image_size):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh_data != 1:
-        raise NotImplementedError(MESH_WAITS)
+    device = start_processes(args)
+    try:
+        return _run(args, device, eval_mesh(args))
+    finally:
+        stop_processes(args)
+
+
+def _run(args, device, mesh) -> int:
     cfg, model = load_clip(args.model_preset, args.clip_weights, args.seed,
-                           args.compute_dtype, args.device)
+                           args.compute_dtype, device)
     tokenizer = load_tokenizer(args.tokenizer_dir, cfg.text.max_length)
     classnames, batches = _batches(args, cfg.vision.image_size)
     if args.classnames_file:
@@ -105,7 +119,7 @@ def main(argv=None) -> int:
 
     def run():
         text = embed_classnames(model, tokenizer, classnames, prompt)
-        return evaluate_zero_shot(model, text, batches())
+        return evaluate_zero_shot(model, text, batches(), mesh=mesh)
 
     results = {}
     if args.model in ("base", "both"):
@@ -118,6 +132,8 @@ def main(argv=None) -> int:
         model.load_state_dict(restore_student_params(args.checkpoint, model.state_dict()))
         results["custom"] = run()
 
+    if mesh is not None and not mesh.is_primary:
+        return 0
     print_comparison_table({args.dataset: results})
 
     zero = {"top1": 0.0, "top5": 0.0}

@@ -111,15 +111,18 @@ class EmbeddingStore:
     def device_arrays(self, device, mesh=None):
         """(keys, values) as f32 tensors on `device`, to be reused across
         queries (`dclip_tpu/data/embedding_store.py:113-124`). A store whose
-        values are its keys moves one matrix and returns it twice. `mesh`
-        (rows sharded over devices) waits for ROADMAP Queue 1 item 10."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "device_arrays(mesh=...): a store sharded across devices is ROADMAP "
-                "Queue 1 item 10 (multi-device)")
+        values are its keys moves one matrix and returns it twice. With a
+        `parallel.mesh.Mesh`, this rank's row shard [r N / size,
+        (r + 1) N / size) for `ops.knn.knn_search_sharded` (pad N to a
+        multiple of the size first: `pad_to_multiple`)."""
         import torch
 
         keys, values, _ = self._pack()
+        if mesh is not None:
+            lo, hi = mesh.rows(len(keys))
+            same = values is keys
+            keys = keys[lo:hi]
+            values = keys if same else values[lo:hi]
         keys_t = torch.as_tensor(keys, dtype=torch.float32, device=device)
         if values is keys:
             return keys_t, keys_t
@@ -143,6 +146,23 @@ class EmbeddingStore:
         store._values_are_keys = values is keys
         store._packed = (keys, values, positions)
         return store
+
+    def pad_to_multiple(self, multiple: int) -> "EmbeddingStore":
+        """Pad rows with sentinels so N divides a mesh axis
+        (`dclip_tpu/data/embedding_store.py:188`): zero keys and values
+        (inner product 0 with any unit query, never above a positive
+        threshold), ids "<pad>"; pass the real count as `n_valid` to
+        `knn_search_sharded`. A store that divides already is returned."""
+        n = len(self)
+        pad = (-n) % multiple
+        if pad == 0:
+            return self
+        keys, values, positions = self._pack()
+        z = np.zeros((pad, self.dim), np.float32)
+        return EmbeddingStore.from_arrays(
+            np.concatenate([keys, z]), None if values is keys else np.concatenate([values, z]),
+            np.concatenate([positions, np.zeros((pad, 4), np.float32)]),
+            ids=self._ids + ["<pad>"] * pad)
 
     # -- persistence ------------------------------------------------------------
 

@@ -55,24 +55,35 @@ def evaluate_zero_shot(model: CLIPModule, text_features: torch.Tensor,
                        image_batches: Iterable[Tuple[np.ndarray, np.ndarray]],
                        log_every: int = 50, mesh=None) -> Dict[str, float]:
     """Stream (pixels [B, H, W, 3] CLIP-normalized, labels [B]) batches ->
-    {"top1", "top5", "total"}."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-device eval is ROADMAP Queue 1 item 10 (multi-device)")
+    {"top1", "top5", "total"}. With a `parallel.mesh.Mesh` of several
+    ranks, every rank reads the same batches and takes its block of each
+    (the last zero-padded, as the JAX eval pads to the data axis); the
+    top-5 classes are all-gathered in order, so every rank counts every
+    image; only the primary prints progress."""
+    from dclip_tpu_torch.parallel.mesh import collective_device, gather_cat
+
+    sharded = mesh is not None and mesh.distributed
     dev = model_device(model)
     image_fn = model.image_features
     text_features = torch.as_tensor(text_features, device=dev)
     correct1 = correct5 = total = 0
     for step, (pixels, labels) in enumerate(image_batches):
-        logits = zero_shot_logits(image_fn, torch.as_tensor(np.asarray(pixels), device=dev),
-                                  text_features)
+        pixels, labels = np.asarray(pixels), np.asarray(labels)
+        n = len(labels)
+        if sharded:
+            per = -(-n // mesh.size)
+            own = pixels[min(mesh.rank * per, n):min((mesh.rank + 1) * per, n)]
+            pixels = np.concatenate(
+                [own, np.zeros((per - len(own),) + pixels.shape[1:], pixels.dtype)])
+        logits = zero_shot_logits(image_fn, torch.as_tensor(pixels, device=dev), text_features)
         _, top5 = stable_topk(logits, min(5, logits.shape[-1]))
+        if sharded:
+            top5 = gather_cat(top5.to(collective_device(mesh)), mesh)[:n]
         top5 = top5.cpu().numpy()
-        labels = np.asarray(labels)
         correct1 += int((top5[:, 0] == labels).sum())
         correct5 += int((top5 == labels[:, None]).any(axis=1).sum())
         total += len(labels)
-        if log_every and step % log_every == 0:
+        if log_every and step % log_every == 0 and (mesh is None or mesh.is_primary):
             print(f"Processed {total} images - "
                   f"Top-1: {correct1 / max(total, 1):.4f}, "
                   f"Top-5: {correct5 / max(total, 1):.4f}")

@@ -11,6 +11,11 @@ other case (f32, the CPU) runs the module path, `CLIPModule.image_features`.
 The zero-shot eval does not take this rule: like the JAX
 `zero_shot_logits_forward` (`encoding.py:65-79`) it always runs the
 module path at the model's dtype.
+
+With a `parallel.mesh.Mesh` of several ranks (`sharded_encode`), each rank
+encodes its block of the rows ([r m, (r + 1) m), m = ceil(N / size)) in
+batches of batch_size / size, and the features are all-gathered in order,
+the last block's padding dropped: every rank returns all N rows.
 """
 from __future__ import annotations
 
@@ -72,25 +77,51 @@ def zero_shot_logits(image_fn: Callable[[torch.Tensor], torch.Tensor], pixels: t
         return 100.0 * img @ text_features.float().T
 
 
+def sharded_encode(items: Sequence, encode_rows: Callable[[Sequence], np.ndarray], mesh,
+                   dim: int) -> np.ndarray:
+    """`encode_rows(items)` -> [N, dim] host f32, with a mesh of several
+    ranks run on this rank's block of the items and all-gathered (module
+    docstring); without a group, `encode_rows(items)`."""
+    if mesh is None or not mesh.distributed:
+        return encode_rows(items)
+    from dclip_tpu_torch.parallel.mesh import collective_device, gather_cat
+
+    n = len(items)
+    per = -(-n // mesh.size)
+    lo, hi = min(mesh.rank * per, n), min((mesh.rank + 1) * per, n)
+    buf = np.zeros((per, dim), np.float32)
+    buf[:hi - lo] = encode_rows(items[lo:hi])
+    rows = gather_cat(torch.from_numpy(buf).to(collective_device(mesh)), mesh)
+    return rows.cpu().numpy()[:n]
+
+
+def rank_batch_size(batch_size: int, mesh) -> int:
+    """A rank's share of a global batch; the mesh size must divide it."""
+    size = 1 if mesh is None else mesh.size
+    if batch_size % size:
+        raise ValueError(f"the data-axis size ({size}) must divide batch_size {batch_size}")
+    return batch_size // size
+
+
 def make_image_encoder(model: CLIPModule, batch_size: int = 256, mesh=None
                        ) -> Callable[[Sequence[np.ndarray]], np.ndarray]:
     """encode(pixels): a list / array of preprocessed NHWC images -> [N, P]
     f32 features on the host, in batches of `batch_size` (the tail batch
-    zero-padded, as the JAX encoder pads to one compiled shape)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_image_encoder(mesh=...): multi-device eval is ROADMAP Queue 1 item 10")
+    zero-padded, as the JAX encoder pads to one compiled shape). With a
+    `parallel.mesh.Mesh`, each rank encodes its block of the images in
+    batches of batch_size / size (`sharded_encode`)."""
     fwd = image_forward(model)
     dev = model_device(model)
+    per_batch = rank_batch_size(batch_size, mesh)
 
-    def encode(pixels: Sequence[np.ndarray]) -> np.ndarray:
+    def encode_rows(pixels: Sequence[np.ndarray]) -> np.ndarray:
         out = []
-        for start in range(0, len(pixels), batch_size):
-            chunk = np.stack(pixels[start:start + batch_size])
+        for start in range(0, len(pixels), per_batch):
+            chunk = np.stack(pixels[start:start + per_batch])
             n = chunk.shape[0]
-            if n < batch_size:
+            if n < per_batch:
                 chunk = np.concatenate(
-                    [chunk, np.zeros((batch_size - n,) + chunk.shape[1:], chunk.dtype)])
+                    [chunk, np.zeros((per_batch - n,) + chunk.shape[1:], chunk.dtype)])
             with torch.inference_mode():
                 feats = fwd(torch.as_tensor(chunk, device=dev))
             out.append(feats[:n].float().cpu().numpy())
@@ -98,4 +129,4 @@ def make_image_encoder(model: CLIPModule, batch_size: int = 256, mesh=None
             return np.zeros((0, model.cfg.projection_dim), np.float32)
         return np.concatenate(out, 0)
 
-    return encode
+    return lambda pixels: sharded_encode(pixels, encode_rows, mesh, model.cfg.projection_dim)

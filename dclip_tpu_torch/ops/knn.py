@@ -12,6 +12,12 @@ query:
   else                     -> the raw normalized query            (source 2)
 The projection head (`models.projections.projection_apply_fn`) is plain
 f32 PyTorch, as the JAX package leaves it to XLA.
+
+`knn_search_sharded` searches a store whose rows are split over the ranks
+of a `parallel.mesh.Mesh` (`dclip_tpu/ops/knn.py:59-93`): each rank takes
+the top-k of its shard with K12, all ranks all-gather the candidates, and
+a stable sort of the size x k candidates (JAX's second `top_k`) keeps the
+global top-k.
 """
 from __future__ import annotations
 
@@ -41,12 +47,37 @@ def knn_search(queries: torch.Tensor, store_keys: torch.Tensor,
     return topk_streamed(queries, store_keys, k)
 
 
-def knn_search_sharded(queries, store_shard, axis: str, k: int = 3, n_valid=None):
-    """Top-k over a store sharded across devices (`dclip_tpu/ops/knn.py:59`):
-    waits for the port's multi-device paths."""
-    raise NotImplementedError(
-        "knn_search_sharded: a store sharded across devices is ROADMAP Queue 1 item 10 "
-        "(multi-device); knn_search covers one device")
+def knn_search_sharded(queries: torch.Tensor, store_shard: torch.Tensor, mesh, k: int = 3,
+                       n_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a store sharded on `mesh`'s ranks (shard r holds global
+    rows [r n, (r + 1) n)): (scores [Q, k'], global indices [Q, k']) on
+    every rank, k' = min(k, size x min(k, n)). Queries are the same on
+    every rank. `n_valid` (the global count of real rows, padding at the
+    tail, `EmbeddingStore.pad_to_multiple`) gives K12 only the valid prefix
+    of the shard; the missing candidates score -inf (indices of the padded
+    rows, as JAX's masked top-k), so padded rows never win."""
+    from dclip_tpu_torch.ops.retrieval import stable_topk
+    from dclip_tpu_torch.parallel.mesh import gather_cat
+
+    n_local = store_shard.shape[0]
+    offset = mesh.rank * n_local
+    valid = n_local if n_valid is None else max(0, min(int(n_valid) - offset, n_local))
+    kk = min(k, n_local)
+    found = min(kk, valid)
+    scores, idx = [], []
+    if found:
+        s, i = knn_search(queries, store_shard[:valid], found)
+        scores.append(s)
+        idx.append(i + offset)
+    if found < kk:
+        q = queries.shape[0]
+        scores.append(torch.full((q, kk - found), float("-inf"), device=queries.device))
+        idx.append((offset + valid + torch.arange(kk - found, dtype=torch.int32,
+                                                  device=queries.device)).expand(q, -1))
+    all_scores = gather_cat(torch.cat(scores, 1), mesh, dim=1)
+    all_idx = gather_cat(torch.cat(idx, 1), mesh, dim=1)
+    top, pos = stable_topk(all_scores, min(k, all_scores.shape[1]))
+    return top, torch.gather(all_idx, 1, pos.long())
 
 
 def knn_or_projection(

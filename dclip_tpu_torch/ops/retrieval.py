@@ -64,17 +64,18 @@ def t2i_ranks(sim: torch.Tensor, caption_to_image: torch.Tensor) -> torch.Tensor
 
 
 def i2t_ranks(sim: torch.Tensor, caption_to_image: torch.Tensor,
-              chunk: int = 512) -> torch.Tensor:
+              chunk: int = 512, first: int = 0) -> torch.Tensor:
     """Best (lowest) rank over each image's captions: sim [C, I] -> [I].
     For image i, every caption is ranked by sim[:, i] (stable, descending);
     images go in chunks of `chunk`, so the peak is a [chunk, C] rank
-    matrix. An image with no caption gets INT_MAX."""
+    matrix. An image with no caption gets INT_MAX. `first`: the image id
+    of sim's first column (a block of the images)."""
     num_images = sim.shape[1]
     c2i = caption_to_image.to(sim.device).long()
     out = []
     for lo in range(0, num_images, chunk):
         rows = sim[:, lo:lo + chunk].T  # [chunk, C]
-        ids = torch.arange(lo, lo + rows.shape[0], device=sim.device)
+        ids = torch.arange(first + lo, first + lo + rows.shape[0], device=sim.device)
         ranks_all = _stable_ranks_all(rows)
         is_gt = c2i[None, :] == ids[:, None]
         out.append(torch.where(is_gt, ranks_all, torch.full_like(ranks_all, INT_MAX)).amin(-1))
@@ -114,9 +115,40 @@ def retrieval_metrics(caption_embeddings: Array, image_embeddings: Array,
     return {"t2i": recall_at_k(t2i_ranks(sim, c2i)), "i2t": recall_at_k(i2t_ranks(sim, c2i))}
 
 
-def retrieval_metrics_sharded(caption_embeddings, image_embeddings, caption_to_image, mesh,
-                              data_axis: str = "data", i2t_chunk: int = 512):
-    """The JAX package's mesh-sharded metrics (`ops/retrieval.py:151`)."""
-    raise NotImplementedError(
-        "retrieval_metrics_sharded: sharding the rank work over devices is ROADMAP Queue 1 "
-        "item 10 (multi-device); retrieval_metrics covers one device")
+def retrieval_metrics_sharded(caption_embeddings: Array, image_embeddings: Array,
+                              caption_to_image: Array, mesh, data_axis: str = "data",
+                              i2t_chunk: int = 512, device: Union[str, torch.device] = "cuda"
+                              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """`retrieval_metrics` with the rank work split over the ranks of a
+    `parallel.mesh.Mesh` (`dclip_tpu/ops/retrieval.py:151-211`); every
+    rank holds every embedding. t2i: each rank ranks its block of caption
+    rows against every image; i2t: its block of image rows against every
+    caption, in chunks of `i2t_chunk`. The reduced axis is whole on every
+    rank, so each rank is exact; the ranks are all-gathered in order, the
+    padding of the last block is dropped, and the means run over all of
+    them: the result equals `retrieval_metrics`. Every rank computes the
+    whole similarity matrix in the one GEMM `retrieval_metrics` runs: a
+    GEMM of a block of rows may round an element otherwise (another
+    kernel for another shape), and a tie between duplicated rows would
+    then break another way."""
+    from dclip_tpu_torch.parallel.mesh import collective_device, gather_cat
+
+    device = resolve_device(device)
+    cap, img, c2i = (torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x), device=device)
+                     for x in (caption_embeddings, image_embeddings, caption_to_image))
+
+    def block(n):
+        per = -(-n // mesh.size)
+        return per, min(mesh.rank * per, n), min((mesh.rank + 1) * per, n)
+
+    def gathered(local, per, n):
+        pad = torch.zeros((per - local.shape[0],), dtype=torch.int32, device=device)
+        full = torch.cat([local.to(torch.int32), pad]).to(collective_device(mesh))
+        return gather_cat(full, mesh)[:n].to(device)
+
+    sim = similarity_matrix(cap, img)
+    per_c, lo, hi = block(cap.shape[0])
+    t2i = gathered(t2i_ranks(sim[lo:hi], c2i[lo:hi]), per_c, cap.shape[0])
+    per_i, lo, hi = block(img.shape[0])
+    i2t = gathered(i2t_ranks(sim[:, lo:hi], c2i, i2t_chunk, first=lo), per_i, img.shape[0])
+    return {"t2i": recall_at_k(t2i), "i2t": recall_at_k(i2t)}

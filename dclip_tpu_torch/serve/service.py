@@ -84,8 +84,8 @@ class ClipService:
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh: multi-device serving is not ported yet (ROADMAP Queue 1 "
-                "item 10: --mesh_data)"
+                "mesh: serving over several ranks is not ported yet (ROADMAP Queue 1 "
+                "item 13: --mesh_data)"
             )
         self.device = resolve_device(device)
         self.cfg = cfg

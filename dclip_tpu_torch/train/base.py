@@ -1,12 +1,15 @@
 """Shared trainer scaffolding: device transfer, epoch loop, fit with
-checkpoints, resume, the k-NN gate of the teacher's patch embeddings and
-the budgeted patch encode (counterpart of `dclip_tpu/train/base.py`).
+checkpoints, preemption and resume, the k-NN gate of the teacher's patch
+embeddings and the budgeted patch encode (counterpart of
+`dclip_tpu/train/base.py`).
 
 A trainer's checkpoint is its `checkpoint_state()` (plain tensors,
 numbers and strings; `train.checkpoint`), restored by
-`load_checkpoint_state`. Preemption waits for the multi-device work
-(ROADMAP Queue 1 item 10); asking for it raises. The budgeted patch encode
-is the single-device branch (dp > 1 is item 10 too).
+`load_checkpoint_state`. Under a process group (`parallel.mesh`) every
+rank holds the same parameters: only the primary writes checkpoints, and
+every rank reads them on resume. The budgeted patch encode reads the
+rank's own box mask, so its compaction budget is per rank (JAX's per-shard
+budget).
 """
 from __future__ import annotations
 
@@ -97,6 +100,12 @@ class BaseTrainer:
 
     device: torch.device
     step: int = 0
+    mesh = None  # a parallel.mesh.Mesh; None: one process
+
+    @property
+    def is_primary(self) -> bool:
+        """The rank that writes checkpoints (rank 0, or the only process)."""
+        return self.mesh is None or self.mesh.is_primary
 
     def _device_batch(self, batch, fields=None) -> Dict[str, torch.Tensor]:
         d = batch.as_dict() if hasattr(batch, "as_dict") else dict(batch)
@@ -158,12 +167,16 @@ class BaseTrainer:
 
     def train_epoch(self, batches: Iterable, logger=None, preemption=None) -> float:
         """Mean step loss over the epoch. The loss sums on the device; the
-        host syncs only at log points and at the end."""
-        if preemption is not None:
-            raise NotImplementedError(
-                "preemption handling (train/preemption.py) is ROADMAP Queue 1 item 10")
+        host syncs only at log points and at the end. With `preemption` (an
+        installed `train.preemption.PreemptionGuard`) each batch, once
+        drawn, passes the guard's check before its step: a stop raises
+        `Preempted` at that step boundary."""
         total, n = None, 0
         for batch in batches:
+            if preemption is not None and preemption.should_stop(n):
+                from dclip_tpu_torch.train.preemption import Preempted
+
+                raise Preempted(f"preemption signal honored at step boundary {n}")
             metrics = self.train_step_on_batch(batch)
             total = metrics["loss"] if total is None else total + metrics["loss"]
             n += 1
@@ -187,16 +200,22 @@ class BaseTrainer:
             start_epoch: int = 0, preemption=None) -> Dict[str, list]:
         """Epochs [start_epoch, _num_epochs()): `_on_epoch_start`, the
         training batches, validation (else the train loss), and with a
-        `CheckpointManager` one checkpoint per epoch; a KeyboardInterrupt or
-        an error saves an `.interrupt` / `.error` checkpoint and re-raises."""
-        if preemption is not None:
-            raise NotImplementedError(
-                "preemption handling (train/preemption.py) is ROADMAP Queue 1 item 10")
+        `CheckpointManager` one checkpoint per epoch (the primary rank's);
+        a KeyboardInterrupt or an error saves an `.interrupt` / `.error`
+        checkpoint and re-raises. With `preemption` a SIGTERM stops at the
+        next step boundary, saves a tagged `preempt` checkpoint and raises
+        `Preempted`; a failure after the signal was seen (a process-group
+        SIGTERM kills the pipeline's workers first) is that preemption."""
+        from dclip_tpu_torch.train.preemption import Preempted
+
+        if not self.is_primary:
+            checkpoints = None
         history: Dict[str, list] = {"train_loss": [], "val_loss": []}
         try:
             for epoch in range(start_epoch, self._num_epochs()):
                 self._on_epoch_start(epoch)
-                train_loss = self.train_epoch(train_pipeline.epoch(epoch), logger)
+                train_loss = self.train_epoch(train_pipeline.epoch(epoch), logger,
+                                              preemption=preemption)
                 history["train_loss"].append(train_loss)
                 val_loss = (self.validate(val_pipeline.epoch(epoch))
                             if val_pipeline is not None else train_loss)
@@ -212,9 +231,15 @@ class BaseTrainer:
             if checkpoints is not None:
                 checkpoints.save_interrupt(self.checkpoint_state(), self.step, "interrupt")
             raise
-        except Exception:
+        except Exception as e:
+            preempted = isinstance(e, Preempted) or (
+                preemption is not None and preemption.requested)
             if checkpoints is not None:
-                checkpoints.save_interrupt(self.checkpoint_state(), self.step, "error")
+                checkpoints.save_interrupt(self.checkpoint_state(), self.step,
+                                           "preempt" if preempted else "error")
+            if preempted and not isinstance(e, Preempted):
+                raise Preempted("preemption signal seen; pipeline failed before the next "
+                                f"step boundary ({type(e).__name__}: {e})") from e
             raise
         return history
 

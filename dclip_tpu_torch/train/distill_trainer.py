@@ -48,8 +48,23 @@ it, a checkpoint does not record it (one saved with it resumes without it
 and the other way round), and the teacher-target fingerprint does not
 read it.
 
-What waits, raising NotImplementedError that names its ROADMAP item: a
-mesh with dp or mp > 1, `dp_equivalent` or preemption (Queue 1 item 10).
+Data parallelism (`distill_trainer.py:196-330, 694-711`): under a process
+group (`parallel.mesh`, one process per card) each rank runs the teacher
+targets through its own caches (keyed by its own rows), packs and encodes
+its own captions and images, and computes the loss over the all-gathered
+global batch: K11 over the gathered [B_g, D] embeddings with the kernels
+on (the JAX trainer takes XLA there for the TPU's VMEM bound and GSPMD's
+sharding, neither of which holds on Hopper), `ops.losses.
+distillation_loss_global` with them off. Each rank differentiates the
+global loss with respect to its own rows, the gradients are summed over
+the ranks in one f32 all-reduce, and every rank applies the same AdamW
+update to parameters broadcast from rank 0 at construction.
+`dp_equivalent=True` runs that code on one rank without a group.
+`fit(preemption=guard)` stops at a step boundary on SIGTERM
+(`train.preemption`).
+
+What waits, raising NotImplementedError that names its ROADMAP item:
+tensor parallelism, a mesh with mp > 1 (Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -72,8 +87,9 @@ from dclip_tpu_torch.models.teacher import (
     encode_patches,
     encode_tokens,
 )
-from dclip_tpu_torch.ops.losses import distillation_loss
+from dclip_tpu_torch.ops.losses import distillation_loss, distillation_loss_global
 from dclip_tpu_torch.ops.packing import pack_captions_sharded
+from dclip_tpu_torch.parallel.mesh import broadcast_, gather_cat, gather_rows, make_mesh
 from dclip_tpu_torch.train.base import BaseTrainer, budgeted_patch_encode, fingerprint_objects
 from dclip_tpu_torch.train.device_cache import DeviceTargetCache, resolve_device_cache
 from dclip_tpu_torch.train.optim import (
@@ -85,10 +101,6 @@ from dclip_tpu_torch.train.optim import (
 
 
 CHECKPOINT_FORMAT = "dclip_tpu_torch.DistillTrainer/1"
-
-
-def _waits(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {where}")
 
 
 class TeacherTargetCache:
@@ -239,15 +251,20 @@ class DistillTrainer(BaseTrainer):
         knn_store=None,
         projection_params=None,
         dp_equivalent: bool = False,
+        mesh=None,
     ):
         """`student_state_dict` / `teacher_clip_state_dict`: HF-named CLIP
         state dicts (`models.weights.state_dict_from_jax` /
         `random_state_dict`); `teacher_state_dict`: the meta-teacher's
         `cross_modal_attention.*` state dict (`teacher_state_dict_from_jax` /
         `random_teacher_state_dict`). The trainer copies all three to
-        `device` in f32; `knn_store`: an `EmbeddingStore` for the k-NN gate;
-        `projection_params`: an `ImageProjectionModule` state dict for its
-        projection branch (`models.projections`)."""
+        `device` in f32 (rank 0's under a process group); `knn_store`: an
+        `EmbeddingStore` for the k-NN gate; `projection_params`: an
+        `ImageProjectionModule` state dict for its projection branch
+        (`models.projections`); `mesh`: a `parallel.mesh.Mesh` (default
+        `make_mesh(cfg.mesh)`: the default process group, else one rank);
+        `dp_equivalent`: the data-parallel step (gathered loss, reduced
+        gradients) even on one rank (JAX's bench mode)."""
         self.cfg = cfg
         self.student_config = student_config or CLIPConfig.from_name(cfg.student_model)
         self.teacher_clip_config = teacher_clip_config or CLIPConfig.from_name(
@@ -263,8 +280,8 @@ class DistillTrainer(BaseTrainer):
                 f"teacher CLIP projection_dim {self.teacher_clip_config.projection_dim}"
                 f" != teacher embed_dim {cfg.teacher.embed_dim}"
             )
-        if dp_equivalent or cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.model_parallel != 1:
-            raise _waits("a mesh with dp or mp > 1 (and dp_equivalent)", "Queue 1 item 10")
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
+        self._dp = self.mesh.distributed or bool(dp_equivalent)
         self.device = resolve_device(device)
         cfg = self.cfg = resolve_fast_paths(cfg, self.device)
         self._student_dtype = resolve_dtype(cfg.compute_dtype, self.device)
@@ -317,8 +334,11 @@ class DistillTrainer(BaseTrainer):
         )
 
     def _on_device(self, state_dict) -> Dict[str, torch.Tensor]:
-        return {k: v.detach().to(self.device, torch.float32, copy=True)
-                for k, v in state_dict.items()}
+        """f32 copies on the device; under a process group, rank 0's."""
+        out = {k: v.detach().to(self.device, torch.float32, copy=True)
+               for k, v in state_dict.items()}
+        broadcast_(out.values(), self.mesh)
+        return out
 
     def _make_student(self, state_dict) -> CLIPModule:
         """The student for the current unfreeze stage, on the device: f32
@@ -377,7 +397,8 @@ class DistillTrainer(BaseTrainer):
             self.cfg.learning_rate, kind="adamw", warmup_steps=self.cfg.warmup_steps,
             grad_clip=self.cfg.gradient_clip_val,
             accumulate_steps=self.cfg.accumulate_grad_batches)
-        self._train_step = make_train_step(self._student_loss, self.student, self.optimizer)
+        self._train_step = make_train_step(self._student_loss, self.student, self.optimizer,
+                                           self.mesh)
 
     def _teacher_fingerprint(self) -> str:
         """Digest of everything that determines teacher targets: teacher
@@ -478,12 +499,21 @@ class DistillTrainer(BaseTrainer):
             student_txt = self.student.get_text_features(batch["input_ids"],
                                                          batch["attention_mask"])
         if self._use_kernels:
-            # The JAX gate (distill_trainer.py:694-710) minus the TPU's
-            # VMEM batch bound: one device, no dp-equivalent mode.
+            # K11 on one device and, over the gathered global batch, under
+            # a process group (module docstring).
+            if self._dp:
+                student_img = gather_rows(student_img, self.mesh)
+                student_txt = gather_rows(student_txt, self.mesh)
+                teacher_img = gather_cat(teacher_img, self.mesh)
+                teacher_txt = gather_cat(teacher_txt, self.mesh)
             return fused_distillation_loss(
                 student_img, student_txt, teacher_img, teacher_txt,
                 temperature=self.cfg.temperature,
                 contrastive_weight=self.cfg.contrastive_weight)
+        if self._dp:
+            return distillation_loss_global(student_img, student_txt, teacher_img, teacher_txt,
+                                            self.mesh, temperature=self.cfg.temperature,
+                                            contrastive_weight=self.cfg.contrastive_weight)
         return distillation_loss(student_img, student_txt, teacher_img, teacher_txt,
                                  temperature=self.cfg.temperature,
                                  contrastive_weight=self.cfg.contrastive_weight)

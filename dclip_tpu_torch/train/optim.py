@@ -164,11 +164,14 @@ def make_optimizer(params: Sequence[torch.nn.Parameter], learning_rate: float, *
 
 
 def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
-                    model: torch.nn.Module, optimizer: MaskedAdamW):
+                    model: torch.nn.Module, optimizer: MaskedAdamW, mesh=None):
     """(*args) -> metrics: clear the gradients, run loss_fn(*args) ->
-    (loss, metrics), backward, one optimizer step. The gradients stay on
-    the parameters until the next call; metrics are detached device
-    scalars."""
+    (loss, metrics), backward, with a process group the sum of the
+    optimizer's gradients over the ranks (`parallel.mesh.all_reduce_grads`:
+    each rank differentiated the global loss with respect to its own rows),
+    one optimizer step. The gradients stay on the parameters until the next
+    call; metrics are detached device scalars."""
+    from dclip_tpu_torch.parallel.mesh import all_reduce_grads
 
     def step(*args):
         for p in model.parameters():
@@ -176,6 +179,9 @@ def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.T
         loss, metrics = loss_fn(*args)
         with record_function("dclip.backward"):
             loss.backward()
+        if mesh is not None and mesh.distributed:
+            with record_function("dclip.grad_all_reduce"):
+                all_reduce_grads(optimizer.params, mesh)
         with record_function("dclip.optimizer"):
             optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}

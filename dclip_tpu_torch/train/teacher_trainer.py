@@ -30,8 +30,16 @@ The stages run under `torch.profiler` ranges: `dclip.crop`,
 `dclip.cross_attention`, `dclip.cross_attention_bwd`, `dclip.backward`,
 `dclip.optimizer` and `dclip.teacher_train_step` around the update.
 
-What waits, each raising NotImplementedError that names its ROADMAP item:
-a mesh with dp or mp > 1 and preemption (Queue 1 item 10).
+Data parallelism (`teacher_trainer.py:57-140`): under a process group
+(`parallel.mesh`) each rank runs steps 1 and 2 on its own rows through its
+own caches, the loss is `ops.losses.info_nce_global` over the gathered
+(global embedding, text) pairs, the ranks' gradients are summed in one f32
+all-reduce, and every rank applies the same Adam update to parameters
+broadcast from rank 0. `fit(preemption=guard)` stops at a step boundary on
+SIGTERM (`train.preemption`).
+
+What waits, raising NotImplementedError that names its ROADMAP item:
+tensor parallelism, a mesh with mp > 1 (Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -50,10 +58,10 @@ from dclip_tpu_torch.kernels.cross_attention import cross_attention_trainable
 from dclip_tpu_torch.models.clip import CLIPModule
 from dclip_tpu_torch.models.teacher import PatchTextAggregation, aggregate_attended, encode_tokens
 from dclip_tpu_torch.models.weights import random_teacher_state_dict
-from dclip_tpu_torch.ops.losses import info_nce
+from dclip_tpu_torch.ops.losses import info_nce, info_nce_global
+from dclip_tpu_torch.parallel.mesh import broadcast_, make_mesh
 from dclip_tpu_torch.train.base import BaseTrainer, budgeted_patch_encode, fingerprint_objects
 from dclip_tpu_torch.train.device_cache import DeviceTargetCache, resolve_device_cache
-from dclip_tpu_torch.train.distill_trainer import _waits
 from dclip_tpu_torch.train.optim import (
     count_trainable,
     make_optimizer,
@@ -86,6 +94,7 @@ class TeacherTrainer(BaseTrainer):
         projection_params=None,
         pe_cache=None,
         device="cuda",
+        mesh=None,
     ):
         """`clip_state_dict`: the frozen CLIP's HF-named state dict;
         `teacher_state_dict`: a `cross_modal_attention.*` state dict to
@@ -94,10 +103,11 @@ class TeacherTrainer(BaseTrainer):
         `TeacherTargetCache` for the frozen patch embeddings;
         `knn_store`: an `EmbeddingStore` for the k-NN gate;
         `projection_params`: an `ImageProjectionModule` state dict for its
-        projection branch. Everything is copied to `device` in f32."""
+        projection branch; `mesh`: a `parallel.mesh.Mesh` (default
+        `make_mesh(cfg.mesh)`). Everything is copied to `device` in f32,
+        rank 0's under a process group."""
         self.clip_config = clip_config or CLIPConfig.from_name(cfg.clip_model)
-        if cfg.mesh.data_parallel not in (-1, 1) or cfg.mesh.model_parallel != 1:
-            raise _waits("a mesh with dp or mp > 1", "Queue 1 item 10")
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
         self.device = resolve_device(device)
         cfg = self.cfg = resolve_fast_paths(cfg, self.device)
         self._dtype = resolve_dtype(cfg.compute_dtype, self.device)
@@ -107,6 +117,7 @@ class TeacherTrainer(BaseTrainer):
                              "'bfloat16' (or 'auto'), or use_pallas=False")
         clip_sd = {k: v.detach().to(self.device, torch.float32, copy=True)
                    for k, v in clip_state_dict.items()}
+        broadcast_(clip_sd.values(), self.mesh)
         self.clip_state_dict = clip_state_dict
         self.clip = CLIPModule(self.clip_config, dtype=self._dtype, device="meta",
                                fused_attention=self._use_kernels)
@@ -122,9 +133,10 @@ class TeacherTrainer(BaseTrainer):
         if teacher_state_dict is None:
             teacher_state_dict = random_teacher_state_dict(cfg.teacher, cfg.seed)
         self.teacher = PatchTextAggregation(cfg.teacher, device="meta")
-        self.teacher.load_state_dict(
-            {k: v.detach().to(self.device, torch.float32, copy=True)
-             for k, v in teacher_state_dict.items()}, strict=True, assign=True)
+        teacher_sd = {k: v.detach().to(self.device, torch.float32, copy=True)
+                      for k, v in teacher_state_dict.items()}
+        broadcast_(teacher_sd.values(), self.mesh)
+        self.teacher.load_state_dict(teacher_sd, strict=True, assign=True)
         self._mask = pattern_mask([n for n, _ in self.teacher.named_parameters()],
                                   cfg.trainable_patterns)
         for name, p in self.teacher.named_parameters():
@@ -134,7 +146,7 @@ class TeacherTrainer(BaseTrainer):
         self.optimizer = make_optimizer(
             [p for n, p in self.teacher.named_parameters() if self._mask[n]],
             cfg.learning_rate, kind="adam", accumulate_steps=cfg.gradient_accumulation)
-        self._train_step = make_train_step(self._loss, self.teacher, self.optimizer)
+        self._train_step = make_train_step(self._loss, self.teacher, self.optimizer, self.mesh)
         self.step = 0
         self._compact = bool(cfg.compact_patches)
         self._init_knn_gate(knn_store, projection_params, cfg.teacher.embed_dim)
@@ -171,7 +183,11 @@ class TeacherTrainer(BaseTrainer):
             out = aggregate_attended(self.cfg.teacher, at, ai, tmask, box_mask)
         else:
             out = self.teacher(te, pe, tmask, box_mask)
-        loss = info_nce(out.global_embedding, masked_mean(te, tmask), self.cfg.temperature)
+        text = masked_mean(te, tmask)
+        if self.mesh.distributed:
+            loss = info_nce_global(out.global_embedding, text, self.mesh, self.cfg.temperature)
+        else:
+            loss = info_nce(out.global_embedding, text, self.cfg.temperature)
         return loss, {"loss": loss, "contrastive_loss": loss}
 
     # -- BaseTrainer hooks -------------------------------------------------------------

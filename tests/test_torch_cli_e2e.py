@@ -142,3 +142,36 @@ def test_chip_smoke_files_phase_on_the_cpu(decoder, monkeypatch, capsys):
         assert "files: teacher checkpoints" in printed and "files: distill checkpoints" in printed
     else:
         assert "decode_backend='native' raises" in printed and "jpeglib.h" in printed
+
+
+def test_chip_smoke_dp_phase_on_the_cpu(monkeypatch, capsys):
+    """`chip_smoke.py` phase 33 at the tiny preset on the CPU, in a one-rank
+    gloo group: the distill step (dp_equivalent) and the teacher step bit
+    for bit against the trainers without a group, the sharded search, the
+    preempted fit; the group is gone afterwards."""
+    import importlib.util
+
+    import torch
+
+    from dclip_tpu_torch.core import CLIPConfig, TeacherConfig
+    from dclip_tpu_torch.models.weights import random_state_dict, random_teacher_state_dict
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for name, value in (("DP_DEVICE", "cpu"), ("DP_PRESET", "tiny"), ("DP_B", 8),
+                        ("DP_TEACHER_B", 4), ("DP_STEPS", 2), ("DP_SEARCH_N", 101),
+                        ("DP_SEARCH_D", 16), ("DP_SEARCH_Q", 4), ("DP_SEARCH_K", 3),
+                        ("DP_FIT_B", 4)):
+        monkeypatch.setattr(smoke, name, value)
+    cfg = CLIPConfig.tiny_test()
+    tcfg = TeacherConfig(embed_dim=cfg.projection_dim, num_heads=4)
+    smoke.dp_phase(torch, np, random_state_dict(cfg, 0), random_teacher_state_dict(tcfg, 0), "cpu")
+    printed = capsys.readouterr().out
+    for line in ("dp: init_multihost: gloo group of 1", "dp: distill losses, gradients and "
+                 "parameters bit-equal", "dp: teacher losses, gradients and parameters bit-equal",
+                 "dp: fit_with_preemption returned True at step 2",
+                 "dp: the preempt checkpoint's parameters bit-equal"):
+        assert line in printed, line
+    assert not torch.distributed.is_initialized()

@@ -89,11 +89,24 @@ def test_metrics_match_jax(kind):
 
 
 def test_metrics_default_to_the_card_and_sharded_waits(monkeypatch):
+    """Both default to the card; the sharded metrics run (N ranks:
+    tests/test_torch_dp_eval.py) and on the one-rank mesh equal the
+    unsharded ones, with an i2t chunk that leaves a ragged tail."""
+    from dclip_tpu_torch.parallel.mesh import local_mesh
+
+    rng = np.random.RandomState(4)
+    img = rng.randn(9, 8).astype(np.float32)
+    cap = rng.randn(20, 8).astype(np.float32)
+    c2i = np.arange(20) % 9
+    got = ret.retrieval_metrics_sharded(cap, img, c2i, local_mesh(), i2t_chunk=4, device="cpu")
+    want = ret.retrieval_metrics(cap, img, c2i, device="cpu")
+    assert {d: {k: v.item() for k, v in m.items()} for d, m in got.items()} == \
+        {d: {k: v.item() for k, v in m.items()} for d, m in want.items()}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         ret.retrieval_metrics(np.zeros((2, 4)), np.zeros((2, 4)), np.arange(2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ret.retrieval_metrics_sharded(None, None, None, mesh=object())
+    with pytest.raises(RuntimeError, match="is_available"):
+        ret.retrieval_metrics_sharded(cap, img, c2i, local_mesh())
 
 
 # -- the eval protocol on files, against the JAX package ---------------------------

@@ -98,14 +98,14 @@ def test_search_matches_jax_service(services):
 
 
 def test_service_refuses_what_is_not_ported():
-    """A mesh still waits for ROADMAP item 10; `quantize` other than int8
-    is a ValueError, as in the JAX service."""
+    """Serving over several ranks waits for ROADMAP item 13; `quantize`
+    other than int8 is a ValueError, as in the JAX service."""
     cfg = CLIPConfig.tiny_test()
     _, params = torch_parity.jax_clip(cfg, seed=0)
     model = torch_parity.port_clip(cfg, params)
     with pytest.raises(ValueError, match="quantize"):
         ClipService(model, cfg, quantize="fp4", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
         ClipService(model, cfg, mesh=2, device="cpu")
 
 
@@ -326,8 +326,9 @@ def test_search_sees_concurrent_adds():
 
 def test_device_arrays_equal_the_store_arrays():
     """`device_arrays` gives (keys, values) as f32 tensors on the device;
-    a store without explicit values moves one matrix for both; `mesh`
-    waits for ROADMAP item 10."""
+    a store without explicit values moves one matrix for both; with a
+    mesh, this rank's row shard of a store padded to the mesh size
+    (`pad_to_multiple`), an uneven split raising."""
     from dclip_tpu_torch.data.embedding_store import EmbeddingStore
 
     rows = _unit_rows(5, 8, seed=14)
@@ -347,8 +348,21 @@ def test_device_arrays_equal_the_store_arrays():
     loaded = EmbeddingStore.from_arrays(store.keys, store.values, ids=store.ids)
     for got, want in zip(loaded.device_arrays("cpu"), (store.keys, store.values)):
         np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        store.device_arrays("cpu", mesh=object())
+    from dclip_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="evenly"):
+        store.device_arrays("cpu", mesh=Mesh(size=4, rank=0))
+    padded = store.pad_to_multiple(4)
+    assert len(padded) == 8 and padded.ids[6:] == ["<pad>", "<pad>"]
+    assert padded.pad_to_multiple(4) is padded and store.pad_to_multiple(6) is store
+    keys, values = padded.device_arrays("cpu", mesh=Mesh(size=4, rank=2))
+    np.testing.assert_array_equal(keys.numpy(), store.keys[4:6])
+    np.testing.assert_array_equal(values.numpy(), store.values[4:6])
+    keys, values = padded.device_arrays("cpu", mesh=Mesh(size=4, rank=3))
+    assert not keys.any() and not values.any()  # the sentinels: zero keys and values
+    shard, same = EmbeddingStore.from_arrays(rows).device_arrays("cpu", mesh=Mesh(size=5,
+                                                                                    rank=1))
+    assert shard is same and shard.shape == (1, 8)
 
 
 def test_build_service_from_student_checkpoint(tmp_path):

@@ -436,10 +436,14 @@ def test_masked_mean_and_what_waits(setup):
 
     params = init_image_projection(0, setup["cfg"].projection_dim)[1]
     assert _port_trainer(setup, projection_params=params)._projection_fn is not None
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         _port_trainer(setup, {"mesh": MeshConfig(data_parallel=2)})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _port_trainer(setup).fit(_Pipe(setup["batches"]), preemption=object())
+    from dclip_tpu_torch.train.preemption import PreemptionGuard
+
+    tr = _port_trainer(setup, {"epochs": 1})
+    with PreemptionGuard() as guard:  # a guard that saw no signal changes nothing
+        tr.fit(_Pipe(setup["batches"]), preemption=guard)
+    assert tr.step == len(setup["batches"]) and not tr.mesh.distributed
     with pytest.raises(RuntimeError, match="cpu"):
         TeacherTrainer(setup["tcfg"], state_dict_from_jax(setup["params"], setup["cfg"]),
                        setup["cfg"])  # the default device is CUDA

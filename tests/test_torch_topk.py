@@ -136,8 +136,23 @@ def test_stable_topk_and_chunk_plan():
 
 
 def test_knn_search_sharded_names_its_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        knn.knn_search_sharded(torch.zeros(1, 4), torch.zeros(2, 4), "data")
+    """`knn_search_sharded` runs (N ranks: tests/test_torch_dp_eval.py). On
+    the one-rank mesh it is `knn_search` over the store's valid prefix:
+    the rows past `n_valid` never win, and k beyond the valid rows fills
+    -inf candidates with the padded rows' indices, as JAX's masked top-k."""
+    from dclip_tpu_torch.parallel.mesh import local_mesh
+
+    rng = np.random.RandomState(3)
+    q = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+    store = torch.from_numpy(rng.standard_normal((10, 8)).astype(np.float32))
+    store[8:] = 10.0  # padding that would win if it were searched
+    got = knn.knn_search_sharded(q, store, local_mesh(), k=3, n_valid=8)
+    want = knn.knn_search(q, store[:8], 3)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    scores, idx = knn.knn_search_sharded(q, store, local_mesh(), k=10, n_valid=8)
+    assert torch.isinf(scores[:, 8:]).all() and idx[:, 8:].tolist() == [[8, 9]] * 4
+    assert torch.equal(idx[:, :8].sort(1).values, torch.arange(8, dtype=idx.dtype).expand(4, 8))
 
 
 # -- K12's 3xTF32 arithmetic, emulated ------------------------------------------

@@ -238,19 +238,23 @@ def test_cache_miss_raises_not_implemented(setup):
     assert tr.step == 1 and all(np.isfinite(v.item()) for v in metrics.values())
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"remat": True}, None),
-    ({"mesh": MeshConfig(data_parallel=2)}, "item 10"),
-])
-def test_waiting_options_raise(setup, change, match):
+@pytest.mark.parametrize("change,error,match", [
+    ({"remat": True}, None, None),
+    ({"mesh": MeshConfig(data_parallel=2)}, ValueError, "mesh 2x1 needs 2 devices, have 1"),
+    ({"mesh": MeshConfig(model_parallel=2)}, ValueError, "mesh 0x2 needs 2 devices, have 1"),
+], ids=["remat", "mesh_dp2", "mesh_mp2"])
+def test_waiting_options_raise(setup, change, error, match):
     """The K8 / K9 flags and the unfreeze schedule run now
     (tests/test_torch_train_fused.py, tests/test_torch_fit.py), and so
-    does `remat` (below); a mesh of more than one device still raises."""
-    if match is None:
+    does `remat` (below). A data axis runs over the ranks of a process
+    group (tests/test_torch_dp_train.py): without one, a mesh of two
+    devices raises JAX's ValueError for a one-device machine, before
+    tensor parallelism (item 13, tests/test_torch_parallel.py) is asked."""
+    if error is None:
         tr = _port_trainer(setup, **change)
         assert tr.student.vision_model.encoder.remat and tr.student.text_model.encoder.remat
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         _port_trainer(setup, **change)
 
 
@@ -319,18 +323,27 @@ def test_remat_keeps_only_layer_inputs(setup):
 
 
 def test_waiting_entry_points_raise(setup):
-    """Checkpoints and resume run now (tests/test_torch_fit.py); preemption
-    and dp_equivalent wait for the multi-device work."""
+    """Checkpoints and resume run (tests/test_torch_fit.py), and so do
+    preemption (tests/test_torch_preemption.py) and dp_equivalent
+    (tests/test_torch_dp_train.py): a guard that saw no signal changes
+    nothing, and `dp_equivalent` takes the data-parallel step on one rank.
+    Tensor parallelism still raises, naming item 13."""
+    from dclip_tpu_torch.parallel.mesh import make_multislice_mesh
+    from dclip_tpu_torch.train.preemption import PreemptionGuard
+
     tr = _port_trainer(setup)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tr.fit(None, preemption=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tr.train_epoch([], preemption=object())
+    with PreemptionGuard() as guard:
+        assert tr.train_epoch([], preemption=guard) == 0.0
+        tr.train_epoch(setup["batches"][:1], preemption=guard)
+    assert tr.step == 1 and not guard.requested
     cfg = setup["cfg"]
     sd = state_dict_from_jax(setup["params"], cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        DistillTrainer(setup["dcfg"], sd, sd, teacher_state_dict_from_jax(setup["tparams"]), cfg,
-                       cfg, device="cpu", dp_equivalent=True)
+    eq = DistillTrainer(setup["dcfg"], sd, sd, teacher_state_dict_from_jax(setup["tparams"]), cfg,
+                        cfg, device="cpu", dp_equivalent=True)
+    assert eq._dp and not eq.mesh.distributed and eq.is_primary
+    assert not _port_trainer(setup, mesh=MeshConfig(data_parallel=-1))._dp
+    with pytest.raises(NotImplementedError, match="item 13"):
+        make_multislice_mesh(MeshConfig())
 
 
 def test_fit_runs_the_epochs(setup):

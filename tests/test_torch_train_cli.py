@@ -162,19 +162,32 @@ def test_train_distill_reads_a_reference_pth(tmp_path):
 
 
 def test_the_waiting_flags_raise(workspace, monkeypatch):
-    """`--multihost` and a mesh still raise, naming item 10; `--decode_backend
-    native` and `--remat` run now: both CLIs take the native route (the
-    PNGs here through its per-item PIL route; JPEGs: tests/
-    test_torch_cli_e2e.py), and the distillation trainer runs with remat."""
+    """`--multihost` and `--mesh_data` run now (2 ranks: the test below);
+    what still raises: a mesh of more ranks than the one process has
+    (make_mesh's ValueError, as JAX's on one device), tensor parallelism
+    (`--mesh_model 2`, item 13), and `--multihost` with a partial env
+    triple (the JAX CLI's SystemExit). `--decode_backend native` and
+    `--remat` run: both CLIs take the native route (the PNGs here through
+    its per-item PIL route; JPEGs: tests/test_torch_cli_e2e.py), and the
+    distillation trainer runs with remat."""
     from dclip_tpu_torch.cli import train_distill, train_teacher
     from dclip_tpu_torch.data import pipeline
 
     base = ["--train_file", str(workspace / "syn_train.json"), "--model_preset", "tiny",
             "--device", "cpu"]
-    for flags, item in ((["--multihost"], "item 10"), (["--mesh_data", "2"], "item 10")):
+    for flags, error, match in (
+            (["--mesh_data", "2"], ValueError, "mesh 2x1 needs 2 devices, have 1"),
+            (["--mesh_model", "2"], NotImplementedError, "item 13")):
         for cli in (train_teacher, train_distill):
-            with pytest.raises(NotImplementedError, match=item):
+            with pytest.raises(error, match=match):
                 cli.main(base + flags)
+    monkeypatch.setenv("DCLIP_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.delenv("DCLIP_NUM_PROCESSES", raising=False)
+    monkeypatch.setenv("DCLIP_PROCESS_ID", "0")
+    for cli in (train_teacher, train_distill):
+        with pytest.raises(SystemExit, match="DCLIP_NUM_PROCESSES"):
+            cli.main(base + ["--multihost"])
+    monkeypatch.delenv("DCLIP_COORDINATOR")
     backends = []
     real_init = pipeline.MultiModalPipeline.__init__
 
@@ -256,3 +269,111 @@ def test_projection_weights_reach_the_gate(workspace, tmp_path, monkeypatch, cap
     assert tr._projection_fn is not None and tr.step == 2
     assert all(torch.equal(tr._projection_params[k], params[k]) for k in params)
     assert sources and all((s == knn.SOURCE_PROJECTION).all() for s in sources)
+
+
+def _epoch_losses(out: str):
+    return [float(x) for x in re.findall(r"Epoch \d+: train_loss=(\d+\.\d+)", out)]
+
+
+def _csv_losses(path):
+    import csv
+
+    with open(path) as f:
+        return [float(row["train_loss"]) for row in csv.DictReader(f)]
+
+
+@pytest.mark.parametrize("cli_name", ["train_teacher", "train_distill"])
+def test_multihost_clis_match_one_process(workspace, tmp_path, capsys, cli_name):
+    """`--multihost` over 2 gloo ranks (the env triple, `--device cpu`):
+    each rank reads its half of every global batch, the ranks log the same
+    epoch loss, only rank 0 writes checkpoints and the metrics CSV, and the
+    losses (the CSV row of step 10, the epoch's mean) equal a one-process
+    run's on the same corpus (JAX tests/test_multihost.py:325). A
+    `--teacher_cache` / `--pe_cache` path gets one file per rank."""
+    import importlib
+    import subprocess
+    import sys
+
+    from dclip_tpu_torch import native
+
+    import torch_dp
+
+    items = json.loads((workspace / "syn_train.json").read_text())
+    items += json.loads((workspace / "syn_val.json").read_text())
+    (tmp_path / "c20_train.json").write_text(json.dumps(items * 2))  # 20 items, 10 steps
+    common = ["--train_file", str(tmp_path / "c20_train.json"), "--detection_cache",
+              str(workspace / "precache.npz"), "--max_patches", "4", "--teacher_image_size",
+              "32", "--model_preset", "tiny", "--device", "cpu", "--learning_rate", "1e-3"]
+    cache_flag = "--pe_cache" if cli_name == "train_teacher" else "--teacher_cache"
+
+    def argv(run):
+        d = tmp_path / run
+        out = (["--output_path", str(d / "teacher"), "--epochs", "1", "--batch_size", "2",
+                "--val_file", ""] if cli_name == "train_teacher" else
+               ["--checkpoint_dir", str(d), "--phase1_epochs", "1", "--train_batch_size", "2",
+                "--accumulate_grad_batches", "1"])
+        return common + out + [cache_flag, str(tmp_path / f"{run}.cache")]
+
+    cli = importlib.import_module(f"dclip_tpu_torch.cli.{cli_name}")
+    capsys.readouterr()
+    assert cli.main(argv("one") + ["--metrics_csv", str(tmp_path / "one.csv")]) == 0
+    want = _epoch_losses(capsys.readouterr().out)
+    port = torch_dp.free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", f"dclip_tpu_torch.cli.{cli_name}", "--multihost"] + argv("two")
+        + ["--metrics_csv", str(tmp_path / f"two_{r}.csv")], env=torch_dp.rank_env(port, 2, r),
+        cwd=str(tmp_path), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = torch_dp.wait_all(procs)
+    got = [_epoch_losses(o) for o in outs]
+    assert len(want) == 1 and got[0] == got[1]
+    np.testing.assert_allclose(got[0], want, rtol=0, atol=2e-4)
+    np.testing.assert_allclose(_csv_losses(tmp_path / "two_0.csv"),
+                               _csv_losses(tmp_path / "one.csv"), rtol=1e-5)
+    assert not os.path.exists(tmp_path / "two_1.csv")
+    with open(tmp_path / "two" / "checkpoints.json") as f:
+        index = json.load(f)
+    assert [(e["epoch"], e["step"]) for e in index] == [(0, 10)]
+    if cli_name == "train_teacher":
+        assert "Best model:" in outs[0] and "Best model:" not in outs[1]
+    if native.available():
+        assert all(os.path.exists(tmp_path / f"two.cache.rank{r}") for r in range(2))
+        assert not os.path.exists(tmp_path / "two.cache")
+
+
+def test_multihost_cli_preemption_lockstep(workspace, tmp_path):
+    """SIGTERM to one of 2 `train_distill --multihost` ranks mid-run: the
+    guard's agreement stops both at one step boundary (a lone stop would
+    hang the other rank in its next collective and time this test out),
+    rank 0 writes the one `preempt` checkpoint, and both CLIs exit 0
+    (JAX tests/test_multihost.py:252-322)."""
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    import torch_dp
+
+    ckpt_dir = tmp_path / "ckpts"
+    argv = ["--multihost", "--train_file", str(workspace / "syn_train.json"),
+            "--detection_cache", str(workspace / "precache.npz"), "--max_patches", "4",
+            "--teacher_image_size", "32", "--model_preset", "tiny", "--device", "cpu",
+            "--train_batch_size", "4", "--accumulate_grad_batches", "1",
+            "--phase1_epochs", "300", "--checkpoint_dir", str(ckpt_dir)]
+    port = torch_dp.free_port()
+    procs = [subprocess.Popen([sys.executable, "-m", "dclip_tpu_torch.cli.train_distill"] + argv,
+                              env=torch_dp.rank_env(port, 2, r), cwd=str(tmp_path),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    deadline = time.monotonic() + 240
+    while time.monotonic() < deadline and not any(p.poll() is not None for p in procs):
+        if ckpt_dir.is_dir() and any(f.endswith(".pt") for f in os.listdir(ckpt_dir)):
+            break  # epoch 0 is done: fit is inside the guard on both ranks
+        time.sleep(0.05)
+    procs[1].send_signal(signal.SIGTERM)
+    outs = torch_dp.wait_all(procs)
+    for rank, out in enumerate(outs):
+        assert "Preempted (SIGTERM)" in out, f"rank {rank}:\n{out[-2000:]}"
+    assert _epoch_losses(outs[0]) == _epoch_losses(outs[1]) and len(_epoch_losses(outs[0])) < 300
+    preempt = [f for f in os.listdir(ckpt_dir) if ".preempt." in f]
+    assert len(preempt) == 1, os.listdir(ckpt_dir)

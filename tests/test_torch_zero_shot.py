@@ -241,6 +241,8 @@ def test_flickr30k_cli_table_matches_jax(cli_workspace, monkeypatch, capsys):
     assert len(table) >= 4
     assert table == [line for line in want.splitlines()
                      if line.startswith(("base", "custom", "Relative"))]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # A data axis of 2 needs 2 ranks (--multihost): on one process, JAX's
+    # ValueError for a one-device machine.
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         cli.main(common + ["--mesh_data", "2", "--device", "cpu"])
     assert not os.path.exists(root / "cifar_zero_shot_results.txt")
