@@ -285,13 +285,27 @@ Phases; each one passes or raises, and any failure exits non-zero:
    drawn: the stop at step boundary 2, one `preempt` checkpoint whose
    parameters are bit-equal to 2 uninterrupted steps'. The group is
    destroyed at the end. Its launches add to the kernels line's rows.
+34. Profiling (run last): (a) `cli.profile.main` at `--model_preset
+   vit-b-16 --batch 256 --steps 3 --json --trace_dir <tmp>`, the port's
+   normal trainer: every phase above 0 and under 20x the full step (the
+   JAX test's bound), each `images_per_sec_*` batch over its phase, the
+   four MFU values (`core.flops`, the card's peak) non-null in (0, 1], a
+   trace file written, the range table printed, and every kernel of the
+   path launched (the counts reset before the run and read after it; they
+   add to the kernels line's rows); (b) `--per_op --json` at B=256: every
+   row at or above 0.95 of its floor at the card's constants, the
+   composite above 0, K4 / K5 / K6 / K11 launched, the table printed; (c)
+   as (a) at `vit-l-14`, 2 steps (its launches add to the `[l14]` and
+   `[d768]` rows). The phase's time is printed.
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
-of its operations over the card's peak for their type (989 TFLOP/s bf16
-tensor cores, 67 TFLOP/s f32 CUDA cores, 495 TFLOP/s TF32 tensor cores
-for K12's three products per score) and the bytes it must move (each
-input read once, each output written once) over 3.35 TB/s, from the
-shapes of this run; and `library_ms`, the time of one PyTorch call that
+of its operations over the card's peak for their type and the bytes it
+must move (each input read once, each output written once) over its
+memory rate, from the shapes of this run. The peaks are
+`dclip_tpu_torch.core.flops.card_peaks` of the card (on the SXM H100:
+989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA cores, 495 TFLOP/s
+TF32 tensor cores for K12's three products per score, 3.35 TB/s); a card
+that table does not name stops the run, naming the card; and `library_ms`, the time of one PyTorch call that
 computes the same function, where there is one
 (`scaled_dot_product_attention` and its backward, and two of its calls
 for K10's core; `F.layer_norm` and
@@ -337,9 +351,9 @@ DL_BWD_TOL = 2.0**-7
 # rounding on random weights; every image's cosine must reach this.
 COS_BOUND = 0.99
 
-# The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W).
-BF16_PEAK, F32_PEAK, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
-TF32_PEAK = 495e12  # dense TF32 tensor cores: K12's 3xTF32 products
+# The card's dense peaks (`core.flops.CardPeaks`: bf16, f32, TF32 for K12's
+# 3xTF32 products, HBM bytes/s), set by main() from `core.flops.card_peaks`.
+PEAKS = None
 
 SRC = "dclip_tpu_torch/kernels/csrc/"
 TPU = "dclip_tpu/kernels/vit_block.py"
@@ -456,6 +470,25 @@ DP_DEVICE, DP_PRESET = "cuda", "vit-b-16"
 DP_B, DP_TEACHER_B, DP_STEPS = 256, 32, 3
 DP_SEARCH_N, DP_SEARCH_D, DP_SEARCH_Q, DP_SEARCH_K = 1_000_000, 512, 64, 10
 DP_FIT_B, DP_FIT_EPOCHS, DP_FIT_STEPS, DP_KILL_AT = 32, 2, 4, 2
+# Phase 34, the profiling slice: `cli.profile` runs (preset, batch, timed
+# steps) in order (a) and (c), the per-op table's batch and calls a window
+# (b), on PROFILE_DEVICE. A phase may reach 20x the full step (the JAX
+# test's bound, tests/test_cli_e2e.py:183-190); no op may run under 0.95
+# of its floor (cli/profile_ops.py). (tests/test_torch_cli_e2e.py runs the
+# phase on the CPU at the tiny preset.)
+PROFILE_DEVICE = "cuda"
+PROFILE_RUNS = (("vit-b-16", 256, 3), ("vit-l-14", 256, 2))
+PROFILE_OPS_B, PROFILE_OPS_STEPS = 256, 10
+PHASE_BOUND = 20.0
+# The kernels the profiled path must launch (the uncached and cache-warm
+# steps, the two teacher phases), and the per-op table's.
+PROFILE_PATH_KERNELS = ("layernorm", "gemm_bias_act_residual", "attention", "attention_block",
+                        "mlp_block", "self_attention_fused", "self_attention_fwd_stats",
+                        "self_attention_bwd_stats", "mlp_frozen_fwd", "mlp_frozen_bwd",
+                        "layernorm_bwd", "distill_loss_fwd", "distill_loss_bwd",
+                        "cross_attention", "cross_attention_core", "add_layernorm_f32")
+PER_OP_KERNELS = ("self_attention_fwd_stats", "self_attention_bwd_stats", "mlp_frozen_fwd",
+                  "mlp_frozen_bwd", "layernorm_bwd", "distill_loss_fwd", "distill_loss_bwd")
 # The ViT-L/14 slice (phases 30-32): the reference's student, with the
 # teacher CLIP at the same preset and TeacherConfig(768, 8 heads, 8 boxes,
 # 77 tokens), so K10 runs at head_dim 96. Each configuration of phase 31
@@ -542,7 +575,8 @@ def import_port_modules():
                  "dclip_tpu_torch.cli.doctor", "dclip_tpu_torch.native",
                  "dclip_tpu_torch.data.pipeline", "dclip_tpu_torch.data.corpus",
                  "dclip_tpu_torch.data.detection_cache", "dclip_tpu_torch.cli.train_teacher",
-                 "dclip_tpu_torch.cli.train_distill"):
+                 "dclip_tpu_torch.cli.train_distill", "dclip_tpu_torch.core.flops",
+                 "dclip_tpu_torch.cli.profile", "dclip_tpu_torch.cli.profile_ops"):
         importlib.import_module(name)
 
 
@@ -580,8 +614,8 @@ class KernelTable:
 
 def work(bf16_flops=0.0, f32_flops=0.0, nbytes=0.0, tf32_flops=0.0):
     """(ms at the operations' peaks, ms at the memory rate)."""
-    return (1e3 * (bf16_flops / BF16_PEAK + f32_flops / F32_PEAK + tf32_flops / TF32_PEAK),
-            1e3 * nbytes / HBM_BYTES_PER_S)
+    return (1e3 * (bf16_flops / PEAKS.bf16 + f32_flops / PEAKS.f32 + tf32_flops / PEAKS.tf32),
+            1e3 * nbytes / PEAKS.hbm)
 
 
 def gemm_work(m, k, n, extra_mn=0):
@@ -919,7 +953,7 @@ def gemm_phase(torch, card: str):
         flop = 2.0 * m * k * n
         tflops, lib_tflops = flop / ms / 1e9, flop / lib_ms / 1e9
         print(f"gemm {what} M={m} K={k} N={n}: kernel {ms} ms ({tflops} TFLOP/s, "
-              f"{tflops / (BF16_PEAK / 1e12)} of peak), {lib_name} {lib_ms} ms ({lib_tflops} "
+              f"{tflops / (PEAKS.bf16 / 1e12)} of peak), {lib_name} {lib_ms} ms ({lib_tflops} "
               f"TFLOP/s), kernel / library {ms / lib_ms}, bound {max(bound)} ms ({card})",
               flush=True)
 
@@ -1881,8 +1915,11 @@ def target_agreement_phase(torch, np, sd, tsd, l14=False):
 
 def profile_steps(torch, trainer, batch, card: str, steps: int = 2, spans=()):
     """Device busy share and device time by kernel over `steps` steps, and
-    the device time under each of `spans` (torch.profiler ranges)."""
+    the device time under each of `spans` (torch.profiler ranges), read by
+    `core.metrics.device_time_by_range`."""
     from torch.profiler import ProfilerActivity, profile
+
+    from dclip_tpu_torch.core.metrics import device_time_by_range
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1890,36 +1927,26 @@ def profile_steps(torch, trainer, batch, card: str, steps: int = 2, spans=()):
         for _ in range(steps):
             trainer.train_step_on_batch(batch)
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    # Device-side events only (kernels, copies): the host-side rows of
-    # key_averages() also carry their children's device time, and the
-    # device-side rows of the `dclip.*` ranges span their kernels.
-    rows = [(e.key, e.self_device_time_total, e.count) for e in events
-            if e.device_type == cuda and e.self_device_time_total > 0
-            and not e.key.startswith("dclip.")]
-    device_us = sum(r[1] for r in rows)
-    if device_us == 0:
+        wall_s = time.perf_counter() - t0
+    r = device_time_by_range(prof, steps, wall_s)
+    if r["busy"] is None:
         print("profile: key_averages() show no device time", flush=True)
         return
-    print(f"profile: {steps} steps, wall {wall_us / 1e3} ms, device {device_us / 1e3} ms, "
-          f"busy {100.0 * device_us / wall_us}% ({card})", flush=True)
+    print(f"profile: {steps} steps, wall {1e3 * wall_s} ms, device {r['device_ms'] * steps} ms, "
+          f"busy {100.0 * r['busy']}% ({card})", flush=True)
+    step_ms = 1e3 * wall_s / steps
     for name in spans:
-        dev = [e for e in events if e.key == name and e.device_type == cuda]
-        host = [e for e in events if e.key == name and e.device_type != cuda]
-        dev_ms = sum(e.device_time_total for e in dev) / 1e3 / steps
-        host_ms = sum(e.cpu_time_total for e in host) / 1e3 / steps
-        print(f"profile: stage {name}: device span {dev_ms} ms/step "
-              f"({100.0 * dev_ms * steps * 1e3 / wall_us:.2f}% of the wall), host "
-              f"{host_ms} ms/step", flush=True)
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:20]:
-        print(f"profile: {100.0 * us / device_us:6.2f}% {us / 1e3 / steps:9.3f} ms/step "
-              f"x{count // steps:<5d} {key[:110]}", flush=True)
+        span = r["ranges"].get(name, {"device_ms": 0.0, "host_ms": 0.0})
+        print(f"profile: stage {name}: device span {span['device_ms']} ms/step "
+              f"({100.0 * span['device_ms'] / step_ms:.2f}% of the wall), host "
+              f"{span['host_ms']} ms/step", flush=True)
+    for key, ms, count in r["kernels"][:20]:
+        print(f"profile: {100.0 * ms / r['device_ms']:6.2f}% {ms:9.3f} ms/step "
+              f"x{int(count):<5d} {key[:110]}", flush=True)
     for kernel in PROFILED_KERNELS:
-        hit = [r for r in rows if kernel in r[0]]
-        print(f"profile: kernel {kernel}: {sum(r[1] for r in hit) / 1e3 / steps} ms/step "
-              f"x{sum(r[2] for r in hit) // steps} ({card})", flush=True)
+        hit = [k for k in r["kernels"] if kernel in k[0]]
+        print(f"profile: kernel {kernel}: {sum(k[1] for k in hit)} ms/step "
+              f"x{int(sum(k[2] for k in hit))} ({card})", flush=True)
 
 
 def grad_agreement_phase(torch, np, sd, tsd, what="grads", must_hold=(), batch_size=GRAD_B,
@@ -3601,7 +3628,7 @@ def detector_phase(torch, np, card: str):
         if not torch.backends.cudnn.allow_tf32:
             raise AssertionError("the detector did not restore the process's TF32 flag")
         tf32_ms = time_one(torch, tf32_forward, DET_ITERS)
-        bound_ms = 1e3 * b * gflops * 1e9 / F32_PEAK
+        bound_ms = 1e3 * b * gflops * 1e9 / PEAKS.f32
         detect_ms = sum(host) / len(host)
         print(f"detector: B={b}: network {net_ms} ms (CUDA events; host {host_net}), decode + NMS "
               f"{post_ms} ms, detect end to end {host} ms host, {1e3 * b / detect_ms} images/s; "
@@ -4136,6 +4163,137 @@ def files_phase(torch, np, card: str, jpeg: dict):
                 raise AssertionError(f"files: {what} checkpoints or losses: {entries}")
 
 
+def _run_cli(main_fn, argv):
+    """main_fn(argv) with its standard output captured: (its lines, the
+    JSON record of the last)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = main_fn(argv)
+    lines = out.getvalue().strip().splitlines()
+    if code != 0:
+        raise AssertionError(f"profile: {argv} returned {code}")
+    return lines, json.loads(lines[-1])
+
+
+def _hold_profile(rec, batch, on_card: bool, trace_dir: str, card: str):
+    """Phase 34 (a) / (c)'s checks of one `cli.profile --json` record."""
+    import glob
+
+    ph = rec["phases_ms"]
+    full = ph["full uncached step"]
+    print(f"profile: {rec['preset']} B={batch}: phases ms {json.dumps(ph)}; images/s uncached "
+          f"{rec['images_per_sec_uncached']}, cache-warm {rec['images_per_sec_cache_warm']}; "
+          f"MFU uncached {rec['mfu_uncached']} (true {rec['mfu_uncached_masked_true']}), "
+          f"cache-warm {rec['mfu_cache_warm']} (true {rec['mfu_cache_warm_masked_true']}); "
+          f"{rec['backend']}, {card}", flush=True)
+    for name in ("full uncached step", "teacher patch encode", "teacher tail (text+xattn)",
+                 "student step (cache-warm)"):
+        if not 0 < ph[name] < PHASE_BOUND * full:
+            raise AssertionError(f"profile: {name} {ph[name]} ms outside (0, {PHASE_BOUND} x "
+                                 f"{full})")
+    for key, name in (("images_per_sec_uncached", "full uncached step"),
+                      ("images_per_sec_cache_warm", "student step (cache-warm)")):
+        want = batch / (ph[name] / 1e3)
+        if abs(rec[key] - want) > 1e-3 * want:
+            raise AssertionError(f"profile: {key} {rec[key]} != batch / phase {want}")
+    mfus = [rec[k] for k in ("mfu_uncached", "mfu_uncached_masked_true", "mfu_cache_warm",
+                             "mfu_cache_warm_masked_true")]
+    if on_card and not all(m is not None and 0 < m <= 1 for m in mfus):
+        raise AssertionError(f"profile: MFU values {mfus} not all in (0, 1]")
+    if not on_card and any(m is not None for m in mfus):
+        raise AssertionError(f"profile: MFU values {mfus} without a card")
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if not traces:
+        raise AssertionError(f"profile: no trace file in {trace_dir}")
+    print(f"profile: trace {os.path.basename(traces[0])}, "
+          f"{os.path.getsize(traces[0])} bytes", flush=True)
+
+
+def _held_launches(launches, names, what):
+    missing = [n for n in names if launches.get(n, 0) == 0]
+    print(f"profile: {what} launches {json.dumps({n: launches.get(n, 0) for n in names})}",
+          flush=True)
+    if missing:
+        raise AssertionError(f"profile: {what} launched no {missing}")
+
+
+def profile_phase(torch, np, card: str) -> dict:
+    """Phase 34: the profiling slice's CLIs on `PROFILE_DEVICE`, (a) the
+    phase profile at ViT-B/16, (b) the per-op table, (c) the phase profile
+    at ViT-L/14. Returns each run's launches by preset (the per-op table's
+    are not the main path's and are only held)."""
+    import shutil
+    import tempfile
+
+    from dclip_tpu_torch.cli import profile
+    from dclip_tpu_torch.cli.profile_ops import FLOOR_SHARE
+
+    t0 = time.perf_counter()
+    on_card = PROFILE_DEVICE == "cuda"
+    launches = {}
+
+    def profile_run(preset, batch, steps):
+        t_run = time.perf_counter()
+        trace_dir = tempfile.mkdtemp(prefix="dclip_profile_")
+        try:
+            _reset_all_launches()
+            lines, rec = _run_cli(profile.main, [
+                "--model_preset", preset, "--batch", str(batch), "--steps", str(steps),
+                "--json", "--trace_dir", trace_dir, "--device", PROFILE_DEVICE])
+            launches[preset] = _all_launches()
+            for line in lines[:-1]:
+                print(f"profile: {line}", flush=True)
+            _hold_profile(rec, batch, on_card, trace_dir, card)
+        finally:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+        if on_card:
+            _held_launches(launches[preset], PROFILE_PATH_KERNELS, f"{preset} path")
+        print(f"profile: {preset} run {time.perf_counter() - t_run} s", flush=True)
+
+    (b16, b16_batch, b16_steps), l14 = PROFILE_RUNS[0], PROFILE_RUNS[1:]
+    profile_run(b16, b16_batch, b16_steps)
+
+    t_ops = time.perf_counter()
+    _reset_all_launches()
+    _, ops = _run_cli(profile.main, ["--per_op", "--batch", str(PROFILE_OPS_B), "--steps",
+                                     str(PROFILE_OPS_STEPS), "--json", "--device",
+                                     PROFILE_DEVICE])
+    per_op_launches = _all_launches()
+    gc.collect()
+    print(f"profile: per-op B={ops['batch']} S={ops['seq']} D={ops['hidden']} packed rows "
+          f"{ops['packed_rows']}; {ops['device']}, peaks {json.dumps(ops['peaks'])}; {card}",
+          flush=True)
+    print(f"profile: {'op':<38}{'meas ms':>12}{'floor ms':>12}{'x/floor':>10}  bound",
+          flush=True)
+    below = []
+    for row in ops["rows"]:
+        ratio = row["x_over_floor"]
+        print(f"profile: {row['op']:<38}{row['measured_ms']:>12.5f}{row['floor_ms']:>12.5f}"
+              f"{ratio if ratio is None else round(ratio, 3)!s:>10}  {row['bound']}", flush=True)
+        if on_card and row["measured_ms"] < FLOOR_SHARE * row["floor_ms"]:
+            below.append(row["op"])
+    print("profile: per-op summary " + json.dumps(
+        {k: v for k, v in ops.items() if k not in ("rows", "peaks")}), flush=True)
+    if below:
+        raise AssertionError(f"profile: rows under {FLOOR_SHARE} of their floor: {below}")
+    if not ops["per_layer_composite_ms"] > 0:
+        raise AssertionError("profile: the composite layer row is not above 0")
+    if on_card:
+        _held_launches(per_op_launches, PER_OP_KERNELS, "per-op")
+    print(f"profile: per-op run {time.perf_counter() - t_ops} s", flush=True)
+
+    for preset, batch, steps in l14:
+        profile_run(preset, batch, steps)
+    print(f"profile: phase 34 {time.perf_counter() - t0} s ({card})", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4151,9 +4309,14 @@ def main() -> int:
     from dclip_tpu_torch.kernels import _build
     from dclip_tpu_torch.kernels import vit_block as vb
 
+    from dclip_tpu_torch.core.flops import card_peaks
+
+    global PEAKS
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
+    PEAKS = card_peaks("cuda")  # raises on a card the table does not name
+    print(f"peaks: {PEAKS}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
 
@@ -4227,6 +4390,7 @@ def main() -> int:
     jpeg = doctor_phase(card)
     l14_launches = l14_distill_phase(torch, np, card, table)
     files_phase(torch, np, card, jpeg)
+    profiled = profile_phase(torch, np, card)
 
     counts = {**{n: launches[n] + region[n] for n in KERNELS},
               **{n: train_launches[n] for n in TRAIN_KERNELS},
@@ -4242,6 +4406,14 @@ def main() -> int:
     for name in counts:
         if "[" not in name:
             counts[name] += dp_launches.get(name, 0)
+    # Phase 34's profiled steps: ViT-B/16's add to the plain rows, ViT-L/14's
+    # to the [l14] / [d768] rows.
+    for name in counts:
+        if "[" not in name:
+            counts[name] += profiled[PROFILE_RUNS[0][0]].get(name, 0)
+    for preset, _, _ in PROFILE_RUNS[1:]:
+        for name in L14_ROWS:
+            counts[name] += profiled[preset].get(name.split("[")[0], 0)
     sources = {**KERNELS, **TRAIN_KERNELS, **TEACHER_KERNELS, **TRAINABLE_KERNELS,
                **TOPK_KERNELS, **TEACHER_TRAIN_KERNELS, **L14_ROWS}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -7,6 +7,9 @@
   train-step or input-pipeline section; `start_trace` / `stop_trace`
   record a `torch.profiler` trace into a directory (TensorBoard's
   layout, one `.pt.trace.json` per stop).
+- `device_time_by_range`: a finished profile read per step: the device
+  time and busy share, and the device and host time under each `dclip.*`
+  range (the port's form of the JAX trace's perfetto drill-down).
 """
 from __future__ import annotations
 
@@ -17,6 +20,11 @@ import time
 from typing import Dict, Iterator, Optional
 
 import torch
+
+# The step's ranges (`record_function`), in the order a step runs them.
+RANGES = ("dclip.h2d", "dclip.crop", "dclip.region_encode", "dclip.teacher_text",
+          "dclip.cross_attention", "dclip.student_step", "dclip.backward",
+          "dclip.grad_all_reduce", "dclip.optimizer")
 
 
 class MetricsLogger:
@@ -78,9 +86,51 @@ def start_trace(log_dir: str) -> None:
     _PROFILER.start()
 
 
-def stop_trace() -> None:
+def stop_trace() -> torch.profiler.profile:
+    """Stop the recording, write its trace, and return the profiler (for
+    `device_time_by_range`)."""
     global _PROFILER
     if _PROFILER is None:
         raise RuntimeError("no trace is being recorded")
     prof, _PROFILER = _PROFILER, None
     prof.stop()
+    return prof
+
+
+def device_time_by_range(prof: torch.profiler.profile, steps: int, wall_s: float) -> dict:
+    """Per step of a finished profile over `steps` steps that took `wall_s`
+    seconds on the host clock:
+
+      device_ms  device time of the device-side events (kernels, copies);
+                 0.0 when the profile holds none (the CPU)
+      busy       device_ms over the wall's share of a step; None without
+                 device time
+      ranges     {name: {"device_ms", "host_ms"}} for each `dclip.*` range
+                 the profile holds, in `RANGES` order: the device span of
+                 the kernels launched inside it and outside any inner
+                 range, first start to last end, idle gaps included (None
+                 without device time), and its host time
+      kernels    [(name, device ms, launches)] by device time, descending
+
+    Device rows only count toward device_ms: the host rows of
+    key_averages() also carry their children's device time, and the
+    device rows of the `dclip.*` ranges span their kernels. The backward's
+    kernels launch from autograd's own thread, outside every range, so
+    `dclip.backward` spans next to nothing on the device."""
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+                      for e in events if e.device_type == cuda and e.self_device_time_total > 0
+                      and not e.key.startswith("dclip.")), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in kernels)
+    names = {e.key for e in events if e.key.startswith("dclip.")}
+    order = [n for n in RANGES if n in names] + sorted(names - set(RANGES))
+    ranges = {}
+    for name in order:
+        dev = sum(e.device_time_total for e in events if e.key == name and e.device_type == cuda)
+        host = sum(e.cpu_time_total for e in events if e.key == name and e.device_type != cuda)
+        ranges[name] = {"device_ms": dev / 1e3 / steps if device_ms else None,
+                        "host_ms": host / 1e3 / steps}
+    step_ms = 1e3 * wall_s / steps
+    return {"device_ms": device_ms, "busy": device_ms / step_ms if device_ms else None,
+            "ranges": ranges, "kernels": kernels}

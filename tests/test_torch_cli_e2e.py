@@ -175,3 +175,30 @@ def test_chip_smoke_dp_phase_on_the_cpu(monkeypatch, capsys):
                  "dp: the preempt checkpoint's parameters bit-equal"):
         assert line in printed, line
     assert not torch.distributed.is_initialized()
+
+
+def test_chip_smoke_profile_phase_on_the_cpu(monkeypatch, capsys):
+    """`chip_smoke.py` phase 34 on the CPU: the phase profile at the tiny
+    preset (twice: the B/16 and the L/14 slots) and the per-op table at
+    ViT-B/16 width, B=2, with every check of the phase that holds off the
+    card (phases bounded, images/s from the phases, no MFU, a trace file)."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for name, value in (("PROFILE_DEVICE", "cpu"),
+                        ("PROFILE_RUNS", (("tiny", 4, 2), ("tiny", 2, 1))),
+                        ("PROFILE_OPS_B", 2), ("PROFILE_OPS_STEPS", 1)):
+        monkeypatch.setattr(smoke, name, value)
+    launches = smoke.profile_phase(torch, np, "cpu")
+    printed = capsys.readouterr().out
+    assert set(launches) == {"tiny"}
+    for line in ("profile: tiny B=4: phases ms", "profile: tiny B=2: phases ms",
+                 "profile: dclip.student_step", "profile: per-op B=2 S=197 D=768",
+                 "profile: attn bwd kernel (K5)", "profile: loss tail (K11, [B,proj])",
+                 "profile: phase 34"):
+        assert line in printed, line
