@@ -6,8 +6,9 @@ Every entry point takes the same flags as the JAX package's:
                    (seeded N(0, 0.02) weights; there is no download path)
   --tokenizer_dir  dir containing vocab.json + merges.txt, or 'hash'
 plus `--device` (default `cuda`; `cpu` only when asked for) and, for the
-trainers, `--mesh_data` (the data axis over the ranks of a process group)
-and `--mesh_model` (1; tensor parallelism is ROADMAP Queue 1 item 13).
+trainers, `--mesh_data` and `--mesh_model`, the (data, model) grid over
+the ranks of a process group (`parallel.mesh.make_mesh`; tensor
+parallelism over the model axis, `parallel.tp`).
 `--multihost` starts one process per card in a `torch.distributed` group
 (`init_multihost`). `restore_student_params` reads the port's own
 checkpoints; `fit_with_preemption` runs a trainer's `fit` under a SIGTERM
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -47,17 +48,14 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
                         "of them); one process per card, so N > 1 needs --multihost with N "
                         "processes")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="model-parallel mesh size (1; tensor parallelism is not ported yet)")
+                   help="model-parallel mesh size: tensor parallelism over N ranks of the "
+                        "process group (--multihost with mesh_data x N processes)")
 
 
 def mesh_config(args) -> MeshConfig:
     """The `MeshConfig` of the flags; `parallel.mesh.make_mesh` checks it
-    against the process group. `--mesh_model` other than 1 raises."""
+    against the process group."""
     dp, mp = getattr(args, "mesh_data", -1), getattr(args, "mesh_model", 1)
-    if mp != 1:
-        raise NotImplementedError(
-            f"--mesh_model {mp}: tensor parallelism is not ported yet: ROADMAP Queue 1 "
-            "item 13")
     return MeshConfig(data_parallel=dp, model_parallel=mp)
 
 
@@ -68,7 +66,8 @@ def add_multihost_arg(p: argparse.ArgumentParser) -> None:
                         "else torchrun's variables; NCCL on cuda, gloo with --device cpu")
 
 
-def init_multihost(device="cuda", timeout: float = 600.0) -> torch.device:
+def init_multihost(device="cuda", timeout: float = 600.0,
+                   backend: Optional[str] = None) -> torch.device:
     """`torch.distributed` init for `--multihost` runs (counterpart of
     `dclip_tpu/cli/common.py:185-210`); returns this process's device.
 
@@ -77,8 +76,10 @@ def init_multihost(device="cuda", timeout: float = 600.0) -> torch.device:
     (a partial triple is an explicit error); without it torchrun's
     variables (`env://`). On CUDA the backend is NCCL, after
     `torch.cuda.set_device(local rank)` and the card's context: LOCAL_RANK
-    when set, else the process id modulo the visible cards. gloo runs only
-    when the caller asked for the CPU; a failed NCCL init raises."""
+    when set, else the process id modulo the visible cards. gloo runs when
+    the caller asked for the CPU, or on CUDA when asked for by `backend`:
+    gloo takes CUDA tensors through the host, so several ranks can share
+    one card (NCCL refuses that); a failed NCCL init raises."""
     import datetime
 
     import torch.distributed as dist
@@ -100,7 +101,7 @@ def init_multihost(device="cuda", timeout: float = 600.0) -> torch.device:
         torch.cuda.set_device(local)
         dev = torch.device("cuda", local)
         torch.zeros(1, device=dev)  # the context exists before NCCL's first call
-        backend = "nccl"
+        backend = backend or "nccl"
     elif want.type == "cpu":
         dev, backend = want, "gloo"
     else:
@@ -199,16 +200,17 @@ def load_projection_params(path, embed_dim: int):
 
 
 def make_pipeline(args, path, tokenizer, cache, clip_cfg, batch_size, max_patches, seed,
-                  drop_remainder=True):
+                  drop_remainder=True, mesh=None):
     """The corpus JSON at `path` as a `data.pipeline.MultiModalPipeline`
-    yielding this rank's rows of each global batch of `batch_size`
-    (`parallel.multihost.process_data_shard`); a tail batch cannot be
+    yielding this rank's rows of each global batch of `batch_size`, by its
+    data index on `mesh` (`parallel.multihost.process_data_shard`; the
+    ranks of one model group read the same rows); a tail batch cannot be
     split across processes, so several drop it."""
     from dclip_tpu_torch.data.corpus import load_corpus
     from dclip_tpu_torch.data.pipeline import MultiModalPipeline
     from dclip_tpu_torch.parallel.multihost import process_data_shard
 
-    shard_index, shard_count = process_data_shard()
+    shard_index, shard_count = process_data_shard(mesh)
     return MultiModalPipeline(
         load_corpus(path), tokenizer, cache, batch_size=batch_size,
         drop_remainder=drop_remainder or shard_count > 1, max_patches=max_patches,

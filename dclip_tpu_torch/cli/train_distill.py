@@ -20,7 +20,9 @@ is accepted and changes nothing, since K6 tiles at every width.
 `--projection_weights` reads a port-format file; `--decode_backend native`
 and `--multihost` behave as in `cli.train_teacher` (a `--teacher_cache`
 path gets one file per rank: the cache keys come from the rank's own
-rows). `--model_preset
+rows). `--mesh_model N` trains over a (mesh_data, N) grid of ranks: the
+student's and the teacher CLIP's encoder layers sharded over each model
+group (`parallel.tp`); checkpoints hold the whole tensors. `--model_preset
 vit-l-14` gives the reference's L/14 run: `TeacherConfig(embed_dim=768)`.
 """
 from __future__ import annotations
@@ -51,6 +53,7 @@ from dclip_tpu_torch.cli.common import (
 from dclip_tpu_torch.core.config import DistillConfig, TeacherConfig
 from dclip_tpu_torch.core.metrics import MetricsLogger
 from dclip_tpu_torch.models.weights import random_teacher_state_dict
+from dclip_tpu_torch.parallel.mesh import make_mesh
 from dclip_tpu_torch.train.checkpoint import CheckpointManager
 from dclip_tpu_torch.train.distill_trainer import DistillTrainer, TeacherTargetCache
 
@@ -150,12 +153,13 @@ def main(argv=None) -> int:
         tiled_frozen_mlp=args.tiled_frozen_mlp, device_target_cache=args.device_target_cache,
         device_cache_mb=args.device_cache_mb, unfreeze_text_at_epoch=args.unfreeze_text_at_epoch)
     teacher_sd = load_teacher_state_dict(args.teacher_checkpoint, teacher_cfg, args.seed)
+    mesh = make_mesh(cfg.mesh)
     cache = load_detection_cache(args.detection_cache)
     train_pipe = make_pipeline(args, cfg.train_file, tokenizer, cache, student_cfg,
-                               cfg.train_batch_size, teacher_cfg.max_patches, cfg.seed)
+                               cfg.train_batch_size, teacher_cfg.max_patches, cfg.seed, mesh=mesh)
     val_pipe = (make_pipeline(args, cfg.val_file, tokenizer, cache, student_cfg,
                               cfg.eval_batch_size, teacher_cfg.max_patches, cfg.seed,
-                              drop_remainder=False)
+                              drop_remainder=False, mesh=mesh)
                 if cfg.val_file and os.path.exists(cfg.val_file) else None)
     teacher_cache = None
     if args.teacher_cache:
@@ -165,7 +169,7 @@ def main(argv=None) -> int:
                              teacher_clip_cfg, device=device, teacher_cache=teacher_cache,
                              knn_store=load_knn_store(args.knn_store),
                              projection_params=load_projection_params(
-                                 args.projection_weights, cfg.teacher.embed_dim))
+                                 args.projection_weights, cfg.teacher.embed_dim), mesh=mesh)
     ckpts = CheckpointManager(cfg.checkpoint_dir, prefix="distill", save_top_k=cfg.save_top_k,
                               monitor="train_loss")  # ModelCheckpoint(monitor="train_loss")
     start_epoch = trainer.resume(ckpts) if args.resume else 0

@@ -21,6 +21,9 @@ each rank reads its rows of every global batch of `--batch_size`, only
 rank 0 writes checkpoints and the metrics CSV, a `--pe_cache` path gets
 one file per rank (`<path>.rank<r>`), and a SIGTERM to any rank stops
 every rank at one step boundary with a `preempt` checkpoint and exit 0.
+`--mesh_model N` shards the frozen CLIP's encoder layers over N ranks of
+each model group (`parallel.tp`), which read the same rows: the group has
+mesh_data x N processes.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from dclip_tpu_torch.cli.common import (
 )
 from dclip_tpu_torch.core.config import TeacherConfig, TeacherTrainConfig
 from dclip_tpu_torch.core.metrics import MetricsLogger
+from dclip_tpu_torch.parallel.mesh import make_mesh
 from dclip_tpu_torch.train.checkpoint import CheckpointManager
 from dclip_tpu_torch.train.teacher_trainer import TeacherTrainer, teacher_config_summary
 
@@ -98,13 +102,15 @@ def main(argv=None) -> int:
         device_target_cache=args.device_target_cache, device_cache_mb=args.device_cache_mb)
     print(teacher_config_summary(cfg))
 
+    mesh = make_mesh(cfg.mesh)
     cache = load_detection_cache(args.detection_cache)
     train_pipe = make_pipeline(args, cfg.train_file, tokenizer, cache, clip_cfg, cfg.batch_size,
-                               cfg.teacher.max_patches, cfg.seed)
+                               cfg.teacher.max_patches, cfg.seed, mesh=mesh)
     # Validation keeps partial batches: a val set smaller than a batch
     # would otherwise evaluate nothing.
     val_pipe = (make_pipeline(args, cfg.val_file, tokenizer, cache, clip_cfg, cfg.batch_size,
-                              cfg.teacher.max_patches, cfg.seed, drop_remainder=False)
+                              cfg.teacher.max_patches, cfg.seed, drop_remainder=False,
+                              mesh=mesh)
                 if cfg.val_file and os.path.exists(cfg.val_file) else None)
     print(f"Training set size: {len(train_pipe.items)} samples")
     if val_pipe is not None:
@@ -119,7 +125,7 @@ def main(argv=None) -> int:
     trainer = TeacherTrainer(cfg, clip_sd, clip_cfg, knn_store=load_knn_store(args.knn_store),
                              projection_params=load_projection_params(
                                  args.projection_weights, cfg.teacher.embed_dim),
-                             pe_cache=pe_cache, device=device)
+                             pe_cache=pe_cache, device=device, mesh=mesh)
     ckpts = CheckpointManager(os.path.dirname(cfg.output_path) or ".",
                               prefix=os.path.basename(cfg.output_path),
                               save_top_k=0)  # the teacher keeps every epoch

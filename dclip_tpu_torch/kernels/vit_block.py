@@ -33,6 +33,15 @@ Weights enter in the kernels' layouts, made once by `pack_vision_weights`
 in f32): there is no per-call transpose or concatenation. There is no
 VMEM gate (`block_fit` on the TPU): the kernels tile, so every width runs
 on them.
+
+Under tensor parallelism (`pack_vision_weights(..., mesh)` with a model
+axis, `parallel.tp`) the packed layers are this rank's slices and each
+layer is composed from the same kernels at shard width
+(`encoder_forward_tp`): LN1, the QKV GEMM over [q_m; k_m; v_m], the
+attention core on `heads / mp` heads, the out_proj GEMM without bias in
+f32, the all-reduce over the model group, + bias + residual; then LN2,
+fc1 + quick-GELU, fc2 without bias in f32, the all-reduce, + bias +
+residual. The whole-block wrappers do not run there.
 """
 from __future__ import annotations
 
@@ -322,6 +331,31 @@ def encoder_forward_reference(layers: List[Mapping[str, torch.Tensor]], x,
     return x
 
 
+def _reduced_residual(partial: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                      mesh) -> torch.Tensor:
+    """x + (the f32 sum of the model ranks' partial products + bias), in
+    x's dtype."""
+    from dclip_tpu_torch.parallel.tp import all_reduce_model_
+
+    return (all_reduce_model_(partial, mesh) + bias + x.float()).to(x.dtype)
+
+
+def encoder_forward_tp(layers: List[Mapping[str, torch.Tensor]], x: torch.Tensor,
+                       num_heads: int, eps: float, mesh) -> torch.Tensor:
+    """The encoder stack over this rank's slices (module docstring);
+    `num_heads` is the rank's. Every wrapper takes its twin on the CPU."""
+    for p in layers:
+        h = layernorm(x, p["ln1_scale"], p["ln1_bias"], eps)
+        a = attention(gemm_bias_act_residual(h, p["qkv_w"], p["qkv_b"]), num_heads)
+        x = _reduced_residual(gemm_bias_act_residual(a, p["out_w"], out_dtype=torch.float32),
+                              p["out_b"], x, mesh)
+        h = layernorm(x, p["ln2_scale"], p["ln2_bias"], eps)
+        h = gemm_bias_act_residual(h, p["fc1_w"], p["fc1_b"], gelu=True)
+        x = _reduced_residual(gemm_bias_act_residual(h, p["fc2_w"], out_dtype=torch.float32),
+                              p["fc2_b"], x, mesh)
+    return x
+
+
 def encoder_forward_fused(layers: List[Mapping[str, torch.Tensor]], x: torch.Tensor,
                           num_heads: int, eps: float = 1e-5) -> torch.Tensor:
     """The encoder stack as 2 * len(layers) fused blocks."""
@@ -369,14 +403,40 @@ def pack_layer(sd: Mapping[str, torch.Tensor], prefix: str,
     }
 
 
-def pack_vision_weights(cfg, sd: Mapping[str, torch.Tensor],
-                        dtype: torch.dtype) -> Dict[str, object]:
+def _check_shard_widths(cfg, mp: int) -> None:
+    """The GEMM's K % 32 == 0 and N % 8 == 0 and the attention core's
+    head_dim 64 at every shard width of the image tower."""
+    c = cfg.vision
+    d, m, hd = c.hidden_size // mp, c.mlp_dim // mp, c.hidden_size // c.num_heads
+    if c.hidden_size % mp or c.mlp_dim % mp or c.num_heads % mp or d % 32 or m % 32 \
+            or hd != 64:
+        raise ValueError(
+            f"tensor parallelism at mp={mp}: shard widths D/mp={c.hidden_size / mp}, "
+            f"MLP/mp={c.mlp_dim / mp}, {c.num_heads} heads of {hd} do not meet the CUDA "
+            "kernels' K % 32 == 0, N % 8 == 0 and head_dim 64")
+
+
+def pack_vision_weights(cfg, sd: Mapping[str, torch.Tensor], dtype: torch.dtype,
+                        mesh=None) -> Dict[str, object]:
     """The image tower of an HF-named CLIP state dict, laid out once for
     `fused_image_features`: the patch conv OIHW [D, 3, p, p] becomes the
     (ph, pw, c)-ordered matrix [p*p*3, D] of the JAX HWIO kernel, the
-    projection [P, D] becomes [D, P], embeddings go to `dtype`."""
+    projection [P, D] becomes [D, P], embeddings go to `dtype`. With a
+    `mesh` that has a model axis, the layers are this rank's slices (of a
+    whole state dict, or one already sharded) and `"tp"` holds the mesh;
+    on CUDA the shard widths must meet the kernels' constraints."""
     c = cfg.vision
     v = "vision_model."
+    from dclip_tpu_torch.parallel.tp import model_axis, shard_clip_params
+
+    tp = model_axis(mesh)
+    if tp is not None:
+        if sd[v + "encoder.layers.0.self_attn.q_proj.weight"].device.type == "cuda":
+            _check_shard_widths(cfg, tp.model_size)
+        if sd[v + "encoder.layers.0.self_attn.q_proj.weight"].shape[0] == c.hidden_size:
+            sd = shard_clip_params({k: t for k, t in sd.items() if k.startswith(v)}
+                                   | {"visual_projection.weight": sd["visual_projection.weight"]},
+                                   tp)
 
     def t(name):
         return sd[v + name].detach()
@@ -393,6 +453,7 @@ def pack_vision_weights(cfg, sd: Mapping[str, torch.Tensor],
         "post_ln_scale": t("post_layernorm.weight").float(),
         "post_ln_bias": t("post_layernorm.bias").float(),
         "proj": sd["visual_projection.weight"].detach().t().to(dtype).contiguous(),
+        "tp": tp,
     }
 
 
@@ -418,7 +479,12 @@ def _image_features(cfg, w: Mapping[str, object], pixel_values: torch.Tensor,
     x = torch.cat([cls, x], dim=1) + w["pos_emb"][None]
     x = layernorm_reference(x.float(), w["pre_ln_scale"], w["pre_ln_bias"],
                             c.layer_norm_eps).to(dtype)
-    x = encoder(w["layers"], x.contiguous(), c.num_heads, c.layer_norm_eps)
+    tp = w.get("tp")
+    if tp is not None:
+        x = encoder_forward_tp(w["layers"], x.contiguous(), c.num_heads // tp.model_size,
+                               c.layer_norm_eps, tp)
+    else:
+        x = encoder(w["layers"], x.contiguous(), c.num_heads, c.layer_norm_eps)
     pooled = layernorm_reference(x[:, 0].float(), w["post_ln_scale"],
                                  w["post_ln_bias"], c.layer_norm_eps).to(dtype)
     return pooled @ w["proj"]
@@ -434,8 +500,9 @@ def fused_image_features(cfg, w: Mapping[str, object],
     """`get_image_features` of the frozen image tower: patch embedding,
     CLS + position embedding, pre-LN, post-LN and projection as plain
     tensor ops (the JAX version leaves them to XLA), the encoder stack as
-    fused block kernels. pixel_values: NHWC [B, H, W, 3], CLIP-normalized.
-    `w` comes from `pack_vision_weights`; its dtype is the compute dtype."""
+    fused block kernels (a mesh's shard: `encoder_forward_tp`).
+    pixel_values: NHWC [B, H, W, 3], CLIP-normalized. `w` comes from
+    `pack_vision_weights`; its dtype is the compute dtype."""
     if _on_cpu(pixel_values):
         return fused_image_features_reference(cfg, w, pixel_values)
     out = _image_features(cfg, w, pixel_values, encoder_forward_fused)

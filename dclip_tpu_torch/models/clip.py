@@ -40,6 +40,15 @@ attention logits / softmax run in f32.
   launches twice per training step and every backward kernel once. The
   weights K8 / K9 cast for the step are cast once before the layer and
   handed to both forwards (`EncoderLayer.step_packs`).
+- `mesh` with a model axis (`parallel.tp`, `model_size > 1`): every
+  encoder layer of both towers holds this rank's `heads / mp` heads and
+  `mlp_dim / mp` hidden units (q / k / v and fc1 by output rows, out_proj
+  and fc2 by input columns) and runs LN1 -> copy -> qkv -> the attention
+  core on its heads (K3 / K4 / K5 with `fused_attention`) -> out_proj
+  without bias -> the f32 all-reduce -> + bias, and LN2 -> copy -> fc1 +
+  quick-GELU -> fc2 without bias -> the f32 all-reduce -> + bias. The
+  whole-block kernels (K6, K8, K9) need whole weights and are refused.
+  Parameter names are the same; their shapes are the shards'.
 On CPU tensors every kernel wrapper runs its plain f32 twin.
 """
 from __future__ import annotations
@@ -60,6 +69,12 @@ from dclip_tpu_torch.kernels import (
     vit_block,
 )
 from dclip_tpu_torch.kernels.vit_block import quick_gelu
+from dclip_tpu_torch.parallel.tp import (
+    clip_divisibility_check,
+    copy_to_model,
+    model_axis,
+    reduce_from_model,
+)
 
 
 def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -73,6 +88,13 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
                      ln.bias.float(), ln.eps)
     return y.to(x.dtype)
+
+
+def _row_sharded(x: torch.Tensor, lin: nn.Linear, mesh) -> torch.Tensor:
+    """A row-sharded Linear: the partial product, its f32 sum over the
+    model group, the whole bias once; cast to x's dtype."""
+    partial = F.linear(x, lin.weight.to(x.dtype))
+    return (reduce_from_model(partial, mesh) + lin.bias.float()).to(x.dtype)
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
@@ -108,33 +130,44 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
 
 
 class MLP(nn.Module):
-    def __init__(self, hidden: int, mlp_dim: int, device=None):
+    def __init__(self, hidden: int, mlp_dim: int, device=None, mesh=None):
         super().__init__()
-        self.fc1 = nn.Linear(hidden, mlp_dim, device=device)
-        self.fc2 = nn.Linear(mlp_dim, hidden, device=device)
+        self.tp = model_axis(mesh)
+        local = mlp_dim // (self.tp.model_size if self.tp else 1)
+        self.fc1 = nn.Linear(hidden, local, device=device)
+        self.fc2 = nn.Linear(local, hidden, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            h = quick_gelu(_linear(copy_to_model(x, self.tp), self.fc1))
+            return _row_sharded(h, self.fc2, self.tp)
         return _linear(quick_gelu(_linear(x, self.fc1)), self.fc2)
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with HF CLIP parameterization."""
+    """Multi-head self-attention with HF CLIP parameterization; under a
+    model axis, this rank's `heads` of `heads * mp` (module docstring)."""
 
     def __init__(self, hidden: int, heads: int, device=None, fused: bool = False,
-                 causal: bool = False):
+                 causal: bool = False, mesh=None):
         super().__init__()
-        self.heads = heads
+        self.tp = model_axis(mesh)
+        mp = self.tp.model_size if self.tp else 1
+        self.heads = heads // mp
         self.fused = fused
         self.causal = causal
-        self.q_proj = nn.Linear(hidden, hidden, device=device)
-        self.k_proj = nn.Linear(hidden, hidden, device=device)
-        self.v_proj = nn.Linear(hidden, hidden, device=device)
-        self.out_proj = nn.Linear(hidden, hidden, device=device)
+        local = hidden // mp
+        self.q_proj = nn.Linear(hidden, local, device=device)
+        self.k_proj = nn.Linear(hidden, local, device=device)
+        self.v_proj = nn.Linear(hidden, local, device=device)
+        self.out_proj = nn.Linear(local, hidden, device=device)
 
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, S, D]; padding_mask [B, S] (1 = valid key); segment_ids
         [B, S] int (packed captions: attention within a segment)."""
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
         if self.fused:
             qkv = F.linear(
                 x,
@@ -143,22 +176,28 @@ class Attention(nn.Module):
             )
             out = vit_attention.self_attention_qkv(qkv, self.heads, padding_mask,
                                                    self.causal, segment_ids)
-            return _linear(out, self.out_proj)
-
-        out = plain_attention(_linear(x, self.q_proj), _linear(x, self.k_proj),
-                              _linear(x, self.v_proj), self.heads, self.causal,
-                              padding_mask, segment_ids)
+        else:
+            out = plain_attention(_linear(x, self.q_proj), _linear(x, self.k_proj),
+                                  _linear(x, self.v_proj), self.heads, self.causal,
+                                  padding_mask, segment_ids)
+        if self.tp is not None:
+            return _row_sharded(out, self.out_proj, self.tp)
         return _linear(out, self.out_proj)
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, hidden: int, heads: int, mlp_dim: int, eps: float, device=None,
                  fused: bool = False, causal: bool = False, fused_frozen_mlp: bool = False,
-                 fused_trainable_mlp: bool = False, fused_trainable_attn_block: bool = False):
+                 fused_trainable_mlp: bool = False, fused_trainable_attn_block: bool = False,
+                 mesh=None):
         super().__init__()
-        self.self_attn = Attention(hidden, heads, device, fused, causal)
+        if model_axis(mesh) is not None and (fused_frozen_mlp or fused_trainable_mlp
+                                      or fused_trainable_attn_block):
+            raise ValueError("the whole-block kernels (K6, K8, K9) need whole weights: under "
+                             "tensor parallelism the layer runs its sharded composition")
+        self.self_attn = Attention(hidden, heads, device, fused, causal, mesh)
         self.layer_norm1 = nn.LayerNorm(hidden, eps=eps, device=device)
-        self.mlp = MLP(hidden, mlp_dim, device)
+        self.mlp = MLP(hidden, mlp_dim, device, mesh)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=eps, device=device)
         self.fused_frozen_mlp = fused_frozen_mlp
         self.fused_trainable_mlp = fused_trainable_mlp
@@ -229,12 +268,12 @@ class Encoder(nn.Module):
     def __init__(self, num_layers: int, hidden: int, heads: int, mlp_dim: int,
                  eps: float, device=None, fused: bool = False, causal: bool = False,
                  fused_frozen_mlp: bool = False, fused_trainable_mlp: bool = False,
-                 fused_trainable_attn_block: bool = False, remat: bool = False):
+                 fused_trainable_attn_block: bool = False, remat: bool = False, mesh=None):
         super().__init__()
         self.remat = remat
         self.layers = nn.ModuleList(
             EncoderLayer(hidden, heads, mlp_dim, eps, device, fused, causal, fused_frozen_mlp,
-                         fused_trainable_mlp, fused_trainable_attn_block)
+                         fused_trainable_mlp, fused_trainable_attn_block, mesh)
             for _ in range(num_layers)
         )
 
@@ -261,7 +300,7 @@ class CLIPTextEmbeddings(nn.Module):
 class CLIPTextEncoder(nn.Module):
     def __init__(self, cfg: CLIPTextConfig, dtype: torch.dtype = torch.float32, device=None,
                  fused_attention: bool = False, fused_trainable_mlp: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -270,7 +309,7 @@ class CLIPTextEncoder(nn.Module):
         self.encoder = Encoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                                cfg.mlp_dim, cfg.layer_norm_eps, device,
                                fused=fused_attention, causal=True,
-                               fused_trainable_mlp=fused_trainable_mlp, remat=remat)
+                               fused_trainable_mlp=fused_trainable_mlp, remat=remat, mesh=mesh)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                              device=device)
 
@@ -331,7 +370,7 @@ class CLIPVisionEncoder(nn.Module):
 
     def __init__(self, cfg: CLIPVisionConfig, device=None, dtype: torch.dtype = torch.float32,
                  fused_attention: bool = False, fused_frozen_mlp: bool = False,
-                 fused_trainable_attn_block: bool = False, remat: bool = False):
+                 fused_trainable_attn_block: bool = False, remat: bool = False, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -341,7 +380,7 @@ class CLIPVisionEncoder(nn.Module):
                                cfg.mlp_dim, cfg.layer_norm_eps, device,
                                fused=fused_attention, fused_frozen_mlp=fused_frozen_mlp,
                                fused_trainable_attn_block=fused_trainable_attn_block,
-                               remat=remat)
+                               remat=remat, mesh=mesh)
         self.post_layernorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                            device=device)
 
@@ -361,20 +400,24 @@ class CLIPModule(nn.Module):
     """Dual-encoder CLIP with projection heads and a logit scale.
 
     Build with `device="meta"` and `load_state_dict(sd, assign=True)` to
-    take a state dict without a throw-away init."""
+    take a state dict without a throw-away init; under a `mesh` with a
+    model axis, `parallel.tp.shard_clip_params`'s."""
 
     def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32, device=None,
                  fused_attention: bool = False, fused_frozen_mlp: bool = False,
                  fused_trainable_text_mlp: bool = False,
-                 fused_trainable_attn_block: bool = False, remat: bool = False):
+                 fused_trainable_attn_block: bool = False, remat: bool = False, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.mesh = model_axis(mesh)
+        if self.mesh is not None:
+            clip_divisibility_check(cfg, self.mesh)
         self.text_model = CLIPTextEncoder(cfg.text, dtype, device, fused_attention,
-                                          fused_trainable_text_mlp, remat)
+                                          fused_trainable_text_mlp, remat, self.mesh)
         self.vision_model = CLIPVisionEncoder(cfg.vision, device, dtype, fused_attention,
                                               fused_frozen_mlp, fused_trainable_attn_block,
-                                              remat)
+                                              remat, self.mesh)
         self.text_projection = nn.Linear(cfg.text.hidden_size, cfg.projection_dim,
                                          bias=False, device=device)
         self.visual_projection = nn.Linear(cfg.vision.hidden_size, cfg.projection_dim,
@@ -426,7 +469,7 @@ class CLIPModule(nn.Module):
         """The image tower's weights in the block kernels' layouts and the
         compute dtype, on the parameters' device. Pack once and pass the
         result to `get_image_features` when calling it repeatedly."""
-        return vit_block.pack_vision_weights(self.cfg, self.state_dict(), self.dtype)
+        return vit_block.pack_vision_weights(self.cfg, self.state_dict(), self.dtype, self.mesh)
 
     def get_image_features(self, pixel_values: torch.Tensor,
                            weights: Optional[dict] = None) -> torch.Tensor:

@@ -6,8 +6,11 @@ embeddings and the budgeted patch encode (counterpart of
 A trainer's checkpoint is its `checkpoint_state()` (plain tensors,
 numbers and strings; `train.checkpoint`), restored by
 `load_checkpoint_state`. Under a process group (`parallel.mesh`) every
-rank holds the same parameters: only the primary writes checkpoints, and
-every rank reads them on resume. The budgeted patch encode reads the
+rank of a model group holds the same parameters: only the primary (global
+rank 0) writes checkpoints, and every rank reads them on resume. Under
+tensor parallelism a trainer whose state is sharded
+(`_state_needs_every_rank`) gathers it on every rank before the primary
+writes it: one checkpoint format whatever the model axis. The budgeted patch encode reads the
 rank's own box mask, so its compaction budget is per rank (JAX's per-shard
 budget).
 """
@@ -150,6 +153,11 @@ class BaseTrainer:
     def _num_epochs(self) -> int:
         raise NotImplementedError
 
+    def _state_needs_every_rank(self) -> bool:
+        """True when `checkpoint_state()` is collective (its tensors are
+        gathered over the model group): every rank must call it."""
+        return False
+
     def _on_epoch_start(self, epoch: int) -> None:
         pass
 
@@ -205,11 +213,24 @@ class BaseTrainer:
         checkpoint and re-raises. With `preemption` a SIGTERM stops at the
         next step boundary, saves a tagged `preempt` checkpoint and raises
         `Preempted`; a failure after the signal was seen (a process-group
-        SIGTERM kills the pipeline's workers first) is that preemption."""
+        SIGTERM kills the pipeline's workers first) is that preemption.
+        A sharded state is gathered on every rank for the epoch and the
+        preempt checkpoints (every rank reaches them together); an
+        interrupt or an error on one rank cannot gather it and saves
+        nothing."""
         from dclip_tpu_torch.train.preemption import Preempted
 
+        every_rank = checkpoints is not None and self._state_needs_every_rank()
         if not self.is_primary:
             checkpoints = None
+
+        def state(lockstep: bool = True):
+            if not lockstep and every_rank:
+                print("no checkpoint: the tensor-parallel state cannot be gathered from "
+                      "one rank's failure")
+                return None
+            return self.checkpoint_state() if checkpoints is not None or every_rank else None
+
         history: Dict[str, list] = {"train_loss": [], "val_loss": []}
         try:
             for epoch in range(start_epoch, self._num_epochs()):
@@ -224,18 +245,21 @@ class BaseTrainer:
                     val_loss = train_loss
                 history["val_loss"].append(val_loss)
                 print(f"Epoch {epoch}: train_loss={train_loss:.4f} val_loss={val_loss:.4f}")
+                saved = state()
                 if checkpoints is not None:
-                    checkpoints.save(self.checkpoint_state(), step=self.step, epoch=epoch,
+                    checkpoints.save(saved, step=self.step, epoch=epoch,
                                      metrics={"train_loss": train_loss, "val_loss": val_loss})
         except KeyboardInterrupt:
-            if checkpoints is not None:
-                checkpoints.save_interrupt(self.checkpoint_state(), self.step, "interrupt")
+            saved = state(lockstep=False)
+            if checkpoints is not None and saved is not None:
+                checkpoints.save_interrupt(saved, self.step, "interrupt")
             raise
         except Exception as e:
             preempted = isinstance(e, Preempted) or (
                 preemption is not None and preemption.requested)
-            if checkpoints is not None:
-                checkpoints.save_interrupt(self.checkpoint_state(), self.step,
+            saved = state(lockstep=isinstance(e, Preempted))
+            if checkpoints is not None and saved is not None:
+                checkpoints.save_interrupt(saved, self.step,
                                            "preempt" if preempted else "error")
             if preempted and not isinstance(e, Preempted):
                 raise Preempted("preemption signal seen; pipeline failed before the next "

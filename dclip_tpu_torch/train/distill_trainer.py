@@ -63,8 +63,20 @@ update to parameters broadcast from rank 0 at construction.
 `fit(preemption=guard)` stops at a step boundary on SIGTERM
 (`train.preemption`).
 
-What waits, raising NotImplementedError that names its ROADMAP item:
-tensor parallelism, a mesh with mp > 1 (Queue 1 item 13).
+Tensor parallelism (`distill_trainer.py:246-259, 542-597, 1020-1040`): a
+mesh with a model axis (`parallel.tp`) holds the student's and the teacher
+CLIP's encoder layers as this rank's slices (broadcast from global rank 0,
+then sharded; head counts and MLP widths must divide). The student's
+layers run the sharded composition with the attention core on K3 / K4 /
+K5 at `heads / mp` heads; the whole-block kernels K6, K8 and K9 need whole
+weights and step aside, as JAX demotes its in-module kernels. The region
+encode runs the teacher ViT's slices through `vit_block.encoder_forward_tp`
+(LayerNorm, GEMM and K1's core at shard width); K10 and the aggregation
+are replicated; K11 runs over the batch gathered on the data group,
+identically on every model rank. AdamW's moments are shard-shaped, the
+clip's norm spans the model group, and gradients are summed over the data
+group only. A checkpoint holds the gathered whole tensors, so it restores
+at any model-parallel size.
 """
 from __future__ import annotations
 
@@ -90,6 +102,12 @@ from dclip_tpu_torch.models.teacher import (
 from dclip_tpu_torch.ops.losses import distillation_loss, distillation_loss_global
 from dclip_tpu_torch.ops.packing import pack_captions_sharded
 from dclip_tpu_torch.parallel.mesh import broadcast_, gather_cat, gather_rows, make_mesh
+from dclip_tpu_torch.parallel.tp import (
+    gather_clip_params,
+    model_axis,
+    param_spec,
+    shard_clip_params,
+)
 from dclip_tpu_torch.train.base import BaseTrainer, budgeted_patch_encode, fingerprint_objects
 from dclip_tpu_torch.train.device_cache import DeviceTargetCache, resolve_device_cache
 from dclip_tpu_torch.train.optim import (
@@ -282,6 +300,7 @@ class DistillTrainer(BaseTrainer):
             )
         self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
         self._dp = self.mesh.distributed or bool(dp_equivalent)
+        self._tp = model_axis(self.mesh)
         self.device = resolve_device(device)
         cfg = self.cfg = resolve_fast_paths(cfg, self.device)
         self._student_dtype = resolve_dtype(cfg.compute_dtype, self.device)
@@ -290,6 +309,11 @@ class DistillTrainer(BaseTrainer):
                 and self._student_dtype != torch.bfloat16:
             raise ValueError("the CUDA kernels compute in bfloat16: use compute_dtype "
                              "'bfloat16' (or 'auto'), or use_pallas=False")
+        if self._use_kernels and self._tp is not None:
+            print("whole-block kernels (K6 frozen MLP, K8, K9) demoted to the sharded "
+                  "composition: tensor-parallel mesh (mp>1; weights are TP-sharded); attention "
+                  "stays on K3 / K4 / K5 at heads / mp, the region encode on LayerNorm, GEMM "
+                  "and K1's core at shard width")
         self._unfrozen_extra: tuple = ()
         self._trainable_mask = self._student_mask(student_state_dict.keys())
         self.student = self._make_student(student_state_dict)
@@ -334,13 +358,22 @@ class DistillTrainer(BaseTrainer):
         )
 
     def _on_device(self, state_dict) -> Dict[str, torch.Tensor]:
-        """f32 copies on the device; under a process group, rank 0's."""
+        """f32 copies on the device; under a process group, global rank 0's."""
         out = {k: v.detach().to(self.device, torch.float32, copy=True)
                for k, v in state_dict.items()}
         broadcast_(out.values(), self.mesh)
         return out
 
-    def _make_student(self, state_dict) -> CLIPModule:
+    def _placed(self, state_dict) -> Dict[str, torch.Tensor]:
+        """Whole CLIP tensors -> this rank's: rank 0's, then its slices
+        under tensor parallelism (JAX's `_put_replicated`)."""
+        out = self._on_device(state_dict)
+        return out if self._tp is None else shard_clip_params(out, self._tp)
+
+    def _state_needs_every_rank(self) -> bool:
+        return self._tp is not None
+
+    def _make_student(self, state_dict, placed: bool = False) -> CLIPModule:
         """The student for the current unfreeze stage, on the device: f32
         parameters with requires_grad from the mask. With the kernels on
         (`distill_trainer.py:468-516`), attention is fused in both towers,
@@ -350,15 +383,21 @@ class DistillTrainer(BaseTrainer):
         `fused_attn_block`; both towers recompute their layers in the
         backward with `cfg.remat`. There are no VMEM gates (`mlp_frozen_fit`,
         `mlp_trainable_fit`, `attn_block_fit` on the TPU): the kernels tile,
-        so every width runs on them, ViT-L/14's included."""
+        so every width runs on them, ViT-L/14's included. Under tensor
+        parallelism the whole-block kernels step aside (module docstring).
+        `placed`: the state dict is this rank's already (the unfreeze
+        rebuild: nothing is broadcast, nothing densified)."""
         kernels = self._use_kernels
-        fused_frozen = kernels and self._vision_mlp_frozen()
+        blocks = kernels and self._tp is None
+        fused_frozen = blocks and self._vision_mlp_frozen()
         model = CLIPModule(self.student_config, dtype=self._student_dtype, device="meta",
                            fused_attention=kernels, fused_frozen_mlp=fused_frozen,
-                           fused_trainable_text_mlp=kernels and bool(self.cfg.fused_text_mlp),
-                           fused_trainable_attn_block=kernels and bool(self.cfg.fused_attn_block),
-                           remat=bool(self.cfg.remat))
-        model.load_state_dict(self._on_device(state_dict), strict=True, assign=True)
+                           fused_trainable_text_mlp=blocks and bool(self.cfg.fused_text_mlp),
+                           fused_trainable_attn_block=blocks and bool(self.cfg.fused_attn_block),
+                           remat=bool(self.cfg.remat), mesh=self._tp)
+        sd = ({k: v.detach().to(self.device, torch.float32, copy=True)
+               for k, v in state_dict.items()} if placed else self._placed(state_dict))
+        model.load_state_dict(sd, strict=True, assign=True)
         for name, p in model.named_parameters():
             p.requires_grad_(self._trainable_mask[name])
         if fused_frozen:
@@ -370,10 +409,13 @@ class DistillTrainer(BaseTrainer):
         fused attention with the kernels on) and the meta-teacher module.
         With the kernels on, the teacher ViT's weights are packed once for
         the block kernels (`_teacher_image_features`, the region encode) and
-        the cross-attention weights once for K10 (`_xattn`)."""
-        clip_sd = self._on_device(clip_state_dict)
+        the cross-attention weights once for K10 (`_xattn`). Under tensor
+        parallelism the CLIP holds this rank's slices; the meta-teacher is
+        replicated."""
+        clip_sd = self._placed(clip_state_dict)
         self.teacher_clip = CLIPModule(self.teacher_clip_config, dtype=self._student_dtype,
-                                       device="meta", fused_attention=self._use_kernels)
+                                       device="meta", fused_attention=self._use_kernels,
+                                       mesh=self._tp)
         self.teacher_clip.load_state_dict(clip_sd, strict=True, assign=True)
         self.teacher = PatchTextAggregation(self.cfg.teacher, device="meta")
         teacher_sd = self._on_device(teacher_state_dict)
@@ -383,7 +425,7 @@ class DistillTrainer(BaseTrainer):
         self._teacher_image_features = self._xattn = None
         if self._use_kernels:
             packed = vit_block.pack_vision_weights(self.teacher_clip_config, clip_sd,
-                                                   self._student_dtype)
+                                                   self._student_dtype, self._tp)
             cfg = self.teacher_clip_config
             self._teacher_image_features = (
                 lambda px: vit_block.fused_image_features(cfg, packed, px))
@@ -392,11 +434,14 @@ class DistillTrainer(BaseTrainer):
     def _build_optimizer(self) -> None:
         n_train, n_total = count_trainable(self._trainable_mask)
         print(f"Student trainable leaves: {n_train}/{n_total}")
+        names = self._trainable_names()
+        params = dict(self.student.named_parameters())
         self.optimizer = make_optimizer(
-            [p for n, p in self.student.named_parameters() if self._trainable_mask[n]],
+            [params[n] for n in names],
             self.cfg.learning_rate, kind="adamw", warmup_steps=self.cfg.warmup_steps,
             grad_clip=self.cfg.gradient_clip_val,
-            accumulate_steps=self.cfg.accumulate_grad_batches)
+            accumulate_steps=self.cfg.accumulate_grad_batches, mesh=self._tp,
+            sharded=[param_spec(n) is not None for n in names])
         self._train_step = make_train_step(self._student_loss, self.student, self.optimizer,
                                            self.mesh)
 
@@ -609,7 +654,7 @@ class DistillTrainer(BaseTrainer):
             return
         self._unfrozen_extra = new
         self._trainable_mask = self._student_mask(self._trainable_mask.keys())
-        self.student = self._make_student(self.student.state_dict())
+        self.student = self._make_student(self.student.state_dict(), placed=True)
         self._build_optimizer()
 
     # -- BaseTrainer hooks ----------------------------------------------------
@@ -637,12 +682,31 @@ class DistillTrainer(BaseTrainer):
     def checkpoint_state(self) -> dict:
         """Parameters, the trainable names and the AdamW state in their order
         (moments, accumulator, counters), the step and the unfreeze stage,
-        on the CPU."""
+        on the CPU; under tensor parallelism the whole tensors, gathered
+        over the model group (every rank of it must call)."""
+        params = {n: p.detach() for n, p in self.student.named_parameters()}
+        optimizer = self.optimizer.state_dict()
+        if self._tp is not None:
+            params = gather_clip_params(params, self._tp)
+            optimizer = self._optimizer_tensors(optimizer, self._gathered)
         return {"format": CHECKPOINT_FORMAT, "step": self.step,
                 "unfrozen": list(self._unfrozen_extra),
-                "params": {n: p.detach().cpu().clone()
-                           for n, p in self.student.named_parameters()},
-                "trainable": self._trainable_names(), "optimizer": self.optimizer.state_dict()}
+                "params": {n: p.cpu().clone() for n, p in params.items()},
+                "trainable": self._trainable_names(), "optimizer": optimizer}
+
+    def _gathered(self, named):
+        moved = {n: t.to(self.device) for n, t in named.items()}
+        return {n: t.cpu() for n, t in gather_clip_params(moved, self._tp).items()}
+
+    def _optimizer_tensors(self, state: dict, fn) -> dict:
+        """`state` with fn({name: tensor}) applied to the moments and the
+        accumulator, named by the trainable parameters."""
+        names, out = self._trainable_names(), dict(state)
+        for key in ("mu", "nu", "acc"):
+            if state[key] is not None:
+                done = fn(dict(zip(names, state[key])))
+                out[key] = [done[n] for n in names]
+        return out
 
     def load_checkpoint_state(self, state) -> None:
         """Restore `checkpoint_state()` into this trainer, whose unfreeze
@@ -656,7 +720,11 @@ class DistillTrainer(BaseTrainer):
         self._build_optimizer()
         if state["trainable"] != self._trainable_names():
             raise ValueError("checkpoint's trainable parameters differ from the trainer's")
-        self.optimizer.load_state_dict(state["optimizer"])
+        optimizer = state["optimizer"]
+        if self._tp is not None:  # JAX's `_place_state`: moments sharded like the params
+            optimizer = self._optimizer_tensors(
+                optimizer, lambda named: shard_clip_params(named, self._tp))
+        self.optimizer.load_state_dict(optimizer)
         self.step = int(state["step"])
 
     def _trainable_names(self):

@@ -23,6 +23,12 @@ The JAX optimizer is
   (`requires_grad=False`, the torch form of optim.py:149-196's
   frozen-leaf DCE) are never touched.
 
+Under tensor parallelism (`mesh` with a model axis, `sharded` naming the
+parameters that are this rank's slices, `parallel.tp`) the moments and the
+accumulator are shard-shaped like their parameters (JAX's 1/mp optimizer
+memory), and the global norm sums the squares of the sharded gradients
+over the model group and counts each replicated one once.
+
 Every operation stays on the device: no host sync per step.
 """
 from __future__ import annotations
@@ -83,8 +89,13 @@ class MaskedAdamW:
     def __init__(self, params: Sequence[torch.nn.Parameter], learning_rate: float,
                  warmup_steps: int = 0, weight_decay: float = 0.01,
                  grad_clip: Optional[float] = None, accumulate_steps: int = 1,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, mesh=None,
+                 sharded: Optional[Sequence[bool]] = None):
         self.params = list(params)
+        from dclip_tpu_torch.parallel.tp import model_axis
+
+        self.mesh = model_axis(mesh)
+        self.sharded = list(sharded) if sharded is not None else [False] * len(self.params)
         self.schedule = linear_warmup_schedule(learning_rate, warmup_steps)
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
         self.accumulate_steps = max(int(accumulate_steps), 1)
@@ -114,7 +125,7 @@ class MaskedAdamW:
             for a in self.acc:
                 a.zero_()
         if self.grad_clip is not None and self.grad_clip > 0:
-            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            norm = self._global_norm(grads)
             keep = norm < self.grad_clip
             grads = [torch.where(keep, g, (g / norm) * self.grad_clip) for g in grads]
         lr = self.schedule(self.count)
@@ -127,6 +138,18 @@ class MaskedAdamW:
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + self.weight_decay * p
             p.add_(update * -lr)
         return True
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        if self.mesh is None:
+            return torch.sqrt(sum(g.float().square().sum() for g in grads))
+        from dclip_tpu_torch.parallel.tp import all_reduce_model_
+
+        squares = [g.float().square().sum() for g in grads]
+        zero = torch.zeros((), device=self.params[0].device)
+        shards = all_reduce_model_(sum((q for q, s in zip(squares, self.sharded) if s), zero),
+                                   self.mesh)
+        return torch.sqrt(shards + sum((q for q, s in zip(squares, self.sharded) if not s),
+                                       zero))
 
     def state_dict(self) -> dict:
         """The moments, the accumulator and both counters as CPU tensors and
@@ -154,22 +177,26 @@ class MaskedAdamW:
 def make_optimizer(params: Sequence[torch.nn.Parameter], learning_rate: float, *,
                    kind: str = "adamw", warmup_steps: int = 0,
                    grad_clip: Optional[float] = None, accumulate_steps: int = 1,
-                   weight_decay: float = 0.01) -> MaskedAdamW:
+                   weight_decay: float = 0.01, mesh=None,
+                   sharded: Optional[Sequence[bool]] = None) -> MaskedAdamW:
     """Masked (Adam|AdamW) with optional warmup, clipping, accumulation,
-    over `params` (the trainable ones)."""
+    over `params` (the trainable ones; `sharded`: which are tensor-parallel
+    slices under `mesh`)."""
     if kind not in ("adamw", "adam"):
         raise ValueError(f"unknown optimizer kind {kind!r}")
     return MaskedAdamW(params, learning_rate, warmup_steps,
-                       weight_decay if kind == "adamw" else 0.0, grad_clip, accumulate_steps)
+                       weight_decay if kind == "adamw" else 0.0, grad_clip, accumulate_steps,
+                       mesh=mesh, sharded=sharded)
 
 
 def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
                     model: torch.nn.Module, optimizer: MaskedAdamW, mesh=None):
     """(*args) -> metrics: clear the gradients, run loss_fn(*args) ->
     (loss, metrics), backward, with a process group the sum of the
-    optimizer's gradients over the ranks (`parallel.mesh.all_reduce_grads`:
-    each rank differentiated the global loss with respect to its own rows),
-    one optimizer step. The gradients stay on the parameters until the next
+    optimizer's gradients over the data group (`parallel.mesh.all_reduce_grads`:
+    each rank differentiated the global loss with respect to its own rows;
+    the model ranks' gradients of replicated parameters are already equal,
+    `parallel.tp`), one optimizer step. The gradients stay on the parameters until the next
     call; metrics are detached device scalars."""
     from dclip_tpu_torch.parallel.mesh import all_reduce_grads
 

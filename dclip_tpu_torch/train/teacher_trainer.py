@@ -38,8 +38,12 @@ all-reduce, and every rank applies the same Adam update to parameters
 broadcast from rank 0. `fit(preemption=guard)` stops at a step boundary on
 SIGTERM (`train.preemption`).
 
-What waits, raising NotImplementedError that names its ROADMAP item:
-tensor parallelism, a mesh with mp > 1 (Queue 1 item 13).
+Tensor parallelism (`teacher_trainer.py:212-225`): a mesh with a model axis
+(`parallel.tp`) holds the frozen CLIP's encoder layers as this rank's
+slices (its text tower on K3 at `heads / mp`, its ViT on LayerNorm, GEMM
+and K1's core at shard width, `vit_block.encoder_forward_tp`); the
+trainable cross-attention is replicated, so its gradients and checkpoints
+are those of a data-parallel run.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from dclip_tpu_torch.models.teacher import PatchTextAggregation, aggregate_atten
 from dclip_tpu_torch.models.weights import random_teacher_state_dict
 from dclip_tpu_torch.ops.losses import info_nce, info_nce_global
 from dclip_tpu_torch.parallel.mesh import broadcast_, make_mesh
+from dclip_tpu_torch.parallel.tp import clip_divisibility_check, model_axis, shard_clip_params
 from dclip_tpu_torch.train.base import BaseTrainer, budgeted_patch_encode, fingerprint_objects
 from dclip_tpu_torch.train.device_cache import DeviceTargetCache, resolve_device_cache
 from dclip_tpu_torch.train.optim import (
@@ -108,6 +113,9 @@ class TeacherTrainer(BaseTrainer):
         rank 0's under a process group."""
         self.clip_config = clip_config or CLIPConfig.from_name(cfg.clip_model)
         self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
+        tp = model_axis(self.mesh)
+        if tp is not None:  # before any tensor is sharded
+            clip_divisibility_check(self.clip_config, tp)
         self.device = resolve_device(device)
         cfg = self.cfg = resolve_fast_paths(cfg, self.device)
         self._dtype = resolve_dtype(cfg.compute_dtype, self.device)
@@ -118,14 +126,16 @@ class TeacherTrainer(BaseTrainer):
         clip_sd = {k: v.detach().to(self.device, torch.float32, copy=True)
                    for k, v in clip_state_dict.items()}
         broadcast_(clip_sd.values(), self.mesh)
+        if tp is not None:
+            clip_sd = shard_clip_params(clip_sd, tp)
         self.clip_state_dict = clip_state_dict
         self.clip = CLIPModule(self.clip_config, dtype=self._dtype, device="meta",
-                               fused_attention=self._use_kernels)
+                               fused_attention=self._use_kernels, mesh=tp)
         self.clip.load_state_dict(clip_sd, strict=True, assign=True)
         self.clip.requires_grad_(False).eval()
         self._frozen_image_features = None
         if self._use_kernels:
-            packed = vit_block.pack_vision_weights(self.clip_config, clip_sd, self._dtype)
+            packed = vit_block.pack_vision_weights(self.clip_config, clip_sd, self._dtype, tp)
             ccfg = self.clip_config
             self._frozen_image_features = (
                 lambda px: vit_block.fused_image_features(ccfg, packed, px))

@@ -202,3 +202,75 @@ def test_chip_smoke_profile_phase_on_the_cpu(monkeypatch, capsys):
                  "profile: attn bwd kernel (K5)", "profile: loss tail (K11, [B,proj])",
                  "profile: phase 34"):
         assert line in printed, line
+
+
+def _smoke_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_tp_phase_on_the_cpu(monkeypatch, capsys):
+    """`chip_smoke.py` phase 35 at the tiny preset on the CPU: two
+    processes of the script in a gloo group, the model axis across them,
+    against the same distill and teacher steps in this process without a
+    group (features, losses, first-step gradients, parameters within the
+    phase's bounds; both ranks' losses equal); each rank holds the kernel
+    wrappers on the calls its warm-up steps made, which here run their
+    twins on both sides."""
+    import torch
+
+    from dclip_tpu_torch.models.weights import random_state_dict, random_teacher_state_dict
+
+    smoke = _smoke_module()
+    for name, value in (("TP_DEVICE", "cpu"), ("TP_PRESET", "tiny"), ("TP_B", 8),
+                        ("TP_TEACHER_B", 4), ("TP_STEPS", 2)):
+        monkeypatch.setattr(smoke, name, value)
+    cfg, tcfg = smoke._tp_configs("tiny")
+    launches, rows = smoke.tp_phase(torch, np, random_state_dict(cfg, 0),
+                                    random_teacher_state_dict(tcfg, 0), "cpu")
+    printed = capsys.readouterr().out
+    assert not any(launches.values())  # the twins run on the CPU
+    assert {"gemm_bias_act_residual[tp]", "self_attention_fwd_stats[tp]",
+            "self_attention_bwd_stats[tp]", "distill_loss_fwd[tp]"} <= set(rows), sorted(rows)
+    assert all(r["max_abs_err"] == 0.0 for r in rows.values())
+    for line in ("tp: rank 0 | rank 0: gloo group of 2 on cpu, mesh {'data': 1, 'model': 2}",
+                 "tp: rank 1 | rank 1: gloo group of 2 on cpu",
+                 "whole-block kernels (K6 frozen MLP, K8, K9) demoted",
+                 "tp: distill tiny B=8 mp=2 over gloo: ms per step",
+                 "tp: features before training: 4 tensors",
+                 "tp: distill gradients of the first step, sharded: ",
+                 "tp: distill gradients of the first step, replicated: ",
+                 "tp: teacher gradients of the first step, replicated: ",
+                 "tp: trainable parameters after 5 distill steps",
+                 "tp: teacher parameters after 3 steps", "tp: phase 35"):
+        assert line in printed, line
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("too_high", [0.0, 0.02], ids=["pr16_record", "rate_0.02_high"])
+def test_hold_profile_allows_the_records_rounding(tmp_path, too_high):
+    """Phase 34's rate check on a `cli.profile` record at the CPU's B=2:
+    the record of the run that failed under a busy CPU (2.68 images/s
+    against a full uncached step of 747.22 ms, where batch / phase is
+    2.6766) passes, since the rate and the phase are each rounded to two
+    decimals; a rate 0.02 too high still raises."""
+    smoke = _smoke_module()
+    (tmp_path / "host.pt.trace.json").write_text("{}")
+    phases = {"full uncached step": 747.22, "teacher patch encode": 421.07,
+              "teacher tail (text+xattn)": 40.4, "student step (cache-warm)": 283.91,
+              "residual": 1.84}
+    rec = {"preset": "tiny", "backend": "cpu", "phases_ms": phases,
+           "images_per_sec_uncached": round(2.68 + too_high, 2),
+           "images_per_sec_cache_warm": round(2 / (283.91 / 1e3), 2),
+           "mfu_uncached": None, "mfu_uncached_masked_true": None, "mfu_cache_warm": None,
+           "mfu_cache_warm_masked_true": None}
+    if too_high:
+        with pytest.raises(AssertionError, match="images_per_sec_uncached 2.7 != batch / phase"):
+            smoke._hold_profile(rec, 2, False, str(tmp_path), "cpu")
+    else:
+        smoke._hold_profile(rec, 2, False, str(tmp_path), "cpu")

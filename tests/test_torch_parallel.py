@@ -47,8 +47,8 @@ def test_one_process_mesh_matches_jax_rules(dp, mp):
         with pytest.raises(ValueError) as e:
             pmesh.make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp))
         assert str(e.value) == want[1]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pmesh.make_multislice_mesh()
+    # One process is one slice: the multi-slice mesh is make_mesh's.
+    assert pmesh.make_multislice_mesh() == pmesh.make_mesh()
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 5])
@@ -150,8 +150,9 @@ def loss_inputs(tmp_path_factory):
 def test_global_losses_match_jax_shard_map(loss_inputs, n):
     """Values on every rank equal JAX's; rank r's gradient is JAX's
     gradient of rank r's rows (its shard); the ranks' mesh outcomes follow
-    JAX's rules over n devices (one process per card: a data axis smaller
-    than the group raises, tensor parallelism names item 13)."""
+    JAX's rules over n devices (one process per card: a mesh smaller than
+    the group raises; a model axis of 2 takes n / 2 data ranks, the model
+    axis the fast one)."""
     tmp, arrays = loss_inputs
     meshes = [(-1, 1), (n, 1), (n + 1, 1), (1, 1), (-1, 2)]
     outs = torch_dp.run_ranks(tmp, f"losses_{n}", {
@@ -168,7 +169,7 @@ def test_global_losses_match_jax_shard_map(loss_inputs, n):
                           (out["info_nce_dsi"], nsi), (out["info_nce_dst"], nst)):
             np.testing.assert_allclose(got.numpy(), np.asarray(want)[rows], **GRAD_TOL)
         got = out["meshes"]
-        assert got[0] == ("ok", n, r) and got[1] == ("ok", n, r)
+        assert got[0] == ("ok", n, r, 1, 0) and got[1] == ("ok", n, r, 1, 0)
         assert got[2] == ("ValueError", _jax_outcome(n + 1, 1, n)[1])
         assert got[3][0] == "ValueError" and "every rank" in got[3][1]
-        assert got[4][0] == "NotImplementedError" and "item 13" in got[4][1]
+        assert got[4] == ("ok", n // 2, r // 2, 2, r % 2)

@@ -247,9 +247,9 @@ def test_waiting_options_raise(setup, change, error, match):
     """The K8 / K9 flags and the unfreeze schedule run now
     (tests/test_torch_train_fused.py, tests/test_torch_fit.py), and so
     does `remat` (below). A data axis runs over the ranks of a process
-    group (tests/test_torch_dp_train.py): without one, a mesh of two
-    devices raises JAX's ValueError for a one-device machine, before
-    tensor parallelism (item 13, tests/test_torch_parallel.py) is asked."""
+    group (tests/test_torch_dp_train.py), and so does a model axis
+    (tests/test_torch_tp_train.py): without one, a mesh of two devices on
+    either axis raises JAX's ValueError for a one-device machine."""
     if error is None:
         tr = _port_trainer(setup, **change)
         assert tr.student.vision_model.encoder.remat and tr.student.text_model.encoder.remat
@@ -327,7 +327,9 @@ def test_waiting_entry_points_raise(setup):
     preemption (tests/test_torch_preemption.py) and dp_equivalent
     (tests/test_torch_dp_train.py): a guard that saw no signal changes
     nothing, and `dp_equivalent` takes the data-parallel step on one rank.
-    Tensor parallelism still raises, naming item 13."""
+    `make_multislice_mesh` runs too (tests/test_torch_tp.py): without a
+    process group there is one slice, and it is `make_mesh`'s one-rank
+    mesh."""
     from dclip_tpu_torch.parallel.mesh import make_multislice_mesh
     from dclip_tpu_torch.train.preemption import PreemptionGuard
 
@@ -342,8 +344,11 @@ def test_waiting_entry_points_raise(setup):
                         cfg, device="cpu", dp_equivalent=True)
     assert eq._dp and not eq.mesh.distributed and eq.is_primary
     assert not _port_trainer(setup, mesh=MeshConfig(data_parallel=-1))._dp
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_multislice_mesh(MeshConfig())
+    from dclip_tpu_torch.parallel.mesh import make_mesh
+
+    for config in (MeshConfig(), MeshConfig(data_parallel=1, model_parallel=1)):
+        assert make_multislice_mesh(config) == make_mesh(config)
+        assert not make_multislice_mesh(config).distributed
 
 
 def test_fit_runs_the_epochs(setup):

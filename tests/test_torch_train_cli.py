@@ -162,11 +162,11 @@ def test_train_distill_reads_a_reference_pth(tmp_path):
 
 
 def test_the_waiting_flags_raise(workspace, monkeypatch):
-    """`--multihost` and `--mesh_data` run now (2 ranks: the test below);
-    what still raises: a mesh of more ranks than the one process has
-    (make_mesh's ValueError, as JAX's on one device), tensor parallelism
-    (`--mesh_model 2`, item 13), and `--multihost` with a partial env
-    triple (the JAX CLI's SystemExit). `--decode_backend native` and
+    """`--multihost`, `--mesh_data` and `--mesh_model` run now (2 ranks:
+    the test below and tests/test_torch_tp_train.py); what still raises: a
+    mesh of more ranks than the one process has, on the data axis or the
+    model axis (make_mesh's ValueError, as JAX's on one device), and
+    `--multihost` with a partial env triple (the JAX CLI's SystemExit). `--decode_backend native` and
     `--remat` run: both CLIs take the native route (the PNGs here through
     its per-item PIL route; JPEGs: tests/test_torch_cli_e2e.py), and the
     distillation trainer runs with remat."""
@@ -177,7 +177,7 @@ def test_the_waiting_flags_raise(workspace, monkeypatch):
             "--device", "cpu"]
     for flags, error, match in (
             (["--mesh_data", "2"], ValueError, "mesh 2x1 needs 2 devices, have 1"),
-            (["--mesh_model", "2"], NotImplementedError, "item 13")):
+            (["--mesh_model", "2"], ValueError, "mesh 0x2 needs 2 devices, have 1")):
         for cli in (train_teacher, train_distill):
             with pytest.raises(error, match=match):
                 cli.main(base + flags)

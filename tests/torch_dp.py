@@ -49,15 +49,24 @@ def wait_all(procs, timeout: float = 300) -> list:
 
 
 def run_ranks(tmp_path, name: str, spec: dict, n: int, timeout: float = 300) -> list:
-    """Run `spec` on n ranks; returns each rank's output dict."""
+    """Run `spec` on n ranks; returns each rank's output dict. A port that
+    another process took between `free_port` and rank 0's bind
+    (EADDRINUSE, with other tests spawning ranks beside this one) is
+    retried on a new port, up to three times."""
     spec = dict(spec, out=str(tmp_path / name))
     path = tmp_path / f"{name}.json"
     path.write_text(json.dumps(spec))
-    port = free_port()
-    procs = [subprocess.Popen([sys.executable, WORKER, str(path)], env=rank_env(port, n, r),
-                              cwd=str(tmp_path), stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for r in range(n)]
-    wait_all(procs, timeout)
+    for attempt in range(3):
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, WORKER, str(path)], env=rank_env(port, n, r),
+                                  cwd=str(tmp_path), stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for r in range(n)]
+        try:
+            wait_all(procs, timeout)
+            break
+        except AssertionError as e:
+            if "EADDRINUSE" not in str(e) or attempt == 2:
+                raise
     return [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in range(n)]
 
 

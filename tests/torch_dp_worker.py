@@ -1,13 +1,15 @@
 """One rank of a multi-process run of the port (tests/test_torch_dp_*.py,
-tests/test_torch_parallel.py, tests/test_torch_preemption.py).
+tests/test_torch_tp*.py, tests/test_torch_parallel.py,
+tests/test_torch_preemption.py).
 
     DCLIP_COORDINATOR=127.0.0.1:<port> DCLIP_NUM_PROCESSES=N DCLIP_PROCESS_ID=r \\
         python tests/torch_dp_worker.py <spec.json>
 
-The spec names a scenario and its inputs (files written by the test); the
-rank joins a gloo group through the port's `cli.common.init_multihost`,
-runs the scenario on its own rows and writes `<out>.rank<r>.pt` (a dict of
-tensors, numbers and strings). Imports torch and the port, never JAX.
+The spec names a scenario and its inputs (files written by the test) and
+optionally its mesh (`"mesh": [data_parallel, model_parallel]`); the rank
+joins a gloo group through the port's `cli.common.init_multihost`, runs the
+scenario on its own rows and writes `<out>.rank<r>.pt` (a dict of tensors,
+numbers and strings). Imports torch and the port, never JAX.
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ def load_batches(path):
 
 def mesh_outcomes(configs) -> list:
     """`make_mesh` over the group for each (data_parallel, model_parallel):
-    ("ok", size, rank) or (the exception's type name, its message)."""
+    ("ok", data size, data index, model size, model index) or (the
+    exception's type name, its message)."""
     from dclip_tpu_torch.core.config import MeshConfig
     from dclip_tpu_torch.parallel.mesh import make_mesh
 
@@ -60,7 +63,7 @@ def mesh_outcomes(configs) -> list:
     for dp, mp in configs:
         try:
             m = make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp))
-            out.append(("ok", m.size, m.rank))
+            out.append(("ok", m.size, m.rank, m.model_size, m.model_index))
         except (ValueError, NotImplementedError) as e:
             out.append((type(e).__name__, str(e)))
     return out
@@ -107,9 +110,12 @@ def _distill_trainer(spec, variant, mesh):
 
 def scenario_distill(spec, mesh):
     """Per variant: the steps' losses, the reduced gradients of the first
-    step, the trainable parameters after the last, every parameter's
-    digest."""
+    step and the clip's global norm of them, the trainable parameters after
+    the last, every parameter's digest; under tensor parallelism the
+    gradients and parameters are gathered whole, and `shard_grads` keeps
+    the rank's own."""
     from dclip_tpu_torch.parallel.mesh import shard_batch
+    from dclip_tpu_torch.parallel.tp import gather_clip_params
 
     batches = load_batches(spec["batches"])
     out = {}
@@ -121,10 +127,131 @@ def scenario_distill(spec, mesh):
             losses.append(float(m["loss"]))
             if grads is None:
                 grads = trainable_grads(tr.student, tr._trainable_mask)
+                norm = float(tr.optimizer._global_norm(tr.optimizer._grads()))
+        params = {n: p.detach().clone() for n, p in tr.student.named_parameters()}
         name = variant["name"]
-        out[name] = {"losses": losses, "grads": grads, "digest": params_digest(tr.student),
-                     "params": {n: p.detach().clone() for n, p in tr.student.named_parameters()
+        out[name] = {"losses": losses, "shard_grads": grads,
+                     "norm": norm,
+                     "grads": gather_clip_params(grads, mesh),
+                     "digest": params_digest(tr.student),
+                     "whole_digest": hashlib.md5(b"".join(
+                         t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+                         for t in gather_clip_params(params, mesh).values())).hexdigest(),
+                     "params": {n: p for n, p in gather_clip_params(params, mesh).items()
                                 if tr._trainable_mask[n]}}
+    return out
+
+
+def scenario_meshes(spec, mesh):
+    """`make_mesh`'s outcomes for the spec's (data_parallel, model_parallel)
+    pairs, `make_multislice_mesh`'s for its (model_parallel, k, mode)
+    triples (the slice of rank r is r // k or r % k), and its default's (a
+    slice per host) at model_parallel 2."""
+    from dclip_tpu_torch.core.config import MeshConfig
+    from dclip_tpu_torch.parallel.mesh import make_multislice_mesh
+
+    slices = []
+    for mp, k, mode in spec["multislice"]:
+        try:
+            m = make_multislice_mesh(
+                MeshConfig(model_parallel=mp),
+                slice_index_fn=lambda r, k=k, mode=mode: r // k if mode == "div" else r % k)
+            slices.append(("ok", m.size, m.rank, m.model_size, m.model_index))
+        except ValueError as e:
+            slices.append(("ValueError", str(e)))
+    node = make_multislice_mesh(MeshConfig(model_parallel=2))  # one host: one slice
+    return {"meshes": mesh_outcomes(spec["meshes"]), "multislice": slices,
+            "node_multislice": (node.size, node.rank, node.model_size, node.model_index)}
+
+
+def _state_diffs(a, b) -> dict:
+    """The largest |a - b| of two `checkpoint_state()`s' parameters and
+    AdamW moments, and whether everything else is equal."""
+    def worst(x, y):
+        return max(((x[k].float() - y[k].float()).abs().max().item() for k in x), default=0.0)
+
+    oa, ob = a["optimizer"], b["optimizer"]
+    same = (set(a["params"]) == set(b["params"]) and a["trainable"] == b["trainable"]
+            and a["step"] == b["step"] and oa["count"] == ob["count"]
+            and all(x.shape == y.shape for k in ("mu", "nu") for x, y in zip(oa[k], ob[k])))
+    return {"params": worst(a["params"], b["params"]), "same": same,
+            **{k: worst(dict(enumerate(oa[k])), dict(enumerate(ob[k]))) for k in ("mu", "nu")}}
+
+
+def scenario_tp_ckpt(spec, mesh):
+    """Checkpoints across model-parallel sizes: `fit` over the spec's mesh
+    writes the gathered state (global rank 0), which a trainer without a
+    group (mp = 1) restores; a state saved at mp = 1 restores on the mesh;
+    each then takes one more step on the same batch."""
+    from dclip_tpu_torch.parallel.mesh import local_mesh, shard_batch
+    from dclip_tpu_torch.train.checkpoint import CheckpointManager
+
+    batches = load_batches(spec["batches"])
+    variant = spec["variants"][0]
+    first, nxt = variant["steps"]
+    out = {}
+    tr = _distill_trainer(spec, variant, mesh)
+    ckpts = CheckpointManager(spec["ckpt_dir"], prefix="distill")
+    tr.fit(_Pipe([shard_batch(batches[first], mesh)]), checkpoints=ckpts)
+    state = tr.checkpoint_state()
+    if mesh.is_primary:
+        out["file"] = _state_diffs(ckpts.restore(), state)
+    one = _distill_trainer(spec, variant, local_mesh())
+    one.load_checkpoint_state(state)
+    out["to_one"] = _state_diffs(state, one.checkpoint_state())
+
+    one = _distill_trainer(spec, variant, local_mesh())
+    one.train_step_on_batch(batches[first])
+    saved = one.checkpoint_state()
+    tr = _distill_trainer(spec, variant, mesh)
+    tr.load_checkpoint_state(saved)
+    out["to_mesh"] = _state_diffs(saved, tr.checkpoint_state())
+    out["next_losses"] = [float(one.train_step_on_batch(batches[nxt])["loss"]),
+                          float(tr.train_step_on_batch(shard_batch(batches[nxt], mesh))["loss"])]
+    out["shard_mu"] = {n: tuple(t.shape) for n, t in zip(tr._trainable_names(), tr.optimizer.mu)}
+    return out
+
+
+def scenario_tp_forward(spec, mesh):
+    """Tensor-parallel CLIP on this rank's slices (`parallel.tp`): image and
+    text features of the rank's rows through the module (per-op and fused
+    attention) and the region encode's `vit_block` composition, the
+    gradient of sum(image features^2) over the rank's rows for every
+    parameter (the sharded ones gathered whole, summed over the data
+    group), and shard -> gather round trips."""
+    from dclip_tpu_torch.core.config import CLIPConfig
+    from dclip_tpu_torch.kernels import vit_block
+    from dclip_tpu_torch.models.clip import CLIPModule
+    from dclip_tpu_torch.parallel.mesh import all_reduce_grads, shard_batch
+    from dclip_tpu_torch.parallel.tp import gather_clip_params, shard_clip_params
+
+    cfg = CLIPConfig.tiny_test()
+    sd = torch.load(spec["clip"], weights_only=True)
+    with np.load(spec["inputs"]) as z:
+        local = shard_batch({k: z[k] for k in z.files}, mesh)
+    shard = shard_clip_params(sd, mesh)
+    out = {"round_trip": all(torch.equal(a, sd[n]) for n, a in
+                             gather_clip_params(shard, mesh).items()),
+           "shapes": {n: tuple(t.shape) for n, t in shard.items()}}
+    for fused in (False, True):
+        model = CLIPModule(cfg, device="meta", fused_attention=fused, mesh=mesh)
+        model.load_state_dict(shard, strict=True, assign=True)
+        with torch.no_grad():
+            out[f"img_{fused}"] = model.image_features(_t(local["pixels"]))
+            out[f"txt_{fused}"] = model.get_text_features(_t(local["ids"]), _t(local["mask"]))
+    packed = vit_block.pack_vision_weights(cfg, shard, torch.float32, mesh)
+    out["img_blocks"] = vit_block.fused_image_features(cfg, packed, _t(local["pixels"]))
+    out["img_blocks_whole"] = vit_block.fused_image_features(
+        cfg, vit_block.pack_vision_weights(cfg, sd, torch.float32, mesh), _t(local["pixels"]))
+    model = CLIPModule(cfg, device="meta", fused_attention=True, mesh=mesh)
+    model.load_state_dict({n: t.clone() for n, t in shard.items()}, strict=True, assign=True)
+    (model.image_features(_t(local["pixels"])) ** 2).sum().backward()
+    params = [p for _, p in model.named_parameters()]
+    all_reduce_grads(params, mesh)
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in model.named_parameters()}
+    out["shard_grads"] = grads
+    out["grads"] = gather_clip_params(grads, mesh)
     return out
 
 
@@ -250,21 +377,24 @@ def scenario_preempt(spec, mesh):
 
 SCENARIOS = {"losses": scenario_losses, "distill": scenario_distill,
              "teacher": scenario_teacher, "search": scenario_search,
-             "preempt": scenario_preempt}
+             "preempt": scenario_preempt, "tp_forward": scenario_tp_forward,
+             "meshes": scenario_meshes, "tp_ckpt": scenario_tp_ckpt}
 
 
 def main() -> int:
     with open(sys.argv[1]) as f:
         spec = json.load(f)
     from dclip_tpu_torch.cli.common import init_multihost
+    from dclip_tpu_torch.core.config import MeshConfig
     from dclip_tpu_torch.parallel.mesh import make_mesh
 
     torch.manual_seed(1234 + int(os.environ["DCLIP_PROCESS_ID"]))  # no rank may depend on it
     init_multihost("cpu", timeout=120)
     try:
-        mesh = make_mesh()
+        dp, mp = spec.get("mesh", (-1, 1))
+        mesh = make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp))
         out = SCENARIOS[spec["scenario"]](spec, mesh)
-        torch.save(out, f"{spec['out']}.rank{mesh.rank}.pt")
+        torch.save(out, f"{spec['out']}.rank{mesh.global_rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
     return 0
