@@ -231,7 +231,8 @@ Phases; each one passes or raises, and any failure exits non-zero:
    against the reference's and the f32 route's; at a threshold above 1
    every region on the projection branch (centred cosine >= 0.99). The
    precache, build_index and tune_gate CLIs
-   read images with PIL, which the card machine lacks: the CPU tests run
+   read images with PIL, which the card machine lacked when they were
+   ported: the CPU tests run
    them.
 
 30. Doctor: `cli.doctor.collect()` (versions, the card's name and power
@@ -297,7 +298,7 @@ Phases; each one passes or raises, and any failure exits non-zero:
    composite above 0, K4 / K5 / K6 / K11 launched, the table printed; (c)
    as (a) at `vit-l-14`, 2 steps (its launches add to the `[l14]` and
    `[d768]` rows). The phase's time is printed.
-35. Tensor parallelism (run last): `TP_RANKS` (2) processes of this script
+35. Tensor parallelism (run after phase 34): `TP_RANKS` (2) processes of this script
    (`--tp-rank`) on the one card in a gloo group of CUDA tensors (NCCL
    refuses two ranks on one GPU; gloo carries each collective through host
    memory), made by `cli.common.init_multihost(backend="gloo")` from the
@@ -323,6 +324,30 @@ Phases; each one passes or raises, and any failure exits non-zero:
    twin and library call there alone. Either rank failing fails the
    phase. Its launches (both ranks') are the launches of `[tp]` rows of
    the kernels line, which carry these checks and times.
+
+36. Serving over ranks (run after phase 35): the reference is the
+   one-process B/16 service through the serve CLI's `build_service`
+   (random weights from seed 0, bf16, buckets 2,4,16,64, index_dim 512)
+   on the main path: the CLI's `--selftest`, 37 texts and 37 images of
+   mixed sizes, an index of 100,000 seeded unit rows added after the
+   selftest's probe (100,001 rows: one row pads it to the ranks), 64 text
+   queries at k = 10. Then `SERVE_RANKS` (2) processes of this script
+   (`--serve-rank`) on the one card in a gloo group of CUDA tensors from
+   the env triple, each building the service through `build_service` over
+   the CLI's `serve_mesh`: rank 0 drives the same path through
+   `serve.fanout.lead` while rank 1 runs `follow`, then `--bench`'s lines
+   at concurrency 1 and 8 (p50 / p99 through gloo, host memory: no measure
+   of serving across cards) and the int8 service's selftest. Holds: the
+   rows bit-equal to the reference's (else within REL_TOL, the line says
+   which), the top-10 ids equal and scores within 1e-5, each rank's
+   launches exactly the expected counts (K1 / K2 a layer on its half of
+   each image bucket, K12 for each search its shard takes part in), and
+   each rank's K1 / K2 / K12 calls held against their twins at the kernel
+   phases' tolerances (rank 0 times them alone: the kernels line's
+   `[serve_dp]` rows, with both ranks' launches). Then a one-rank NCCL
+   group made by `serve_mesh` from the triple serves the same path
+   through `lead`, bit-equal to the reference. The phase's time is
+   printed.
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type and the bytes it
@@ -540,6 +565,24 @@ TP_B, TP_TEACHER_B, TP_STEPS, TP_TIMEOUT = 32, 32, 3, 900
 # 2.5e-3; gradients summed over the model ranks too, 1.0 and 1.8e-2; a
 # row-sharded bias added on every rank, a loss 1.8e-2.
 TP_DISTILL_LOSS_RTOL, TP_TEACHER_LOSS_ATOL, TP_GRAD_TOL = 1e-3, 2e-4, 2.0**-4
+# Phase 36, serving over ranks: SERVE_RANKS processes of this script on
+# SERVE_DEVICE in a gloo group, the data axis across them, serving
+# SERVE_PRESET from seeded random weights through the serve CLI's
+# `build_service` at phase 4's flags with SERVE_BUCKETS (every bucket even);
+# the main path's requests (SERVE_TEXTS texts, SERVE_IMAGES images,
+# SERVE_ROWS index rows after the selftest's probe, so the index holds
+# SERVE_ROWS + 1 rows and one row pads it to the ranks, SERVE_QUERIES text
+# queries at k = SERVE_K); rank 0's latencies at SERVE_CONCURRENCY; the
+# bound of a rank's run. The ranks' rows against one process's: bit-equal
+# is expected (a row's work does not depend on the others of its bucket);
+# failing that, within SERVE_ROW_TOL of unit-norm rows, the bound phase 3
+# holds each bf16 kernel to against its twin (phase 4 holds no padding
+# bound). (tests/test_torch_cli_e2e.py runs the phase on the CPU at the
+# tiny preset.)
+SERVE_DEVICE, SERVE_PRESET, SERVE_RANKS = "cuda", "vit-b-16", 2
+SERVE_BUCKETS, SERVE_INDEX_DIM = "2,4,16,64", 512
+SERVE_TEXTS, SERVE_IMAGES, SERVE_ROWS, SERVE_QUERIES, SERVE_K = 37, 37, 100_000, 64, 10
+SERVE_CONCURRENCY, SERVE_TIMEOUT, SERVE_ROW_TOL = (1, 8), 600, REL_TOL
 # The ViT-L/14 slice (phases 30-32): the reference's student, with the
 # teacher CLIP at the same preset and TeacherConfig(768, 8 heads, 8 boxes,
 # 77 tokens), so K10 runs at head_dim 96. Each configuration of phase 31
@@ -3027,7 +3070,8 @@ def _hold_topk(torch, name, got, queries, store, k, table=None):
 
     gs, gi = got
     ws, wi = tk.topk_streamed_reference(queries, store, k + 1)
-    torch.cuda.synchronize()
+    if gs.is_cuda:
+        torch.cuda.synchronize()
     k = min(k, store.shape[0])
     if gs.shape != (queries.shape[0], k) or gi.dtype != torch.int32:
         raise AssertionError(f"{name}: got {tuple(gs.shape)} {gi.dtype}")
@@ -4389,18 +4433,19 @@ def _signature(torch, x):
 
 class FirstCalls:
     """While active, records the arguments of the first call of each
-    signature of every wrapper of `_tp_wrappers()`, as {(counter,
-    signature): bound arguments}. The wrapper is replaced in every loaded
-    module of the port that binds it, so a caller that imported it by name
-    is seen too."""
+    signature of every wrapper of `wrappers` (default `_tp_wrappers()`), as
+    {(counter, signature): bound arguments}. The wrapper is replaced in
+    every loaded module of the port that binds it, so a caller that
+    imported it by name is seen too."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, wrappers=None):
         self.torch, self.calls, self._undo = torch, {}, []
+        self.wrappers = wrappers or _tp_wrappers()
 
     def __enter__(self):
         import inspect
 
-        for name, (mod, attr) in _tp_wrappers().items():
+        for name, (mod, attr) in self.wrappers.items():
             real = getattr(mod, attr)
             sig = inspect.signature(real)
 
@@ -4551,29 +4596,39 @@ def _tp_case(torch, name, a):
     return kernel, twin, each(REL_TOL), f32_ops, 8.0 * rows * d * d, None
 
 
-def tp_kernel_checks(torch, calls, card: str, timed: bool) -> dict:
+def _tp_work_case(torch, name, a):
+    """`_tp_case` with its operations as `work` arguments."""
+    kernel, twin, compare, f32_ops, bf16_ops, library = _tp_case(torch, name, a)
+    return kernel, twin, compare, {"f32_flops": f32_ops, "bf16_flops": bf16_ops}, library
+
+
+def tp_kernel_checks(torch, calls, card: str, timed: bool, suffix: str = "[tp]",
+                     case=_tp_work_case) -> dict:
     """Each recorded call (`FirstCalls.calls`) held against its twin; with
     `timed`, kernel and twin timed in turns and the library call alone, at
-    the bound of this call (its operations, the bytes of its inputs and
-    outputs). Returns the `[tp]` rows: {counter + "[tp]": kernels-line
+    the bound of this call (its operations, and the bytes of its inputs and
+    outputs unless the case names them). `case(torch, counter, arguments)`
+    gives (kernel, twin, compare, `work` arguments, library call or None).
+    Returns the rows `counter + suffix` ("[tp]"): {row: kernels-line
     entry}, each summing its calls' times and bounds (one call of each
     shape) and keeping the largest error."""
     names = sorted({name for name, _ in calls})
-    table = KernelTable([n + "[tp]" for n in names])
+    table = KernelTable([n + suffix for n in names])
     for (name, _), a in sorted(calls.items(), key=lambda kv: kv[0][0]):
-        kernel, twin, compare, f32_ops, bf16_ops, library = _tp_case(torch, name, a)
+        kernel, twin, compare, ops, library = case(torch, name, a)
         got = kernel()
         err = compare(got, twin())
-        table.error(name + "[tp]", err)
+        table.error(name + suffix, err)
         if timed:
-            bound = work(bf16_flops=bf16_ops, f32_flops=f32_ops,
-                         nbytes=_tensor_bytes(torch, a) + _tensor_bytes(torch, got))
+            ops = dict(ops)
+            ops.setdefault("nbytes", _tensor_bytes(torch, a) + _tensor_bytes(torch, got))
+            bound = work(**ops)
             ms, plain_ms = time_pair(torch, kernel, twin, 5)
             lib_ms = None if library is None else time_one(torch, library, 5)
             shapes = {k: tuple(v.shape) for k, v in a.items() if isinstance(v, torch.Tensor)}
-            print(f"time {name}[tp] {shapes}: kernel {ms} ms, plain {plain_ms} ms, bound "
+            print(f"time {name}{suffix} {shapes}: kernel {ms} ms, plain {plain_ms} ms, bound "
                   f"{max(bound)} ms, library {lib_ms} ms ({card})", flush=True)
-            table.timed(name + "[tp]", ms, plain_ms, bound, lib_ms)
+            table.timed(name + suffix, ms, plain_ms, bound, lib_ms)
         del got
     return {row: table.entry(row) for row in table.rows}
 
@@ -4910,6 +4965,365 @@ def tp_phase(torch, np, sd, tsd, card: str):
     return total, rows
 
 
+# -- serving over ranks: ranks of this script on one card over gloo ------------------
+
+
+def _serve_wrappers():
+    """{launch counter: (module, wrapper)} of the kernels phase 36 holds:
+    K1, K2 and K12."""
+    from dclip_tpu_torch.kernels import topk as tk
+    from dclip_tpu_torch.kernels import vit_block as vb
+
+    return {"attention_block": (vb, "attention_block_fused"),
+            "mlp_block": (vb, "mlp_block_fused"), "topk_streamed": (tk, "topk_streamed")}
+
+
+def _serve_case(torch, name, a):
+    """One recorded call `a` of K1, K2 or K12 on a rank of phase 36:
+    (kernel, twin, compare, `work` arguments, library call or None), at
+    the kernel phases' bounds and tolerances (`kernel_phase`,
+    `topk_kernel_phase`)."""
+    from dclip_tpu_torch.kernels import topk as tk
+    from dclip_tpu_torch.kernels import vit_block as vb
+
+    mod, attr = _serve_wrappers()[name]
+    real = getattr(mod, attr)
+
+    def kernel():
+        with torch.no_grad():
+            return real(**a)
+
+    if name == "topk_streamed":
+        q, store, k = a["queries"], a["store"], a["k"]
+        nq, d = q.shape
+        n = store.shape[0]
+        k = min(k, n)
+
+        def compare(got, want):
+            return _hold_topk(torch, f"serve_dp {nq}x{n}x{d} k={k}", got, q, store, k)
+        return (kernel, lambda: tk.topk_streamed_reference(q, store, k), compare,
+                {"tf32_flops": 3 * 2.0 * nq * n * d,
+                 "nbytes": 4.0 * (n * d + nq * d) + 8.0 * nq * k},
+                lambda: torch.topk(q @ store.T, k, dim=-1))
+    x, p = a["x"], a["p"]
+    b, s, d = x.shape
+    m = b * s
+
+    def compare(got, want):
+        return _bound_check(torch, f"{name}[serve_dp] B={b}", got, want, REL_TOL)
+    if name == "attention_block":
+        return (kernel, lambda: vb.attention_block_reference(**a), compare,
+                {"bf16_flops": 2.0 * m * d * 4 * d + 4.0 * b * s * s * d,
+                 "nbytes": 4.0 * m * d + 8.0 * d * d + 4.0 * 6 * d}, None)
+    mlp = p["fc1_w"].shape[1]
+    return (kernel, lambda: vb.mlp_block_reference(**a), compare,
+            {"bf16_flops": 4.0 * m * d * mlp,
+             "nbytes": 4.0 * m * d + 4.0 * d * mlp + 4.0 * (mlp + 3 * d)}, None)
+
+
+def _serve_args(cli_serve, quantize: str = "", mesh_data: int = 1):
+    """The serve CLI's flags of phase 36 (phase 4's, with SERVE_BUCKETS)."""
+    return cli_serve.parse_args([
+        "--model_preset", SERVE_PRESET, "--clip_weights", "random", "--seed", "0",
+        "--tokenizer_dir", "hash", "--buckets", SERVE_BUCKETS, "--index_dim",
+        str(SERVE_INDEX_DIM), "--device", SERVE_DEVICE, "--quantize", quantize,
+        "--mesh_data", str(mesh_data)])
+
+
+def _serve_requests(np, size: int):
+    """Phase 36's requests: SERVE_TEXTS texts, SERVE_IMAGES seeded uint8
+    images of mixed sizes (every 4th at the tower's, the rest resized on
+    the host), SERVE_QUERIES query texts."""
+    rng = np.random.RandomState(36)
+    texts = [f"photo {i}: " + " ".join(rng.choice(["a", "dog", "red", "car", "two", "cats",
+                                                   "on", "the", "grass", "street"], 2 + i % 9))
+             for i in range(SERVE_TEXTS)]
+    images = [rng.randint(0, 256, (size, size, 3) if i % 4 == 0 else
+                          (size // 2 + 11 * i, size + 5 * i, 3), np.uint8)
+              for i in range(SERVE_IMAGES)]
+    queries = [f"a query about object {i} in a room" for i in range(SERVE_QUERIES)]
+    return texts, images, queries
+
+
+def _serve_index(torch, dim: int):
+    """SERVE_ROWS seeded unit rows of `dim` made on SERVE_DEVICE, on the
+    host, and their ids."""
+    gen = torch.Generator(device=SERVE_DEVICE).manual_seed(36)
+    keys = torch.randn((SERVE_ROWS, dim), generator=gen, device=SERVE_DEVICE)
+    keys /= keys.norm(dim=-1, keepdim=True)
+    return keys.cpu().numpy(), [f"row{i}" for i in range(SERVE_ROWS)]
+
+
+def _serve_path(torch, np, cli_serve, front, args) -> dict:
+    """Phase 36's main path on `front` (a `ClipService` or its `Lead`): the
+    CLI's selftest (its probe is the index's first row), the encodes, the
+    index add, the text search."""
+    if cli_serve.selftest(front, args) != 0:
+        raise AssertionError("serve: the selftest failed")
+    texts, images, queries = _serve_requests(np, front.cfg.vision.image_size)
+    out = {"texts": front.encode_texts(texts), "images": front.encode_images(images)}
+    keys, ids = _serve_index(torch, front.cfg.projection_dim)
+    front.add_to_index(ids, keys)
+    out["hits"] = front.search_texts(queries, k=SERVE_K)
+    out["index_size"] = front.index_size
+    return out
+
+
+def _serve_expected(cfg, rank: int) -> dict:
+    """A rank's launches on phase 36's main path: two image batches (the
+    selftest's, bucket 2; the SERVE_IMAGES, one bucket) through K1 / K2 a
+    layer, on its half of each; K12 once for each search in which its
+    shard holds a row: the 64 queries on each rank, and the probe searches
+    of the bf16 and the int8 selftests (a one-row index) on rank 0."""
+    layers, batches = cfg.vision.num_layers, 2
+    out = {"layernorm": 2 * layers * batches, "gemm_bias_act_residual": 4 * layers * batches,
+           "attention": layers * batches, "attention_block": layers * batches,
+           "mlp_block": layers * batches, "encoder_forward": batches, "image_features": batches,
+           "topk_streamed": 1 + (2 if rank == 0 else 0)}
+    return {k: out.get(k, 0) for k in _all_launches()}
+
+
+def serve_rank_main(argv) -> int:
+    """One rank of phase 36 (`chip_smoke.py --serve-rank OUT_DIR CARD
+    CONSTANTS` under the DCLIP env triple; CONSTANTS, a JSON object, sets
+    the phase's SERVE_* constants as the parent has them): joins a gloo
+    group on SERVE_DEVICE, takes
+    the serve CLI's mesh of it (`cli.common.serve_mesh`), builds the
+    service through `build_service` and, on global rank 0, drives the main
+    path through `serve.fanout.lead` (the others `follow`), recording the
+    K1 / K2 / K12 calls; then the bench through a second lead; then the
+    int8 service's selftest. Each rank holds the kernels on its recorded
+    calls (rank 0 times them alone) and writes `OUT_DIR/rank<r>.pt`."""
+    import torch
+
+    import numpy as np
+
+    from dclip_tpu_torch.cli import serve as cli_serve
+    from dclip_tpu_torch.cli.common import init_multihost, serve_mesh
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.serve.fanout import follow, lead
+
+    global PEAKS
+    out_dir, card, constants = argv
+    globals().update(json.loads(constants))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_multihost(SERVE_DEVICE, timeout=SERVE_TIMEOUT / 3, backend="gloo")
+    try:
+        world = torch.distributed.get_world_size()
+        mesh, _ = serve_mesh(_serve_args(cli_serve, mesh_data=world))
+        print(f"rank {mesh.global_rank}: {torch.distributed.get_backend()} group of {world} on "
+              f"{dev}, mesh {mesh.shape}", flush=True)
+        on_card = torch.device(dev).type == "cuda"
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        if on_card:
+            from dclip_tpu_torch.core.flops import card_peaks
+            from dclip_tpu_torch.kernels import _build
+
+            PEAKS = card_peaks(dev)
+            _build.load_library()  # its self-check launch (K13) before the path
+        res, launches = {}, {}
+        recorder = FirstCalls(torch, _serve_wrappers())
+        for quantize in ("", "int8"):
+            args = _serve_args(cli_serve, quantize, mesh.size)
+            service = cli_serve.build_service(args, mesh)
+            sync()
+            _reset_all_launches()
+            with recorder:
+                if mesh.is_primary:
+                    with lead(service) as front:
+                        t0 = time.perf_counter()
+                        if quantize:
+                            res["int8_selftest"] = cli_serve.selftest(front, args)
+                        else:
+                            res.update(_serve_path(torch, np, cli_serve, front, args))
+                        res[f"path_s{quantize}"] = time.perf_counter() - t0
+                else:
+                    follow(service)
+            sync()
+            for k, n in _all_launches().items():
+                launches[k] = launches.get(k, 0) + n
+            if not quantize:  # rank 0's latencies through a second lead
+                if mesh.is_primary:
+                    with lead(service) as front:
+                        res["bench"] = cli_serve.bench(front, args,
+                                                       concurrencies=SERVE_CONCURRENCY)
+                else:
+                    follow(service)
+            del service
+            if on_card:
+                torch.cuda.empty_cache()
+        res["launches"] = launches
+        res["expected"] = _serve_expected(CLIPConfig.from_name(SERVE_PRESET), mesh.global_rank)
+        for turn in range(world):
+            if turn == mesh.global_rank:
+                res["kernels"] = tp_kernel_checks(torch, recorder.calls, card,
+                                                  timed=on_card and turn == 0,
+                                                  suffix="[serve_dp]", case=_serve_case)
+            torch.distributed.barrier()
+        del recorder
+        torch.save(res, os.path.join(out_dir, f"rank{mesh.global_rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _serve_constants() -> str:
+    """The SERVE_* constants, as `serve_rank_main` takes them."""
+    return json.dumps({k: v for k, v in globals().items() if k.startswith("SERVE_")})
+
+
+def _serve_rows_held(np, what, got, want) -> list:
+    """Rows of the ranks against one process's: bit-equal, else within
+    SERVE_ROW_TOL (the line says which held)."""
+    diff = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    same = got.shape == want.shape and np.array_equal(got, want)
+    print(f"serve_dp: {what} {got.shape}: bit-equal to one process {same}; largest |ranks - "
+          f"one process| {diff} (bound {SERVE_ROW_TOL} where not bit-equal)", flush=True)
+    return [] if diff <= SERVE_ROW_TOL else [f"{what}: |ranks - one process| {diff} > "
+                                             f"{SERVE_ROW_TOL}"]
+
+
+def _serve_hits_held(np, what, got, want) -> list:
+    """Top-k of the ranks against one process's: ids equal, scores within
+    TOPK_TOL."""
+    ids_equal = [[i for i, _ in r] for r in got] == [[i for i, _ in r] for r in want]
+    scores = np.asarray([[x for _, x in r] for r in got], np.float64)
+    ref = np.asarray([[x for _, x in r] for r in want], np.float64)
+    diff = float(np.abs(scores - ref).max()) if scores.shape == ref.shape else float("inf")
+    print(f"serve_dp: {what}: {len(got)} queries x top-{SERVE_K}: ids equal {ids_equal}, "
+          f"largest score difference {diff} (bound {TOPK_TOL})", flush=True)
+    return [] if ids_equal and diff <= TOPK_TOL else [f"{what}: ids equal {ids_equal}, "
+                                                      f"score difference {diff}"]
+
+
+def serve_phase(torch, np, card: str):
+    """Phase 36: the one-process service through the serve CLI's
+    `build_service` on the main path (the reference), then SERVE_RANKS
+    processes of this script in a gloo group on the card (`--serve-rank`),
+    then a one-rank NCCL group (gloo off the card) from the serve CLI's
+    `serve_mesh`; holds them (module docstring) and fails with every check
+    that failed. Returns the ranks' launches and the `[serve_dp]` rows of
+    the kernels line (the ranks' largest errors, rank 0's times)."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from dclip_tpu_torch.cli import serve as cli_serve
+    from dclip_tpu_torch.cli.common import serve_mesh
+    from dclip_tpu_torch.serve.fanout import lead
+
+    t_phase = time.perf_counter()
+    on_card = SERVE_DEVICE == "cuda"
+    args = _serve_args(cli_serve)
+    service = cli_serve.build_service(args)
+    t0 = time.perf_counter()
+    ref = _serve_path(torch, np, cli_serve, service, args)
+    ref_s = time.perf_counter() - t0
+    del service
+    if on_card:
+        torch.cuda.empty_cache()
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    port = _free_port()
+    procs = []
+    try:
+        for r in range(SERVE_RANKS):
+            env = dict(os.environ, DCLIP_COORDINATOR=f"127.0.0.1:{port}",
+                       DCLIP_NUM_PROCESSES=str(SERVE_RANKS), DCLIP_PROCESS_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--serve-rank", out_dir, card,
+                 _serve_constants()],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for r, proc in enumerate(procs):
+            out, _ = proc.communicate(timeout=SERVE_TIMEOUT)
+            for line in out.strip().splitlines():
+                print(f"serve_dp: rank {r} | {line}", flush=True)
+            if proc.returncode != 0:
+                failed.append((r, proc.returncode))
+        if failed:
+            raise AssertionError(f"serve_dp: ranks failed (rank, exit code): {failed}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(SERVE_RANKS)]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    failures = []
+    failures += _serve_rows_held(np, f"{SERVE_TEXTS} texts", r0["texts"], ref["texts"])
+    failures += _serve_rows_held(np, f"{SERVE_IMAGES} images", r0["images"], ref["images"])
+    failures += _serve_hits_held(np, "text search", r0["hits"], ref["hits"])
+    if not r0["index_size"] == ref["index_size"] == SERVE_ROWS + 1:
+        failures.append(f"index sizes {r0['index_size']} / {ref['index_size']}")
+    if r0["int8_selftest"] != 0:
+        failures.append("the int8 selftest over ranks failed")
+    print(f"serve_dp: main path {r0['path_s']} s over {SERVE_RANKS} ranks, {ref_s} s in one "
+          f"process; int8 selftest {r0['path_sint8']} s ({card})", flush=True)
+    for row in r0["bench"]:
+        print(f"serve_dp: bench over {SERVE_RANKS} ranks through gloo (host memory; no measure "
+              f"of serving across cards): {json.dumps(row)} ({card})", flush=True)
+    total = {}
+    for r, res in enumerate(ranks):
+        got = res["launches"]
+        print(f"serve_dp: rank {r} launches {json.dumps({k: v for k, v in got.items() if v})}, "
+              f"expected {json.dumps({k: v for k, v in res['expected'].items() if v})}",
+              flush=True)
+        if on_card and got != res["expected"]:
+            failures.append(f"rank {r} launches {got} != expected {res['expected']}")
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        checked = {row[:-len("[serve_dp]")] for row in res["kernels"]}
+        if on_card and checked != set(_serve_wrappers()):
+            failures.append(f"rank {r}: kernels held on their recorded calls {sorted(checked)}")
+    if on_card and not all(total[k] for k in _serve_wrappers()):
+        failures.append(f"a kernel of the path was never launched: {total}")
+
+    # One NCCL rank (gloo off the card): the serve CLI's group and mesh.
+    triple = {"DCLIP_COORDINATOR": f"127.0.0.1:{_free_port()}", "DCLIP_NUM_PROCESSES": "1",
+              "DCLIP_PROCESS_ID": "0"}
+    saved_env = {k: os.environ.get(k) for k in triple}
+    os.environ.update(triple)
+    try:
+        one_args = _serve_args(cli_serve, mesh_data=-1)
+        mesh, made = serve_mesh(one_args)
+        try:
+            backend = torch.distributed.get_backend()
+            service = cli_serve.build_service(one_args, mesh)
+            with lead(service) as front:
+                group = _serve_path(torch, np, cli_serve, front, one_args)
+            del service
+        finally:
+            if made:
+                torch.distributed.destroy_process_group()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    same = {what: np.array_equal(group[what], ref[what]) for what in ("texts", "images")}
+    same["hits"] = group["hits"] == ref["hits"]
+    print(f"serve_dp: a one-rank {backend} group (mesh {mesh.shape}, made by serve_mesh) "
+          f"against no group: bit-equal {json.dumps(same)}", flush=True)
+    if not made or not all(same.values()):
+        failures.append(f"the one-rank {backend} group: bit-equal {same}")
+    if on_card:
+        torch.cuda.empty_cache()
+    rows = {}
+    for row, entry in r0["kernels"].items():
+        rows[row] = dict(entry, max_abs_err=max(res["kernels"].get(row, {"max_abs_err": 0.0})
+                                                ["max_abs_err"] for res in ranks))
+        print(f"serve_dp: {row}: {json.dumps(rows[row])}", flush=True)
+    print(f"serve_dp: phase 36 {time.perf_counter() - t_phase} s ({card})", flush=True)
+    if failures:
+        raise AssertionError("serve_dp: " + "; ".join(failures))
+    return total, rows
+
+
 def main() -> int:
     import torch
 
@@ -5008,6 +5422,7 @@ def main() -> int:
     files_phase(torch, np, card, jpeg)
     profiled = profile_phase(torch, np, card)
     tp_launches, tp_rows = tp_phase(torch, np, sd, tsd, card)
+    serve_launches, serve_rows = serve_phase(torch, np, card)
 
     counts = {**{n: launches[n] + region[n] for n in KERNELS},
               **{n: train_launches[n] for n in TRAIN_KERNELS},
@@ -5040,6 +5455,11 @@ def main() -> int:
     kernels += [{"name": row, "route": "cuda", "source": sources[row[:-4]][0],
                  "replaces": sources[row[:-4]][1], "launches": tp_launches[row[:-4]], **entry}
                 for row, entry in tp_rows.items()]
+    # Phase 36's ranks: their main path's launches in `[serve_dp]` rows,
+    # held and timed on the calls the ranks made.
+    kernels += [{"name": row, "route": "cuda", "source": sources[row[:-10]][0],
+                 "replaces": sources[row[:-10]][1], "launches": serve_launches[row[:-10]],
+                 **entry} for row, entry in serve_rows.items()]
     print(f"chip_smoke: {time.perf_counter() - t_start} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -5052,4 +5472,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-rank"]:
+        sys.exit(serve_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -358,6 +358,30 @@ def eval_mesh(args):
     return make_mesh(MeshConfig(data_parallel=dp))
 
 
+def serve_mesh(args):
+    """The serve CLI's mesh for `--mesh_data` (not 1; -1 takes every rank):
+    over the process group already initialized, else one this call makes
+    from the DCLIP env triple or torchrun's variables (`init_multihost` on
+    `--device`), else `make_mesh`'s ValueError for more ranks than the one
+    process ("mesh 2x1 needs 2 devices, have 1"; -1 is the one-rank mesh).
+    Returns (mesh, whether this call made the group)."""
+    import torch.distributed as dist
+
+    from dclip_tpu_torch.parallel.mesh import make_mesh
+
+    made = False
+    if not dist.is_initialized() and (os.environ.get("DCLIP_COORDINATOR")
+                                      or os.environ.get("WORLD_SIZE")):
+        init_multihost(args.device)
+        made = True
+    try:
+        return make_mesh(MeshConfig(data_parallel=args.mesh_data)), made
+    except BaseException:
+        if made:
+            dist.destroy_process_group()
+        raise
+
+
 def rank_path(path: str) -> str:
     """`path` for this process: under a process group of several ranks,
     `<path>.rank<r>`, so no two ranks write one file."""

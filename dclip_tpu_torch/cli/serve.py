@@ -21,6 +21,19 @@ batches by serve.DynamicBatcher):
 `--quantize int8` serves int8 weights; `--student_checkpoint` serves a
 distilled student; `--export_dir` (with `--export_platforms`) writes the
 serving artifact of `serve.export` and exits.
+
+`--mesh_data N` (N != 1; -1 takes every rank) serves over the data axis of
+a `torch.distributed` group, one process per card, started by torchrun or
+with the DCLIP_COORDINATOR / DCLIP_NUM_PROCESSES / DCLIP_PROCESS_ID triple
+(`cli.common.serve_mesh`):
+
+    torchrun --nproc_per_node 4 -m dclip_tpu_torch.cli.serve --mesh_data 4 ...
+
+Global rank 0 runs the HTTP server, the batchers, `--selftest` and
+`--bench` through `serve.fanout.lead`, which carries every request to the
+other ranks; they run `serve.fanout.follow` until rank 0 stops. A failed
+group ends rank 0 with a non-zero exit; nothing is served from rank 0
+alone. `--export_dir` is written by global rank 0 only.
 """
 from __future__ import annotations
 
@@ -51,7 +64,10 @@ def load_model(args, compute_dtype: str = "auto"):
     return cfg, model
 
 
-def build_service(args):
+def build_service(args, mesh=None):
+    """The service of the flags; with a `parallel.mesh.Mesh`, collective
+    (every rank builds it; a preloaded `--index_path` is read on global
+    rank 0 and broadcast)."""
     from dclip_tpu_torch.cli.common import load_tokenizer
     from dclip_tpu_torch.serve import ClipService
 
@@ -61,14 +77,17 @@ def build_service(args):
     index = None
     if args.index_path:
         from dclip_tpu_torch.data.embedding_store import EmbeddingStore
+        from dclip_tpu_torch.serve.fanout import share_index
 
-        index = EmbeddingStore.load(args.index_path)
-        print(f"loaded index: {len(index)} entries, dim {index.dim}", flush=True)
+        if mesh is None or mesh.is_primary:
+            index = EmbeddingStore.load(args.index_path)
+            print(f"loaded index: {len(index)} entries, dim {index.dim}", flush=True)
+        if mesh is not None:
+            index = share_index(index, mesh)
     return ClipService(
         model, cfg, tokenizer=tokenizer, buckets=buckets,
         index_dim=args.index_dim if args.index_dim > 0 else None,
-        quantize=args.quantize or None,
-        mesh=args.mesh_data if args.mesh_data != 1 else None,
+        quantize=args.quantize or None, mesh=mesh,
         index=index, device=model.logit_scale.device,
     )
 
@@ -113,6 +132,8 @@ def _decode_images(payload):
 def make_handler(service, text_batcher, image_batcher):
     """HTTP handler class closed over the service + request batchers."""
     from http.server import BaseHTTPRequestHandler
+
+    from dclip_tpu_torch.serve.fanout import GroupFailed
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *a):  # quiet by default
@@ -169,6 +190,8 @@ def make_handler(service, text_batcher, image_batcher):
                     })
                 else:
                     self._send(404, {"error": f"no route {self.path}"})
+            except GroupFailed as e:  # the ranks are gone: the server stops
+                self._send(503, {"error": f"{type(e).__name__}: {e}"})
             except Exception as e:  # noqa: BLE001 — HTTP boundary
                 self._send(400, {"error": f"{type(e).__name__}: {e}"})
 
@@ -342,7 +365,10 @@ def parse_args(argv=None):
                    help="optional distilled-student checkpoint (the port's "
                         "CheckpointManager file or directory)")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="not ported yet (ROADMAP Queue 1 item 13): any value but 1 raises")
+                   help="serve over a data-parallel mesh of this size (-1: every rank); "
+                        "encode batches shard over it, index search runs the sharded "
+                        "top-k; one process per card, started by torchrun or the DCLIP env "
+                        "triple")
     p.add_argument("--quantize", default="", choices=["", "int8"],
                    help="int8: weight-only quantized serving (serve.quant)")
     p.add_argument("--export_dir", default="",
@@ -364,31 +390,73 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.export_dir:
-        return export(args)
-    service = build_service(args)
-    if args.selftest:
-        return selftest(service, args)
-    if args.bench:
-        bench(service, args)
-        return 0
-    if not args.no_warmup:
-        print("warming up:", json.dumps(service.warmup()), flush=True)
-    from http.server import ThreadingHTTPServer
+    mesh, made = None, False
+    if args.mesh_data != 1:
+        from dclip_tpu_torch.cli.common import serve_mesh
 
-    text_batcher, image_batcher = _batchers(service, args)
-    srv = ThreadingHTTPServer(
-        (args.host, args.port), make_handler(service, text_batcher, image_batcher))
-    print(f"serving on http://{args.host}:{srv.server_address[1]}", flush=True)
+        mesh, made = serve_mesh(args)
     try:
-        srv.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        return _serve(args, mesh)
     finally:
-        srv.server_close()
-        text_batcher.close()
-        image_batcher.close()
-    return 0
+        if made:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(args, mesh) -> int:
+    from dclip_tpu_torch.serve.fanout import follow, lead
+
+    follower = mesh is not None and not mesh.is_primary
+    if args.export_dir:
+        if follower:
+            print(f"rank {mesh.global_rank}: global rank 0 writes {args.export_dir}", flush=True)
+            return 0
+        return export(args)
+    service = build_service(args, mesh)
+    if follower:
+        print(f"rank {mesh.global_rank}: following rank 0 on {service.device}", flush=True)
+        follow(service)
+        return 0
+    servers = []
+
+    def stop_serving(error):
+        print(f"serve: the group of ranks failed ({error!r}); stopping", file=sys.stderr,
+              flush=True)
+        for srv in servers:
+            threading.Thread(target=srv.shutdown, daemon=True).start()
+
+    front = service
+    if mesh is not None and mesh.distributed:
+        front = lead(service, on_failure=stop_serving)
+    try:
+        if args.selftest:
+            return selftest(front, args)
+        if args.bench:
+            bench(front, args)
+            return 0
+        if not args.no_warmup:
+            print("warming up:", json.dumps(front.warmup()), flush=True)
+        from http.server import ThreadingHTTPServer
+
+        text_batcher, image_batcher = _batchers(front, args)
+        srv = ThreadingHTTPServer(
+            (args.host, args.port), make_handler(front, text_batcher, image_batcher))
+        servers.append(srv)  # from here a failure of the group shuts it down
+        print(f"serving on http://{args.host}:{srv.server_address[1]}", flush=True)
+        try:
+            if getattr(front, "failed", None) is None:
+                srv.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            srv.server_close()
+            text_batcher.close()
+            image_batcher.close()
+        return 1 if getattr(front, "failed", None) is not None else 0
+    finally:
+        if front is not service:
+            front.close()
 
 
 if __name__ == "__main__":

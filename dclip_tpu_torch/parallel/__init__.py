@@ -1,12 +1,14 @@
 """The parallel layer: one process per card in a `torch.distributed`
 process group in place of the JAX mesh, a (data, model) grid of ranks
 (`mesh`), tensor parallelism of the CLIP encoders over its model axis
-(`tp`), and the multi-process seams of the pipelines, the trainers and the
-CLIs (`multihost`). Serving over ranks waits (ROADMAP Queue 1 item 13)."""
+(`tp`), the multi-process seams of the pipelines, the trainers and the
+CLIs (`multihost`), and the request broadcast of serving over ranks
+(`mesh.broadcast_request`, used by `serve.fanout`)."""
 from dclip_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_grads,
     broadcast_,
+    broadcast_request,
     gather_cat,
     gather_rows,
     local_mesh,
@@ -22,6 +24,7 @@ __all__ = [
     "Mesh",
     "all_reduce_grads",
     "broadcast_",
+    "broadcast_request",
     "gather_cat",
     "gather_rows",
     "local_mesh",

@@ -27,6 +27,9 @@ grid's group. The JAX pieces map as follows.
   the grid, as DDP does at construction: no rank trains from its own
   initial weights.
 - `pad_batch_to`: the same function.
+- `broadcast_request`: no JAX counterpart. JAX serves every chip from one
+  process; here a request reaches rank 0 and the other ranks take it from
+  there (`serve.fanout`).
 - `shard_map_batchwise`: nothing to write, each rank runs its kernels on
   its own rows.
 
@@ -43,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -336,6 +339,35 @@ def broadcast_(tensors: Iterable[torch.Tensor], mesh: Mesh) -> None:
 
     for t in tensors:
         dist.broadcast(t, src=0, group=mesh.world_group or mesh.group)
+
+
+def broadcast_request(head: Any, arrays: Sequence[np.ndarray], mesh: Mesh
+                      ) -> Tuple[Any, List[np.ndarray]]:
+    """Global rank 0's (`head`, `arrays`) on every rank of the grid: the
+    head (a small picklable value: a command, its strings and numbers) with
+    each array's dtype and shape by `broadcast_object_list`, then each
+    array as one tensor broadcast on the group's collective device. The
+    other ranks' arguments are ignored. A one-rank mesh without a group
+    returns its own."""
+    if mesh.group is None:
+        return head, list(arrays)
+    import torch.distributed as dist
+
+    group = mesh.world_group or mesh.group
+    dev = collective_device(mesh)
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    box = [(head, [(a.dtype.str, a.shape) for a in arrays])]
+    dist.broadcast_object_list(box, src=0, group=group, device=dev)
+    head, specs = box[0]
+    out = []
+    for i, (dtype, shape) in enumerate(specs):
+        if mesh.global_rank == 0:
+            t = torch.from_numpy(arrays[i]).to(dev)
+        else:
+            t = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype, device=dev)
+        dist.broadcast(t, src=0, group=group)
+        out.append(arrays[i] if mesh.global_rank == 0 else t.cpu().numpy())
+    return head, out
 
 
 def shard_batch(batch, mesh: Mesh) -> dict:

@@ -274,3 +274,33 @@ def test_hold_profile_allows_the_records_rounding(tmp_path, too_high):
             smoke._hold_profile(rec, 2, False, str(tmp_path), "cpu")
     else:
         smoke._hold_profile(rec, 2, False, str(tmp_path), "cpu")
+
+
+def test_chip_smoke_serve_phase_on_the_cpu(monkeypatch, capsys):
+    """`chip_smoke.py` phase 36 at the tiny preset on the CPU: the
+    one-process service on the main path, then two processes of the script
+    serving it over a gloo group (rank 0 leads, rank 1 follows; the bench
+    and the int8 selftest after it), then a one-rank group from the serve
+    CLI's `serve_mesh`; every hold of the phase that holds off the card
+    (rows, top-k, the int8 selftest, the one-rank group bit-equal)."""
+    import torch
+
+    smoke = _smoke_module()
+    for name, value in (("SERVE_DEVICE", "cpu"), ("SERVE_PRESET", "tiny"),
+                        ("SERVE_INDEX_DIM", 16), ("SERVE_ROWS", 100), ("SERVE_QUERIES", 6),
+                        ("SERVE_TEXTS", 9), ("SERVE_IMAGES", 7), ("SERVE_K", 4)):
+        monkeypatch.setattr(smoke, name, value)
+    launches, rows = smoke.serve_phase(torch, np, "cpu")
+    printed = capsys.readouterr().out
+    assert not any(launches.values())  # the twins run on the CPU
+    assert set(rows) <= {"topk_streamed[serve_dp]"}, sorted(rows)
+    for line in ("serve_dp: rank 0 | rank 0: gloo group of 2 on cpu, mesh {'data': 2, "
+                 "'model': 1}", "serve_dp: rank 1 | rank 1: gloo group of 2 on cpu",
+                 "serve_dp: 9 texts (9, 16): bit-equal to one process",
+                 "serve_dp: 7 images (7, 16): bit-equal to one process",
+                 "serve_dp: text search: 6 queries x top-4: ids equal True",
+                 "serve_dp: bench over 2 ranks through gloo",
+                 "serve_dp: a one-rank gloo group (mesh {'data': 1, 'model': 1}, made by "
+                 "serve_mesh) against no group: bit-equal", "serve_dp: phase 36"):
+        assert line in printed, line
+    assert not torch.distributed.is_initialized()

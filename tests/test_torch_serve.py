@@ -98,14 +98,15 @@ def test_search_matches_jax_service(services):
 
 
 def test_service_refuses_what_is_not_ported():
-    """Serving over several ranks waits for ROADMAP item 13; `quantize`
-    other than int8 is a ValueError, as in the JAX service."""
+    """`quantize` other than int8 is a ValueError, as in the JAX service; a
+    mesh is a `parallel.mesh.Mesh`, and a bare data size (what the serve
+    CLI once passed) is a TypeError."""
     cfg = CLIPConfig.tiny_test()
     _, params = torch_parity.jax_clip(cfg, seed=0)
     model = torch_parity.port_clip(cfg, params)
     with pytest.raises(ValueError, match="quantize"):
         ClipService(model, cfg, quantize="fp4", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         ClipService(model, cfg, mesh=2, device="cpu")
 
 

@@ -1,6 +1,6 @@
 """One rank of a multi-process run of the port (tests/test_torch_dp_*.py,
 tests/test_torch_tp*.py, tests/test_torch_parallel.py,
-tests/test_torch_preemption.py).
+tests/test_torch_preemption.py, tests/test_torch_serve_ranks.py).
 
     DCLIP_COORDINATOR=127.0.0.1:<port> DCLIP_NUM_PROCESSES=N DCLIP_PROCESS_ID=r \\
         python tests/torch_dp_worker.py <spec.json>
@@ -375,10 +375,72 @@ def scenario_preempt(spec, mesh):
             "digest": params_digest(tr.teacher)}
 
 
+def _refusal(fn):
+    """(the exception's type name, its message) of fn(), or None."""
+    try:
+        fn()
+    except (TypeError, ValueError) as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+def scenario_serve(spec, mesh):
+    """`ClipService(mesh=)` on every rank: texts, images, an index and its
+    search, the f32 and (`int8`) the int8 service; a follower's model is
+    perturbed before each service is built, which must serve global rank
+    0's weights anyway. With `refusals`, the services the mesh refuses."""
+    from dclip_tpu_torch.core.config import CLIPConfig, MeshConfig
+    from dclip_tpu_torch.data.tokenizer import HashTokenizer
+    from dclip_tpu_torch.models.clip import CLIPModule
+    from dclip_tpu_torch.parallel.mesh import make_mesh
+    from dclip_tpu_torch.serve import ClipService
+
+    cfg = CLIPConfig.tiny_test()
+    model = CLIPModule(cfg, device="meta")
+    model.load_state_dict(torch.load(spec["clip"], weights_only=True), strict=True, assign=True)
+    model.eval()
+    tok = HashTokenizer(vocab_size=cfg.text.vocab_size, max_length=cfg.text.max_length)
+    with np.load(spec["inputs"]) as z:
+        arrays = {k: z[k] for k in z.files}
+    images = [arrays[f"image{i}"] for i in range(int(arrays["n_images"]))]
+    texts = spec["texts"]
+
+    def perturbed():
+        if mesh.global_rank:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.add_(1.0)
+        return model
+
+    out = {}
+    for quantize in [None] + (["int8"] if spec.get("int8") else []):
+        svc = ClipService(perturbed(), cfg, tokenizer=tok, buckets=tuple(spec["buckets"]),
+                          index_dim=cfg.projection_dim, quantize=quantize, mesh=mesh,
+                          device="cpu")
+        tag = quantize or "f32"
+        out[f"{tag}/texts"] = svc.encode_texts(texts)
+        out[f"{tag}/images"] = svc.encode_images(images)
+        svc.add_to_index(spec["ids"], arrays["index"])
+        out[f"{tag}/search"] = svc.search(arrays["queries"], k=spec["k"])
+        out[f"{tag}/search_texts"] = svc.search_texts(texts[:3], k=spec["k"])
+        out[f"{tag}/stats"] = svc.stats()
+    if spec.get("refusals"):
+        out["refusals"] = {
+            "buckets": _refusal(lambda: ClipService(model, cfg, buckets=(1, 4), mesh=mesh,
+                                                    device="cpu")),
+            "model_axis": _refusal(lambda: ClipService(
+                model, cfg, buckets=(4, 8), device="cpu",
+                mesh=make_mesh(MeshConfig(data_parallel=1, model_parallel=mesh.size)))),
+            "int": _refusal(lambda: ClipService(model, cfg, mesh=mesh.size, device="cpu")),
+        }
+    return out
+
+
 SCENARIOS = {"losses": scenario_losses, "distill": scenario_distill,
              "teacher": scenario_teacher, "search": scenario_search,
              "preempt": scenario_preempt, "tp_forward": scenario_tp_forward,
-             "meshes": scenario_meshes, "tp_ckpt": scenario_tp_ckpt}
+             "meshes": scenario_meshes, "tp_ckpt": scenario_tp_ckpt,
+             "serve": scenario_serve}
 
 
 def main() -> int:
