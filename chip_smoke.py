@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: serving, training, eval,
-deployment, region proposals and the ViT-L/14 distillation run from files.
+deployment, region proposals, the ViT-L/14 distillation run from files,
+the multi-rank paths and the last modules (context view, BERT, detector
+training).
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -349,6 +351,28 @@ Phases; each one passes or raises, and any failure exits non-zero:
    through `lead`, bit-equal to the reference. The phase's time is
    printed.
 
+37. The last modules (run after phase 36). (a) The context view: the B/16
+   teacher CLIP (seeded random weights, bf16) over phase 9's synthetic
+   batch, B=256 x 8 boxes, through `encode_patches_with_context` on the
+   route a user gets (`models.encoding.image_forward`: K1 / K2): the
+   counts from 0 before the encode must be twice one image features
+   call's (patch view, then context view); K1 and K2 held against their
+   twins on the first call of each that the context view made, and
+   timed there (the kernels line's `[context]` rows, with the encode's
+   launches); the region encode and the encode with its context view
+   timed (host clock to a synchronize), the peak memory printed; at B=2,
+   3 boxes invalid, both views held against the f32 modules on the CPU
+   (per-row cosine >= 0.99). (b) BERT-base (seeded random weights) over
+   64 captions through the WordPiece tokenizer on the CPU tests'
+   vocabulary, padded to 77, projected to 512 by `bert_to_clip_features`:
+   f32 on the card (TF32 off) within 1e-4 of the largest value of the
+   CPU's, the bf16 route's error beside it, each timed. (c) YOLOv8x at 640
+   px in train mode: one B=2 step's gradients through `detection_step` in
+   f32 within 1e-3 relative L2 of the same step in f64 on the card (the
+   CPU's f32 step and a backward in TF32 printed beside it); 5 Adam steps
+   at B=8 on one batch with finite, falling losses, ms a step and the
+   peak memory. The phase's time is printed.
+
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type and the bytes it
 must move (each input read once, each output written once) over its
@@ -583,6 +607,31 @@ SERVE_DEVICE, SERVE_PRESET, SERVE_RANKS = "cuda", "vit-b-16", 2
 SERVE_BUCKETS, SERVE_INDEX_DIM = "2,4,16,64", 512
 SERVE_TEXTS, SERVE_IMAGES, SERVE_ROWS, SERVE_QUERIES, SERVE_K = 37, 37, 100_000, 64, 10
 SERVE_CONCURRENCY, SERVE_TIMEOUT, SERVE_ROW_TOL = (1, 8), 600, REL_TOL
+# Phase 37, the last modules, on LAST_DEVICE. (a) The context view: the
+# LAST_PRESET teacher CLIP from seeded random weights (seed 0) at
+# LAST_DTYPE over phase 9's synthetic batch of CONTEXT_B images x 8 boxes,
+# each region encode and context encode timed over CONTEXT_REPEATS calls;
+# CONTEXT_AGREE_B images (3 boxes invalid) against the f32 module path on
+# the CPU. (b) BERT at BERT_PRESET, seeded random weights, BERT_CAPTIONS
+# captions through the WordPiece tokenizer on WORDPIECE_VOCAB (the CPU
+# tests' vocabulary, tests/test_torch_bert.py) padded to BERT_T, projected
+# to BERT_CLIP_DIM; the card's f32 within BERT_TOL of the largest |value|
+# of the CPU's. (c) The detector (DetectorConfig.v8x() with
+# DET_TRAIN_CHANGES) in train mode: DET_TRAIN_STEPS Adam(DET_LR) steps at
+# DET_TRAIN_B, and one step's f32 gradients at DET_GRAD_B against the same
+# step in f64 on the device (DET_GRAD_TOL relative L2; the CPU's f32 step
+# and a backward in TF32 printed beside it); DET_GT boxes an image.
+# (tests/test_torch_cli_e2e.py runs the phase on the CPU at tiny sizes.)
+LAST_DEVICE, LAST_PRESET, LAST_DTYPE = "cuda", "vit-b-16", "bfloat16"
+CONTEXT_B, CONTEXT_REPEATS, CONTEXT_AGREE_B = TRAIN_B, 2, AGREE_B
+BERT_PRESET, BERT_CAPTIONS, BERT_T, BERT_CLIP_DIM, BERT_TOL = "base_uncased", 64, 77, 512, 1e-4
+WORDPIECE_VOCAB = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "the", "cat", "dog", "run",
+                   "##ning", "##s", "##ed", "jump", "a", "photo", "of", "un", "##believ",
+                   "##able", "over", ",", ".", "!", "?", "-", "'", '"', "naive", "cafe",
+                   "hello", "world", "12", "##3", "中", "国")
+DET_TRAIN_CHANGES = {}
+DET_TRAIN_B, DET_GRAD_B, DET_TRAIN_STEPS, DET_LR, DET_GT = 8, 2, 5, 2e-3, 4
+DET_GRAD_TOL = 1e-3
 # The ViT-L/14 slice (phases 30-32): the reference's student, with the
 # teacher CLIP at the same preset and TeacherConfig(768, 8 heads, 8 boxes,
 # 77 tokens), so K10 runs at head_dim 96. Each configuration of phase 31
@@ -4978,11 +5027,11 @@ def _serve_wrappers():
             "mlp_block": (vb, "mlp_block_fused"), "topk_streamed": (tk, "topk_streamed")}
 
 
-def _serve_case(torch, name, a):
-    """One recorded call `a` of K1, K2 or K12 on a rank of phase 36:
-    (kernel, twin, compare, `work` arguments, library call or None), at
-    the kernel phases' bounds and tolerances (`kernel_phase`,
-    `topk_kernel_phase`)."""
+def _serve_case(torch, name, a, suffix="[serve_dp]"):
+    """One recorded call `a` of K1, K2 or K12 on a rank of phase 36 (or of
+    K1 / K2 in phase 37, with its `suffix`): (kernel, twin, compare, `work`
+    arguments, library call or None), at the kernel phases' bounds and
+    tolerances (`kernel_phase`, `topk_kernel_phase`)."""
     from dclip_tpu_torch.kernels import topk as tk
     from dclip_tpu_torch.kernels import vit_block as vb
 
@@ -5010,7 +5059,7 @@ def _serve_case(torch, name, a):
     m = b * s
 
     def compare(got, want):
-        return _bound_check(torch, f"{name}[serve_dp] B={b}", got, want, REL_TOL)
+        return _bound_check(torch, f"{name}{suffix} B={b}", got, want, REL_TOL)
     if name == "attention_block":
         return (kernel, lambda: vb.attention_block_reference(**a), compare,
                 {"bf16_flops": 2.0 * m * d * 4 * d + 4.0 * b * s * s * d,
@@ -5324,6 +5373,372 @@ def serve_phase(torch, np, card: str):
     return total, rows
 
 
+# -- the last modules: the context view, BERT, detector training ---------------------
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _host_ms(torch, device, fn, repeats: int) -> float:
+    """Mean host ms of `fn()` over `repeats` calls after a warm one, each
+    ended by a synchronize."""
+    fn()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+        _sync(torch, device)
+    return (time.perf_counter() - t0) * 1000.0 / repeats
+
+
+def _peak_gib(torch, device):
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _reset_peak(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _context_wrappers():
+    """{launch counter: (module, wrapper)} of K1 and K2."""
+    return {k: v for k, v in _serve_wrappers().items() if k != "topk_streamed"}
+
+
+def context_phase(torch, np, card: str):
+    """Phase 37 (a): `encode_patches_with_context` of the LAST_PRESET teacher
+    CLIP over CONTEXT_B images x 8 boxes, through the route a user gets
+    (`models.encoding.image_forward`: K1 / K2 for bf16 on the card). The
+    counts start at 0 before the encode and must be twice one image
+    features call's (the patch view, then the context view); K1 and K2 are
+    held against their twins on the first call of each that the context
+    view made. Times the region encode alone and the encode with the
+    context view (host clock to a synchronize), prints the peak memory,
+    and holds CONTEXT_AGREE_B images (3 boxes invalid) against the f32
+    module path on the CPU by per-row cosine. Returns (launches of the
+    encode, `[context]` rows)."""
+    from dclip_tpu_torch.cli.common import load_clip
+    from dclip_tpu_torch.models.clip import CLIPModule
+    from dclip_tpu_torch.models.encoding import image_forward
+    from dclip_tpu_torch.models.teacher import encode_patches, encode_patches_with_context
+
+    on_card = LAST_DEVICE == "cuda"
+    dev = torch.device(LAST_DEVICE)
+    cfg, model = load_clip(LAST_PRESET, "random", 0, LAST_DTYPE, LAST_DEVICE)
+    fn = image_forward(model)
+    s = cfg.vision.image_size
+
+    def inputs(batch_size):
+        batch = _batch(np, batch_size, clip_cfg=cfg)
+        return [torch.as_tensor(batch[k], device=dev) for k in ("teacher_pixels", "boxes",
+                                                                 "box_mask")]
+
+    images, boxes, mask = inputs(CONTEXT_B)
+    b, p = boxes.shape[:2]
+    _reset_all_launches()
+    with torch.no_grad():
+        fn(torch.zeros((1, s, s, 3), device=dev))
+    _sync(torch, dev)
+    per_call = {k: v for k, v in _all_launches().items() if v}
+
+    calls, views = {}, []
+
+    def recorded(px):
+        views.append(px.shape[0])
+        if len(views) == 2 and on_card:  # the context view's frames
+            with FirstCalls(torch, _context_wrappers()) as rec:
+                out = fn(px)
+            calls.update(rec.calls)
+            return out
+        return fn(px)
+
+    _reset_peak(torch, dev)
+    _reset_all_launches()
+    with torch.no_grad():
+        pe, ce = encode_patches_with_context(model, images, boxes, mask, s, recorded)
+    _sync(torch, dev)
+    launches = _all_launches()
+    peak = _peak_gib(torch, dev)
+    got = {k: v for k, v in launches.items() if v}
+    expected = {k: 2 * v for k, v in per_call.items()}
+    print(f"context: {LAST_PRESET} {LAST_DTYPE} on {LAST_DEVICE}, {b} images x {p} boxes: "
+          f"views of {views} frames, launches {json.dumps(got)}, expected {json.dumps(expected)}"
+          f" (one image features call: {json.dumps(per_call)}), peak {peak} GiB ({card})",
+          flush=True)
+    failures = []
+    if on_card and (got != expected or not all(got.get(k) for k in _context_wrappers())):
+        failures.append(f"launches {got} != {expected}")
+    invalid = mask <= 0
+    for name, x in (("patch", pe), ("context", ce)):
+        if tuple(x.shape) != (b, p, cfg.projection_dim) or not torch.isfinite(x).all():
+            failures.append(f"{name} embeddings {tuple(x.shape)} not finite or misshapen")
+        elif invalid.any() and x[invalid].abs().max().item() != 0.0:
+            failures.append(f"{name} embeddings of invalid slots are not zero")
+    del pe, ce
+    with torch.no_grad():
+        region_ms = _host_ms(torch, dev, lambda: encode_patches(model, images, boxes, mask, s, fn),
+                             CONTEXT_REPEATS)
+        both_ms = _host_ms(torch, dev, lambda: encode_patches_with_context(
+            model, images, boxes, mask, s, fn), CONTEXT_REPEATS)
+    print(f"context: region encode {region_ms} ms, region + context encode {both_ms} ms, "
+          f"the context view {both_ms - region_ms} ms ({b * p} frames, host clock to a "
+          f"synchronize, mean of {CONTEXT_REPEATS}; {card})", flush=True)
+    del images, boxes, mask
+    rows = tp_kernel_checks(torch, calls, card, timed=on_card, suffix="[context]",
+                            case=lambda t, n, a: _serve_case(t, n, a, "[context]"))
+    del calls
+    for row, entry in rows.items():
+        print(f"context: {row}: {json.dumps(entry)}", flush=True)
+
+    # Agreement: the route on LAST_DEVICE against the f32 modules on the CPU.
+    images, boxes, mask = inputs(CONTEXT_AGREE_B)
+    mask[1, 5:] = 0.0
+    cpu = CLIPModule(cfg, dtype=torch.float32, device="meta")
+    cpu.load_state_dict({k: v.detach().float().cpu() for k, v in model.state_dict().items()},
+                        strict=True, assign=True)
+    with torch.no_grad():
+        got = encode_patches_with_context(model, images, boxes, mask, s, fn)
+        t0 = time.perf_counter()
+        want = encode_patches_with_context(cpu.eval(), images.cpu(), boxes.cpu(), mask.cpu(), s)
+    cpu_s = time.perf_counter() - t0
+    valid = mask.cpu() > 0
+    for name, g, w in zip(("patch", "context"), got, want):
+        g, w = g.double().cpu()[valid], w.double()[valid]
+        cos = torch.nn.functional.cosine_similarity(g, w, dim=-1)
+        print(f"context: {name} view, {CONTEXT_AGREE_B} images ({int(valid.sum())} valid of "
+              f"{valid.numel()}): {LAST_DTYPE} on {LAST_DEVICE} vs the f32 modules on the CPU "
+              f"({cpu_s} s), per-row cosine min {cos.min().item()} bound {COS_BOUND}", flush=True)
+        if not cos.min().item() >= COS_BOUND:
+            failures.append(f"{name} view cosine {cos.min().item()} < {COS_BOUND}")
+    del model, cpu
+    _reset_peak(torch, dev)
+    if failures:
+        raise AssertionError("context: " + "; ".join(failures))
+    return launches, rows
+
+
+def _random_bert_state_dict(torch, cfg, seed: int = 0):
+    """Seeded BERT weights by `transformers`' init rule: Linear and
+    Embedding weights N(0, 0.02), biases 0, LayerNorm 1 / 0."""
+    from dclip_tpu_torch.models.bert import BertEncoder
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, t in BertEncoder(cfg, device="meta").state_dict().items():
+        if "LayerNorm" in name:
+            out[name] = torch.ones(t.shape) if name.endswith("weight") else torch.zeros(t.shape)
+        elif name.endswith("bias"):
+            out[name] = torch.zeros(t.shape)
+        else:
+            out[name] = torch.randn(t.shape, generator=gen) * 0.02
+    return out
+
+
+def _bert_captions(np, n: int):
+    """n seeded captions of 3-60 words from the vocabulary's words, unknown
+    words, accents and punctuation (the longest overflow BERT_T)."""
+    rng = np.random.RandomState(37)
+    words = ["the", "cat", "dog", "running", "jumps", "a", "photo", "of", "unbelievable", "over",
+             "naïve", "café", "hello", "world", "123", "zebra", ",", ".", "!", "中国"]
+    return [" ".join(rng.choice(words, 3 + (i * 7) % 58)) for i in range(n)]
+
+
+def bert_phase(torch, np, card: str):
+    """Phase 37 (b): BERT_CAPTIONS captions -> WordPiece ids (BERT_T) ->
+    `BertEncoder(BERT_PRESET)` -> `TextProjectionModule` (BERT_CLIP_DIM), in
+    f32 on the CPU, in f32 on LAST_DEVICE (TF32 off) and in bf16 there; the
+    f32 device output within BERT_TOL of the largest |value| of the CPU's,
+    the bf16 route's error printed beside it, each route timed."""
+    from dclip_tpu_torch.data.bert_tokenizer import BertWordPieceTokenizer
+    from dclip_tpu_torch.models.bert import BertConfig, BertEncoder, bert_to_clip_features
+    from dclip_tpu_torch.models.projections import TextProjectionModule
+
+    cfg = getattr(BertConfig, BERT_PRESET)()
+    tok = BertWordPieceTokenizer({t: i for i, t in enumerate(WORDPIECE_VOCAB)}, max_length=BERT_T)
+    ids, mask = tok.encode_batch(_bert_captions(np, BERT_CAPTIONS))
+    sd = _random_bert_state_dict(torch, cfg, seed=0)
+    head = TextProjectionModule(clip_dim=BERT_CLIP_DIM, bert_dim=cfg.hidden_size, device="meta")
+    gen = torch.Generator().manual_seed(1)
+    head_sd = {k: (torch.randn(t.shape, generator=gen) * t.shape[1] ** -0.5 if t.dim() == 2
+                   else torch.zeros(t.shape)) for k, t in head.state_dict().items()}
+    print(f"bert: {BERT_PRESET} ({cfg.num_layers} layers, {cfg.hidden_size} wide), "
+          f"{len(ids)} captions, {int(mask.sum())} of {mask.size} tokens real, "
+          f"{int((mask.sum(1) == BERT_T).sum())} truncated to {BERT_T}", flush=True)
+    outs, times = {}, {}
+    for name, device, dtype in (("cpu f32", "cpu", torch.float32),
+                                ("f32", LAST_DEVICE, torch.float32),
+                                ("bf16", LAST_DEVICE, torch.bfloat16)):
+        bert = BertEncoder(cfg, dtype=dtype, device="meta")
+        bert.load_state_dict({k: v.to(device, dtype) for k, v in sd.items()}, strict=True,
+                             assign=True)
+        proj = TextProjectionModule(clip_dim=BERT_CLIP_DIM, bert_dim=cfg.hidden_size,
+                                    device="meta")
+        proj.load_state_dict({k: v.to(device, dtype) for k, v in head_sd.items()}, strict=True,
+                             assign=True)
+        ids_t = torch.as_tensor(ids, device=device)
+        mask_t = torch.as_tensor(mask, device=device)
+
+        def run():
+            with torch.inference_mode():
+                return bert_to_clip_features(bert.eval(), proj, ids_t, mask_t)
+
+        t0 = time.perf_counter()
+        outs[name] = run().float().cpu()
+        times[name] = ((time.perf_counter() - t0) * 1000.0 if device == "cpu"
+                       else _host_ms(torch, device, run, 5))
+        del bert, proj
+    want = outs["cpu f32"]
+    scale = want.abs().max().item()
+    errs = {n: (outs[n] - want).abs().max().item() / scale for n in ("f32", "bf16")}
+    print(f"bert: [{len(ids)}, {BERT_CLIP_DIM}] features, largest |value| {scale}; on "
+          f"{LAST_DEVICE} f32 (TF32 off) max |err| / largest {errs['f32']} bound {BERT_TOL}, "
+          f"bf16 {errs['bf16']}; ms a batch: {json.dumps(times)} ({card})", flush=True)
+    if not torch.isfinite(outs["f32"]).all() or not errs["f32"] <= BERT_TOL:
+        raise AssertionError(f"bert: f32 error {errs['f32']} > {BERT_TOL} of the largest value")
+    if not all(torch.isfinite(o).all() for o in outs.values()):
+        raise AssertionError("bert: non-finite features")
+
+
+def _det_batch(torch, cfg, n: int, seed: int):
+    """n seeded images [n, S, S, 3] in [0, 1] with DET_GT boxes each (the
+    last of every other image padding), a brighter field inside each box,
+    and their labels and mask, on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    s = cfg.image_size
+    images = torch.rand((n, s, s, 3), generator=gen) * 0.3
+    lo = torch.rand((n, DET_GT, 2), generator=gen) * (0.7 * s)
+    size = (0.1 + 0.2 * torch.rand((n, DET_GT, 2), generator=gen)) * s
+    boxes = torch.cat([lo, torch.clamp(lo + size, max=float(s))], -1).floor()
+    labels = torch.randint(0, cfg.num_classes, (n, DET_GT), generator=gen)
+    mask = torch.ones((n, DET_GT))
+    mask[1::2, -1] = 0.0
+    for i in range(n):
+        for j in range(DET_GT):
+            if mask[i, j] > 0:
+                x1, y1, x2, y2 = (int(v) for v in boxes[i, j])
+                images[i, y1:y2, x1:x2] += 0.2 + 0.1 * j
+    return images.clamp(0, 1), boxes, labels, mask
+
+
+def detector_train_phase(torch, np, card: str):
+    """Phase 37 (c): the detector in train mode. One step's parameter
+    gradients at DET_GRAD_B through `detection_step` (forward and backward
+    in f32) on LAST_DEVICE against the same step in f64 there (global
+    relative L2 within DET_GRAD_TOL); beside it, the same step on the CPU
+    in f32 and the same step with its backward outside the f32 block and
+    cuDNN's TF32 on, each against the f64 step, and the device's f32
+    against the CPU's. Then DET_TRAIN_STEPS Adam(DET_LR) steps at
+    DET_TRAIN_B on one fixed batch: finite losses that fall, ms a step,
+    peak memory."""
+    import dataclasses
+
+    from dclip_tpu_torch.models.detector import (
+        YOLO,
+        DetectorConfig,
+        f32_convolutions,
+        random_detector_state_dict,
+    )
+    from dclip_tpu_torch.models.detector_loss import detection_loss, detection_step
+
+    cfg = dataclasses.replace(DetectorConfig.v8x(), **DET_TRAIN_CHANGES)
+    sd = random_detector_state_dict(cfg, seed=0)
+
+    def fresh(device, dtype=torch.float32):
+        model = YOLO(cfg, device="meta")
+        model.load_state_dict({k: v.to(device, dtype) if v.is_floating_point() else v.to(device)
+                               for k, v in sd.items()}, strict=True, assign=True)
+        return model.train()
+
+    def grads(model):
+        return torch.cat([p.grad.reshape(-1) for p in model.parameters()]).double().cpu()
+
+    batch = _det_batch(torch, cfg, DET_GRAD_B, seed=37)
+    runs = {}
+    for name, device, dtype in (("f64", LAST_DEVICE, torch.float64),
+                                ("f32", LAST_DEVICE, torch.float32),
+                                ("cpu f32", "cpu", torch.float32)):
+        model = fresh(device, dtype)
+        t0 = time.perf_counter()
+        _, parts = detection_step(model, cfg, *(x.to(device) for x in batch))
+        _sync(torch, device)
+        runs[name] = (grads(model), {k: v.item() for k, v in parts.items()},
+                      time.perf_counter() - t0)
+        del model
+    # The trap: the same step with its backward outside the f32 block, cuDNN
+    # TF32 on (the process default the smoke turned off).
+    model = fresh(LAST_DEVICE)
+    with f32_convolutions():
+        total, parts = detection_loss(cfg, model(batch[0].to(LAST_DEVICE)),
+                                      *(x.to(LAST_DEVICE) for x in batch[1:]))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        total.backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    runs["tf32 backward"] = (grads(model), {k: v.item() for k, v in parts.items()}, None)
+    del model
+    want = runs["f64"][0]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    errs = {n: rel(runs[n][0], want) for n in ("f32", "cpu f32", "tf32 backward")}
+    errs["f32 vs cpu f32"] = rel(runs["f32"][0], runs["cpu f32"][0])
+    print(f"det_train: {cfg.width}-wide depth {cfg.depth} at {cfg.image_size} px, B="
+          f"{DET_GRAD_B}: loss parts {json.dumps({n: r[1] for n, r in runs.items()})}; "
+          f"gradients ({want.numel()} values) relative L2 vs the f64 step on {LAST_DEVICE}: "
+          f"{json.dumps(errs)}, bound {DET_GRAD_TOL} on f32; step s "
+          f"{json.dumps({n: r[2] for n, r in runs.items() if r[2] is not None})} ({card})",
+          flush=True)
+    failures = []
+    if len({r[1]["num_pos"] for r in runs.values()}) != 1:
+        failures.append(f"positives differ: {[r[1]['num_pos'] for r in runs.values()]}")
+    if not torch.isfinite(runs["f32"][0]).all() or not errs["f32"] <= DET_GRAD_TOL:
+        failures.append(f"gradients relative L2 {errs['f32']} > {DET_GRAD_TOL}")
+
+    _reset_peak(torch, LAST_DEVICE)
+    model = fresh(LAST_DEVICE)
+    images, boxes, labels, mask = (x.to(LAST_DEVICE) for x in _det_batch(torch, cfg,
+                                                                         DET_TRAIN_B, seed=38))
+    opt = torch.optim.Adam(model.parameters(), lr=DET_LR)
+    losses, step_ms = [], []
+    for _ in range(DET_TRAIN_STEPS):
+        _sync(torch, LAST_DEVICE)
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        total, _ = detection_step(model, cfg, images, boxes, labels, mask)
+        opt.step()
+        losses.append(total.item())
+        step_ms.append((time.perf_counter() - t0) * 1000.0)
+    peak = _peak_gib(torch, LAST_DEVICE)
+    print(f"det_train: B={DET_TRAIN_B}, {DET_TRAIN_STEPS} Adam({DET_LR}) steps on one batch: "
+          f"losses {losses}; ms a step {step_ms} (the first warms up; host clock to the loss's "
+          f"read), peak {peak} GiB ({card})", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"losses {losses} not finite or not falling")
+    del model, opt
+    _reset_peak(torch, LAST_DEVICE)
+    if failures:
+        raise AssertionError("det_train: " + "; ".join(failures))
+
+
+def last_modules_phase(torch, np, card: str):
+    """Phase 37: (a) `context_phase`, (b) `bert_phase`, (c)
+    `detector_train_phase`. Returns (a)'s (launches, `[context]` rows)."""
+    t_phase = time.perf_counter()
+    launches, rows = context_phase(torch, np, card)
+    bert_phase(torch, np, card)
+    detector_train_phase(torch, np, card)
+    print(f"last: phase 37 {time.perf_counter() - t_phase} s ({card})", flush=True)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -5423,6 +5838,7 @@ def main() -> int:
     profiled = profile_phase(torch, np, card)
     tp_launches, tp_rows = tp_phase(torch, np, sd, tsd, card)
     serve_launches, serve_rows = serve_phase(torch, np, card)
+    last_launches, context_rows = last_modules_phase(torch, np, card)
 
     counts = {**{n: launches[n] + region[n] for n in KERNELS},
               **{n: train_launches[n] for n in TRAIN_KERNELS},
@@ -5460,6 +5876,11 @@ def main() -> int:
     kernels += [{"name": row, "route": "cuda", "source": sources[row[:-10]][0],
                  "replaces": sources[row[:-10]][1], "launches": serve_launches[row[:-10]],
                  **entry} for row, entry in serve_rows.items()]
+    # Phase 37's context view: K1 / K2 launches of its encode (both views)
+    # in `[context]` rows, held and timed on the context view's calls.
+    kernels += [{"name": row, "route": "cuda", "source": sources[row[:-9]][0],
+                 "replaces": sources[row[:-9]][1], "launches": last_launches[row[:-9]],
+                 **entry} for row, entry in context_rows.items()]
     print(f"chip_smoke: {time.perf_counter() - t_start} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

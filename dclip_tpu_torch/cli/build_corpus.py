@@ -1,9 +1,9 @@
 """Corpus builder CLI (counterpart of `dclip_tpu/cli/build_corpus.py`): the
 reference's `json_creation/big_teacher_data.py` (CLI contract :432-471:
 --output_dir plus per-source image/annotation paths and target counts).
-The same flags and output files as the JAX CLI; `--allow_network` (the
-Conceptual Captions fetch) raises until `data/fetch.py` is ported (ROADMAP
-Queue 1 item 8).
+The same flags and output files as the JAX CLI; `--allow_network` fetches
+the Conceptual Captions images (`data.fetch.fetch_conceptual_captions`) on
+a machine with a network, and without it only images on disk are used.
 
     python -m dclip_tpu_torch.cli.build_corpus --output_dir data \
         --coco_images /data/coco/train2014 --coco_annotations captions.json \
@@ -44,9 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--val_fraction", type=float, default=0.1)
     p.add_argument("--allow_network", action="store_true",
-                   help="the Conceptual Captions live image fetch (reference "
-                        "big_teacher_data.py:228-350): not ported yet, raises. "
-                        "Default: only images already on disk are used")
+                   help="permit the Conceptual Captions live image fetch "
+                        "(reference big_teacher_data.py:228-350: browser "
+                        "UA, 5s timeout, PIL validation, 5x row "
+                        "oversampling). Zero-egress default: only images "
+                        "already on disk are used")
     return p
 
 

@@ -1,16 +1,19 @@
 """Karpathy split CLI (counterpart of `dclip_tpu/cli/karpathy.py`): the
 reference's `json_creation/karpathy_download.py` contract (--datasets
 {coco,flickr30k,both}, --coco_dir, --flickr_dir, --output_dir, --split),
-reading the Karpathy `dataset_<name>.json` already on disk. It writes the
---dataset_json that `flickr30k_eval` reads.
+reading the Karpathy `dataset_<name>.json` already on disk, or with
+`--download --allow_network` fetching and extracting the cs.stanford.edu
+zip into --data_dir first (`data.fetch.download_karpathy_split`; a cached
+zip is reused). It writes the --dataset_json that `flickr30k_eval` reads.
 
     python -m dclip_tpu_torch.cli.karpathy --datasets flickr30k \
         --flickr_dir /data/flickr30k_images \
         --karpathy_json /data/karpathy/flickr30k/dataset_flickr30k.json \
         --output_dir data --split test
 
-The JAX CLI's `--download --allow_network` (the zip fetch of
-`data/fetch.py`) is not ported: this CLI reads local files only.
+    python -m dclip_tpu_torch.cli.karpathy --datasets flickr30k --download \
+        --allow_network --data_dir data/karpathy \
+        --flickr_dir /data/flickr30k_images --output_dir data --split test
 """
 from __future__ import annotations
 
@@ -34,15 +37,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", default="data")
     p.add_argument("--split", default="all",
                    help='"all" or one of train/val/test (+restval for coco)')
+    p.add_argument("--download", action="store_true",
+                   help="materialize dataset_<name>.json into --data_dir "
+                        "by downloading + extracting the cs.stanford.edu "
+                        "zip (requires --allow_network; cached zips are "
+                        "reused)")
+    p.add_argument("--allow_network", action="store_true",
+                   help="permit the --download fetch (zero-egress default)")
+    p.add_argument("--data_dir", default=os.path.join("data", "karpathy"),
+                   help="zip cache / extraction dir for --download")
     return p
 
 
 def _json_path(args, name):
+    if args.download:
+        from dclip_tpu_torch.data.fetch import download_karpathy_split
+
+        return download_karpathy_split(name, args.data_dir, allow_network=args.allow_network)
     if args.karpathy_json:
         return args.karpathy_json
     if args.karpathy_dir:
         return os.path.join(args.karpathy_dir, name, f"dataset_{name}.json")
-    raise SystemExit("provide --karpathy_json or --karpathy_dir")
+    raise SystemExit("provide --karpathy_json/--karpathy_dir, or --download")
 
 
 def main(argv=None) -> int:

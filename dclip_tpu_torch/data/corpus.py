@@ -8,10 +8,10 @@ a 90/10 train/val split (:376-381), the per-source target counts (COCO
 (:401-428). As in the JAX package: records whose image file is missing
 are skipped; the shuffle is a seeded `random.Random`; VG boxes keep the
 reference's `{"x", "y", "width", "height"}` form. Every builder reads local
-annotation files. The Conceptual Captions live fetch (`allow_network`,
-`dclip_tpu/data/fetch.py`) is ROADMAP Queue 1 item 8 and raises; CC images
-already on disk are read, under the names the fetch would give them
-(`cc_image_filename`, copied from `fetch.py:135-143`).
+annotation files. With `allow_network` the Conceptual Captions images are
+fetched (`data.fetch.fetch_conceptual_captions`, through `cc_transport`);
+without it the CC images already on disk are read, under the names the
+fetch gives them (`data.fetch.cc_image_filename`) among others.
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ import random
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from dclip_tpu_torch.data.fetch import cc_image_filename, fetch_conceptual_captions
 
 DEFAULT_TARGETS = {
     "coco": 50_000,
@@ -45,22 +47,11 @@ class CorpusPaths:
     # targets["conceptual_captions"] * 5 for the reference's exact row cap
     # (big_teacher_data.py:263 — its 5x oversampling can undershoot).
     cc_max_scan_rows: Optional[int] = None
-    # The CC live fetch's gate (the JAX package's data.fetch): True raises
-    # until that module is ported; False (default) reads images on disk.
+    # The CC live fetch's gate (data.fetch): True fetches the images through
+    # `cc_transport`; False (default) reads images already on disk.
     allow_network: bool = False
     cc_transport: Optional[object] = None  # the fetch's injectable transport
     targets: Dict[str, int] = field(default_factory=lambda: dict(DEFAULT_TARGETS))
-
-
-def cc_image_filename(row_idx: int, url: str) -> str:
-    """The reference's URL-derived CC filename (big_teacher_data.py:280-289):
-    `cc_<row:07d>_<url basename sans query>`, cleaned to [alnum._-], with a
-    `.jpg` fallback when the URL has no usable basename."""
-    base = url.split("/")[-1].split("?")[0]
-    name = f"cc_{row_idx:07d}_{base}"
-    if not base:
-        name = f"cc_{row_idx:07d}.jpg"
-    return "".join(c for c in name if c.isalnum() or c in "._-")
 
 
 def _available(images_dir: Optional[str], ann_file: Optional[str], name: str) -> bool:
@@ -255,14 +246,19 @@ def combine_datasets(
     ) if paths.flickr_images_dir else []
     if paths.cc_images_dir:
         if paths.allow_network:
-            raise NotImplementedError(
-                "the Conceptual Captions fetch (allow_network, data/fetch.py) is not ported "
-                "yet: ROADMAP Queue 1 item 8")
-        all_data += process_conceptual_captions(
-            paths.cc_images_dir, paths.cc_annotations_file or "",
-            paths.targets.get("conceptual_captions", 0),
-            max_scan_rows=paths.cc_max_scan_rows,
-        )
+            all_data += fetch_conceptual_captions(
+                paths.cc_images_dir, paths.cc_annotations_file or "",
+                paths.targets.get("conceptual_captions", 0),
+                allow_network=True,
+                transport=paths.cc_transport,
+                max_scan_rows=paths.cc_max_scan_rows,
+            )
+        else:
+            all_data += process_conceptual_captions(
+                paths.cc_images_dir, paths.cc_annotations_file or "",
+                paths.targets.get("conceptual_captions", 0),
+                max_scan_rows=paths.cc_max_scan_rows,
+            )
 
     if not all_data:
         print("Warning: No datasets were successfully processed!")

@@ -1,6 +1,6 @@
-"""The YOLOv8 detector, serving only (counterpart of
-`dclip_tpu/models/detector.py`): the region-proposal stage of the
-pipeline (corpus -> detection cache -> teacher), on the card.
+"""The YOLOv8 detector (counterpart of `dclip_tpu/models/detector.py`): the
+region-proposal stage of the pipeline (corpus -> detection cache ->
+teacher), on the card, and its training mode.
 
 - `YOLO` (JAX `FlaxYOLO`): anchor-free YOLOv8: CSP backbone (C2f blocks +
   SPPF), PAN neck, decoupled heads at strides 8 / 16 / 32 with DFL box
@@ -16,7 +16,11 @@ The layout contract is the JAX module's: images [B, S, S, 3] in [0, 1]
 in, per-scale logits [B, H, W, C] out (NHWC, so that decode flattens the
 anchors row-major over (h, w) as JAX does); inside, the convolutions run
 in NCHW. Padding is symmetric k // 2 (ultralytics' autopad; torch's
-`padding=k // 2`), BatchNorm eps 1e-3 with running statistics.
+`padding=k // 2`), BatchNorm eps 1e-3 with running statistics in eval
+mode. In train mode (`YOLO.train()`) BatchNorm is flax's: it normalizes
+with the batch's biased variance and updates the running mean and the
+running *biased* variance with momentum 0.97 (`nn.BatchNorm2d` would take
+the unbiased one); `models.detector_loss` holds the training objective.
 
 Precision: the JAX module computes in f32 and has no dtype argument. On
 the card an f32 convolution goes through cuDNN in TF32 unless told
@@ -27,12 +31,14 @@ the flag after. The flag is process-wide: detector forwards hold a module
 lock while it is pinned, so two of them cannot leave it False, but a
 convolution of another thread that overlaps a detector forward runs
 without TF32 too. Do not run other convolutions beside the detector in one
-process.
+process. A training step runs its forward and its backward inside one
+`f32_convolutions` block (`models.detector_loss.detection_step`), so that
+cuDNN's convolution gradients run in f32 too.
 
 Weights: `Detector.initialize` draws random ones from a seed;
 `models.weights.detector_state_dict_from_jax` carries the JAX module's
-variables across; `models.detector_import` imports an ultralytics
-checkpoint. Detector training (`models/detector_loss.py`) is not ported.
+variables across, batch statistics included; `models.detector_import`
+imports an ultralytics checkpoint.
 """
 from __future__ import annotations
 
@@ -120,13 +126,44 @@ def f32_convolutions():
             torch.backends.cudnn.allow_tf32 = prev
 
 
+# flax's BatchNorm momentum: running = 0.97 * running + (1 - 0.97) * batch.
+FLAX_MOMENTUM = 0.97
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (eps 1e-3, the same state dict) whose train mode is
+    flax `BatchNorm(momentum=0.97)`'s: normalize with the batch mean and the
+    biased batch variance, then running = 0.97 * running + (1 - 0.97) *
+    batch for the mean and that biased variance (`nn.BatchNorm2d` would
+    take the unbiased one). The variance is computed in two passes
+    (`F.batch_norm`'s training mode, `torch.var_mean`): the function flax
+    computes as E[x^2] - E[x]^2, without that form's cancellation in f32,
+    whose error grows with the net's width and depth. Eval mode is
+    `nn.BatchNorm2d`'s, on the running statistics."""
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__(num_features, eps=1e-3, momentum=1.0 - FLAX_MOMENTUM, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.copy_(FLAX_MOMENTUM * self.running_mean
+                                    + (1 - FLAX_MOMENTUM) * mean)
+            self.running_var.copy_(FLAX_MOMENTUM * self.running_var
+                                   + (1 - FLAX_MOMENTUM) * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class ConvBNAct(nn.Module):
     """Conv (no bias, symmetric k // 2 padding) + BatchNorm(eps 1e-3) + SiLU."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1, device=None):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False, device=device)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3, momentum=0.03, device=device)
+        self.bn = FlaxBatchNorm2d(cout, device=device)
 
     def forward(self, x):
         return F.silu(self.bn(self.conv(x)))
@@ -222,8 +259,9 @@ class YOLO(nn.Module):
 
     def forward(self, images: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """images [B, S, S, 3] in [0, 1] -> per scale (box_logits [B, Hs, Ws,
-        4 * reg_max], cls_logits [B, Hs, Ws, nc]), strides 8, 16, 32."""
-        x = images.float().permute(0, 3, 1, 2)
+        4 * reg_max], cls_logits [B, Hs, Ws, nc]), strides 8, 16, 32, in the
+        weights' dtype (f32; f64 for a reference step)."""
+        x = images.to(self.stem.conv.weight.dtype).permute(0, 3, 1, 2)
         x = self.c2f1(self.down1(self.stem(x)))
         p3 = self.c2f2(self.down2(x))
         p4 = self.c2f3(self.down3(p3))

@@ -15,11 +15,15 @@ stages:
      cross-attention (`models.cross_modal`, or the fused kernel K10), the
      temperature aggregation of both streams and the 0.5 / 0.5 fusion.
 
+`encode_patches_with_context` adds the context view of each box: the
+whole frame with the box blacked out (`ops.image_ops.black_out_boxes`),
+squash-resized to the tower's size and encoded by the same image features
+function, so on CUDA through K1 / K2 too.
+
 With `mask_padding` (the default) padded slots are inert; without it they
 take part, as in the reference. The stages run under `torch.profiler`
-ranges (`dclip.crop`, `dclip.region_encode`, `dclip.teacher_text`) that a
-profile reads for its breakdown of a step. `encode_patches_with_context` waits for
-ROADMAP Queue 1 item 9.
+ranges (`dclip.crop`, `dclip.region_encode`, `dclip.context_encode`,
+`dclip.teacher_text`) that a profile reads for its breakdown of a step.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ from torch.profiler import record_function
 
 from dclip_tpu_torch.models.cross_modal import CrossModalAttention
 from dclip_tpu_torch.ops.aggregation import fuse_global, temperature_aggregate
-from dclip_tpu_torch.ops.image_ops import batch_crop_resize_normalize, crop_resize_many, normalize
+from dclip_tpu_torch.ops.image_ops import (batch_crop_resize_normalize, black_out_boxes,
+                                           crop_resize_many, normalize, resize_frames)
 
 
 class TeacherOutput(NamedTuple):
@@ -94,6 +99,28 @@ def encode_patches(clip_model, images: torch.Tensor, boxes: torch.Tensor,
     with record_function("dclip.region_encode"):
         emb = fn(patches.reshape(b * p, patch_size, patch_size, 3)).reshape(b, p, -1)
     return emb * patch_mask[..., None]
+
+
+def encode_patches_with_context(clip_model, images: torch.Tensor, boxes: torch.Tensor,
+                                patch_mask: torch.Tensor, patch_size: int = 224,
+                                image_features_fn: Optional[FeaturesFn] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(patch_embeddings, context_embeddings), both [B, P, D], invalid slots
+    zero in both. The context view of box p is image b with the box
+    blacked out, resized to patch_size x patch_size (antialiased bilinear,
+    `jax.image.resize`'s rule), normalized and encoded in one batched
+    forward of B x P frames by `image_features_fn` (default: the module
+    forward), as the patch view is."""
+    b, p = boxes.shape[:2]
+    patch_emb = encode_patches(clip_model, images, boxes, patch_mask, patch_size,
+                               image_features_fn)
+    fn = image_features_fn or clip_model.image_features
+    with record_function("dclip.context_encode"):
+        context = black_out_boxes(images, boxes)  # [B, P, H, W, 3]
+        flat = resize_frames(context.reshape((b * p,) + context.shape[2:]), patch_size,
+                             patch_size)
+        ctx_emb = fn(normalize(flat)).reshape(b, p, -1)
+    return patch_emb, ctx_emb * patch_mask[..., None]
 
 
 def encode_patches_compact(clip_model, images: torch.Tensor, boxes: torch.Tensor,

@@ -23,10 +23,11 @@ The meta-teacher's weights (`models.teacher.PatchTextAggregation`, torch
 them by the same value rule in the JAX tree's order, so it equals the
 bridge of the JAX package's random teacher of the same seed.
 
-The detector's (`models.detector.YOLO`) and the k-NN gate's projection
-head's (`models.projections.ImageProjectionModule`) come across from the
-JAX modules' variables by `detector_state_dict_from_jax` and
-`projection_state_dict_from_jax`.
+The detector's (`models.detector.YOLO`), the k-NN gate's projection
+head's (`models.projections.ImageProjectionModule`) and BERT's
+(`models.bert.BertEncoder`, HF `BertModel` names) come across from the JAX
+modules' variables by `detector_state_dict_from_jax`,
+`projection_state_dict_from_jax` and `bert_state_dict_from_jax`.
 """
 from __future__ import annotations
 
@@ -225,4 +226,37 @@ def projection_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch
     for name, p in params.items():
         sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
         sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
+
+
+def bert_state_dict_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The JAX `BertEncoder`'s params -> the port's `models.bert.BertEncoder`
+    state dict (HF `BertModel` names): Dense kernels [in, out] -> weights
+    [out, in], `embedding` tables and the bare `position_embeddings` array
+    as they are, LayerNorm `scale` -> `weight`."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def dense(name, p):
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+    def ln(name, p):
+        sd[f"{name}.weight"] = _t(p["scale"])
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+    sd["embeddings.word_embeddings.weight"] = _t(params["word_embeddings"]["embedding"])
+    sd["embeddings.position_embeddings.weight"] = _t(params["position_embeddings"])
+    sd["embeddings.token_type_embeddings.weight"] = _t(
+        params["token_type_embeddings"]["embedding"])
+    ln("embeddings.LayerNorm", params["embeddings_norm"])
+    for i in range(cfg.num_layers):
+        layer, pre = params[f"layers_{i}"], f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            dense(f"{pre}attention.self.{name}", layer["attention"][name])
+        dense(f"{pre}attention.output.dense", layer["attention_output"])
+        ln(f"{pre}attention.output.LayerNorm", layer["attention_norm"])
+        dense(f"{pre}intermediate.dense", layer["intermediate"])
+        dense(f"{pre}output.dense", layer["output"])
+        ln(f"{pre}output.LayerNorm", layer["output_norm"])
+    dense("pooler.dense", params["pooler"])
     return sd

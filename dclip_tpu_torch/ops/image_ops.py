@@ -1,5 +1,6 @@
-"""Device image ops: CLIP pixel normalization and the region crop-resize
-(counterpart of `dclip_tpu/ops/image_ops.py:17-72`).
+"""Device image ops: CLIP pixel normalization, the region crop-resize, the
+context view's black-out and the whole-frame resizes (counterpart of
+`dclip_tpu/ops/image_ops.py`).
 
 `crop_resize` crops an xyxy box (fractional pixel coordinates) out of an
 image and squash-resizes it, with the antialiased triangle filter of
@@ -15,6 +16,12 @@ differently from the formula it compiles (it folds 1 / (out / length)
 into length * (1 / out) and fuses multiply-adds, as it fuses the vmapped
 program), so the two crops agree to a few 1e-6 in [0, 1] intensities, not
 bitwise.
+
+`resize_frames` is `jax.image.resize(..., "bilinear")` over whole frames:
+the same triangle weights at scale out / in and translation 0, an axis
+whose size does not change left as it is (jax skips it), antialiased when
+it shrinks (`F.interpolate(mode="bilinear")` is not). `black_out_boxes`
+and `resize_center_crop` build on it as the JAX functions do.
 """
 from __future__ import annotations
 
@@ -91,3 +98,50 @@ def batch_crop_resize_normalize(images: torch.Tensor, boxes: torch.Tensor,
     index = torch.arange(b, device=images.device).repeat_interleave(p)
     crops = crop_resize_many(images, index, boxes.reshape(b * p, 4), out_size)
     return normalize(crops).reshape(b, p, out_size, out_size, images.shape[-1])
+
+
+def black_out_boxes(images: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """The context view: images [B, H, W, C], boxes [B, P, 4] xyxy ->
+    [B, P, H, W, C], view (b, p) image b with the pixels of box p zeroed.
+    Pixel (y, x) lies in a box when y1 <= y < y2 and x1 <= x < x2, on float
+    pixel indices, so a degenerate box zeroes nothing."""
+    _, h, w, _ = images.shape
+    ys = torch.arange(h, dtype=torch.float32, device=images.device)[None, None, :]
+    xs = torch.arange(w, dtype=torch.float32, device=images.device)[None, None, :]
+    x1, y1, x2, y2 = (boxes[..., i, None].float() for i in range(4))  # [B, P, 1]
+    in_y = (ys >= y1) & (ys < y2)  # [B, P, H]
+    in_x = (xs >= x1) & (xs < x2)  # [B, P, W]
+    inside = in_y[:, :, :, None] & in_x[:, :, None, :]  # [B, P, H, W]
+    return torch.where(inside[..., None], torch.zeros((), dtype=images.dtype,
+                                                      device=images.device), images[:, None])
+
+
+def _frame_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """[out, in] antialiased triangle weights of a whole-frame resize."""
+    scale = torch.tensor([out_size / in_size], dtype=torch.float32, device=device)
+    return triangle_weights(in_size, out_size, scale, torch.zeros_like(scale))[0]
+
+
+def resize_frames(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Whole frames [N, H, W, C] -> [N, out_h, out_w, C] f32, as
+    `jax.image.resize(images, (N, out_h, out_w, C), "bilinear")`."""
+    x = images.float()
+    n, h, w, c = x.shape
+    if out_h != h:
+        x = torch.matmul(_frame_weights(h, out_h, x.device), x.reshape(n, h, w * c))
+        x = x.reshape(n, out_h, w, c)
+    if out_w != w:
+        x = torch.einsum("qw,nowc->noqc", _frame_weights(w, out_w, x.device), x)
+    return x
+
+
+def resize_center_crop(image: torch.Tensor, size: int = 224) -> torch.Tensor:
+    """image [H, W, C] -> [size, size, C] f32: the shorter side resized to
+    `size` (antialiased bilinear, sides rounded with Python's `round`), then
+    the centred size x size window."""
+    h, w = image.shape[0], image.shape[1]
+    scale = size / min(h, w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    resized = resize_frames(image[None], nh, nw)[0]
+    top, left = (nh - size) // 2, (nw - size) // 2
+    return resized[top:top + size, left:left + size]

@@ -304,3 +304,31 @@ def test_chip_smoke_serve_phase_on_the_cpu(monkeypatch, capsys):
                  "serve_mesh) against no group: bit-equal", "serve_dp: phase 36"):
         assert line in printed, line
     assert not torch.distributed.is_initialized()
+
+
+def test_chip_smoke_last_modules_phase_on_the_cpu(monkeypatch, capsys):
+    """`chip_smoke.py` phase 37 on the CPU at tiny sizes: the context view
+    of the tiny CLIP (its f32 module route) against the CPU reference,
+    BERT's `tiny_test` on both of its routes, and the width-8 detector's
+    training steps and gradients; every hold of the phase that holds off
+    the card."""
+    import torch
+
+    smoke = _smoke_module()
+    for name, value in (("LAST_DEVICE", "cpu"), ("LAST_PRESET", "tiny"),
+                        ("LAST_DTYPE", "float32"), ("CONTEXT_B", 4), ("CONTEXT_REPEATS", 1),
+                        ("BERT_PRESET", "tiny_test"), ("BERT_CAPTIONS", 6), ("BERT_T", 16),
+                        ("BERT_CLIP_DIM", 16),
+                        ("DET_TRAIN_CHANGES", dict(num_classes=3, image_size=64, width=8,
+                                                   depth=1, p5_ch=None)),
+                        ("DET_TRAIN_B", 2), ("DET_TRAIN_STEPS", 3)):
+        monkeypatch.setattr(smoke, name, value)
+    launches, rows = smoke.last_modules_phase(torch, np, "cpu")
+    printed = capsys.readouterr().out
+    assert not any(launches.values()) and rows == {}  # the twins run on the CPU
+    for line in ("context: tiny float32 on cpu, 4 images x 8 boxes: views of [32, 32] frames",
+                 "context: region encode ", "context: patch view, 2 images (13 valid of 16)",
+                 "context: context view, 2 images", "bert: tiny_test (2 layers, 32 wide), 6 "
+                 "captions", "bert: [6, 16] features", "det_train: 8-wide depth 1 at 64 px, B=2",
+                 "det_train: B=2, 3 Adam(0.002) steps on one batch", "last: phase 37"):
+        assert line in printed, line

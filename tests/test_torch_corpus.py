@@ -148,13 +148,57 @@ def test_build_corpus_cli_equals_the_jax_cli(sources, tmp_path, capsys):
     assert cli.main(empty) == jax_cli.main(empty) == 1
 
 
-def test_the_cc_fetch_waits(sources, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        corpus.combine_datasets(_paths(corpus, sources, allow_network=True),
-                                str(tmp_path / "t.json"), str(tmp_path / "v.json"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["--output_dir", str(tmp_path), "--cc_images", str(sources / "cc"),
-                  "--cc_annotations", str(sources / "cc.tsv"), "--allow_network"])
+def test_the_cc_fetch_waits(sources, tmp_path, monkeypatch, capsys):
+    """The Conceptual Captions fetch behind `allow_network`, the same two
+    calls on both packages through a fake transport (no network): the
+    corpus builder with `cc_transport`, and the CLI's `--allow_network`
+    through the fetch module's `default_transport`. Each fetches into its
+    own copy of the CC directory, whose empty files are no images, so
+    every row with a URL is requested. The requests, every file written
+    and the printed lines equal the JAX package's."""
+    import io
+    import shutil
+
+    from PIL import Image
+
+    from dclip_tpu.data import fetch as jfetch
+    from dclip_tpu_torch.data import fetch
+
+    buf = io.BytesIO()
+    Image.new("RGB", (4, 4), (9, 99, 199)).save(buf, "PNG")
+    urls = [line.split("\t")[1] for line in (sources / "cc.tsv").read_text().splitlines()
+            if "\t" in line]
+    bodies = dict.fromkeys(urls, buf.getvalue())
+    bodies[urls[1]] = b"<html>not an image</html>"  # fails PIL's check: skipped
+    outs = []
+    for module, main, fetch_mod, tag in ((corpus, cli.main, fetch, "port"),
+                                         (jcorpus, jax_cli.main, jfetch, "jax")):
+        root, calls = tmp_path / tag, []
+
+        def transport(url, timeout, calls=calls):
+            calls.append((url, timeout))
+            return bodies[url]
+
+        shutil.copytree(sources / "cc", root / "cc")
+        train, _ = module.combine_datasets(
+            _paths(module, sources, allow_network=True, cc_images_dir=str(root / "cc"),
+                   cc_transport=transport), str(root / "t.json"), str(root / "v.json"))
+        assert train is not None
+        monkeypatch.setattr(fetch_mod, "default_transport", transport)
+        shutil.copytree(sources / "cc", root / "cli" / "cc")
+        assert main(["--output_dir", str(root / "cli"), "--cc_images", str(root / "cli" / "cc"),
+                     "--cc_annotations", str(sources / "cc.tsv"), "--allow_network"]) == 0
+        files = {p.relative_to(root).as_posix(): p.read_bytes().replace(str(root).encode(), b"R")
+                 for p in sorted(root.rglob("*")) if p.is_file()}
+        outs.append((calls, files, capsys.readouterr().out.replace(str(root), "R")))
+    assert outs[0] == outs[1]
+    calls, files, _ = outs[0]
+    # Row 0 is taken for the TSV's header (its caption starts with
+    # "caption"), row 1's body is skipped: 3 images from rows 2-4, each call.
+    assert [u for u, _ in calls] == urls[1:] + urls[1:]
+    cc = [d for name in ("cli/teacher_train.json", "cli/teacher_val.json")
+          for d in json.loads(files[name]) if d["dataset"] == "conceptual_captions"]
+    assert len(cc) == 3
 
 
 def test_doctor_collect_fast_keys(capsys):
