@@ -23,8 +23,9 @@ upload of a real input pipeline's pixels is in no row.
 
 `--trace_dir` records a separate window of min(3, steps) uncached steps
 after the timed one (a recording perturbs step time) through
-`core.metrics.start_trace`, and prints the window's kernel time and busy
-share and the device span and host time of each `dclip.*` range of it.
+`core.metrics.start_trace`, and prints the window's kernel time, busy
+share and unranged device time (outside every `dclip.*` range), and the
+device span and host time of each `dclip.*` range of it.
 `--per_op` runs `cli.profile_ops` instead: each op of the cache-warm step
 against its floor.
 
@@ -61,15 +62,19 @@ def _time_phase(fn: Callable, sync: Callable, steps: int, warmup: int = 2) -> fl
 
 
 def print_ranges(trace: dict, steps: int, card: str) -> None:
-    """The trace window's device (kernel) time and busy share, and each
-    `dclip.*` range's device span and host ms per step
-    (`core.metrics.device_time_by_range`)."""
+    """The trace window's device (kernel) time, busy share and the device
+    time no `dclip.*` range holds, and each range's device span and host ms
+    per step (`core.metrics.device_time_by_range`)."""
     if trace["busy"] is None:
         print(f"trace: {steps} uncached steps; device time not measured ({card}: no "
               "device activity in the profile)")
+        print("unranged ms/step: not measured")
     else:
         print(f"trace: {steps} uncached steps, kernels {trace['device_ms']:.3f} ms/step, busy "
-              f"{100.0 * trace['busy']:.1f}% of the wall ({card})")
+              f"{trace['busy_ms']:.3f} ms/step, {100.0 * trace['busy']:.1f}% of the wall "
+              f"({card})")
+        print(f"unranged ms/step: {trace['unranged_ms']:.3f} (device work outside every "
+              "dclip range)")
     print(f"{'range':<26}{'device span ms':>16}{'host ms':>12}")
     for name, r in trace["ranges"].items():
         dev = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.3f}"

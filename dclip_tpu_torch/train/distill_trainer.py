@@ -36,9 +36,17 @@ in f32 whether its patch embeddings were just encoded or come from a
 cache (the JAX trainer runs it in bf16 after a host pe-cache hit,
 ROADMAP Queue 3). `eval_loss_on_batch` runs the teacher and the student
 loss without the caches and without gradients. The stages run under
-`torch.profiler` ranges (`dclip.h2d`, `dclip.cross_attention`,
-`dclip.student_step`, and those of `models.teacher`) for a profile's
-breakdown of a step; outside a profile they cost a few microseconds.
+`torch.profiler` ranges for a profile's breakdown of a step, each a
+sibling of the others at the top of the step unless named inside one:
+`dclip.cache_lookup` (the keys' hashing, both cache levels' `get` and a
+host hit's upload), `dclip.h2d`, those of `models.teacher` and
+`dclip.cross_attention`, `dclip.pack_text` (the host packing and its
+uploads), and `dclip.student_step` (the forward and the loss;
+`train.optim`'s `dclip.backward` and `dclip.optimizer` inside it). While
+a profiler records, the backward runs under `dclip.backward.loss`,
+`dclip.backward.text` and `dclip.backward.vision`, opened and closed on
+autograd's thread (`core.metrics.BackwardSpans`); without one the step
+builds no span and the ranges cost a few microseconds.
 
 `cfg.remat` runs the student's encoder layers under activation
 recomputation (`models.clip`, JAX's `nn.remat`): the same numbers, less
@@ -89,6 +97,7 @@ from torch.profiler import record_function
 from dclip_tpu_torch.core.config import CLIPConfig, DistillConfig, UnfreezeStage
 from dclip_tpu_torch.core.device import resolve_device, resolve_dtype
 from dclip_tpu_torch.core.fast_paths import resolve_fast_paths
+from dclip_tpu_torch.core.metrics import BackwardSpans, profiling
 from dclip_tpu_torch.kernels import vit_block
 from dclip_tpu_torch.kernels.cross_attention import cross_attention_fused, pack_cross_attention
 from dclip_tpu_torch.kernels.distill_loss import fused_distillation_loss
@@ -323,6 +332,7 @@ class DistillTrainer(BaseTrainer):
         self._make_teacher(teacher_clip_state_dict, teacher_state_dict)
         self._init_knn_gate(knn_store, projection_params, cfg.teacher.embed_dim)
         self.step = 0
+        self._spans = BackwardSpans()
         self.teacher_cache = teacher_cache
         # Device-resident level 0 in front of the host cache: a hit costs
         # one [B] index upload. Patch embeddings take 3/4 of the budget
@@ -436,6 +446,11 @@ class DistillTrainer(BaseTrainer):
         print(f"Student trainable leaves: {n_train}/{n_total}")
         names = self._trainable_names()
         params = dict(self.student.named_parameters())
+        # Each tower's trainable leaves: their gradients close its backward span.
+        self._tower_leaves = {
+            tower: [params[n] for n in names if n.startswith(prefixes)]
+            for tower, prefixes in (("vision", ("vision_model.", "visual_projection.")),
+                                    ("text", ("text_model.", "text_projection.")))}
         self.optimizer = make_optimizer(
             [params[n] for n in names],
             self.cfg.learning_rate, kind="adamw", warmup_steps=self.cfg.warmup_steps,
@@ -535,7 +550,13 @@ class DistillTrainer(BaseTrainer):
     # -- the student step -----------------------------------------------------
 
     def _student_loss(self, teacher_img, teacher_txt, batch):
+        spans = self._spans if profiling() else None
+        if spans is None:
+            self._spans.release()
         student_img = self.student.image_features(batch["pixel_values"])
+        if spans is not None:
+            student_img = spans.mark(student_img, "dclip.backward.vision",
+                                     self._tower_leaves["vision"])
         if "packed_ids" in batch:
             student_txt = self.student.get_packed_text_features(
                 batch["packed_ids"], batch["packed_segments"], batch["packed_positions"],
@@ -543,6 +564,16 @@ class DistillTrainer(BaseTrainer):
         else:
             student_txt = self.student.get_text_features(batch["input_ids"],
                                                          batch["attention_mask"])
+        if spans is not None:
+            student_txt = spans.mark(student_txt, "dclip.backward.text",
+                                     self._tower_leaves["text"])
+        loss, metrics = self._distillation_loss(student_img, student_txt, teacher_img,
+                                                teacher_txt)
+        if spans is not None:
+            loss = spans.mark(loss, "dclip.backward.loss")
+        return loss, metrics
+
+    def _distillation_loss(self, student_img, student_txt, teacher_img, teacher_txt):
         if self._use_kernels:
             # K11 on one device and, over the gathered global batch, under
             # a process group (module docstring).
@@ -603,22 +634,21 @@ class DistillTrainer(BaseTrainer):
         update. Returns the loss parts as device scalars (computed before
         the update)."""
         d = batch.as_dict() if hasattr(batch, "as_dict") else dict(batch)
-        cached = keys = dev_hit = None
+        keys = targets = None
         if self.teacher_cache is not None and self._cacheable(d):
-            keys = self.teacher_cache.keys_for(d)
-            if self._dev_full is not None:
-                dev_hit = self._dev_full.get(keys)
-            if dev_hit is None:
-                cached = self.teacher_cache.get_batch(keys)
-        if dev_hit is not None or cached is not None:
+            with record_function("dclip.cache_lookup"):
+                keys = self.teacher_cache.keys_for(d)
+                if self._dev_full is not None:
+                    targets = self._dev_full.get(keys)
+                if targets is None:
+                    cached = self.teacher_cache.get_batch(keys)
+                    if cached is not None:
+                        targets = torch.from_numpy(np.asarray(cached, np.float32)).to(self.device)
+                        if self._dev_full is not None:  # promote: later epochs stay on device
+                            self._dev_full.put(keys, targets)
+        if targets is not None:
             with record_function("dclip.h2d"):
                 device_batch = self._device_batch(d, self._STUDENT_FIELDS)
-            if dev_hit is not None:
-                targets = dev_hit
-            else:
-                targets = torch.from_numpy(np.asarray(cached, np.float32)).to(self.device)
-                if self._dev_full is not None:  # promote: later epochs stay on device
-                    self._dev_full.put(keys, targets)
             teacher_img, teacher_txt = targets[:, 0], targets[:, 1]
         else:
             with record_function("dclip.h2d"):
@@ -626,7 +656,8 @@ class DistillTrainer(BaseTrainer):
             teacher_img, teacher_txt = self._get_teacher_targets(d, device_batch, keys=keys,
                                                                  probe_full=False)
         student_batch = {k: device_batch[k] for k in self._STUDENT_FIELDS}
-        student_batch = self._maybe_pack_text(d, student_batch)
+        with record_function("dclip.pack_text"):
+            student_batch = self._maybe_pack_text(d, student_batch)
         with record_function("dclip.student_step"):
             metrics = self._train_step(teacher_img.float(), teacher_txt.float(), student_batch)
         self.step += 1

@@ -197,7 +197,14 @@ def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.T
     each rank differentiated the global loss with respect to its own rows;
     the model ranks' gradients of replicated parameters are already equal,
     `parallel.tp`), one optimizer step. The gradients stay on the parameters until the next
-    call; metrics are detached device scalars."""
+    call; metrics are detached device scalars.
+
+    `dclip.backward` is a range on the calling thread, which only waits
+    while autograd's device thread launches the backward's kernels: it
+    holds no device work, and a profile's idle time before and between the
+    spans a loss_fn marks on that thread (`core.metrics.BackwardSpans`, the
+    distillation trainer's `dclip.backward.loss` / `.text` / `.vision`)
+    falls under its name."""
     from dclip_tpu_torch.parallel.mesh import all_reduce_grads
 
     def step(*args):

@@ -107,12 +107,19 @@ def test_trace_dir_writes_a_trace_and_the_range_table(tmp_path):
     assert json.loads(lines[-1])["trace_dir"] == str(tmp_path)
     assert any(line.startswith("trace: 2 uncached steps; device time not measured")
                for line in lines)
+    assert "unranged ms/step: not measured" in lines
     ranges = {line.split()[0]: line.split()[1:] for line in lines if line.startswith("dclip.")}
-    for name in ("dclip.crop", "dclip.region_encode", "dclip.teacher_text",
-                 "dclip.cross_attention", "dclip.h2d", "dclip.student_step", "dclip.backward",
-                 "dclip.optimizer"):
+    names = ("dclip.h2d", "dclip.crop", "dclip.region_encode", "dclip.teacher_text",
+             "dclip.cross_attention", "dclip.pack_text", "dclip.student_step", "dclip.backward",
+             "dclip.backward.loss", "dclip.backward.text", "dclip.backward.vision",
+             "dclip.optimizer")
+    for name in names:
         assert ranges[name][:2] == ["not", "measured"], name
         assert float(ranges[name][2]) > 0, name
+    # The table runs in the order a step does (`core.metrics.RANGES`); the
+    # uncached window looks nothing up in a cache.
+    assert [n for n in ranges if n in names] == list(names)
+    assert "dclip.cache_lookup" not in ranges
 
 
 def test_per_op_flag_runs_profile_ops(monkeypatch):
