@@ -25,10 +25,13 @@ Phases; each one passes or raises, and any failure exits non-zero:
    the teacher ViT's crops (403,456 x 768 rows). Then the GEMM (`csrc/gemm.cu`) alone: NN and NT
    at the four projections of a B/16 layer for M = 12,608 (serving bucket
    64), 50,432 (the student at B=256) and 403,456 (the teacher ViT over
-   2,048 crops), TN at K8's and K9's weight-gradient shapes, each timed in
-   turns against one PyTorch call (`torch.addmm` / `F.linear` with a bf16
-   bias, `torch.matmul`), with TFLOP/s and share of the bf16 peak; held
-   against the twin at the two smaller M.
+   2,048 crops), at L/14 widths the region encode's four for M = 526,336
+   and K6's forward (a1 saved) and dx for M = 65,792, TN at K8's and K9's
+   weight-gradient shapes, each timed in turns against one PyTorch call
+   (`torch.addmm` / `torch.mm` / `F.linear` with a bf16 bias,
+   `torch.matmul`), with TFLOP/s, share of the bf16 peak and the schedule
+   that ran (wide / narrow); held against the twin at the two smaller B/16
+   M, and on the first and last 1,024 rows at the L/14 ones.
 4. Slice: builds the B/16 `ClipService` through the serve CLI's own
    `build_service` (random weights from seed 0, bf16, buckets 1,4,16,64,
    index_dim 512), runs `warmup()`, the CLI's `--selftest` against a live
@@ -510,9 +513,12 @@ BLOCK_CASES = (("B/16", B, S, D, HEADS, MLP, True), ("B/16", 1, S, D, HEADS, MLP
                ("L/14", ZS_BATCH, L14_S, L14_D, L14_HEADS, L14_MLP, True))
 # The GEMM phase: the rows of a ViT-B/16 layer's projections at the serving
 # bucket of 64 images, the cache-warm student at B=256, and the teacher ViT
-# over 2,048 region crops (B=256 x 8 boxes); TN at K9's weight gradients
-# (B=256 vision rows) and K8's (the 64 packed text rows of 77 tokens).
+# over 2,048 region crops (B=256 x 8 boxes); at ViT-L/14 widths the region
+# encode's rows and K6's (the student's frozen MLP at B=256: forward with
+# a1 saved, and dx); TN at K9's weight gradients (B=256 vision rows) and
+# K8's (the 64 packed text rows of 77 tokens).
 GEMM_ROWS = (B * S, TRAIN_B * S, TRAIN_B * 8 * S)
+GEMM_L14_REGION_ROWS, GEMM_L14_K6_ROWS = TRAIN_B * 8 * L14_S, TRAIN_B * L14_S
 GEMM_TN_CASES = (("K9 dwqkv", TRAIN_B * S, 3 * D, D), ("K9 dwo", TRAIN_B * S, D, D),
                  ("K8 dw2", 64 * TEXT_S, TEXT_D, TEXT_MLP), ("K8 dw1", 64 * TEXT_S, TEXT_MLP, TEXT_D))
 FIT_B, FIT_EPOCHS, FIT_STEPS = 32, 2, 2
@@ -1077,10 +1083,14 @@ def gemm_phase(torch, card: str):
     """The port's GEMM (`csrc/gemm.cu`) in each mode against one PyTorch call
     on the same operands, timed in turns (library, kernel, kernel, library):
     NN and NT at the four projections of a ViT-B/16 layer for the main
-    path's row counts, TN at K8's and K9's weight-gradient shapes. Held
-    against the f32 twin at the two smaller M (the twin's f32 copies at the
-    teacher's M cost memory and time for nothing). Printed only: each
-    mode's row in the kernel table comes from the phases that drive it."""
+    path's row counts, and at ViT-L/14 widths the region encode's four (NN,
+    NT) and K6's forward and dx (NN), TN at K8's and K9's weight-gradient
+    shapes; each NN / NT row names the schedule that ran (`vb.GEMM_SCHEDULES`,
+    which must hold one launch). Held against the f32 twin at the two
+    smaller B/16 M, on their first and last 1,024 rows at the L/14 ones (the
+    twin's f32 copies at the teacher's M cost memory and time for nothing).
+    Printed only: each mode's row in the kernel table comes from the phases
+    that drive it."""
     from dclip_tpu_torch.kernels import trainable_ops as to
     from dclip_tpu_torch.kernels import vit_block as vb
 
@@ -1092,13 +1102,35 @@ def gemm_phase(torch, card: str):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, device=dev, generator=gen) * scale).to(torch.bfloat16)
 
-    def report(what, m, k, n, ms, lib_ms, lib_name, bound):
+    def report(what, m, k, n, ms, lib_ms, lib_name, bound, schedule=""):
         flop = 2.0 * m * k * n
         tflops, lib_tflops = flop / ms / 1e9, flop / lib_ms / 1e9
         print(f"gemm {what} M={m} K={k} N={n}: kernel {ms} ms ({tflops} TFLOP/s, "
               f"{tflops / (PEAKS.bf16 / 1e12)} of peak), {lib_name} {lib_ms} ms ({lib_tflops} "
-              f"TFLOP/s), kernel / library {ms / lib_ms}, bound {max(bound)} ms ({card})",
-              flush=True)
+              f"TFLOP/s), kernel / library {ms / lib_ms}, bound {max(bound)} ms"
+              f"{', schedule ' + schedule if schedule else ''} ({card})", flush=True)
+
+    def schedule_of(kernel):
+        """The schedule (wide / narrow) that one launch of `kernel()` ran,
+        from the wrapper's counter."""
+        vb.reset_launches()
+        kernel()
+        ran = [name for name, count in vb.GEMM_SCHEDULES.items() if count]
+        if len(ran) != 1:
+            raise AssertionError(f"gemm: schedules {vb.GEMM_SCHEDULES} for one launch")
+        return ran[0]
+
+    def held_on_rows(what, kernel, twin_rows, rows):
+        """Large M: the kernel's first and last 1,024 rows against the twin
+        on those rows (the twin's f32 copies of the whole would cost memory
+        and time for nothing); either returns one tensor or a tuple."""
+        def parts(out):
+            return out if isinstance(out, tuple) else (out,)
+
+        got = parts(kernel())
+        for sl in (slice(0, 1024), slice(rows - 1024, rows)):
+            for i, (gt, wt) in enumerate(zip(got, parts(twin_rows(sl)))):
+                _bound_check(torch, f"{what}[{i}] rows {sl.start}:{sl.stop}", gt[sl], wt, REL_TOL)
 
     bias = {n: torch.randn(n, device=dev, generator=gen) * 0.1 for n in (D, 3 * D, MLP)}
     weights = {}  # (K, N) -> ([K, N] NN layout, [N, K] nn.Linear layout)
@@ -1128,11 +1160,63 @@ def gemm_phase(torch, card: str):
                     for i, (gt, wt) in enumerate(pairs):
                         _bound_check(torch, f"gemm {mode} {what}[{i}] M={m}", gt, wt, REL_TOL)
                     del got, want
+                schedule = schedule_of(kernel)
                 ms, lib_ms = time_pair(torch, kernel, library, iters)
                 report(f"{mode} {what}", m, k, n, ms, lib_ms, lib_name,
-                       gemm_work(m, k, n, extra))
+                       gemm_work(m, k, n, extra), schedule)
         del x, h, g
         torch.cuda.empty_cache()
+    # ViT-L/14: the region encode's four projections (NN and NT) and K6's
+    # forward and dx, each held on its first and last rows.
+    d, mlp = L14_D, L14_MLP
+    w14 = {}
+    for k, n in ((d, 3 * d), (d, d), (d, mlp), (mlp, d)):
+        w = randn(k, n, scale=k**-0.5)
+        w14[k, n] = (w, w.t().contiguous())
+    b14 = {n: torch.randn(n, device=dev, generator=gen) * 0.1 for n in (d, 3 * d, mlp)}
+    for rows, cases in (
+            (GEMM_L14_REGION_ROWS, (("region qkv", "h", (d, 3 * d), {}, 0, True),
+                                    ("region out_proj+residual", "h", (d, d), {"residual": "x"}, 1,
+                                     True),
+                                    ("region fc1+gelu", "h", (d, mlp), {"gelu": True}, 0, True),
+                                    ("region fc2+residual", "g", (mlp, d), {"residual": "x"}, 1,
+                                     True))),
+            (GEMM_L14_K6_ROWS, (("K6 fc1+gelu (a1 saved)", "h", (d, mlp),
+                                 {"gelu": True, "save_preact": True}, 1, True),
+                                ("K6 fc2+residual", "g", (mlp, d), {"residual": "x"}, 1, True),
+                                ("K6 dx da1 (x gelu'(a1))", "h", (d, mlp), {"dgelu_of": "g"}, 1,
+                                 False),
+                                ("K6 dx dh (f32)", "g", (mlp, d), {"out_dtype": torch.float32}, 1,
+                                 False)))):
+        act = {"x": randn(rows, d), "h": randn(rows, d), "g": randn(rows, mlp)}
+        iters = max(2, int(2e6 / rows))
+        for what, a_name, (k, n), kw, extra, with_bias in cases:
+            a = act[a_name]
+            kw = {key: act[v] if isinstance(v, str) else v for key, v in kw.items()}
+            w_kn, w_nk = w14[k, n]
+            b32 = b14[n] if with_bias else None
+            b16 = b32.to(torch.bfloat16) if with_bias else None
+            modes = [("NN", lambda: vb.gemm_bias_act_residual(a, w_kn, b32, **kw),
+                      lambda sl: vb.gemm_bias_act_residual_reference(
+                          a[sl], w_kn, b32, **{key: v[sl] if torch.is_tensor(v) else v
+                                               for key, v in kw.items()}),
+                      (lambda: torch.addmm(b16, a, w_kn)) if with_bias else
+                      (lambda: torch.mm(a, w_kn)), "torch.addmm" if with_bias else "torch.mm")]
+            if what.startswith("region"):
+                modes.append(("NT", lambda: to.gemm_nt(a, w_nk, b32, **kw),
+                              lambda sl: to.gemm_nt_reference(
+                                  a[sl], w_nk, b32, **{key: v[sl] if torch.is_tensor(v) else v
+                                                       for key, v in kw.items()}),
+                              lambda: F.linear(a, w_nk, b16), "F.linear"))
+            for mode, kernel, twin_rows, library, lib_name in modes:
+                held_on_rows(f"gemm {mode} L/14 {what} M={rows}", kernel, twin_rows, rows)
+                schedule = schedule_of(kernel)
+                ms, lib_ms = time_pair(torch, kernel, library, iters)
+                report(f"{mode} L/14 {what}", rows, k, n, ms, lib_ms, lib_name,
+                       gemm_work(rows, k, n, extra), schedule)
+        del act
+        torch.cuda.empty_cache()
+    del w14, b14
     for what, rows, p, q in GEMM_TN_CASES:
         xa, ya = randn(rows, p), randn(rows, q)
         got = to.gemm_tn(xa, ya)

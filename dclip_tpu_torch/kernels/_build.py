@@ -50,10 +50,10 @@ _SIGNATURES = {
     # x, g, dh, scale, dx, rows, d, eps, stream
     "dclip_layernorm_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     # a, w, bias, residual, aux_in, aux_out (the last four nullable), c,
-    # m, n, k, epilogue, out_f32, stream
-    "dclip_gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # m, n, k, epilogue, out_f32, tile_n, sms, stream
+    "dclip_gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # the same, w given as [n, k]
-    "dclip_gemm_nt_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "dclip_gemm_nt_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, y, c, m, n, k, k_tiles_per_split, splits, stream
     "dclip_gemm_tn_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, part, rows, n, rows_per_split, splits, stream

@@ -29,7 +29,6 @@ its kernels or raises. `LAUNCHES` counts one per wrapper call on CUDA.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -39,6 +38,7 @@ from dclip_tpu_torch.kernels.mlp_frozen import layernorm_bwd_reference
 from dclip_tpu_torch.kernels.vit_block import (
     _on_cpu,
     _require,
+    _sm_count,
     _stream,
     gemm_bias_act_residual_reference,
     launch_gemm,
@@ -58,11 +58,6 @@ _TILE, _KSTEP = 128, 64
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _blocks_wanted(t: torch.Tensor) -> int:

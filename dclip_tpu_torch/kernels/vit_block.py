@@ -45,6 +45,7 @@ residual. The whole-block wrappers do not run there.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
@@ -64,9 +65,16 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+# NN / NT launches of `csrc/gemm.cu` by the schedule `gemm_tile_n` chose
+# (CUDA only): whether the wide tiles ran where they should.
+GEMM_SCHEDULES: Dict[str, int] = {"wide": 0, "narrow": 0}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in GEMM_SCHEDULES:
+        GEMM_SCHEDULES[k] = 0
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -195,6 +203,23 @@ def gemm_bias_act_residual(a: torch.Tensor, w: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gemm_tile_n(m: int, n: int, sms: int) -> int:
+    """The output-tile width of `csrc/gemm.cu`'s NN / NT schedule for an
+    [m, k] @ [k, n] product on a card of `sms` SMs: 256, the wide
+    cooperative tiles, where there are at least two row blocks of 128 an SM
+    (the region encode, K6) and padding N to 256 wastes at most an eighth of
+    the columns; else 128, the narrow ping-pong tiles (the serving buckets,
+    K10's projections, the packed text rows), which keep more SMs busy on
+    few row blocks and overlap their epilogues."""
+    wide_cols = -(-n // 256) * 256
+    return 256 if -(-m // 128) >= 2 * sms and 8 * (wide_cols - n) <= n else 128
+
+
 def launch_gemm(a, w, bias=None, residual=None, gelu: bool = False, save_preact: bool = False,
                 dgelu_of=None, out_dtype=None, w_is_nk: bool = False):
     """Check the operands and launch `csrc/gemm.cu` on CUDA tensors: w is
@@ -229,14 +254,18 @@ def launch_gemm(a, w, bias=None, residual=None, gelu: bool = False, save_preact:
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    m = a.numel() // k
+    sms = _sm_count(a.device.index if a.device.index is not None else torch.cuda.current_device())
+    tile_n = gemm_tile_n(m, n, sms)
     entry = lib.dclip_gemm_nt_bf16 if w_is_nk else lib.dclip_gemm_bf16
     with torch.cuda.device(a.device):
         code = entry(
             a.data_ptr(), w.data_ptr(), ptr(bias), ptr(residual), ptr(dgelu_of), ptr(pre),
-            c.data_ptr(), a.numel() // k, n, k, epilogue, int(c.dtype == torch.float32),
+            c.data_ptr(), m, n, k, epilogue, int(c.dtype == torch.float32), tile_n, sms,
             _stream(a),
         )
     check(lib, code, "gemm (NT mode)" if w_is_nk else "gemm_bias_act_residual")
+    GEMM_SCHEDULES["wide" if tile_n == 256 else "narrow"] += 1
     return (c, pre) if save_preact else c
 
 

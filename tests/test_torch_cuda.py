@@ -419,23 +419,35 @@ def test_distill_loss_matches_twin(cuda_device, b, d):
         assert err <= 2.0**-7 * want.float().abs().max().item(), err
 
 
-# Shapes that cross every edge of csrc/gemm.cu's 128 x 128 tiles and its
-# K steps of 64 (TMA zero-fills past M, N and K): each (N, K) pair below
-# with each M.
+# Shapes that cross every edge of csrc/gemm.cu's tiles (128 rows; 256
+# columns on the wide schedule, 128 on the narrow one) and its K steps of 64
+# (TMA zero-fills past M, N and K and clips its stores): each (N, K) pair
+# below with each M, on each schedule. N under one narrow tile (8, 24),
+# ragged against 128 (136), a multiple of 128 but not of 256 (384), ragged
+# against 256 (640) and whole wide tiles (3072); M ragged against 128 on
+# both sides of a row block.
 GEMM_M = (1, 63, 64, 65, 127, 129, 197, 12608)
-GEMM_NK = ((8, 32), (24, 96), (136, 3072), (3072, 96))
+GEMM_NK = ((8, 32), (24, 96), (136, 3072), (3072, 96), (384, 160), (640, 64))
+GEMM_TILE_N = {"wide": 256, "narrow": 128}
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("n,k", GEMM_NK)
-@pytest.mark.parametrize("m", GEMM_M)
-def test_gemm_epilogue_modes(cuda_device, m, n, k):
-    rng = np.random.RandomState(11 + m + n + k)
-    a = _bf16(rng, cuda_device, m, k)
-    w = _bf16(rng, cuda_device, k, n) * k**-0.5
-    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda_device)
-    aux = _bf16(rng, cuda_device, m, n)
-    res = _bf16(rng, cuda_device, m, n)
+@pytest.fixture(params=sorted(GEMM_TILE_N))
+def gemm_schedule(request, monkeypatch):
+    """Every NN / NT launch of the test on one schedule, whatever the shape
+    rule (`vb.gemm_tile_n`) would choose for it."""
+    tile_n = GEMM_TILE_N[request.param]
+    monkeypatch.setattr(vb, "gemm_tile_n", lambda m, n, sms: tile_n)
+    return request.param
+
+
+def _gemm_epilogues_match(rng, device, m, n, k):
+    """Each NN epilogue (quick-GELU with the pre-activation saved,
+    quick-GELU', bias + residual, f32 out) against its twin; 4 launches."""
+    a = _bf16(rng, device, m, k)
+    w = _bf16(rng, device, k, n) * k**-0.5
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(device)
+    aux = _bf16(rng, device, m, n)
+    res = _bf16(rng, device, m, n)
     got, pre = vb.gemm_bias_act_residual(a, w, bias, gelu=True, save_preact=True)
     want, want_pre = vb.gemm_bias_act_residual_reference(a, w, bias, gelu=True, save_preact=True)
     _close_rel(got, want, what="gelu")
@@ -449,6 +461,73 @@ def test_gemm_epilogue_modes(cuda_device, m, n, k):
     _close_rel(f32, vb.gemm_bias_act_residual_reference(a, w, bias, residual=res,
                                                         out_dtype=torch.float32),
                what="f32 out")
+
+
+def _gemm_nt_matches(rng, device, m, n, k):
+    """The NT mode's epilogues against their twins; 3 launches."""
+    from dclip_tpu_torch.kernels import trainable_ops as to
+
+    a = _bf16(rng, device, m, k)
+    w = (_f32(rng, device, n, k, scale=k**-0.5)).bfloat16()
+    bias = _f32(rng, device, n, scale=0.1)
+    res = _bf16(rng, device, m, n)
+    got, pre = to.gemm_nt(a, w, bias, gelu=True, save_preact=True)
+    want, want_pre = to.gemm_nt_reference(a, w, bias, gelu=True, save_preact=True)
+    _close_rel(got, want, what="gelu")
+    _close_rel(pre, want_pre, what="preact")
+    _close_rel(to.gemm_nt(a, w, bias, residual=res),
+               to.gemm_nt_reference(a, w, bias, residual=res), what="residual")
+    f32 = to.gemm_nt(a, w, out_dtype=torch.float32)
+    _close_rel(f32, to.gemm_nt_reference(a, w, out_dtype=torch.float32), what="f32 out")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,k", GEMM_NK)
+@pytest.mark.parametrize("m", GEMM_M)
+def test_gemm_epilogue_modes(cuda_device, gemm_schedule, m, n, k):
+    vb.reset_launches()
+    _gemm_epilogues_match(np.random.RandomState(11 + m + n + k), cuda_device, m, n, k)
+    assert vb.GEMM_SCHEDULES[gemm_schedule] == 4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("edge", [-1, 0, 1], ids=["below", "at", "over"])
+def test_gemm_wave_edges(cuda_device, gemm_schedule, edge):
+    """Tile counts just below, at and just over two waves of the card's SMs
+    (a persistent block an SM walks the tiles in turn), the last row block
+    ragged: every NN epilogue and the NT mode."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n = GEMM_TILE_N[gemm_schedule]  # one column of tiles
+    m = 128 * (2 * sms + edge) - 5
+    rng = np.random.RandomState(17 + edge)
+    vb.reset_launches()
+    _gemm_epilogues_match(rng, cuda_device, m, n, 96)
+    _gemm_nt_matches(rng, cuda_device, m, n, 96)
+    assert vb.GEMM_SCHEDULES[gemm_schedule] == 7
+
+
+@pytest.mark.requires_cuda
+def test_gemm_schedules_wide_for_the_region_encode_narrow_for_bucket_1(cuda_device):
+    """The shape rule, through the wrapper: fc2 + residual at the ViT-L/14
+    region encode's rows (2,048 crops x 257 tokens) runs wide, and at the
+    serving bucket of one image narrow."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(23)
+    m, k, n = 2048 * 257, 1024, 1024
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, device=cuda_device, generator=gen) * scale).bfloat16()
+
+    a, w, res = randn(m, k), randn(k, n, scale=k**-0.5), randn(m, n)
+    bias = torch.randn(n, device=cuda_device, generator=gen)
+    vb.reset_launches()
+    big = vb.gemm_bias_act_residual(a, w, bias, residual=res)
+    small = vb.gemm_bias_act_residual(a[:257], w, bias, residual=res[:257])
+    assert vb.GEMM_SCHEDULES == {"wide": 1, "narrow": 1}
+    for rows in (slice(0, 1024), slice(m - 1029, m)):
+        _close_rel(big[rows], vb.gemm_bias_act_residual_reference(a[rows], w, bias,
+                                                                  residual=res[rows]))
+    _close_rel(small, vb.gemm_bias_act_residual_reference(a[:257], w, bias, residual=res[:257]))
 
 
 # -- the teacher's cross-attention (K10) and the loader's self-check (K13) --------
@@ -660,23 +739,11 @@ def _close_sum(got, want, what=""):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("m,k,n", [(4928, 512, 2048), (591, 768, 2304), (70, 256, 136)]
                          + [(m, k, n) for m in GEMM_M for n, k in GEMM_NK])
-def test_gemm_nt_matches_twin(cuda_device, m, k, n):
+def test_gemm_nt_matches_twin(cuda_device, gemm_schedule, m, k, n):
     from dclip_tpu_torch.kernels import trainable_ops as to
 
-    rng = np.random.RandomState(m + n)
-    a = _bf16(rng, cuda_device, m, k)
-    w = (_f32(rng, cuda_device, n, k, scale=k**-0.5)).bfloat16()
-    bias = _f32(rng, cuda_device, n, scale=0.1)
-    res = _bf16(rng, cuda_device, m, n)
     to.reset_launches()
-    got, pre = to.gemm_nt(a, w, bias, gelu=True, save_preact=True)
-    want, want_pre = to.gemm_nt_reference(a, w, bias, gelu=True, save_preact=True)
-    _close_rel(got, want, what="gelu")
-    _close_rel(pre, want_pre, what="preact")
-    _close_rel(to.gemm_nt(a, w, bias, residual=res),
-               to.gemm_nt_reference(a, w, bias, residual=res), what="residual")
-    f32 = to.gemm_nt(a, w, out_dtype=torch.float32)
-    _close_rel(f32, to.gemm_nt_reference(a, w, out_dtype=torch.float32), what="f32 out")
+    _gemm_nt_matches(np.random.RandomState(m + n), cuda_device, m, n, k)
     assert to.LAUNCHES["gemm_nt"] == 3
 
 

@@ -234,6 +234,67 @@ def test_cuda_operand_layout_is_checked_before_the_library(monkeypatch, name, la
             call(layout)
 
 
+# The main path's GEMM shapes (M rows, N columns) and the tile width the
+# schedule rule gives them on the H100's 132 SMs: wide (256) for the teacher
+# ViT over 2,048 region crops and the student's frozen MLP (K6) at B=256,
+# narrow (128) for the serving buckets, K10's projections and the packed
+# text rows.
+_SMS = 132
+_TILE_CASES = (
+    [(f"region_l14_{w}", 2048 * 257, n, 256)
+     for w, n in (("qkv", 3072), ("out", 1024), ("fc1", 4096), ("fc2", 1024))]
+    + [(f"region_b16_{w}", 2048 * 197, n, 256)
+       for w, n in (("qkv", 2304), ("out", 768), ("fc1", 3072), ("fc2", 768))]
+    + [(f"k6_l14_n{n}", 256 * 257, n, 256) for n in (4096, 1024)]
+    + [(f"k6_b16_n{n}", 256 * 197, n, 256) for n in (3072, 768)]
+    + [(f"serve_b16_bucket{b}_n{n}", b * 197, n, 128)
+       for b in (1, 4, 16, 64) for n in (2304, 768, 3072)]
+    + [(f"serve_l14_bucket{b}_n{n}", b * 257, n, 128) for b in (1, 64) for n in (3072, 4096)]
+    + [(f"k10_{w}", m, n, 128) for w, m, n in (("text_qkv", 256 * 77, 1536),
+                                                ("image_qkv", 256 * 8, 1536),
+                                                ("out", 256 * 77, 512),
+                                                ("d768_qkv", 256 * 77, 2304))]
+    + [(f"text_packed_n{n}", 64 * 77, n, 128) for n in (1536, 512, 2048)]
+)
+
+
+@pytest.mark.parametrize("m,n,tile", [c[1:] for c in _TILE_CASES],
+                         ids=[c[0] for c in _TILE_CASES])
+def test_gemm_tile_n_names_the_main_path_shapes(m, n, tile):
+    assert vb.gemm_tile_n(m, n, _SMS) == tile
+
+
+def test_gemm_tile_n_depends_only_on_m_n_and_sms():
+    """The rule is a pure function of (M, N, SMs): no K, no dtype, no
+    setting. Wide tiles need two row blocks of 128 an SM, so the boundary
+    moves with the SM count, and N padded to 256 may waste at most an
+    eighth of the columns."""
+    import inspect
+
+    assert list(inspect.signature(vb.gemm_tile_n).parameters) == ["m", "n", "sms"]
+    for sms in (66, 114, 132):
+        edge = 2 * 128 * sms
+        assert vb.gemm_tile_n(edge, 1024, sms) == 256
+        assert vb.gemm_tile_n(edge - 128, 1024, sms) == 128
+        assert vb.gemm_tile_n(edge - 127, 1024, sms) == 256  # the same row blocks
+        assert [vb.gemm_tile_n(edge, n, sms) for n in (8, 136, 384, 640, 768, 2304, 2400)] == [
+            128, 128, 128, 128, 256, 256, 256]
+        assert vb.gemm_tile_n(edge, 1024, sms) == vb.gemm_tile_n(edge, 1024, sms)
+
+
+def test_gemm_schedules_counter_is_apart_from_launches():
+    """`GEMM_SCHEDULES` counts NN / NT launches by schedule beside
+    `LAUNCHES` (whose keys the card tests compare whole) and
+    `reset_launches` zeroes both."""
+    assert set(vb.GEMM_SCHEDULES) == {"wide", "narrow"}
+    assert not set(vb.GEMM_SCHEDULES) & set(vb.LAUNCHES)
+    vb.GEMM_SCHEDULES["wide"] += 3
+    vb.LAUNCHES["layernorm"] += 1
+    vb.reset_launches()
+    assert vb.GEMM_SCHEDULES == {"wide": 0, "narrow": 0}
+    assert all(v == 0 for v in vb.LAUNCHES.values())
+
+
 def _ragged_mlp_args(rng, k):
     """K8's operands in the JAX layout at hidden width k, mlp 2k."""
     m = 2 * k
@@ -247,9 +308,10 @@ def _ragged_mlp_args(rng, k):
 def test_gemm_twins_match_jax_at_ragged_shapes(m, k):
     """The GEMM's three twins (NN, NT, TN), the kernel's yardsticks on the
     card, against the JAX package's Pallas kernels (interpret mode) at row
-    counts and widths that leave csrc/gemm.cu's 128 x 128 tiles and its K
-    steps of 64 ragged: NN through the frozen ViT blocks, NT and TN through
-    K8's forward and its weight gradients, composed from the twins alone."""
+    counts and widths that leave csrc/gemm.cu's 128-row tiles (128 or 256
+    columns wide) and its K steps of 64 ragged: NN through the frozen ViT
+    blocks, NT and TN through K8's forward and its weight gradients,
+    composed from the twins alone."""
     import jax
     import jax.numpy as jnp
 
