@@ -375,6 +375,36 @@ Phases; each one passes or raises, and any failure exits non-zero:
    CPU's f32 step and a backward in TF32 printed beside it); 5 Adam steps
    at B=8 on one batch with finite, falling losses, ms a step and the
    peak memory. The phase's time is printed.
+38. SigLIP so400m/14-384 (alone: `python3 chip_smoke.py --siglip`, which
+   prints its rows of the kernels line). (a) Every kernel instance the
+   SigLIP cell adds, against its twin at the cell's shapes: K4 with o's
+   rounding residual, K3 and K5 with it (dq, dk, dv) at head_dim 72 over
+   the vision tower (S=729, 16 heads; B=32, where the twin's f32 logits
+   fit) and the unmasked text tower (S=64, B=256); the GEMM's tanh-GELU
+   forms (a1 saved; times tanh-GELU') at K=1152 and K=4304; K6's forward
+   and dx at D=1152, MLP 4304 (B=16 x 729 rows); the LayerNorm and its
+   backward at D=1152; K11 at D=1152, B=256. Each held within the
+   head_dim-64 instances' bounds and timed beside its twin (the kernels
+   line's `[siglip]` and `[d1152]` rows). (b) `DistillTrainer` with a
+   SigLIP student at published widths (27 + 27 layers), B=16, targets
+   from the cache, remat off and on: every launch counted from zero
+   before the steps against the step's formula, finite falling losses,
+   and remat's parameters bit-equal to those without it. The rows'
+   launches are (b)'s.
+39. The kernels' times at B=256 (alone, over any checkout's package:
+   `python3 chip_smoke.py --kernel-times [all|new|existing]`, one
+   `kernel_times` JSON line). Each case is one call timed with CUDA events
+   over two windows after a warm call: K4 (attention forward
+   with stats) and K5 (dq and dk / dv) at head_dim 72 over SigLIP's
+   vision (S=729, 16 heads) and text (S=64) shapes, K6's forward (tanh-GELU
+   with a1 saved) and dx at D=1152, MLP 4304 (K=4304), the LayerNorm and
+   its backward at D=1152, K11 at D=1152; and the head_dim-64 / D <= 1024
+   instances the existing cells run: K4 / K5 at B/16 vision and packed-free
+   causal text and L/14 vision, K6 at L/14, the LayerNorm at 768 and 1024,
+   K11 at 512 and 768. In the full smoke a case that fails fails the
+   phase; alone, a case the tree cannot run is printed as such, so the
+   same script runs over an older checkout's package (copied into it) for
+   a comparison in turns within one call.
 
 Every kernel's entry in the `kernels` line carries its bound: the larger
 of its operations over the card's peak for their type and the bytes it
@@ -671,6 +701,18 @@ L14_ROWS = {
     "self_attention_fused[l14]": TRAIN_KERNELS["self_attention_fused"],
     "self_attention_bwd_stats[l14]": TRAIN_KERNELS["self_attention_bwd_stats"],
 }
+
+# Rows of the kernels line with phase 38's launches: the SigLIP cell's new
+# instances (head_dim 72, tanh-GELU, D = 1152, K = 4304), held and timed there.
+SIGLIP_ROWS = {
+    **{n + "[siglip]": TRAIN_KERNELS[n]
+       for n in ("self_attention_fwd_stats", "self_attention_fused", "self_attention_bwd_stats",
+                 "mlp_frozen_fwd", "mlp_frozen_bwd", "layernorm_bwd")},
+    **{n + "[siglip]": KERNELS[n] for n in ("layernorm", "gemm_bias_act_residual")},
+    "distill_loss_fwd[d1152]": TRAIN_KERNELS["distill_loss_fwd"],
+    "distill_loss_bwd[d1152]": TRAIN_KERNELS["distill_loss_bwd"],
+}
+SIGLIP_B, SIGLIP_CHECK_B, SIGLIP_MLP_B = 16, 32, 16
 
 
 def _width_suffix(d: int) -> str:
@@ -5864,7 +5906,7 @@ def main() -> int:
 
     table = KernelTable(list(KERNELS) + list(TRAIN_KERNELS) + list(TEACHER_KERNELS)
                         + list(TRAINABLE_KERNELS) + list(TOPK_KERNELS)
-                        + list(TEACHER_TRAIN_KERNELS) + list(L14_ROWS))
+                        + list(TEACHER_TRAIN_KERNELS) + list(L14_ROWS) + list(SIGLIP_ROWS))
     kernel_phase(torch, vb, card, table)
     gemm_phase(torch, card)
     service, args, launches = slice_phase(torch, np, vb, cli_serve, card)
@@ -5923,6 +5965,8 @@ def main() -> int:
     tp_launches, tp_rows = tp_phase(torch, np, sd, tsd, card)
     serve_launches, serve_rows = serve_phase(torch, np, card)
     last_launches, context_rows = last_modules_phase(torch, np, card)
+    siglip_launches = siglip_phase(torch, np, card, table)
+    kernel_times_phase(torch, card, tolerant=False)
 
     counts = {**{n: launches[n] + region[n] for n in KERNELS},
               **{n: train_launches[n] for n in TRAIN_KERNELS},
@@ -5932,7 +5976,8 @@ def main() -> int:
               "topk_streamed": (launches["topk_streamed"] + uncached_launches["topk_streamed"]
                                 + region["topk_streamed"]),
               "cross_attention_trainable": teacher_launches["cross_attention_trainable"],
-              **{n: l14_launches[n.split("[")[0]] for n in L14_ROWS}}
+              **{n: l14_launches[n.split("[")[0]] for n in L14_ROWS},
+              **{n: siglip_launches.get(n.split("[")[0], 0) for n in SIGLIP_ROWS}}
     # Phase 33 runs the same kernels on the data-parallel path (K11 over the
     # gathered batch): its launches add to each kernel's row.
     for name in counts:
@@ -5946,7 +5991,7 @@ def main() -> int:
     for preset, _, _ in PROFILE_RUNS[1:]:
         for name in L14_ROWS:
             counts[name] += profiled[preset].get(name.split("[")[0], 0)
-    sources = {**_kernel_sources(), **L14_ROWS}
+    sources = {**_kernel_sources(), **L14_ROWS, **SIGLIP_ROWS}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[name], **table.entry(name)}
                for name, (src, rep) in sources.items()]
@@ -5974,7 +6019,337 @@ def main() -> int:
     return 0
 
 
+def _siglip_trainer(torch, np, sd, tsd, remat: bool):
+    """The port's DistillTrainer with the SigLIP student (teacher CLIP the
+    same; it never runs) on a synthetic batch of SIGLIP_B rows whose
+    targets (seeded unit vectors, 1152 wide) are in the cache."""
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.train.distill_trainer import DistillTrainer, TeacherTargetCache
+
+    cfg = CLIPConfig.siglip_so400m_14_384()
+    teacher = _siglip_teacher_config()
+    batch = _batch(np, SIGLIP_B, clip_cfg=cfg, teacher_cfg=teacher)
+    cache = TeacherTargetCache(salt="chip-smoke-siglip")
+    config = _distill_config(SIGLIP_B, student_model="siglip-so400m-14-384",
+                             teacher_clip_model="siglip-so400m-14-384", teacher=teacher,
+                             packed_text=False, remat=remat)
+    trainer = DistillTrainer(config, sd, sd, tsd, cfg, cfg, device="cuda", teacher_cache=cache)
+    targets = np.random.RandomState(3).standard_normal(
+        (SIGLIP_B, 2, cfg.projection_dim)).astype(np.float32)
+    targets /= np.linalg.norm(targets, axis=-1, keepdims=True)
+    cache.put_batch(cache.keys_for(batch), targets)
+    return trainer, batch
+
+
+def _siglip_teacher_config():
+    from dclip_tpu_torch.core import TeacherConfig
+
+    return TeacherConfig(embed_dim=1152, num_heads=8, max_patches=TEACHER_P, max_text_tokens=64)
+
+
+def siglip_phase(torch, np, card: str, table: KernelTable) -> dict:
+    """Phase 38 (module docstring): the SigLIP cell's kernel instances
+    against their twins, then the trainer's steps with a SigLIP student.
+    Returns the steps' launches, summed over remat off and on."""
+    from dclip_tpu_torch.core import CLIPConfig
+    from dclip_tpu_torch.kernels import mlp_frozen as mf
+    from dclip_tpu_torch.kernels import vit_attention as va
+    from dclip_tpu_torch.kernels import vit_block as vb
+    from dclip_tpu_torch.models.weights import random_state_dict, random_teacher_state_dict
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(38)
+    d, heads, mlp, eps = 1152, 16, 4304, 1e-6
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.from_numpy(rng.standard_normal(shape).astype("float32") * scale)
+                .to(dev).to(dtype))
+
+    def record(*args, **kw):
+        _record(torch, card, table, *args, **kw)
+
+    for variant, b, s in (("vision", SIGLIP_CHECK_B, 729), ("text", TRAIN_B, 64)):
+        qkv = randn(b, s, 3 * d)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        g = randn(b, s, d)
+        pairs, hd, io = float(b * s * s), d // heads, 2.0 * b * s * d
+        stats = 8.0 * b * s * heads
+        o, m, r, o_lo = va.self_attention_fwd_stats(q, k, v, heads, residual=True)
+        o_ref, m_ref, r_ref, lo_ref = va.attention_reference(q, k, v, heads, stats=True,
+                                                             residual=True)
+        err = max(_bound_check(torch, f"attention_fwd[siglip {variant}] o", o, o_ref, REL_TOL),
+                  _bound_check(torch, f"attention_fwd[siglip {variant}] m", m, m_ref, REL_TOL),
+                  _bound_check(torch, f"attention_fwd[siglip {variant}] o + o_lo",
+                               o.float() + o_lo.float(), o_ref.float() + lo_ref.float(),
+                               REL_TOL))
+        rel = ((r - r_ref).abs() / r_ref.abs()).max().item()
+        print(f"kernel attention_fwd[siglip {variant}] rinv: max_rel_err {rel} bound {REL_TOL}",
+              flush=True)
+        if not rel <= REL_TOL:
+            raise AssertionError(f"rinv[siglip {variant}] relative error {rel} > {REL_TOL}")
+        # o_lo holds what rounding o to bf16 dropped: at most half an ulp of o.
+        if not bool((o_lo.float().abs() <= 2.0**-8 * o.float().abs()).all()):
+            raise AssertionError(f"o_lo[siglip {variant}] exceeds half an ulp of o")
+        record("self_attention_fwd_stats[siglip]", err, True,
+               lambda: va.self_attention_fwd_stats(q, k, v, heads, residual=True),
+               lambda: va.attention_reference(q, k, v, heads, stats=True, residual=True), 5,
+               variant, work(bf16_flops=4.0 * hd * heads * pairs, nbytes=5 * io + stats))
+        o3 = va.self_attention_fused(q, k, v, heads)
+        record("self_attention_fused[siglip]",
+               _bound_check(torch, f"attention_fused[siglip {variant}]", o3, o_ref, REL_TOL),
+               True, lambda: va.self_attention_fused(q, k, v, heads),
+               lambda: va.attention_reference(q, k, v, heads), 5, variant,
+               work(bf16_flops=4.0 * hd * heads * pairs, nbytes=4 * io))
+        grads = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, o_lo=o_lo)
+        want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, o_lo=lo_ref)
+        errb = max(_bound_check(torch, f"attention_bwd[siglip {variant}] {n}", a, w, BWD_TOL)
+                   for n, a, w in zip(("dq", "dk", "dv"), grads, want))
+        again = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, o_lo=o_lo)
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"attention_bwd[siglip {variant}]: two calls differ")
+        record("self_attention_bwd_stats[siglip]", errb, True,
+               lambda: va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, o_lo=o_lo),
+               lambda: va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads,
+                                                  o_lo=lo_ref), 3, variant,
+               work(bf16_flops=10.0 * hd * heads * pairs, nbytes=9 * io + stats))
+        del qkv, q, k, v, g, o, m, r, o_lo, o_ref, m_ref, r_ref, lo_ref, grads, want, again
+        torch.cuda.empty_cache()
+
+    act = "gelu_pytorch_tanh"
+    rows = SIGLIP_MLP_B * 729
+    # The GEMM's tanh-GELU forms at fc1's (K = 1152) and fc2's / dx's (K = 4304) shapes.
+    for variant, n, kk in (("fc1", mlp, d), ("k4304", d, mlp)):
+        a, w = randn(rows, kk), randn(kk, n, scale=kk**-0.5)
+        bias, aux = randn(n, scale=0.1, dtype=torch.float32), randn(rows, n)
+        got, pre = vb.gemm_bias_act_residual(a, w, bias, gelu=True, save_preact=True, act=act)
+        want, want_pre = vb.gemm_bias_act_residual_reference(a, w, bias, gelu=True,
+                                                             save_preact=True, act=act)
+        err = max(_bound_check(torch, f"gemm tanh[{variant}] y", got, want, REL_TOL),
+                  _bound_check(torch, f"gemm tanh[{variant}] a1", pre, want_pre, REL_TOL),
+                  _bound_check(torch, f"gemm tanh'[{variant}]",
+                               vb.gemm_bias_act_residual(a, w, dgelu_of=aux, act=act),
+                               vb.gemm_bias_act_residual_reference(a, w, dgelu_of=aux, act=act),
+                               REL_TOL))
+        record("gemm_bias_act_residual[siglip]", err, True,
+               lambda: vb.gemm_bias_act_residual(a, w, bias, gelu=True, save_preact=True,
+                                                 act=act),
+               lambda: vb.gemm_bias_act_residual_reference(a, w, bias, gelu=True,
+                                                           save_preact=True, act=act),
+               5, variant, gemm_work(rows, kk, n, extra_mn=1))
+        del a, w, bias, aux, got, pre, want, want_pre
+        torch.cuda.empty_cache()
+
+    lw = layer_weights(rng, torch, dev, d, mlp)
+    p = mf.pack_frozen_mlp(lw["ln2_scale"], lw["ln2_bias"], lw["fc1_w"].t(), lw["fc1_b"],
+                           lw["fc2_w"].t(), lw["fc2_b"], torch.bfloat16)
+    x, g = randn(SIGLIP_MLP_B, 729, d), randn(SIGLIP_MLP_B, 729, d)
+    y, a1 = mf.mlp_frozen_fwd(x, p, eps, act)
+    y_ref, a1_ref = mf.mlp_frozen_fwd_reference(x, p, eps, act)
+    err = max(_bound_check(torch, "mlp_frozen_fwd[siglip] y", y, y_ref, REL_TOL),
+              _bound_check(torch, "mlp_frozen_fwd[siglip] a1", a1, a1_ref, REL_TOL))
+    weights = 4.0 * d * mlp + 4.0 * (mlp + 3 * d)
+    record("mlp_frozen_fwd[siglip]", err, True, lambda: mf.mlp_frozen_fwd(x, p, eps, act),
+           lambda: mf.mlp_frozen_fwd_reference(x, p, eps, act), 5, "vision",
+           work(bf16_flops=4.0 * rows * d * mlp,
+                nbytes=4.0 * rows * d + 2.0 * rows * mlp + weights))
+    dx = mf.mlp_frozen_bwd(x, g, a1, p, eps, act)
+    errb = _bound_check(torch, "mlp_frozen_bwd[siglip] dx", dx,
+                        mf.mlp_frozen_bwd_reference(x, g, a1_ref, p, eps, act), BWD_TOL)
+    record("mlp_frozen_bwd[siglip]", errb, True, lambda: mf.mlp_frozen_bwd(x, g, a1, p, eps, act),
+           lambda: mf.mlp_frozen_bwd_reference(x, g, a1_ref, p, eps, act), 5, "vision",
+           work(bf16_flops=4.0 * rows * d * mlp,
+                nbytes=6.0 * rows * d + 2.0 * rows * mlp + 4.0 * d * mlp + 4.0 * d))
+    sc, bi = p["ln2_scale"], p["ln2_bias"]
+    errl = _bound_check(torch, "layernorm[siglip]", vb.layernorm(x, sc, bi, eps),
+                        vb.layernorm_reference(x, sc, bi, eps), REL_TOL)
+    record("layernorm[siglip]", errl, True, lambda: vb.layernorm(x, sc, bi, eps),
+           lambda: vb.layernorm_reference(x, sc, bi, eps), 20, "vision",
+           work(f32_flops=8.0 * rows * d, nbytes=4.0 * rows * d + 8.0 * d))
+    dh = randn(SIGLIP_MLP_B, 729, d, dtype=torch.float32)
+    errl = _bound_check(torch, "layernorm_bwd[siglip]", mf.layernorm_bwd(x, g, dh, sc, eps),
+                        mf.layernorm_bwd_reference(x, g, dh, sc, eps), REL_TOL)
+    record("layernorm_bwd[siglip]", errl, True, lambda: mf.layernorm_bwd(x, g, dh, sc, eps),
+           lambda: mf.layernorm_bwd_reference(x, g, dh, sc, eps), 20, "vision",
+           work(f32_flops=12.0 * rows * d, nbytes=10.0 * rows * d + 4.0 * d))
+    del lw, p, x, g, y, a1, y_ref, a1_ref, dx, dh
+    torch.cuda.empty_cache()
+    distill_loss_cases(torch, randn, card, table, d, (("b256", TRAIN_B, True, True),))
+    torch.cuda.empty_cache()
+    print(f"siglip: kernel checks in {time.perf_counter() - t0} s", flush=True)
+
+    # (b) The trainer's cached step with the SigLIP student, remat off and on.
+    cfg = CLIPConfig.siglip_so400m_14_384()
+    sd = random_state_dict(cfg, seed=0)
+    tsd = random_teacher_state_dict(_siglip_teacher_config(), seed=0)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    counts: dict = {}
+    params = {}
+    for remat in (False, True):
+        what = f"siglip cache-warm remat {'on' if remat else 'off'}"
+        trainer, batch = _siglip_trainer(torch, np, sd, tsd, remat)
+        if trainer.student.vision_model.encoder.remat != remat or not trainer._use_kernels:
+            raise AssertionError(f"{what}: expected the kernels on and remat {remat}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_launches()
+        ms = _run_steps(torch, np, trainer, batch, what, card, batch_size=SIGLIP_B)
+        launches = _all_launches()
+        expected = _expected(_student_per_step(trainer), steps)
+        print(f"{what}: launches", json.dumps(launches), "expected", json.dumps(expected),
+              flush=True)
+        if launches != expected:
+            raise AssertionError(f"{what}: launch counts {launches} != {expected}")
+        print(f"{what}: {ms} ms/step, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30} GiB (B={SIGLIP_B}; {card})",
+              flush=True)
+        for k, n in launches.items():
+            counts[k] = counts.get(k, 0) + n
+        params[remat] = {n: p.detach().cpu() for n, p in trainer.student.named_parameters()
+                         if p.requires_grad}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    _hold_remat(torch, "siglip cache-warm", params, steps)
+    print(f"siglip: phase in {time.perf_counter() - t0} s", flush=True)
+    return counts
+
+
+def siglip_main() -> int:
+    """Phase 38 alone (`--siglip`): its rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    from dclip_tpu_torch.core.flops import card_peaks
+    from dclip_tpu_torch.kernels import _build
+
+    global PEAKS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    PEAKS = card_peaks("cuda")
+    print(f"build: {_build.build()} s", flush=True)
+    table = KernelTable(list(SIGLIP_ROWS))
+    launches = siglip_phase(torch, np, card, table)
+    print(json.dumps({"kernels": [
+        {"name": n, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches.get(n.split("[")[0], 0), **table.entry(n)}
+        for n, (src, rep) in SIGLIP_ROWS.items()]}), flush=True)
+    return 0
+
+
+def kernel_times_phase(torch, card: str, which: str = "all", tolerant: bool = True) -> dict:
+    """Phase 39: {case: ms a call, or with `tolerant` the error's text}
+    (module docstring); `which`: "all", "new" (SigLIP's shapes) or
+    "existing" (the others)."""
+    from dclip_tpu_torch.kernels import distill_loss as dl
+    from dclip_tpu_torch.kernels import mlp_frozen as mf
+    from dclip_tpu_torch.kernels import vit_attention as va
+    from dclip_tpu_torch.kernels import vit_block as vb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(38)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, device=dev, generator=gen) * scale).to(dtype)
+
+    def attention(b, s, d, heads, masked):
+        qkv = randn(b, s, 3 * d)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        kw = {}
+        if masked:
+            kw = {"causal": True, "padding_mask": (torch.arange(s, device=dev)[None]
+                                                   < torch.randint(8, 25, (b, 1), device=dev,
+                                                                   generator=gen)).float()}
+        o, m, r = va.self_attention_fwd_stats(q, k, v, heads, **kw)
+        g = randn(b, s, d)
+        return ((lambda: va.self_attention_fwd_stats(q, k, v, heads, **kw)),
+                (lambda: va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw)))
+
+    def frozen_mlp(b, s, d, mlp, act):
+        kw = {} if act == "quick_gelu" else {"act": act}
+        p = mf.pack_frozen_mlp(randn(d, scale=0.1, dtype=torch.float32) + 1,
+                               randn(d, scale=0.1, dtype=torch.float32),
+                               randn(mlp, d, scale=d**-0.5), randn(mlp, scale=0.1,
+                                                                    dtype=torch.float32),
+                               randn(d, mlp, scale=mlp**-0.5), randn(d, scale=0.1,
+                                                                     dtype=torch.float32),
+                               torch.bfloat16)
+        x, g = randn(b, s, d), randn(b, s, d)
+        _, a1 = mf.mlp_frozen_fwd(x, p, 1e-6, **kw)
+        return ((lambda: mf.mlp_frozen_fwd(x, p, 1e-6, **kw)),
+                (lambda: mf.mlp_frozen_bwd(x, g, a1, p, 1e-6, **kw)))
+
+    def layernorm(rows, d):
+        x, g = randn(rows, d), randn(rows, d)
+        sc, bi = randn(d, dtype=torch.float32) + 1, randn(d, scale=0.1, dtype=torch.float32)
+        dh = randn(rows, d, dtype=torch.float32)
+        return (lambda: vb.layernorm(x, sc, bi)), (lambda: mf.layernorm_bwd(x, g, dh, sc))
+
+    def distill(b, d):
+        si, st = randn(b, d), randn(b, d)
+        ti, tt = randn(b, d, dtype=torch.float32), randn(b, d, dtype=torch.float32)
+        cts = torch.ones(3, device=dev)
+        return ((lambda: dl.distill_loss_fwd(si, st, ti, tt)),
+                (lambda: dl.distill_loss_bwd(si, st, ti, tt, cts)))
+
+    cases = {
+        "attention hd72 siglip vision [256,729,1152]": lambda: attention(256, 729, 1152, 16, False),
+        "attention hd72 siglip text [256,64,1152]": lambda: attention(256, 64, 1152, 16, False),
+        "attention hd64 b16 vision [256,197,768]": lambda: attention(256, 197, 768, 12, False),
+        "attention hd64 b16 text causal+pad [256,77,512]": lambda: attention(256, 77, 512, 8, True),
+        "attention hd64 l14 vision [256,257,1024]": lambda: attention(256, 257, 1024, 16, False),
+        "mlp_frozen siglip tanh [256,729,1152] mlp 4304":
+            lambda: frozen_mlp(256, 729, 1152, 4304, "gelu_pytorch_tanh"),
+        "mlp_frozen l14 quick [256,257,1024] mlp 4096":
+            lambda: frozen_mlp(256, 257, 1024, 4096, "quick_gelu"),
+        "layernorm d1152 rows 186624": lambda: layernorm(256 * 729, 1152),
+        "layernorm d1024 rows 65792": lambda: layernorm(256 * 257, 1024),
+        "layernorm d768 rows 50432": lambda: layernorm(256 * 197, 768),
+        "distill_loss d1152 b256": lambda: distill(256, 1152),
+        "distill_loss d768 b256": lambda: distill(256, 768),
+        "distill_loss d512 b256": lambda: distill(256, 512),
+    }
+    out = {}
+    for name, make in cases.items():
+        new = "siglip" in name or "d1152" in name
+        if which != "all" and new != (which == "new"):
+            continue
+        try:
+            fwd, bwd = make()
+            out[name + " fwd"] = time_one(torch, fwd, 10)
+            out[name + " bwd"] = time_one(torch, bwd, 10)
+        except Exception as err:  # noqa: BLE001 - a tree without the shape
+            if not tolerant:
+                raise
+            out[name] = f"not run here: {type(err).__name__}: {str(err)[:120]}"
+        torch.cuda.synchronize()
+    for name, ms in out.items():
+        print(f"[kernel_times] {name}: {ms if isinstance(ms, str) else f'{ms:.4f} ms'}",
+              flush=True)
+    return out
+
+
+def kernel_times_main(argv) -> int:
+    """Phase 39 alone (`--kernel-times [all|new|existing]`)."""
+    import torch
+
+    from dclip_tpu_torch.kernels import _build
+
+    print(f"card: {card_line()}", flush=True)
+    print(f"build_s {_build.build()}", flush=True)
+    out = kernel_times_phase(torch, card_line(), argv[0] if argv else "all")
+    print(json.dumps({"kernel_times": out}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--siglip"]:
+        sys.exit(siglip_main())
+    if sys.argv[1:2] == ["--kernel-times"]:
+        sys.exit(kernel_times_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-rank"]:

@@ -19,7 +19,11 @@ trainable mask's model FLOPs) comes from `core.flops` against the card's
 dense peak.
 
 Both steps take the pixels already on the device (JAX's layout): the
-upload of a real input pipeline's pixels is in no row.
+upload of a real input pipeline's pixels is in no row. A SigLIP preset
+(`siglip-so400m-14-384`) profiles the cache-warm step alone, its targets
+put in the cache from a seed: the uncached step with a SigLIP teacher is
+not brought, so its rows, and its MFU, are absent (null); `--trace_dir`
+then records cache-warm steps.
 
 `--trace_dir` records a separate window of min(3, steps) uncached steps
 after the timed one (a recording perturbs step time) through
@@ -88,7 +92,8 @@ def main(argv: Optional[list] = None) -> int:
         description="Profile one distillation training step phase by phase"
     )
     p.add_argument("--model_preset", default="vit-b-16",
-                   help="CLIP preset: vit-b-32|vit-b-16|vit-l-14|tiny")
+                   help="CLIP preset: vit-b-32|vit-b-16|vit-l-14|tiny, or the SigLIP "
+                        "siglip-so400m-14-384|tiny-siglip (the cache-warm step only)")
     p.add_argument("--batch", type=int, default=None,
                    help="batch (default: 256 on the card, 8 on the CPU)")
     p.add_argument("--steps", type=int, default=10,
@@ -123,7 +128,7 @@ def main(argv: Optional[list] = None) -> int:
     import numpy as np
 
     from dclip_tpu_torch.cli.common import load_clip_state_dict, synthetic_distill_batch
-    from dclip_tpu_torch.core.config import DistillConfig, TeacherConfig
+    from dclip_tpu_torch.core.config import DistillConfig, TeacherConfig, model_family
     from dclip_tpu_torch.core.flops import distill_step_flops, mfu
     from dclip_tpu_torch.core.metrics import device_time_by_range, start_trace, stop_trace
     from dclip_tpu_torch.models.weights import random_teacher_state_dict
@@ -176,12 +181,26 @@ def main(argv: Optional[list] = None) -> int:
         )["packed_ids"].shape[0] / batch
 
     steps = args.steps
+    cache_only = model_family(clip_cfg) == "siglip"
+    dt_full = dt_pe = dt_tail = pe = trace = None
+    if cache_only:  # the targets from a seed, into the cache the warm step reads
+        cache.put_batch(cache.keys_for(host_batch), np.random.RandomState(1).standard_normal(
+            (batch, 2, teacher_cfg.embed_dim)).astype(np.float32))
+        if args.trace_dir:
+            trainer.train_step_on_batch(data_hybrid)
+            n_traced = min(3, steps)
+            start_trace(args.trace_dir)
+            t0 = time.perf_counter()
+            for _ in range(n_traced):
+                trainer.train_step_on_batch(data_hybrid)
+            sync()
+            trace = device_time_by_range(stop_trace(), n_traced, time.perf_counter() - t0)
 
     # -- full uncached step (first-epoch path; no cache bookkeeping) ------
-    trainer.teacher_cache = None
-    dt_full = _time_phase(lambda: trainer.train_step_on_batch(data_uncached), sync, steps)
-    trace = None
-    if args.trace_dir:
+    if not cache_only:
+        trainer.teacher_cache = None
+        dt_full = _time_phase(lambda: trainer.train_step_on_batch(data_uncached), sync, steps)
+    if args.trace_dir and not cache_only:
         # A SEPARATE window after the timed one: a recording perturbs step
         # time, so tracing the timed window would make dt_full and both
         # uncached MFU figures incomparable to the other rows.
@@ -195,11 +214,12 @@ def main(argv: Optional[list] = None) -> int:
         trace = device_time_by_range(stop_trace(), n_traced, wall)
 
     # -- teacher phases, isolated ----------------------------------------
-    with torch.no_grad():
-        dt_pe = _time_phase(lambda: trainer._encode_patches_budgeted(host_batch, data_dev),
-                            sync, steps)
-        pe = trainer._encode_patches_budgeted(host_batch, data_dev)
-        dt_tail = _time_phase(lambda: trainer._teacher_tail(pe, data_dev), sync, steps)
+    if not cache_only:
+        with torch.no_grad():
+            dt_pe = _time_phase(lambda: trainer._encode_patches_budgeted(host_batch, data_dev),
+                                sync, steps)
+            pe = trainer._encode_patches_budgeted(host_batch, data_dev)
+            dt_tail = _time_phase(lambda: trainer._teacher_tail(pe, data_dev), sync, steps)
 
     # -- cache-warm step (later epochs: student fwd/bwd + optimizer) ------
     trainer.teacher_cache = cache
@@ -212,19 +232,23 @@ def main(argv: Optional[list] = None) -> int:
     scfg, tccfg = trainer.student_config, trainer.teacher_clip_config
 
     def _mfu(dt, cached, honest):
+        if dt is None:
+            return None
         f = distill_step_flops(scfg, tccfg, teacher_cfg, batch,
                                teacher_cached=cached, reference_mask=honest,
                                text_rows_fraction=text_frac)
         return mfu(f / dt, device, dtype)
 
-    rows = [
-        ("full uncached step", dt_full, batch / dt_full),
-        ("  teacher patch encode", dt_pe, None),
-        ("  teacher tail (text+xattn)", dt_tail, None),
-        ("  student step (cache-warm)", dt_warm, batch / dt_warm),
-        ("  residual (dispatch/overlap)",
-         dt_full - dt_pe - dt_tail - dt_warm, None),
-    ]
+    rows = [("  student step (cache-warm)", dt_warm, batch / dt_warm)]
+    if not cache_only:
+        rows = [
+            ("full uncached step", dt_full, batch / dt_full),
+            ("  teacher patch encode", dt_pe, None),
+            ("  teacher tail (text+xattn)", dt_tail, None),
+            rows[0],
+            ("  residual (dispatch/overlap)",
+             dt_full - dt_pe - dt_tail - dt_warm, None),
+        ]
     result = {
         "preset": args.model_preset,
         "batch": batch,
@@ -235,7 +259,7 @@ def main(argv: Optional[list] = None) -> int:
         "phases_ms": {
             name.strip(): round(dt * 1e3, 2) for name, dt, _ in rows
         },
-        "images_per_sec_uncached": round(batch / dt_full, 2),
+        "images_per_sec_uncached": None if dt_full is None else round(batch / dt_full, 2),
         "images_per_sec_cache_warm": round(batch / dt_warm, 2),
         "mfu_uncached": _mfu(dt_full, False, False),
         "mfu_uncached_masked_true": _mfu(dt_full, False, True),
@@ -260,7 +284,7 @@ def main(argv: Optional[list] = None) -> int:
           f"kernels={result['use_pallas']} ==")
     print(f"{'phase':<32}{'ms/step':>10}{'img/s':>10}{'share':>9}")
     for name, dt, ips in rows:
-        share = 100.0 * dt / dt_full
+        share = 100.0 * dt / (dt_full or dt_warm)
         print(f"{name:<32}{dt * 1e3:>10.2f}"
               f"{(f'{ips:.1f}' if ips else '-'):>10}{share:>8.1f}%")
     print("note: the student row is timed via the cacheable hybrid batch, so"

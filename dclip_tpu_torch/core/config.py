@@ -64,6 +64,10 @@ class CLIPConfig:
     projection_dim: int = 512
     logit_scale_init: float = 2.6592
     dtype: str = "float32"
+    # "clip" (HF `CLIPModel`, `models.clip`) or "siglip" (HF `SiglipModel`,
+    # `models.siglip`: tanh-GELU, no class token or projections, a
+    # bidirectional text tower; the pooled width is `projection_dim`).
+    family: str = "clip"
 
     @staticmethod
     def vit_b_32() -> "CLIPConfig":
@@ -112,20 +116,56 @@ class CLIPConfig:
         )
 
     @staticmethod
+    def siglip_so400m_14_384() -> "CLIPConfig":
+        """SigLIP so400m/14-384 (google/siglip-so400m-patch14-384, HF
+        `SiglipModel`): both towers 1152 wide, 27 layers, 16 heads of 72, MLP
+        4304, tanh-GELU, LayerNorm eps 1e-6; 384-px images in patches of 14
+        (729 tokens over the first 378 px); a bidirectional text tower over
+        64 positions of a 32,000-id vocabulary, pooled at its last position;
+        the pooled width 1152 stands for `projection_dim`. Pad and EOS id 1
+        (SentencePiece `</s>`)."""
+        tower = dict(hidden_size=1152, num_layers=27, num_heads=16, mlp_dim=4304,
+                     layer_norm_eps=1e-6)
+        return CLIPConfig(
+            text=CLIPTextConfig(vocab_size=32000, max_length=64, eos_token_id=1, **tower),
+            vision=CLIPVisionConfig(image_size=384, patch_size=14, **tower),
+            projection_dim=1152, logit_scale_init=2.302585092994046, family="siglip")
+
+    @staticmethod
+    def tiny_siglip() -> "CLIPConfig":
+        """SigLIP's equations at toy sizes for CPU tests: heads of 8, an MLP
+        width that is no multiple of 32, images whose last pixels the
+        patches leave out."""
+        tower = dict(hidden_size=32, num_layers=2, num_heads=4, mlp_dim=40, layer_norm_eps=1e-6)
+        return CLIPConfig(
+            text=CLIPTextConfig(vocab_size=1000, max_length=16, eos_token_id=1, **tower),
+            vision=CLIPVisionConfig(image_size=30, patch_size=7, **tower),
+            projection_dim=32, logit_scale_init=2.302585092994046, family="siglip")
+
+    @staticmethod
     def from_name(name: str) -> "CLIPConfig":
         table = {
             "vit-b-32": CLIPConfig.vit_b_32,
             "vit-b-16": CLIPConfig.vit_b_16,
             "vit-l-14": CLIPConfig.vit_l_14,
+            "siglip-so400m-14-384": CLIPConfig.siglip_so400m_14_384,
             "tiny": CLIPConfig.tiny_test,
+            "tiny-siglip": CLIPConfig.tiny_siglip,
             # HF-style aliases matching the reference's model-id strings.
             "openai/clip-vit-base-patch32": CLIPConfig.vit_b_32,
             "openai/clip-vit-base-patch16": CLIPConfig.vit_b_16,
             "openai/clip-vit-large-patch14": CLIPConfig.vit_l_14,
+            "google/siglip-so400m-patch14-384": CLIPConfig.siglip_so400m_14_384,
         }
         if name not in table:
             raise ValueError(f"Unknown CLIP preset: {name!r}; have {sorted(table)}")
         return table[name]()
+
+
+def model_family(cfg) -> str:
+    """A dual-encoder config's family; a config without the field (the JAX
+    package's `CLIPConfig`) is CLIP's."""
+    return getattr(cfg, "family", "clip")
 
 
 # ---------------------------------------------------------------------------

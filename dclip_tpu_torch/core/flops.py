@@ -11,6 +11,12 @@ dense peaks of the H100 parts, keyed by `torch.cuda.get_device_name()`:
 an SXM and a PCIe H100 differ by a third in bf16 rate and 1.7x in memory
 rate, so no part stands in for another. A card the table does not name
 has no peak: `mfu` returns None and `card_peaks` raises, naming it.
+
+A SigLIP configuration (`CLIPConfig.family == "siglip"`) is counted by its
+own equations: no class token (the patches alone), the attention-pooling
+head in place of the visual projection (the probe's q, k / v over every
+token, its scores, out_proj and MLP), the text head in place of the text
+projection.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from typing import Optional, Union
 
 import torch
 
-from dclip_tpu_torch.core.config import CLIPConfig, TeacherConfig
+from dclip_tpu_torch.core.config import CLIPConfig, TeacherConfig, model_family
 
 
 @dataclass(frozen=True)
@@ -74,8 +80,34 @@ def card_peaks(device: Union[str, torch.device] = "cuda") -> CardPeaks:
     return peaks
 
 
+def _siglip_tokens(cfg: CLIPConfig, image_size: int | None = None) -> int:
+    v = cfg.vision
+    return ((image_size or v.image_size) // v.patch_size) ** 2
+
+
+def _siglip_head_flops(cfg: CLIPConfig, image_size: int | None = None) -> float:
+    """The attention-pooling head over s tokens: the probe's q and out_proj
+    (one row), k and v (s rows), scores and P V, the MLP (one row)."""
+    s, d, mlp = _siglip_tokens(cfg, image_size), cfg.vision.hidden_size, cfg.vision.mlp_dim
+    return 2 * 2 * d * d + 2 * 2 * s * d * d + 2 * 2 * s * d + 2 * 2 * d * mlp
+
+
+def _layer_flops(s: int, d: int, mlp: int) -> float:
+    return 4 * 2 * s * d * d + 2 * 2 * s * s * d + 2 * 2 * s * d * mlp
+
+
+def _siglip_vision_forward_flops(cfg: CLIPConfig, image_size: int | None = None) -> float:
+    v = cfg.vision
+    s = _siglip_tokens(cfg, image_size)
+    patch_embed = 2 * s * (3 * v.patch_size**2) * v.hidden_size
+    return (patch_embed + v.num_layers * _layer_flops(s, v.hidden_size, v.mlp_dim)
+            + _siglip_head_flops(cfg, image_size))
+
+
 def vision_forward_flops(cfg: CLIPConfig, image_size: int | None = None) -> float:
     """One ViT image-encoder forward, per image."""
+    if model_family(cfg) == "siglip":
+        return _siglip_vision_forward_flops(cfg, image_size)
     v = cfg.vision
     size = image_size or v.image_size
     s = (size // v.patch_size) ** 2 + 1  # patches + CLS
@@ -95,6 +127,8 @@ def text_forward_flops(cfg: CLIPConfig) -> float:
     t = cfg.text
     s = t.max_length
     d, mlp = t.hidden_size, t.mlp_dim
+    if model_family(cfg) == "siglip":  # the head at the last position, no projection
+        return t.num_layers * _layer_flops(s, d, mlp) + 2 * d * d
     per_layer = 4 * 2 * s * d * d + 2 * 2 * s * s * d + 2 * 2 * s * d * mlp
     proj = 2 * d * cfg.projection_dim
     return t.num_layers * per_layer + proj
@@ -124,11 +158,18 @@ def student_step_flops_masked(cfg: CLIPConfig, text_scale: float = 1.0) -> float
         vision tower).
     """
     v = cfg.vision
-    s = (v.image_size // v.patch_size) ** 2 + 1
     d = v.hidden_size
-    patch_embed = 2 * (s - 1) * (3 * v.patch_size**2) * d
+    if model_family(cfg) == "siglip":
+        # The pooling head's in_proj / out_proj train ("proj"): their dW as
+        # their forward products; its probe, LayerNorm and MLP are frozen.
+        s = _siglip_tokens(cfg)
+        patch_embed = 2 * s * (3 * v.patch_size**2) * d
+        attn_dw = v.num_layers * 4 * 2 * s * d * d + 2 * 2 * d * d + 2 * 2 * s * d * d
+    else:
+        s = (v.image_size // v.patch_size) ** 2 + 1
+        patch_embed = 2 * (s - 1) * (3 * v.patch_size**2) * d
+        attn_dw = v.num_layers * 4 * 2 * s * d * d + 2 * d * cfg.projection_dim
     vision_fwd = vision_forward_flops(cfg)
-    attn_dw = v.num_layers * 4 * 2 * s * d * d + 2 * d * cfg.projection_dim
     vision = vision_fwd + (vision_fwd - patch_embed) + attn_dw
     # text_scale < 1: caption packing (ops/packing.py) encodes R < B rows
     # of max_length, so the per-image text GEMM work shrinks to R/B.

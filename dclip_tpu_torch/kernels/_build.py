@@ -64,14 +64,15 @@ _SIGNATURES = {
     "dclip_layernorm_bwd_wgrad_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     # qkv, out, b, s, heads, stream
     "dclip_attention_bf16": [_P, _P, _I, _I, _I, _P],
-    # q, k, v, ldq, ldk, ldv, out, pad, seg, m, rinv (the last four
-    # nullable), b, s, heads, causal, stream
-    "dclip_attention_fwd_bf16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _P],
-    # q, k, v, ldq, ldk, ldv, g, o, m, rinv, pad, seg (nullable), delta,
-    # dq, dk, dv, lddq, lddk, lddv, b, s, heads, causal, stream
-    "dclip_attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, ldq, ldk, ldv, out, pad, seg, m, rinv, o_lo (the last five
+    # nullable), b, s, heads, head_dim, causal, stream
+    "dclip_attention_fwd_bf16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P],
+    # q, k, v, ldq, ldk, ldv, g, o, o_lo (nullable), m, rinv, pad, seg
+    # (nullable), delta, dq, dk, dv, lddq, lddk, lddv, b, s, heads, head_dim,
+    # causal, stream
+    "dclip_attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # si, st, ti, tt, scratch, ticket, out, b, d, temperature, weight, stream
     "dclip_distill_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     # si, st, ti, tt, scratch, z, ticket, cts, dsi, dst, b, d, temperature, stream

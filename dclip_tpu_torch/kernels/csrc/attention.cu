@@ -1,6 +1,6 @@
-// Multi-head self-attention forward, head_dim 64, with optional masks and
-// softmax statistics:
-//   out[b, s, h*64:(h+1)*64] = softmax(mask(q_h k_h^T / sqrt(64))) v_h
+// Multi-head self-attention forward, head_dim 64 or 72, with optional
+// masks and softmax statistics:
+//   out[b, s, h*hd:(h+1)*hd] = softmax(mask(q_h k_h^T / sqrt(hd))) v_h
 //   m[b, s, h]    = max of the masked log2-domain logits of the row
 //   rinv[b, s, h] = 1 / sum(exp2(l2 - m)) over the keys of the row
 // q, k and v are read by row stride, so one kernel serves the serving
@@ -49,6 +49,19 @@
 //   in f32 over the bf16-rounded P that enters the PV product, so the
 //   normalised weights sum to one exactly as in the TPU's ones-column trick
 //   and rinv is the one the backward needs.
+// Head_dim 72 (SigLIP so400m: 16 heads of 72 at width 1152): 72 is not a
+//   multiple of wgmma's k = 16, and a 128-byte swizzled row holds 64 bf16.
+//   Each Q, K and V tile is then two swizzled [64][64] atoms: columns 0-63,
+//   and a tail atom whose chunk 0 holds columns 64-71 and chunk 1 zeros, so
+//   Q K^T is five k16 steps (the fifth over columns 64-79, eight of them
+//   zero in both operands) and P V is an m64n64 product over the first atom
+//   plus an m64n8 one over the tail's first eight columns (36 accumulators a
+//   thread). The tiles are twice the bytes, so the ring holds two K/V tiles
+//   (~97 KB a block, still two blocks an SM). With statistics it can also
+//   write o_lo = bf16(o - bf16(o)), what the bf16 output drops: the
+//   backward's delta = rowsum(g o) is a small difference of large terms
+//   when a head's values are close to their mean (SigLIP's deep unmasked
+//   towers at their initial weights), and takes o + o_lo there.
 #include <math.h>
 
 #include "common.cuh"
@@ -58,13 +71,25 @@ namespace {
 
 namespace sm = dclip::sm90;
 
-constexpr int kHd = 64;                       // head_dim (the only one taken)
 constexpr int kTile = 64;                     // query rows per warpgroup, keys per tile
 constexpr int kGroups = 2;                    // warpgroups per block
 constexpr int kThreads = kGroups * 128;
-constexpr int kRing = 5;                      // K/V tiles in flight: all of S <= 320
-constexpr int kTileBytes = kTile * kHd * 2;   // one swizzled [64][64] bf16 tile, 8 KB
-constexpr int kSmemBytes = (kGroups + 2 * kRing) * kTileBytes + kRing * kTile * 8 + 1024;
+constexpr int kAtomBytes = kTile * 64 * 2;    // one swizzled [64][64] bf16 atom, 8 KB
+
+// The shapes of head_dim kHd (64 or 72): atoms a tile, k16 steps of Q K^T,
+// the K/V ring (all of S <= 320 at 64) and the softmax scale with log2(e).
+template <int kHd>
+struct Head {
+  static_assert(kHd == 64 || kHd == 72, "head_dim 64 or 72");
+  static constexpr bool kTail = kHd == 72;
+  static constexpr int kTileBytes = (kTail ? 2 : 1) * kAtomBytes;
+  static constexpr int kSteps = kTail ? 5 : 4;
+  static constexpr int kRing = kTail ? 2 : 5;
+  static constexpr int kSmemBytes =
+      (kGroups + 2 * kRing) * kTileBytes + kRing * kTile * 8 + 1024;
+  static constexpr float kScaleLog2 =
+      (kTail ? 0.11785113019775793f : 0.125f) * 1.4426950408889634f;
+};
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(dclip::kFullMask, v, 1));
@@ -83,7 +108,7 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
 
 // kMasked: any of causal, pad, seg is given (the unmasked frozen-tower
 // core skips the per-key mask terms).
-template <bool kMasked>
+template <int kHd, bool kMasked>
 __global__ void __launch_bounds__(kThreads, 2)
     attention_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -91,7 +116,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                      int ldv, __nv_bfloat16* __restrict__ out,
                      const float* __restrict__ pad, const int* __restrict__ seg,
                      float* __restrict__ m_out, float* __restrict__ r_out,
-                     int s, int heads, int causal) {
+                     __nv_bfloat16* __restrict__ o_lo, int s, int heads, int causal) {
+  using H = Head<kHd>;
+  constexpr int kRing = H::kRing, kTileBytes = H::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = sm::align1024(smem_raw);
   unsigned char* sk = sq + kGroups * kTileBytes;  // [kRing] K tiles
@@ -115,6 +142,12 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int k0 = tile * kTile, slot = tile % kRing;
       sm::load_rows_async<kTile, kThreads>(sk + slot * kTileBytes, kb, k0, s, ldk);
       sm::load_rows_async<kTile, kThreads>(sv + slot * kTileBytes, vb, k0, s, ldv);
+      if constexpr (H::kTail) {
+        sm::load_tail_async<kTile, kThreads>(sk + slot * kTileBytes + kAtomBytes, kb + 64, k0, s,
+                                             ldk, kTileBytes);
+        sm::load_tail_async<kTile, kThreads>(sv + slot * kTileBytes + kAtomBytes, vb + 64, k0, s,
+                                             ldv, kTileBytes);
+      }
       if (kMasked && threadIdx.x < kTile) {
         const int key = k0 + threadIdx.x;
         const size_t at = static_cast<size_t>(b) * s + key;
@@ -125,7 +158,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     dclip::cp_async_commit();
   };
 
-  sm::load_rows_async<kGroups * kTile, kThreads>(sq, qb, q0, s, ldq);  // joins tile 0's group
+  // Q joins tile 0's group.
+  if constexpr (H::kTail) {
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+      sm::load_rows_async<kTile, kThreads>(sq + g * kTileBytes, qb, q0 + g * kTile, s, ldq);
+    sm::load_tail_async<kGroups * kTile, kThreads>(sq + kAtomBytes, qb + 64, q0, s, ldq,
+                                                   kTileBytes);
+  } else {
+    sm::load_rows_async<kGroups * kTile, kThreads>(sq, qb, q0, s, ldq);
+  }
 #pragma unroll
   for (int t = 0; t < kRing; ++t) load_kv(t);
 
@@ -138,9 +180,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (row_lo < s) seg_lo = seg[static_cast<size_t>(b) * s + row_lo];
     if (row_hi < s) seg_hi = seg[static_cast<size_t>(b) * s + row_hi];
   }
-  const float scale_log2 = 0.125f * 1.4426950408889634f;  // 64^-0.5 * log2(e)
+  const float scale_log2 = H::kScaleLog2;  // hd^-0.5 * log2(e)
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  float o[32];
+  float o[32], o8[4] = {0.f, 0.f, 0.f, 0.f};  // o8: head_dim 72's columns 64-71
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
 
@@ -156,9 +198,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     const uint64_t dk = sm::desc_sw128(sk + slot * kTileBytes, 16, 1024);
     sm::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHd / 16; ++kk)
-      sm::wgmma_m64n64k16_ss<0, 0>(sacc, sm::desc_add(dq, kk * 32), sm::desc_add(dk, kk * 32),
-                                   kk > 0);
+    for (int kk = 0; kk < H::kSteps; ++kk) {
+      const uint32_t at = (kk / 4) * kAtomBytes + (kk % 4) * 32;  // the tail: atom 1
+      sm::wgmma_m64n64k16_ss<0, 0>(sacc, sm::desc_add(dq, at), sm::desc_add(dk, at), kk > 0);
+    }
     sm::wgmma_commit();
     sm::wgmma_wait<0>();
     sm::fence_regs(sacc);
@@ -210,18 +253,29 @@ __global__ void __launch_bounds__(kThreads, 2)
     l_hi = l_hi * a_hi + rs_hi;
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? a_hi : a_lo;
+    if constexpr (H::kTail) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o8[i] *= (i & 2) ? a_hi : a_lo;
+    }
 
-    // O += P V.
-    const uint64_t dv = sm::desc_sw128(sv + slot * kTileBytes, kTileBytes, 1024);
+    // O += P V (head_dim 72: its columns 64-71 from the tail atom).
+    const uint64_t dv = sm::desc_sw128(sv + slot * kTileBytes, kAtomBytes, 1024);
     sm::fence_regs(p);
     sm::fence_regs(o);
+    if constexpr (H::kTail) sm::fence_regs(o8);
     sm::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
       sm::wgmma_m64n64k16_rs<1>(o, p + 4 * kk, sm::desc_add(dv, kk * 2048), 1);
+    if constexpr (H::kTail) {
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        sm::wgmma_m64n8k16_rs<1>(o8, p + 4 * kk, sm::desc_add(dv, kAtomBytes + kk * 2048), 1);
+    }
     sm::wgmma_commit();
     sm::wgmma_wait<0>();
     sm::fence_regs(o);
+    if constexpr (H::kTail) sm::fence_regs(o8);
     if (j + kRing < tiles) __syncthreads();  // every warpgroup is done with the slot
     load_kv(j + kRing);
   }
@@ -229,17 +283,43 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? inv_hi : inv_lo;
+  if constexpr (H::kTail) {
 #pragma unroll
-  for (int g0 = 0; g0 < kHd / 8; g0 += 4) {
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? row_hi : row_lo;
+      if (row < s) {
+        const float inv = half ? inv_hi : inv_lo;
+        const float x0 = o8[2 * half] * inv, x1 = o8[2 * half + 1] * inv;
+        const __nv_bfloat162 v2 = __floats2bfloat162_rn(x0, x1);
+        const size_t at = (static_cast<size_t>(b) * s + row) * d + h * kHd + 64 + col;
+        *reinterpret_cast<__nv_bfloat162*>(out + at) = v2;
+        if (o_lo != nullptr) {
+          const float2 r = __bfloat1622float2(v2);
+          *reinterpret_cast<__nv_bfloat162*>(o_lo + at) = __floats2bfloat162_rn(x0 - r.x, x1 - r.y);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g0 = 0; g0 < 64 / 8; g0 += 4) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float vals[8];
       sm::quad_gather8(o, g0, half, vals);
       const int row = half ? row_hi : row_lo;
       if (row < s) {
-        __nv_bfloat16* dst = out + (static_cast<size_t>(b) * s + row) * d + h * kHd +
-                             (g0 + (lane & 3)) * 8;
-        *reinterpret_cast<uint4*>(dst) = dclip::pack8(vals);
+        const size_t at = (static_cast<size_t>(b) * s + row) * d + h * kHd + (g0 + (lane & 3)) * 8;
+        const uint4 packed = dclip::pack8(vals);
+        *reinterpret_cast<uint4*>(out + at) = packed;
+        if constexpr (H::kTail) {
+          if (o_lo != nullptr) {
+            float rounded[8];
+            dclip::unpack8(packed, rounded);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) vals[e] -= rounded[e];
+            *reinterpret_cast<uint4*>(o_lo + at) = dclip::pack8(vals);
+          }
+        }
       }
     }
   }
@@ -256,31 +336,34 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <bool kMasked>
+template <int kHd, bool kMasked>
 int launch_masked(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
-                  void* out, const void* pad, const void* seg, void* m, void* r, int b,
-                  int s, int heads, int causal, void* stream) {
+                  void* out, const void* pad, const void* seg, void* m, void* r, void* o_lo,
+                  int b, int s, int heads, int causal, void* stream) {
+  constexpr int kSmemBytes = Head<kHd>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      attention_kernel<kHd, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s + kGroups * kTile - 1) / (kGroups * kTile), heads, b);
-  attention_kernel<kMasked><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  attention_kernel<kHd, kMasked>
+      <<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), ldq, ldk, ldv,
       static_cast<__nv_bfloat16*>(out), static_cast<const float*>(pad),
-      static_cast<const int*>(seg), static_cast<float*>(m), static_cast<float*>(r), s,
-      heads, causal);
+      static_cast<const int*>(seg), static_cast<float*>(m), static_cast<float*>(r),
+      static_cast<__nv_bfloat16*>(o_lo), s, heads, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kHd>
 int launch(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
-           void* out, const void* pad, const void* seg, void* m, void* r, int b,
+           void* out, const void* pad, const void* seg, void* m, void* r, void* o_lo, int b,
            int s, int heads, int causal, void* stream) {
   return (causal || pad != nullptr || seg != nullptr)
-             ? launch_masked<true>(q, k, v, ldq, ldk, ldv, out, pad, seg, m, r, b, s, heads,
-                                   causal, stream)
-             : launch_masked<false>(q, k, v, ldq, ldk, ldv, out, pad, seg, m, r, b, s, heads,
-                                    causal, stream);
+             ? launch_masked<kHd, true>(q, k, v, ldq, ldk, ldv, out, pad, seg, m, r, o_lo, b,
+                                        s, heads, causal, stream)
+             : launch_masked<kHd, false>(q, k, v, ldq, ldk, ldv, out, pad, seg, m, r, o_lo, b,
+                                         s, heads, causal, stream);
 }
 
 }  // namespace
@@ -290,21 +373,28 @@ int launch(const void* q, const void* k, const void* v, int ldq, int ldk, int ld
 // Unmasked, no statistics: the frozen image tower's attention core.
 extern "C" int dclip_attention_bf16(const void* qkv, void* out, int b, int s,
                                     int heads, void* stream) {
-  const int d = heads * kHd;
+  const int d = heads * 64;
   const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(qkv);
-  return launch(base, base + d, base + 2 * d, 3 * d, 3 * d, 3 * d, out, nullptr,
-                nullptr, nullptr, nullptr, b, s, heads, 0, stream);
+  return launch<64>(base, base + d, base + 2 * d, 3 * d, 3 * d, 3 * d, out, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, b, s, heads, 0, stream);
 }
 
-// q, k, v: [b, s, heads * 64] bf16 views with unit column stride and row
-// strides ldq / ldk / ldv (elements, multiples of 8; batch stride s * ld),
-// 16-byte aligned. out: [b, s, heads * 64] bf16 contiguous. pad: [b, s] f32
-// (key j valid when > 0) or null; seg: [b, s] int32 or null; m, r:
-// [b, s, heads] f32 or both null (the stats-free mode).
+// q, k, v: [b, s, heads * head_dim] bf16 views with unit column stride and
+// row strides ldq / ldk / ldv (elements, multiples of 8; batch stride s *
+// ld), 16-byte aligned; head_dim 64 or 72. out: [b, s, heads * head_dim]
+// bf16 contiguous. pad: [b, s] f32 (key j valid when > 0) or null; seg: [b,
+// s] int32 or null; m, r: [b, s, heads] f32 or both null (the stats-free
+// mode); o_lo: like out, or null (written at head_dim 72 with statistics).
 extern "C" int dclip_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                         int ldq, int ldk, int ldv, void* out,
                                         const void* pad, const void* seg, void* m,
-                                        void* r, int b, int s, int heads, int causal,
-                                        void* stream) {
-  return launch(q, k, v, ldq, ldk, ldv, out, pad, seg, m, r, b, s, heads, causal, stream);
+                                        void* r, void* o_lo, int b, int s, int heads,
+                                        int head_dim, int causal, void* stream) {
+  if (head_dim == 64)
+    return launch<64>(q, k, v, ldq, ldk, ldv, out, pad, seg, m, r, nullptr, b, s, heads, causal,
+                      stream);
+  if (head_dim == 72)
+    return launch<72>(q, k, v, ldq, ldk, ldv, out, pad, seg, m, r, o_lo, b, s, heads, causal,
+                      stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -62,7 +62,9 @@
 //   captured into a CUDA graph gets a set of its own, zeroed by the graph
 //   (`_workspace` in kernels/distill_loss.py).
 // No atomics on values: every sum runs in a fixed order, so two calls on
-//   the same inputs give the same bits. D % 8 == 0, D <= 1024.
+//   the same inputs give the same bits. D % 8 == 0, D <= 1536 (the two
+//   strips of the tile kernel, 2 x 32 x (D + 8) bf16, fit a block's shared
+//   memory).
 #include <math.h>
 
 #include "common.cuh"
@@ -593,7 +595,7 @@ int tiles(const void* si, const void* st, const void* ti, const void* tt, void* 
 // si, st: [b, d] bf16; ti, tt: [b, d] f32; scratch: 8 nt b + 9 round4(b)
 // f32 and tickets: 1 + 2 nt unsigned, nt = ceil(b / 32) (the tickets
 // 0 at the launch and used by no other launch in flight); out: [4] f32 (li, lt,
-// lc, total). All contiguous, 16-byte aligned, d % 8 == 0, d <= 1024.
+// lc, total). All contiguous, 16-byte aligned, d % 8 == 0, d <= 1536.
 extern "C" int dclip_distill_loss_fwd(const void* si, const void* st, const void* ti,
                                       const void* tt, void* scratch, void* tickets, void* out,
                                       int b, int d, float temperature, float weight,

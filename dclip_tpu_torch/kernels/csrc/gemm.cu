@@ -1,6 +1,7 @@
 // C[M,N] = epilogue(A[M,K] . W[K,N] + bias[N]) [+ R[M,N]], with the
-// epilogue one of: none; quick-GELU (x * sigmoid(1.702 x)), optionally
-// saving the pre-activation to AUX[M,N]; or a multiply by quick-GELU's
+// epilogue one of: none; quick-GELU (x * sigmoid(1.702 x)) or tanh-GELU
+// (0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))), SigLIP's), optionally
+// saving the pre-activation to AUX[M,N]; or a multiply by that GELU's
 // derivative at AUX[M,N] (the frozen-MLP backward). A, W, R, AUX bf16;
 // bias f32 or absent; C bf16 or f32; accumulation and the epilogue in f32.
 // Three operand modes:
@@ -93,9 +94,11 @@
 // Every mode: wgmma reads 16-bit operands K-major or MN-major, so the modes
 //   differ only in their descriptors and tensor maps, with no transposed
 //   copy: A is K-major in NN / NT and M-major in TN; W is N-major in NN,
-//   K-major in NT, and Y N-major in TN. NN and NT need K % 32 == 0 and every
-//   mode N % 8 == 0 (TN also M % 8 == 0), which give TMA its 16-byte row
-//   strides; each operand's base is 16-byte aligned (the wrappers check).
+//   K-major in NT, and Y N-major in TN. Every mode needs K % 8 == 0 and N %
+//   8 == 0 (TN also M % 8 == 0), which give TMA its 16-byte row strides; a
+//   ragged last K step (SigLIP's fc2 and dx at K = 4,304, 16 past the last
+//   whole 64) reads TMA's zero fill in both operands. Each operand's base is
+//   16-byte aligned (the wrappers check).
 //   For K6's forward the GELU output and a1 are both written: applying GELU
 //   to A as fc2 loads it would write a1 only, but recompute the GELU once per
 //   N-tile of fc2; the extra store is the cheaper of the two.
@@ -121,7 +124,9 @@ constexpr int kBK = 64;
 constexpr int kBox = 64 * 64 * 2;  // one [64][64] bf16 TMA box, 8 KB
 
 constexpr int kModeNN = 0, kModeNT = 1;
-constexpr int kEpiGelu = 1, kEpiDgelu = 2;  // the wrapper's `epi` (0: none)
+// The wrapper's `epi` (0: none): quick-GELU, its derivative; tanh-GELU, its
+// derivative.
+constexpr int kEpiGelu = 1, kEpiDgelu = 2, kEpiGeluTanh = 3, kEpiDgeluTanh = 4;
 
 // sigmoid(y) = (1 + tanh(y / 2)) / 2: one tanh.approx (a single MUFU
 // operation, relative error ~2^-11) where expf and a division take three;
@@ -130,6 +135,19 @@ __device__ __forceinline__ float sigmoid_fast(float y) {
   float t;
   asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(0.5f * y));
   return fmaf(0.5f, t, 0.5f);
+}
+
+// tanh-GELU as x sigmoid(2 u), u = sqrt(2 / pi) (x + 0.044715 x^3): the same
+// one tanh.approx; and its derivative s + x s (1 - s) 2 u' with s = sigmoid(2
+// u), 2 u' = 2 sqrt(2 / pi) (1 + 3 0.044715 x^2).
+constexpr float kTwoRootTwoOverPi = 1.5957691216057308f;
+__device__ __forceinline__ float gelu_tanh_fast(float x) {
+  return x * sigmoid_fast(kTwoRootTwoOverPi * x * fmaf(0.044715f * x, x, 1.f));
+}
+
+__device__ __forceinline__ float gelu_tanh_grad_fast(float x) {
+  const float s = sigmoid_fast(kTwoRootTwoOverPi * x * fmaf(0.044715f * x, x, 1.f));
+  return fmaf(x * s * (1.f - s), kTwoRootTwoOverPi * fmaf(0.134145f * x, x, 1.f), s);
 }
 
 // -- NN / NT: the persistent, warp-specialised kernel -----------------------------
@@ -170,7 +188,9 @@ struct Schedule {
 // epilogue is unrolled over the whole tile, and one that carried every
 // form's code would outgrow the instruction cache: measured at ~145 cycles
 // a pair); kAnyForm reads the form from the arguments and serves the rest.
-constexpr int kOpBias = 1, kOpGelu = 2, kOpDgelu = 4, kOpRes = 8, kOpPre = 16, kOpF32 = 32;
+// kOpTanh makes kOpGelu / kOpDgelu tanh-GELU's.
+constexpr int kOpBias = 1, kOpGelu = 2, kOpDgelu = 4, kOpRes = 8, kOpPre = 16, kOpF32 = 32,
+              kOpTanh = 64;
 constexpr int kAnyForm = -1;
 
 template <int kForm>
@@ -182,7 +202,8 @@ __device__ __forceinline__ bool has(int op, bool given) {
 // pre-activation) TMA loads into the staging area, where each pair of the
 // output then overwrites its own operand pair.
 template <int kForm>
-constexpr bool kStagedOperand = kForm == (kOpBias | kOpRes) || kForm == kOpDgelu;
+constexpr bool kStagedOperand =
+    kForm == (kOpBias | kOpRes) || kForm == kOpDgelu || kForm == (kOpDgelu | kOpTanh);
 template <int kForm>
 constexpr int kSlotsOf = kStagedOperand<kForm> ? 4 : 2;
 
@@ -249,8 +270,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[kBN / 2],
   constexpr bool kStaged = kStagedOperand<kForm>;
   constexpr int kSlots = kSlotsOf<kForm>;
   const bool with_bias = has<kForm>(kOpBias, bias != nullptr);
-  const bool gelu = has<kForm>(kOpGelu, epi == kEpiGelu);
-  const bool dgelu = has<kForm>(kOpDgelu, epi == kEpiDgelu);
+  const bool gelu = has<kForm>(kOpGelu, epi == kEpiGelu || epi == kEpiGeluTanh);
+  const bool dgelu = has<kForm>(kOpDgelu, epi == kEpiDgelu || epi == kEpiDgeluTanh);
+  const bool tanh_form = has<kForm>(kOpTanh, epi == kEpiGeluTanh || epi == kEpiDgeluTanh);
   const bool with_res = has<kForm>(kOpRes, r != nullptr);
   const bool with_pre = has<kForm>(kOpPre, aux_out != nullptr);
   const bool stage_pre = !kF32 && with_pre;
@@ -295,9 +317,16 @@ __device__ __forceinline__ void store_rows(const float (&acc)[kBN / 2],
         } else if (dgelu || with_res) {
           op = opnd[2 * g + h];
         }
-        if (gelu) {
+        if (gelu && tanh_form) {
+          v0 = gelu_tanh_fast(v0);
+          v1 = gelu_tanh_fast(v1);
+        } else if (gelu) {
           v0 *= sigmoid_fast(1.702f * v0);
           v1 *= sigmoid_fast(1.702f * v1);
+        } else if (dgelu && tanh_form) {
+          const float2 a = unpack2(op);
+          v0 *= gelu_tanh_grad_fast(a.x);
+          v1 *= gelu_tanh_grad_fast(a.y);
         } else if (dgelu) {
           // d/da quick_gelu(a) = s + 1.702 a s (1 - s), s = sigmoid(1.702 a)
           const float2 a = unpack2(op);
@@ -420,10 +449,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // The other forms' operand, read into registers: quick-GELU's
     // pre-activation, else the residual, else none.
-    const __nv_bfloat16* operand = kStaged                                ? nullptr
-                                   : has<kForm>(kOpDgelu, epi == kEpiDgelu) ? aux_in
-                                   : has<kForm>(kOpRes, r != nullptr)       ? r
-                                                                            : nullptr;
+    const __nv_bfloat16* operand =
+        kStaged                                                          ? nullptr
+        : has<kForm>(kOpDgelu, epi == kEpiDgelu || epi == kEpiDgeluTanh) ? aux_in
+        : has<kForm>(kOpRes, r != nullptr)                               ? r
+                                                                         : nullptr;
     float acc[kAtoms][kBN / 2];
     for (int j = kPingPong ? wg : 0, jt = 0; block + j * blocks < tiles;
          j += S::kJobStride, ++jt) {
@@ -694,7 +724,7 @@ int launch(const void* a, const void* w, const void* bias, const void* r, const 
       encode(&map_c, c, m, n, 64, out_f32 != 0) &&
       (aux_out == nullptr || out_f32 || encode(&map_pre, aux_out, m, n, 64)) &&
       (!kStagedOperand<kForm> ||
-       encode(&map_op, epi == kEpiDgelu ? aux_in : r, m, n, 64));
+       encode(&map_op, epi == kEpiDgelu || epi == kEpiDgeluTanh ? aux_in : r, m, n, 64));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (m + S::kBM - 1) / S::kBM * ((n + kBN - 1) / kBN);
   kernel<<<tiles < sms ? tiles : sms, kThreads, S::kSmemBytes,
@@ -708,18 +738,31 @@ int launch(const void* a, const void* w, const void* bias, const void* r, const 
 // The kernel of this call's epilogue form: the forms the main path runs
 // each have their own (kOpF32 alone: K6's dx and the tensor-parallel
 // partial products; with kOpBias: K10's out-projections; none: K9's
-// backward), the rest share kAnyForm.
+// backward; SigLIP's K6, tanh-GELU with a1 saved and tanh-GELU', in the NN
+// mode on wide tiles only, where its row count puts them), the rest share
+// kAnyForm.
 template <int kMode, int kAtoms, int kBN, bool kPingPong>
 int launch_form(const void* a, const void* w, const void* bias, const void* r,
                 const void* aux_in, void* aux_out, void* c, int m, int n, int k, int epi,
                 int out_f32, int sms, void* stream) {
-  const int form = (bias != nullptr ? kOpBias : 0) | (epi == kEpiGelu ? kOpGelu : 0) |
-                   (epi == kEpiDgelu ? kOpDgelu : 0) | (r != nullptr ? kOpRes : 0) |
-                   (aux_out != nullptr ? kOpPre : 0) | (out_f32 ? kOpF32 : 0);
+  const bool tanh_form = epi == kEpiGeluTanh || epi == kEpiDgeluTanh;
+  const int form = (bias != nullptr ? kOpBias : 0) |
+                   (epi == kEpiGelu || epi == kEpiGeluTanh ? kOpGelu : 0) |
+                   (epi == kEpiDgelu || epi == kEpiDgeluTanh ? kOpDgelu : 0) |
+                   (r != nullptr ? kOpRes : 0) | (aux_out != nullptr ? kOpPre : 0) |
+                   (out_f32 ? kOpF32 : 0) | (tanh_form ? kOpTanh : 0);
 #define DCLIP_FORM(f)                                                                        \
   case f:                                                                                    \
     return launch<kMode, kAtoms, kBN, kPingPong, f>(a, w, bias, r, aux_in, aux_out, c, m, n, \
                                                     k, epi, out_f32, sms, stream)
+  if constexpr (kMode == kModeNN && !kPingPong) {
+    switch (form) {
+      DCLIP_FORM(kOpBias | kOpGelu | kOpPre | kOpTanh);
+      DCLIP_FORM(kOpDgelu | kOpTanh);
+      default:
+        break;
+    }
+  }
   switch (form) {
     DCLIP_FORM(0);
     DCLIP_FORM(kOpBias);
@@ -756,9 +799,10 @@ int launch_schedule(const void* a, const void* w, const void* bias, const void* 
 
 // a: [m, k], w: [k, n], r / aux_in / aux_out (each optional, may be null)
 // [m, n], all bf16 row-major and 16-byte aligned; bias: [n] f32 or null;
-// c: [m, n], f32 when out_f32 else bf16. k % 32 == 0, n % 8 == 0.
+// c: [m, n], f32 when out_f32 else bf16. k % 8 == 0, n % 8 == 0.
 // epi: 0 none, 1 quick-GELU (aux_out, when given, receives the
-// pre-activation), 2 times quick-GELU'(aux_in).
+// pre-activation), 2 times quick-GELU'(aux_in), 3 tanh-GELU (as 1), 4
+// times tanh-GELU'(aux_in).
 extern "C" int dclip_gemm_bf16(const void* a, const void* w, const void* bias,
                                const void* r, const void* aux_in, void* aux_out, void* c,
                                int m, int n, int k, int epi, int out_f32, int tile_n, int sms,

@@ -6,7 +6,8 @@
 // and the same backward for a trainable LayerNorm, which also emits the
 // weight gradients dscale = sum over rows of dh * xhat and dbias = sum of
 // dh (dx optional), as per-block partials that reduce.cu sums. d % 8 == 0
-// and d <= 1024 (every width of the supported presets).
+// and d <= 1280 (every width of the supported presets: 1,152 is SigLIP
+// so400m's).
 //
 // Replaces: the LN1 / LN2 prologue of dclip_tpu/kernels/vit_block.py
 //   `_attn_kernel` (line 52) and `_mlp_kernel` (line 100), `_layer_norm`;
@@ -25,7 +26,9 @@
 // Design: one warp per row with the row in registers, read once from
 //   device memory and written once. A lane holds kVec = ceil(d / 256)
 //   16-byte vectors of the row (8 columns each; 2, 3, 4 at d = 512, 768,
-//   1024), a template parameter, so every load of a row is unrolled and
+//   1024; 5 at 1,152, whose fifth vector half the lanes hold, in kernels of
+//   one block an SM with the registers that takes), a template parameter,
+//   so every load of a row is unrolled and
 //   issued before the first is used; other widths take the same kernels
 //   with the vectors past d predicated off. Mean and variance are the
 //   TPU kernel's two passes (no E[x^2]-E[x]^2 cancellation), both over
@@ -48,7 +51,12 @@
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kMaxVec = 4;  // 16-byte vectors per lane: d <= 32 * 8 * 4
+constexpr int kMaxVec = 5;  // 16-byte vectors per lane: d <= 32 * 8 * 5
+
+// Resident blocks an SM of a kVec-vector kernel: two up to d = 1024, one
+// beyond (a row of x, g, dh and the scale in registers outgrows 128 a thread).
+template <int kVec>
+constexpr int kBlocksPerSm = kVec > 4 ? 1 : 2;
 
 // Whether vector i of this lane lies inside the row (always, when exact).
 template <bool kExact>
@@ -100,7 +108,7 @@ __device__ __forceinline__ void load_row(uint4 (&v)[kVec], const __nv_bfloat16* 
 }
 
 template <int kVec, bool kExact>
-__global__ void __launch_bounds__(kWarps * 32, 2)
+__global__ void __launch_bounds__(kWarps * 32, kBlocksPerSm<kVec>)
     layernorm_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int rows,
                      int d, float eps) {
@@ -132,7 +140,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
 }
 
 template <int kVec, bool kExact>
-__global__ void __launch_bounds__(kWarps * 32, 2)
+__global__ void __launch_bounds__(kWarps * 32, kBlocksPerSm<kVec>)
     layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
                          const float* __restrict__ dh, const float* __restrict__ scale,
                          __nv_bfloat16* __restrict__ dx, int rows, int d, float eps) {
@@ -189,7 +197,7 @@ __global__ void __launch_bounds__(kWarps * 32)
                                const float* __restrict__ dh, const float* __restrict__ scale,
                                __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
                                int rows, int d, float eps) {
-  __shared__ float red[2][32 * 8 * kMaxVec];
+  __shared__ float red[2][32 * 8 * (kVec > 4 ? kVec : 4)];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, chunks = d / 8;
   float acc_s[kVec][8], acc_b[kVec][8];
 #pragma unroll
@@ -277,7 +285,7 @@ int resident_grid(Kernel kernel, int rows) {
 }
 
 // Calls launch(kernel template instance) for d's vector count: exact at
-// 512, 768, 1024, predicated otherwise. d % 8 != 0 or d > 1024: refused.
+// 512, 768, 1024, predicated otherwise. d % 8 != 0 or d > 1280: refused.
 template <typename Launch>
 int dispatch(int d, Launch&& launch) {
   if (d <= 0 || d % 8 || d > 32 * 8 * kMaxVec) return static_cast<int>(cudaErrorInvalidValue);
@@ -291,14 +299,15 @@ int dispatch(int d, Launch&& launch) {
     case 1: return launch(std::integral_constant<int, 1>{}, std::false_type{});
     case 2: return launch(std::integral_constant<int, 2>{}, std::false_type{});
     case 3: return launch(std::integral_constant<int, 3>{}, std::false_type{});
-    default: return launch(std::integral_constant<int, 4>{}, std::false_type{});
+    case 4: return launch(std::integral_constant<int, 4>{}, std::false_type{});
+    default: return launch(std::integral_constant<int, 5>{}, std::false_type{});
   }
 }
 
 }  // namespace
 
 // x, y: [rows, d] bf16, contiguous, 16-byte aligned; scale, bias: [d] f32,
-// 16-byte aligned; d % 8 == 0, d <= 1024.
+// 16-byte aligned; d % 8 == 0, d <= 1280.
 extern "C" int dclip_layernorm_bf16(const void* x, const void* scale,
                                     const void* bias, void* y, int rows,
                                     int d, float eps, void* stream) {
@@ -314,7 +323,7 @@ extern "C" int dclip_layernorm_bf16(const void* x, const void* scale,
 }
 
 // x, g, dx: [rows, d] bf16; dh: [rows, d] f32; scale: [d] f32; all
-// contiguous and 16-byte aligned, d % 8 == 0, d <= 1024.
+// contiguous and 16-byte aligned, d % 8 == 0, d <= 1280.
 extern "C" int dclip_layernorm_bwd_bf16(const void* x, const void* g, const void* dh,
                                         const void* scale, void* dx, int rows, int d,
                                         float eps, void* stream) {
@@ -333,7 +342,7 @@ extern "C" int dclip_layernorm_bwd_bf16(const void* x, const void* g, const void
 // x, g: [rows, d] bf16; dh: [rows, d] f32; scale: [d] f32; dx: [rows, d]
 // bf16 or null (no input gradient wanted); part: [blocks, 2, d] f32, block
 // b's (sum dh * xhat, sum dh) over its rows; all contiguous and 16-byte
-// aligned, d % 8 == 0, d <= 1024. Sum `part` over blocks with
+// aligned, d % 8 == 0, d <= 1280. Sum `part` over blocks with
 // dclip_reduce_rows_f32 (n = 2 * d) for (dscale, dbias).
 extern "C" int dclip_layernorm_bwd_wgrad_bf16(const void* x, const void* g, const void* dh,
                                               const void* scale, void* dx, void* part,

@@ -61,6 +61,23 @@ __device__ __forceinline__ void load_rows_async(unsigned char* dst,
   }
 }
 
+// The 8-column tail of a head of 72: rows [r0, r0 + kRows) x 8 bf16
+// columns of `src` (offset to column 64 of the head) into 16-byte chunk 0
+// of each row of the swizzled tail tile at `dst` (64 rows a tile, tiles
+// `stride` bytes apart), chunk 1 zero, so that one k16 step over columns
+// 64-79 reads the tail and eight zero columns; rows >= valid are zero.
+template <int kRows, int kThreads>
+__device__ __forceinline__ void load_tail_async(unsigned char* dst,
+                                                const __nv_bfloat16* __restrict__ src, int r0,
+                                                int valid, int ld, int stride) {
+  for (int c = threadIdx.x; c < kRows * 2; c += kThreads) {
+    const int row = c >> 1, chunk = c & 1;
+    const bool ok = chunk == 0 && r0 + row < valid;
+    const __nv_bfloat16* p = ok ? src + static_cast<size_t>(r0 + row) * ld : src;
+    cp_async_16(dst + (row >> 6) * stride + swizzle128(row & 63, chunk), p, ok);
+  }
+}
+
 // -- mbarriers -----------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -341,6 +358,22 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// The narrowest form (N = 8) with A from registers: the 8-column tail of a
+// head of 72 as the output dimension; d[0, 1] row lane/4, d[2, 3] row
+// lane/4 + 8, columns 2 (lane % 4) + {0, 1}.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], const uint32_t* a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
         "n"(kTransB));
 }

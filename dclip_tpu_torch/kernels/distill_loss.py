@@ -24,6 +24,9 @@ from dclip_tpu_torch.kernels._build import check, load_library
 from dclip_tpu_torch.kernels.vit_block import _launch, _on_cpu, _require
 
 EPS = 1e-12
+# The widest rows the kernels take: the tile kernel's two bf16 strips of 32
+# rows fit a block's shared memory (`csrc/distill_loss.cu`).
+MAX_D = 1536
 PARTS = ("image_distill_loss", "text_distill_loss", "contrastive_loss", "loss")
 
 LAUNCHES: Dict[str, int] = {"distill_loss_fwd": 0, "distill_loss_bwd": 0}
@@ -81,8 +84,8 @@ def _check(si, st, ti, tt):
     _require(ti, "teacher_image", torch.float32, 2)
     _require(tt, "teacher_text", torch.float32, 2)
     b, d = si.shape
-    if any(t.shape != (b, d) for t in (st, ti, tt)) or d % 8 or d > 1024 or b == 0:
-        raise ValueError(f"distill_loss: four [B, D] inputs with D % 8 == 0 and D <= 1024, "
+    if any(t.shape != (b, d) for t in (st, ti, tt)) or d % 8 or d > MAX_D or b == 0:
+        raise ValueError(f"distill_loss: four [B, D] inputs with D % 8 == 0 and D <= {MAX_D}, "
                          f"got {[tuple(t.shape) for t in (si, st, ti, tt)]}")
     return b, d
 

@@ -36,6 +36,7 @@ import torch
 from dclip_tpu_torch.kernels._build import check, load_library
 from dclip_tpu_torch.kernels.mlp_frozen import layernorm_bwd_reference
 from dclip_tpu_torch.kernels.vit_block import (
+    LAYERNORM_MAX_D,
     _on_cpu,
     _require,
     _sm_count,
@@ -88,7 +89,7 @@ def gemm_nt(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = Non
             save_preact: bool = False, out_dtype: Optional[torch.dtype] = None):
     """a [..., K] @ w[N, K]^T (+ bias [N]), then quick-GELU if `gelu`, then
     + residual [..., N]; `save_preact` also returns the pre-activation.
-    CUDA: a, w, residual bf16, bias f32, K % 32 == 0, N % 8 == 0."""
+    CUDA: a, w, residual bf16, bias f32, K % 8 == 0, N % 8 == 0."""
     if _on_cpu(a, w, bias, residual):
         return gemm_nt_reference(a, w, bias, residual, gelu, save_preact, out_dtype)
     out = launch_gemm(a, w, bias, residual, gelu, save_preact, None, out_dtype, w_is_nk=True)
@@ -186,7 +187,7 @@ def layernorm_bwd_wgrad(x: torch.Tensor, g: Optional[torch.Tensor], dh: torch.Te
     """(dx, dscale, dbias) of a LayerNorm with trainable scale and bias: dx
     = g + LN_bwd(dh) when `need_dx` (else None; g may then be None),
     dscale and dbias f32 [D]. CUDA: x, g bf16 [..., D]; dh f32 like x;
-    scale f32 [D]; D % 8 == 0, D <= 1024."""
+    scale f32 [D]; D % 8 == 0, D <= 1280."""
     if _on_cpu(x, g, dh, scale):
         return layernorm_bwd_wgrad_reference(x, g, dh, scale, eps, need_dx)
     d = x.shape[-1]
@@ -197,9 +198,9 @@ def layernorm_bwd_wgrad(x: torch.Tensor, g: Optional[torch.Tensor], dh: torch.Te
     if need_dx:
         _require(g, "g", torch.bfloat16, x.dim())
     if dh.shape != x.shape or (need_dx and g.shape != x.shape) or scale.shape[0] != d \
-            or d % 8 or d > 1024 or rows == 0:
+            or d % 8 or d > LAYERNORM_MAX_D or rows == 0:
         raise ValueError(f"layernorm_bwd_wgrad: bad shapes x {tuple(x.shape)}, dh "
-                         f"{tuple(dh.shape)}, scale {tuple(scale.shape)} (D % 8 == 0, <= 1024)")
+                         f"{tuple(dh.shape)}, scale {tuple(scale.shape)} (D % 8 == 0, <= 1280)")
     blocks = min(-(-rows // 8), _blocks_wanted(x))  # 8 rows (warps) per block at a time
     lib = load_library()
     dx = torch.empty_like(x) if need_dx else None

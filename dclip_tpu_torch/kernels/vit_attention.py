@@ -5,6 +5,8 @@ Counterpart of `dclip_tpu/kernels/vit_attention.py`:
   self_attention_fused       K3: softmax(mask(q k^T / sqrt(hd))) v
   self_attention_fwd_stats   K4: the same, plus the per-(row, head) stats
                              m (log2-domain max) and rinv [B, S, H] f32
+                             (and, asked for, the output's rounding
+                             residual o_lo: o + o_lo is the f32 output)
   self_attention_bwd_stats   K5: dq, dk, dv from q, k, v, g, o, m, rinv
   self_attention_qkv         the differentiable form (torch.autograd
                              Function) over one [B, S, 3D] q|k|v buffer:
@@ -24,7 +26,13 @@ q, k, v enter as [B, S, D] views with unit column stride and any row
 stride, so the q|k|v thirds of one buffer go in without a copy. Every
 wrapper has a plain f32 twin (`*_reference`) with the TPU kernels' algebra;
 a wrapper takes its twin only when its tensors lie on the CPU, and for
-CUDA tensors launches its kernel or raises. CUDA: bf16, head_dim 64.
+CUDA tensors launches its kernel or raises. CUDA: bf16, head_dim 64 or 72
+(SigLIP so400m's 16 heads of 72; the kernels pad 72 to five k16 steps).
+Asked for (`residual`, built at head_dim 72), the differentiable form keeps
+o_lo beside o, and the backward's delta = rowsum(g o) takes o + o_lo
+(`csrc/attention_bwd.cu`). The model asks: SigLIP's towers do
+(`models.siglip`), where a delta from the bf16 o alone swamped the text
+tower's dQ / dK; CLIP's head_dim-64 towers keep the parent's kernels.
 """
 from __future__ import annotations
 
@@ -78,22 +86,26 @@ def _merge(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def attention_reference(q, k, v, num_heads: int, padding_mask=None, causal: bool = False,
-                        segment_ids=None, stats: bool = False):
+                        segment_ids=None, stats: bool = False, residual: bool = False):
     """`_fwd_stats_kernel` in f32: o, and with `stats` also m and rinv
-    [B, S, H] f32."""
+    [B, S, H] f32; with `residual` also o_lo, the f32 output less o, in o's
+    dtype."""
     l2 = _masked_log2_logits(q, k, num_heads, padding_mask, causal, segment_ids)
     m = l2.amax(-1, keepdim=True)
     e = torch.exp2(l2 - m)
     rinv = 1.0 / e.sum(-1, keepdim=True)
-    o = _merge((e @ _heads(v, num_heads)) * rinv, q.dtype)
+    exact = _merge((e @ _heads(v, num_heads)) * rinv, torch.float32)
+    o = exact.to(q.dtype)
     if not stats:
         return o
-    return o, m[..., 0].transpose(1, 2).contiguous(), rinv[..., 0].transpose(1, 2).contiguous()
+    out = (o, m[..., 0].transpose(1, 2).contiguous(), rinv[..., 0].transpose(1, 2).contiguous())
+    return out + ((exact - o.float()).to(q.dtype),) if residual else out
 
 
 def attention_bwd_reference(q, k, v, g, o, m, rinv, num_heads: int, padding_mask=None,
-                            causal: bool = False, segment_ids=None):
-    """`_bwd_kernel` in f32: (dq, dk, dv) in the dtypes of q, k, v."""
+                            causal: bool = False, segment_ids=None, o_lo=None):
+    """`_bwd_kernel` in f32: (dq, dk, dv) in the dtypes of q, k, v; delta
+    from o + o_lo when the residual is given."""
     hd = q.shape[-1] // num_heads
     scale = hd**-0.5
     l2 = _masked_log2_logits(q, k, num_heads, padding_mask, causal, segment_ids)
@@ -101,7 +113,8 @@ def attention_bwd_reference(q, k, v, g, o, m, rinv, num_heads: int, padding_mask
     rh = rinv.float().transpose(1, 2)[..., None]
     e = torch.exp2(l2 - mh)
     gh, vh = _heads(g, num_heads), _heads(v, num_heads)
-    delta = (gh * _heads(o, num_heads)).sum(-1, keepdim=True)
+    oh = _heads(o, num_heads) if o_lo is None else _heads(o, num_heads) + _heads(o_lo, num_heads)
+    delta = (gh * oh).sum(-1, keepdim=True)
     dv = e.transpose(-1, -2) @ (gh * rh)
     ds = e * ((gh @ vh.transpose(-1, -2) - delta) * rh)
     dq = scale * (ds @ _heads(k, num_heads))
@@ -141,11 +154,15 @@ def _mask_operands(b: int, s: int, padding_mask, segment_ids):
     return pad, seg
 
 
+HEAD_DIMS = (64, 72)
+
+
 def _check_heads(q: torch.Tensor, num_heads: int) -> Tuple[int, int, int]:
     b, s, d = q.shape
-    if d % num_heads or d // num_heads != 64 or b * s == 0:
+    if d % num_heads or d // num_heads not in HEAD_DIMS or b * s == 0:
         raise ValueError(
-            f"attention: the CUDA kernel takes head_dim 64, got D = {d} with {num_heads} heads"
+            f"attention: the CUDA kernels take head_dim 64 or 72, got D = {d} with "
+            f"{num_heads} heads"
         )
     return b, s, d
 
@@ -154,24 +171,33 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _fwd(q, k, v, num_heads, padding_mask, causal, segment_ids, stats: bool):
+def _fwd(q, k, v, num_heads, padding_mask, causal, segment_ids, stats: bool,
+         residual: bool = False):
     b, s, d = _check_heads(q, num_heads)
     lds = [_row_view(t, n, (b, s, d)) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     pad, seg = _mask_operands(b, s, padding_mask, segment_ids)
     lib = load_library()
     o = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
-    m = r = None
+    m = r = o_lo = None
     if stats:
         m = torch.empty((b, s, num_heads), dtype=torch.float32, device=q.device)
         r = torch.empty_like(m)
+    if residual:
+        if d // num_heads != 72 or not stats:
+            raise ValueError("attention: the kernels write the output residual at head_dim "
+                             f"72 with statistics, got head_dim {d // num_heads}")
+        o_lo = torch.empty_like(o)
     with torch.cuda.device(q.device):
         code = lib.dclip_attention_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *lds, o.data_ptr(), _ptr(pad),
-            _ptr(seg), _ptr(m), _ptr(r), b, s, num_heads, int(causal), _stream(q))
+            _ptr(seg), _ptr(m), _ptr(r), _ptr(o_lo), b, s, num_heads, d // num_heads,
+            int(causal), _stream(q))
     name = "self_attention_fwd_stats" if stats else "self_attention_fused"
     check(lib, code, name)
     LAUNCHES[name] += 1
-    return (o, m, r) if stats else o
+    if not stats:
+        return o
+    return (o, m, r, o_lo) if residual else (o, m, r)
 
 
 def self_attention_fused(q, k, v, num_heads: int, padding_mask=None, causal: bool = False,
@@ -183,21 +209,24 @@ def self_attention_fused(q, k, v, num_heads: int, padding_mask=None, causal: boo
 
 
 def self_attention_fwd_stats(q, k, v, num_heads: int, padding_mask=None, causal: bool = False,
-                             segment_ids=None):
-    """K4: (o [B, S, D], m [B, S, H] f32 log2-domain max, rinv [B, S, H] f32)."""
+                             segment_ids=None, residual: bool = False):
+    """K4: (o [B, S, D], m [B, S, H] f32 log2-domain max, rinv [B, S, H] f32),
+    with `residual` also o_lo like o (the kernel writes it at head_dim 72)."""
     if _on_cpu(q, k, v, padding_mask, segment_ids):
         return attention_reference(q, k, v, num_heads, padding_mask, causal, segment_ids,
-                                   stats=True)
-    return _fwd(q, k, v, num_heads, padding_mask, causal, segment_ids, stats=True)
+                                   stats=True, residual=residual)
+    return _fwd(q, k, v, num_heads, padding_mask, causal, segment_ids, stats=True,
+                residual=residual)
 
 
 def self_attention_bwd_stats(q, k, v, g, o, m, rinv, num_heads: int, padding_mask=None,
-                             causal: bool = False, segment_ids=None, out=None):
+                             causal: bool = False, segment_ids=None, out=None, o_lo=None):
     """K5: (dq, dk, dv) like q, k, v. `out`, optional: three views to write
-    them into (the q|k|v thirds of one gradient buffer)."""
-    if _on_cpu(q, k, v, g, o, m, rinv, padding_mask, segment_ids):
+    them into (the q|k|v thirds of one gradient buffer); `o_lo`, optional
+    (head_dim 72): the forward's output residual, read by delta."""
+    if _on_cpu(q, k, v, g, o, m, rinv, padding_mask, segment_ids, o_lo):
         grads = attention_bwd_reference(q, k, v, g, o, m, rinv, num_heads, padding_mask,
-                                        causal, segment_ids)
+                                        causal, segment_ids, o_lo)
         if out is None:
             return grads
         for dst, src in zip(out, grads):
@@ -207,9 +236,11 @@ def self_attention_bwd_stats(q, k, v, g, o, m, rinv, num_heads: int, padding_mas
     lds = [_row_view(t, n, (b, s, d)) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     g = g.to(q.dtype).contiguous()
     _row_view(g, "g", (b, s, d))
-    _row_view(o, "o", (b, s, d))
-    if not o.is_contiguous():
-        raise ValueError("o: must be contiguous")
+    for t, n in ((o, "o"), (o_lo, "o_lo")):
+        if t is not None:
+            _row_view(t, n, (b, s, d))
+            if not t.is_contiguous():
+                raise ValueError(f"{n}: must be contiguous")
     for t, n in ((m, "m"), (rinv, "rinv")):
         if t.dtype != torch.float32 or t.shape != (b, s, num_heads) or not t.is_contiguous():
             raise ValueError(f"{n}: needs a contiguous f32 [B, S, H] tensor")
@@ -222,8 +253,9 @@ def self_attention_bwd_stats(q, k, v, g, o, m, rinv, num_heads: int, padding_mas
     with torch.cuda.device(q.device):
         code = lib.dclip_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *lds, g.data_ptr(), o.data_ptr(),
-            m.data_ptr(), rinv.data_ptr(), _ptr(pad), _ptr(seg), delta.data_ptr(),
-            *(t.data_ptr() for t in out), *out_lds, b, s, num_heads, int(causal), _stream(q))
+            _ptr(o_lo), m.data_ptr(), rinv.data_ptr(), _ptr(pad), _ptr(seg), delta.data_ptr(),
+            *(t.data_ptr() for t in out), *out_lds, b, s, num_heads, d // num_heads,
+            int(causal), _stream(q))
     check(lib, code, "self_attention_bwd_stats")
     LAUNCHES["self_attention_bwd_stats"] += 1
     return tuple(out)
@@ -238,34 +270,39 @@ def _split(qkv: torch.Tensor):
 
 
 class _SelfAttentionQKV(torch.autograd.Function):
-    """K4 forward saving (qkv, o, m, rinv); K5 backward writing dq|dk|dv
-    into one [B, S, 3D] gradient. The masks are not differentiable."""
+    """K4 forward saving (qkv, o, m, rinv; with `residual` also o_lo); K5
+    backward writing dq|dk|dv into one [B, S, 3D] gradient. The masks are
+    not differentiable."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, padding_mask, segment_ids, causal):
-        o, m, r = self_attention_fwd_stats(*_split(qkv), num_heads, padding_mask, causal,
-                                           segment_ids)
-        ctx.save_for_backward(qkv, o, m, r)
+    def forward(ctx, qkv, num_heads, padding_mask, segment_ids, causal, residual):
+        o, m, r, *o_lo = self_attention_fwd_stats(*_split(qkv), num_heads, padding_mask,
+                                                  causal, segment_ids, residual=residual)
+        ctx.save_for_backward(qkv, o, m, r, *o_lo)
         ctx.masks = (padding_mask, segment_ids)
         ctx.num_heads, ctx.causal = num_heads, causal
         return o
 
     @staticmethod
     def backward(ctx, g):
-        qkv, o, m, r = ctx.saved_tensors
+        qkv, o, m, r, *o_lo = ctx.saved_tensors
         padding_mask, segment_ids = ctx.masks
         dqkv = torch.empty_like(qkv)
         self_attention_bwd_stats(*_split(qkv), g, o, m, r, ctx.num_heads, padding_mask,
-                                 ctx.causal, segment_ids, out=_split(dqkv))
-        return dqkv, None, None, None, None
+                                 ctx.causal, segment_ids, out=_split(dqkv),
+                                 o_lo=o_lo[0] if o_lo else None)
+        return dqkv, None, None, None, None, None
 
 
 def self_attention_qkv(qkv: torch.Tensor, num_heads: int, padding_mask=None,
-                       causal: bool = False, segment_ids=None) -> torch.Tensor:
+                       causal: bool = False, segment_ids=None,
+                       residual: bool = False) -> torch.Tensor:
     """Attention over the q|k|v buffer [B, S, 3D] -> [B, S, D]: K4 + K5
-    under autograd, the stats-free K3 when no gradient is wanted."""
+    under autograd, the stats-free K3 when no gradient is wanted;
+    `residual`: the backward's delta reads o + o_lo (module docstring)."""
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return _SelfAttentionQKV.apply(qkv, num_heads, padding_mask, segment_ids, causal)
+        return _SelfAttentionQKV.apply(qkv, num_heads, padding_mask, segment_ids, causal,
+                                       residual)
     return self_attention_fused(*_split(qkv), num_heads, padding_mask, causal, segment_ids)
 
 

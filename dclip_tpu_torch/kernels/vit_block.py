@@ -81,6 +81,23 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+_ROOT_TWO_OVER_PI = 0.7978845608028654
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """HF's `gelu_pytorch_tanh` (SigLIP): 0.5 x (1 + tanh(sqrt(2 / pi) (x +
+    0.044715 x^3)))."""
+    return 0.5 * x * (1.0 + torch.tanh(_ROOT_TWO_OVER_PI * (x + 0.044715 * x * x * x)))
+
+
+def gelu_tanh_grad(a: torch.Tensor) -> torch.Tensor:
+    """d/da gelu_tanh(a) = (1 + t) / 2 + a (1 - t^2) sqrt(2 / pi) (1 + 3
+    0.044715 a^2) / 2, t = tanh(sqrt(2 / pi) (a + 0.044715 a^3))."""
+    t = torch.tanh(_ROOT_TWO_OVER_PI * (a + 0.044715 * a * a * a))
+    return 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * _ROOT_TWO_OVER_PI * (
+        1.0 + 3 * 0.044715 * a * a)
+
+
 # -- dispatch helpers ----------------------------------------------------------
 
 
@@ -133,19 +150,24 @@ def layernorm_reference(x, scale, bias, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+# The widest row the LayerNorm kernels hold in registers (`csrc/layernorm.cu`).
+LAYERNORM_MAX_D = 1280
+
+
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last dim. CUDA: x bf16 [..., D] (D % 8 == 0,
-    D <= 1024), scale / bias f32 [D]; returns bf16 like x."""
+    D <= 1280), scale / bias f32 [D]; returns bf16 like x."""
     if _on_cpu(x, scale, bias):
         return layernorm_reference(x, scale, bias, eps)
     d = x.shape[-1]
     _require(x, "x", torch.bfloat16, x.dim())
     _require(scale, "scale", torch.float32, 1)
     _require(bias, "bias", torch.float32, 1)
-    if d % 8 or d > 1024 or scale.shape[0] != d or bias.shape[0] != d or x.numel() == 0:
+    if d % 8 or d > LAYERNORM_MAX_D or scale.shape[0] != d or bias.shape[0] != d \
+            or x.numel() == 0:
         raise ValueError(f"layernorm: bad shapes x {tuple(x.shape)}, scale {tuple(scale.shape)} "
-                         f"(D % 8 == 0, <= 1024)")
+                         f"(D % 8 == 0, <= {LAYERNORM_MAX_D})")
     lib = load_library()
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -167,17 +189,35 @@ def quick_gelu_grad(a: torch.Tensor) -> torch.Tensor:
     return s + 1.702 * a * s * (1.0 - s)
 
 
+# The MLP activations by the HF config's `hidden_act`: (function, derivative,
+# the GEMM epilogue codes of `csrc/gemm.cu` for the activation and for a
+# multiply by its derivative).
+ACTIVATIONS = {
+    "quick_gelu": (quick_gelu, quick_gelu_grad, 1, 2),
+    "gelu_pytorch_tanh": (gelu_tanh, gelu_tanh_grad, 3, 4),
+}
+
+
+def activation(act: str):
+    """(function, derivative, epilogue codes) of `act`; raises on others."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"activation {act!r}: the port's MLP takes {sorted(ACTIVATIONS)}")
+    return ACTIVATIONS[act]
+
+
 def gemm_bias_act_residual_reference(a, w, bias=None, residual=None, gelu: bool = False,
                                      save_preact: bool = False, dgelu_of=None,
-                                     out_dtype: Optional[torch.dtype] = None):
+                                     out_dtype: Optional[torch.dtype] = None,
+                                     act: str = "quick_gelu"):
+    fn, grad = activation(act)[:2]
     y = a.float() @ w.float()
     if bias is not None:
         y = y + bias.float()
     pre = y
     if gelu:
-        y = quick_gelu(y)
+        y = fn(y)
     if dgelu_of is not None:
-        y = y * quick_gelu_grad(dgelu_of.float())
+        y = y * grad(dgelu_of.float())
     if residual is not None:
         y = y + residual.float()
     y = y.to(out_dtype or a.dtype)
@@ -189,16 +229,18 @@ def gemm_bias_act_residual(a: torch.Tensor, w: torch.Tensor,
                            residual: Optional[torch.Tensor] = None,
                            gelu: bool = False, save_preact: bool = False,
                            dgelu_of: Optional[torch.Tensor] = None,
-                           out_dtype: Optional[torch.dtype] = None):
-    """a [..., K] @ w [K, N] (+ bias [N]), then quick-GELU if `gelu` or a
-    multiply by quick-GELU'(dgelu_of [..., N]), then + residual [..., N].
-    `save_preact=True` also returns the pre-activation (a @ w + bias) in
-    a's dtype: (out, preact). CUDA: a, w, residual, dgelu_of bf16; bias
-    f32; K % 32 == 0, N % 8 == 0; out bf16, or f32 with out_dtype."""
+                           out_dtype: Optional[torch.dtype] = None,
+                           act: str = "quick_gelu"):
+    """a [..., K] @ w [K, N] (+ bias [N]), then the activation `act`
+    (quick-GELU, or SigLIP's tanh-GELU "gelu_pytorch_tanh") if `gelu` or a
+    multiply by its derivative at dgelu_of [..., N], then + residual
+    [..., N]. `save_preact=True` also returns the pre-activation (a @ w +
+    bias) in a's dtype: (out, preact). CUDA: a, w, residual, dgelu_of bf16;
+    bias f32; K % 8 == 0, N % 8 == 0; out bf16, or f32 with out_dtype."""
     if _on_cpu(a, w, bias, residual, dgelu_of):
         return gemm_bias_act_residual_reference(a, w, bias, residual, gelu, save_preact,
-                                                dgelu_of, out_dtype)
-    out = launch_gemm(a, w, bias, residual, gelu, save_preact, dgelu_of, out_dtype)
+                                                dgelu_of, out_dtype, act)
+    out = launch_gemm(a, w, bias, residual, gelu, save_preact, dgelu_of, out_dtype, act=act)
     LAUNCHES["gemm_bias_act_residual"] += 1
     return out
 
@@ -221,9 +263,10 @@ def gemm_tile_n(m: int, n: int, sms: int) -> int:
 
 
 def launch_gemm(a, w, bias=None, residual=None, gelu: bool = False, save_preact: bool = False,
-                dgelu_of=None, out_dtype=None, w_is_nk: bool = False):
+                dgelu_of=None, out_dtype=None, w_is_nk: bool = False, act: str = "quick_gelu"):
     """Check the operands and launch `csrc/gemm.cu` on CUDA tensors: w is
     [K, N] (the NN mode), or [N, K] with `w_is_nk` (the NT mode)."""
+    epi_gelu, epi_dgelu = activation(act)[2:]
     n, k = w.shape if w_is_nk else w.shape[::-1]
     _require(a, "a", torch.bfloat16, a.dim())
     _require(w, "w", torch.bfloat16, 2)
@@ -241,15 +284,15 @@ def launch_gemm(a, w, bias=None, residual=None, gelu: bool = False, save_preact:
         raise ValueError("gemm: gelu and dgelu_of exclude each other")
     if out_dtype not in (None, torch.bfloat16, torch.float32):
         raise TypeError(f"gemm: the CUDA kernel writes bf16 or f32, not {out_dtype}")
-    if a.shape[-1] != k or k % 32 or n % 8 or a.numel() == 0:
+    if a.shape[-1] != k or k % 8 or n % 8 or a.numel() == 0:
         raise ValueError(
             f"gemm: bad shapes a {tuple(a.shape)}, w {tuple(w.shape)} "
-            "(need K % 32 == 0, N % 8 == 0)"
+            "(need K % 8 == 0, N % 8 == 0)"
         )
     lib = load_library()
     c = torch.empty(out_shape, dtype=out_dtype or a.dtype, device=a.device)
     pre = torch.empty(out_shape, dtype=a.dtype, device=a.device) if save_preact else None
-    epilogue = 1 if gelu else (2 if dgelu_of is not None else 0)
+    epilogue = epi_gelu if gelu else (epi_dgelu if dgelu_of is not None else 0)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -332,21 +375,23 @@ def attention_block_fused(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     return out
 
 
-def mlp_block_reference(x, p: Mapping[str, torch.Tensor], eps: float = 1e-5):
+def mlp_block_reference(x, p: Mapping[str, torch.Tensor], eps: float = 1e-5,
+                        act: str = "quick_gelu"):
     xf = x.float()
     h = layernorm_reference(xf, p["ln2_scale"], p["ln2_bias"], eps)
-    h = gemm_bias_act_residual_reference(h, p["fc1_w"], p["fc1_b"], gelu=True)
+    h = gemm_bias_act_residual_reference(h, p["fc1_w"], p["fc1_b"], gelu=True, act=act)
     out = gemm_bias_act_residual_reference(h, p["fc2_w"], p["fc2_b"], residual=xf)
     return out.to(x.dtype)
 
 
 def mlp_block_fused(x: torch.Tensor, p: Mapping[str, torch.Tensor],
-                    eps: float = 1e-5) -> torch.Tensor:
-    """x + fc2(quick_gelu(fc1(LN2(x)))) over x [B, S, D]."""
+                    eps: float = 1e-5, act: str = "quick_gelu") -> torch.Tensor:
+    """x + fc2(act(fc1(LN2(x)))) over x [B, S, D]; `act` quick-GELU or
+    "gelu_pytorch_tanh"."""
     if _on_cpu(x):
-        return mlp_block_reference(x, p, eps)
+        return mlp_block_reference(x, p, eps, act)
     h = layernorm(x, p["ln2_scale"], p["ln2_bias"], eps)
-    h = gemm_bias_act_residual(h, p["fc1_w"], p["fc1_b"], gelu=True)
+    h = gemm_bias_act_residual(h, p["fc1_w"], p["fc1_b"], gelu=True, act=act)
     out = gemm_bias_act_residual(h, p["fc2_w"], p["fc2_b"], residual=x)
     LAUNCHES["mlp_block"] += 1
     return out

@@ -68,7 +68,7 @@ from dclip_tpu_torch.kernels import (
     vit_attention,
     vit_block,
 )
-from dclip_tpu_torch.kernels.vit_block import quick_gelu
+from dclip_tpu_torch.kernels.vit_block import activation
 from dclip_tpu_torch.parallel.tp import (
     clip_divisibility_check,
     copy_to_model,
@@ -130,18 +130,23 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: in
 
 
 class MLP(nn.Module):
-    def __init__(self, hidden: int, mlp_dim: int, device=None, mesh=None):
+    """fc1, the activation (HF's `hidden_act`: quick-GELU, or SigLIP's
+    "gelu_pytorch_tanh"), fc2."""
+
+    def __init__(self, hidden: int, mlp_dim: int, device=None, mesh=None,
+                 act: str = "quick_gelu"):
         super().__init__()
         self.tp = model_axis(mesh)
+        self.act = activation(act)[0]
         local = mlp_dim // (self.tp.model_size if self.tp else 1)
         self.fc1 = nn.Linear(hidden, local, device=device)
         self.fc2 = nn.Linear(local, hidden, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
-            h = quick_gelu(_linear(copy_to_model(x, self.tp), self.fc1))
+            h = self.act(_linear(copy_to_model(x, self.tp), self.fc1))
             return _row_sharded(h, self.fc2, self.tp)
-        return _linear(quick_gelu(_linear(x, self.fc1)), self.fc2)
+        return _linear(self.act(_linear(x, self.fc1)), self.fc2)
 
 
 class Attention(nn.Module):
@@ -149,13 +154,14 @@ class Attention(nn.Module):
     model axis, this rank's `heads` of `heads * mp` (module docstring)."""
 
     def __init__(self, hidden: int, heads: int, device=None, fused: bool = False,
-                 causal: bool = False, mesh=None):
+                 causal: bool = False, mesh=None, residual: bool = False):
         super().__init__()
         self.tp = model_axis(mesh)
         mp = self.tp.model_size if self.tp else 1
         self.heads = heads // mp
         self.fused = fused
         self.causal = causal
+        self.residual = residual  # K5's delta from o + o_lo (`kernels.vit_attention`)
         local = hidden // mp
         self.q_proj = nn.Linear(hidden, local, device=device)
         self.k_proj = nn.Linear(hidden, local, device=device)
@@ -175,7 +181,7 @@ class Attention(nn.Module):
                 torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias]).to(x.dtype),
             )
             out = vit_attention.self_attention_qkv(qkv, self.heads, padding_mask,
-                                                   self.causal, segment_ids)
+                                                   self.causal, segment_ids, self.residual)
         else:
             out = plain_attention(_linear(x, self.q_proj), _linear(x, self.k_proj),
                                   _linear(x, self.v_proj), self.heads, self.causal,
@@ -189,15 +195,16 @@ class EncoderLayer(nn.Module):
     def __init__(self, hidden: int, heads: int, mlp_dim: int, eps: float, device=None,
                  fused: bool = False, causal: bool = False, fused_frozen_mlp: bool = False,
                  fused_trainable_mlp: bool = False, fused_trainable_attn_block: bool = False,
-                 mesh=None):
+                 mesh=None, act: str = "quick_gelu", attn_residual: bool = False):
         super().__init__()
         if model_axis(mesh) is not None and (fused_frozen_mlp or fused_trainable_mlp
                                       or fused_trainable_attn_block):
             raise ValueError("the whole-block kernels (K6, K8, K9) need whole weights: under "
                              "tensor parallelism the layer runs its sharded composition")
-        self.self_attn = Attention(hidden, heads, device, fused, causal, mesh)
+        self.act = act
+        self.self_attn = Attention(hidden, heads, device, fused, causal, mesh, attn_residual)
         self.layer_norm1 = nn.LayerNorm(hidden, eps=eps, device=device)
-        self.mlp = MLP(hidden, mlp_dim, device, mesh)
+        self.mlp = MLP(hidden, mlp_dim, device, mesh, act)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=eps, device=device)
         self.fused_frozen_mlp = fused_frozen_mlp
         self.fused_trainable_mlp = fused_trainable_mlp
@@ -260,7 +267,7 @@ class EncoderLayer(nn.Module):
                 raise RuntimeError("fused_frozen_mlp: call pack_frozen_mlp(dtype) first")
             return mlp_frozen.mlp_block_frozen(
                 x, ln.weight, ln.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
-                mlp.fc2.bias, ln.eps, packed=self.frozen_mlp_weights)
+                mlp.fc2.bias, ln.eps, packed=self.frozen_mlp_weights, act=self.act)
         return x + self.mlp(_layer_norm(x, self.layer_norm2))
 
 
@@ -268,12 +275,14 @@ class Encoder(nn.Module):
     def __init__(self, num_layers: int, hidden: int, heads: int, mlp_dim: int,
                  eps: float, device=None, fused: bool = False, causal: bool = False,
                  fused_frozen_mlp: bool = False, fused_trainable_mlp: bool = False,
-                 fused_trainable_attn_block: bool = False, remat: bool = False, mesh=None):
+                 fused_trainable_attn_block: bool = False, remat: bool = False, mesh=None,
+                 act: str = "quick_gelu", attn_residual: bool = False):
         super().__init__()
         self.remat = remat
         self.layers = nn.ModuleList(
             EncoderLayer(hidden, heads, mlp_dim, eps, device, fused, causal, fused_frozen_mlp,
-                         fused_trainable_mlp, fused_trainable_attn_block, mesh)
+                         fused_trainable_mlp, fused_trainable_attn_block, mesh, act,
+                         attn_residual)
             for _ in range(num_layers)
         )
 
@@ -346,12 +355,19 @@ class CLIPTextEncoder(nn.Module):
 
 
 class PatchEmbedding(nn.Module):
-    """Holds the HF patch conv weight [D, 3, p, p] (OIHW, bias-free); the
-    forward is `vit_block.patchify(pixels) @ W` over the packed weights."""
+    """Holds the HF patch conv weight [D, 3, p, p] (OIHW; CLIP's is
+    bias-free, SigLIP's has a bias); the forward is `vit_block.patchify(
+    pixels) @ W` over the packed weights."""
 
-    def __init__(self, hidden: int, patch: int, device=None):
+    def __init__(self, hidden: int, patch: int, device=None, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(hidden, 3, patch, patch, device=device))
+        if bias:
+            self.bias = nn.Parameter(torch.empty(hidden, device=device))
+
+    def matrix(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight as the [p * p * 3, D] matrix `patchify(x) @ W` takes."""
+        return self.weight.permute(2, 3, 1, 0).reshape(-1, self.weight.shape[0]).to(dtype)
 
 
 class CLIPVisionEmbeddings(nn.Module):
@@ -388,8 +404,7 @@ class CLIPVisionEncoder(nn.Module):
         """pixel_values NHWC [B, H, W, 3] -> (hidden [B, S, D], pooled [B, D])."""
         c, dt = self.cfg, self.dtype
         emb = self.embeddings
-        patch_w = emb.patch_embedding.weight.permute(2, 3, 1, 0).reshape(-1, c.hidden_size)
-        x = vit_block.patchify(pixel_values.to(dt), c.patch_size) @ patch_w.to(dt)
+        x = vit_block.patchify(pixel_values.to(dt), c.patch_size) @ emb.patch_embedding.matrix(dt)
         cls = emb.class_embedding.to(dt).reshape(1, 1, -1).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + emb.position_embedding.weight.to(dt)[None]
         x = self.encoder(_layer_norm(x, self.pre_layrnorm))
@@ -402,6 +417,8 @@ class CLIPModule(nn.Module):
     Build with `device="meta"` and `load_state_dict(sd, assign=True)` to
     take a state dict without a throw-away init; under a `mesh` with a
     model axis, `parallel.tp.shard_clip_params`'s."""
+
+    packed_text_refusal = None  # packed captions are brought (`get_packed_text_features`)
 
     def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32, device=None,
                  fused_attention: bool = False, fused_frozen_mlp: bool = False,

@@ -100,9 +100,9 @@ def state_dict_from_jax(flax_params: Mapping[str, Any], cfg) -> Dict[str, torch.
 def random_state_dict(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Random weights by the JAX CLI's `--clip_weights random` rule:
     LayerNorm scales 1, biases 0, everything else N(0, 0.02), f32."""
-    from dclip_tpu_torch.models.clip import CLIPModule
+    from dclip_tpu_torch.models.siglip import dual_encoder_class
 
-    shapes = CLIPModule(cfg, device="meta")  # names and shapes, no memory
+    shapes = dual_encoder_class(cfg)(cfg, device="meta")  # names and shapes, no memory
     ln_scales = {
         f"{name}.weight" for name, m in shapes.named_modules()
         if isinstance(m, torch.nn.LayerNorm)

@@ -48,6 +48,16 @@ a profiler records, the backward runs under `dclip.backward.loss`,
 autograd's thread (`core.metrics.BackwardSpans`); without one the step
 builds no span and the ranges cost a few microseconds.
 
+A SigLIP student (`CLIPConfig.family == "siglip"`, `models.siglip`) takes
+the same cached step: its image and text features are its towers' pooled
+outputs (no projection; its captions run unmasked, its module reads no
+mask), and its vision head's `in_proj` / `out_proj` fall under the default
+mask's "proj" rule. A student class that cannot take packed captions says
+why (`packed_text_refusal`): an explicit `packed_text` then raises with
+that reason and the auto setting resolves off. A SigLIP teacher CLIP serves the cache only: the region
+encode through its pooling head and K10 at its width are not brought, so
+a step that must compute targets raises.
+
 `cfg.remat` runs the student's encoder layers under activation
 recomputation (`models.clip`, JAX's `nn.remat`): the same numbers, less
 device memory, one more forward of each layer per step. It is a property
@@ -88,13 +98,14 @@ at any model-parallel size.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from dclip_tpu_torch.core.config import CLIPConfig, DistillConfig, UnfreezeStage
+from dclip_tpu_torch.core.config import CLIPConfig, DistillConfig, UnfreezeStage, model_family
 from dclip_tpu_torch.core.device import resolve_device, resolve_dtype
 from dclip_tpu_torch.core.fast_paths import resolve_fast_paths
 from dclip_tpu_torch.core.metrics import BackwardSpans, profiling
@@ -102,6 +113,7 @@ from dclip_tpu_torch.kernels import vit_block
 from dclip_tpu_torch.kernels.cross_attention import cross_attention_fused, pack_cross_attention
 from dclip_tpu_torch.kernels.distill_loss import fused_distillation_loss
 from dclip_tpu_torch.models.clip import CLIPModule
+from dclip_tpu_torch.models.siglip import dual_encoder_class
 from dclip_tpu_torch.models.teacher import (
     PatchTextAggregation,
     aggregate_attended,
@@ -307,6 +319,11 @@ class DistillTrainer(BaseTrainer):
                 f"teacher CLIP projection_dim {self.teacher_clip_config.projection_dim}"
                 f" != teacher embed_dim {cfg.teacher.embed_dim}"
             )
+        refusal = dual_encoder_class(self.student_config).packed_text_refusal
+        if refusal is not None:
+            if cfg.packed_text:
+                raise ValueError(refusal)
+            cfg = self.cfg = dataclasses.replace(cfg, packed_text=False)
         self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
         self._dp = self.mesh.distributed or bool(dp_equivalent)
         self._tp = model_axis(self.mesh)
@@ -400,11 +417,12 @@ class DistillTrainer(BaseTrainer):
         kernels = self._use_kernels
         blocks = kernels and self._tp is None
         fused_frozen = blocks and self._vision_mlp_frozen()
-        model = CLIPModule(self.student_config, dtype=self._student_dtype, device="meta",
-                           fused_attention=kernels, fused_frozen_mlp=fused_frozen,
-                           fused_trainable_text_mlp=blocks and bool(self.cfg.fused_text_mlp),
-                           fused_trainable_attn_block=blocks and bool(self.cfg.fused_attn_block),
-                           remat=bool(self.cfg.remat), mesh=self._tp)
+        model = dual_encoder_class(self.student_config)(
+            self.student_config, dtype=self._student_dtype, device="meta",
+            fused_attention=kernels, fused_frozen_mlp=fused_frozen,
+            fused_trainable_text_mlp=blocks and bool(self.cfg.fused_text_mlp),
+            fused_trainable_attn_block=blocks and bool(self.cfg.fused_attn_block),
+            remat=bool(self.cfg.remat), mesh=self._tp)
         sd = ({k: v.detach().to(self.device, torch.float32, copy=True)
                for k, v in state_dict.items()} if placed else self._placed(state_dict))
         model.load_state_dict(sd, strict=True, assign=True)
@@ -423,9 +441,9 @@ class DistillTrainer(BaseTrainer):
         parallelism the CLIP holds this rank's slices; the meta-teacher is
         replicated."""
         clip_sd = self._placed(clip_state_dict)
-        self.teacher_clip = CLIPModule(self.teacher_clip_config, dtype=self._student_dtype,
-                                       device="meta", fused_attention=self._use_kernels,
-                                       mesh=self._tp)
+        self.teacher_clip = dual_encoder_class(self.teacher_clip_config)(
+            self.teacher_clip_config, dtype=self._student_dtype, device="meta",
+            fused_attention=self._use_kernels, mesh=self._tp)
         self.teacher_clip.load_state_dict(clip_sd, strict=True, assign=True)
         self.teacher = PatchTextAggregation(self.cfg.teacher, device="meta")
         teacher_sd = self._on_device(teacher_state_dict)
@@ -433,13 +451,25 @@ class DistillTrainer(BaseTrainer):
         for module in (self.teacher_clip, self.teacher):
             module.requires_grad_(False).eval()
         self._teacher_image_features = self._xattn = None
-        if self._use_kernels:
+        if self._use_kernels and not self._siglip_teacher():  # a SigLIP teacher never runs
             packed = vit_block.pack_vision_weights(self.teacher_clip_config, clip_sd,
                                                    self._student_dtype, self._tp)
             cfg = self.teacher_clip_config
             self._teacher_image_features = (
                 lambda px: vit_block.fused_image_features(cfg, packed, px))
             self._xattn = pack_cross_attention(teacher_sd, self._student_dtype)
+
+    def _siglip_teacher(self) -> bool:
+        return model_family(self.teacher_clip_config) == "siglip"
+
+    def _require_clip_teacher(self) -> None:
+        """Teacher targets computed here need a CLIP teacher (module docstring)."""
+        if self._siglip_teacher():
+            raise ValueError(
+                "the uncached distillation step with a SigLIP teacher is not brought: the "
+                "region encode through SigLIP's pooling head and the cross-attention (K10) at "
+                f"width {self.cfg.teacher.embed_dim} are missing; give every step's targets "
+                "through the teacher cache")
 
     def _build_optimizer(self) -> None:
         n_train, n_total = count_trainable(self._trainable_mask)
@@ -507,12 +537,14 @@ class DistillTrainer(BaseTrainer):
     @torch.no_grad()
     def _teacher_targets(self, batch):
         """The targets from scratch, without compaction or caches (eval)."""
+        self._require_clip_teacher()
         pe = self._maybe_knn_gate(self._encode_patches_only(batch), batch)
         return self._teacher_tail(pe, batch)
 
     @torch.no_grad()
     def _get_teacher_targets(self, raw_batch, device_batch, keys=None, probe_full: bool = True):
         """Teacher targets through the cache levels (module docstring)."""
+        self._require_clip_teacher()
         patch_keys = None
         if self.teacher_cache is not None and self._cacheable(raw_batch):
             if keys is None:

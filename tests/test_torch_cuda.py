@@ -105,9 +105,9 @@ def test_kernels_reject_unsupported_inputs(cuda_device):
     xb = x.bfloat16()
     with pytest.raises(ValueError, match="contiguous"):
         vb.layernorm(xb.transpose(0, 1), scale, scale)
-    with pytest.raises(ValueError, match="K % 32"):
-        vb.gemm_bias_act_residual(xb[..., :760].contiguous(),
-                                  torch.zeros(760, 8, device=cuda_device).bfloat16(),
+    with pytest.raises(ValueError, match="K % 8"):
+        vb.gemm_bias_act_residual(xb[..., :764].contiguous(),
+                                  torch.zeros(764, 8, device=cuda_device).bfloat16(),
                                   torch.zeros(8, device=cuda_device))
     with pytest.raises(ValueError, match="head_dim 64"):
         vb.attention(torch.zeros(1, 197, 3 * 768, device=cuda_device).bfloat16(), 8)
@@ -287,11 +287,12 @@ def test_attention_backward_edges(cuda_device, s, masks):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("rows", [1, 7, 50435])
-@pytest.mark.parametrize("d", [128, 512, 768, 1024])
+@pytest.mark.parametrize("d", [128, 512, 768, 1024, 1152])
 def test_layernorm_kernels_edges(cuda_device, d, rows):
     """csrc/layernorm.cu's forward, frozen backward and weight-gradient
     backward against their twins at the exact widths (512, 768, 1024), the
-    predicated one (128), and row counts that leave the last block of 8
+    predicated ones (128; 1152, SigLIP's, five vectors a lane for half the
+    lanes), and row counts that leave the last block of 8
     rows ragged; each call twice, the same bits."""
     from dclip_tpu_torch.kernels import mlp_frozen as mf
     from dclip_tpu_torch.kernels import trainable_ops as to
@@ -1496,3 +1497,122 @@ def test_k10_at_head_dim_96_and_k11_at_768(cuda_device):
                     dl.distill_loss_bwd_reference(si, st, ti, tt, cts)):
         torch.cuda.synchronize()
         assert (g.float() - r.float()).abs().max().item() <= 2.0**-7 * r.float().abs().max().item()
+
+
+# SigLIP so400m's shapes (16 heads of 72 at width 1152, MLP 4304, tanh-GELU).
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s,d,heads,masks", [
+    (2, 729, 1152, 16, ()), (8, 64, 1152, 16, ()), (3, 77, 144, 2, ("causal", "pad")),
+    (2, 197, 144, 2, ("seg",)), (3, 65, 144, 2, ()), (2, 17, 144, 2, ()), (1, 1, 72, 1, ()),
+])
+def test_attention_head_dim_72_matches_twins(cuda_device, b, s, d, heads, masks):
+    """K3 / K4 / K5 at head_dim 72 (two swizzled atoms a tile, a fifth k16
+    step and an m64n8 product over the tail): SigLIP's vision (S = 729) and
+    text (S = 64) shapes unmasked, and every mask at tile edges (65; 17 runs
+    the backward's narrow last tile), against the f32 twins within the
+    head_dim-64 bounds; the backward twice, the same bits."""
+    rng = np.random.RandomState(72 + s + d)
+    va, qkv, kw = _attn_case(rng, cuda_device, b, s, d, masks)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    o, m, r = va.self_attention_fwd_stats(q, k, v, heads, **kw)
+    o_ref, m_ref, r_ref = va.attention_reference(q, k, v, heads, stats=True, **kw)
+    _close_rel(o, o_ref, what="o")
+    _close_rel(m, m_ref, what="m")
+    torch.testing.assert_close(r, r_ref, rtol=2.0**-6, atol=0)
+    torch.testing.assert_close(va.self_attention_fused(q, k, v, heads, **kw), o, rtol=0, atol=0)
+    g = _bf16(rng, cuda_device, b, s, d)
+    grads = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw)
+    want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, **kw)
+    for name, got_t, want_t in zip(("dq", "dk", "dv"), grads, want):
+        _close_rel(got_t, want_t, tol=2.0**-5, what=name)
+    again = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, **kw)
+    for name, x1, x2 in zip(("dq", "dk", "dv"), grads, again):
+        assert torch.equal(x1, x2), name
+    # The output's residual: what rounding o to bf16 dropped (at most half an
+    # ulp of o), and the backward's delta reads o + o_lo.
+    o2, _, _, o_lo = va.self_attention_fwd_stats(q, k, v, heads, residual=True, **kw)
+    exact = va.attention_reference(q.float(), k.float(), v.float(), heads, **kw)
+    torch.testing.assert_close(o2, o, rtol=0, atol=0)
+    assert (o_lo.float().abs() <= 2.0**-8 * o.float().abs()).all()
+    _close_rel(o2.float() + o_lo.float(), exact, what="o + o_lo")
+    with_lo = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, o_lo=o_lo, **kw)
+    want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, o_lo=o_lo, **kw)
+    for name, got_t, want_t in zip(("dq", "dk", "dv"), with_lo, want):
+        _close_rel(got_t, want_t, tol=2.0**-5, what=name + " with o_lo")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,n,k", [(65, 4304, 1152), (12608, 1152, 4304), (197, 136, 72),
+                                   (129, 24, 8), (4096, 1152, 4304)])
+def test_gemm_tanh_gelu_and_k_tails(cuda_device, gemm_schedule, m, n, k):
+    """The GEMM's tanh-GELU epilogues (with a1 saved; times tanh-GELU') and
+    K not a multiple of 32 or 64 (SigLIP's K = 4304, 16 past the last whole
+    step of 64; K = 72 and 8), with the quick-GELU forms at the same K, on
+    both schedules, against the twins."""
+    rng = np.random.RandomState(m + n + k)
+    a = _bf16(rng, cuda_device, m, k)
+    w = _bf16(rng, cuda_device, k, n) * k**-0.5
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda_device)
+    aux = _bf16(rng, cuda_device, m, n)
+    for act in ("gelu_pytorch_tanh", "quick_gelu"):
+        got, pre = vb.gemm_bias_act_residual(a, w, bias, gelu=True, save_preact=True, act=act)
+        want, want_pre = vb.gemm_bias_act_residual_reference(a, w, bias, gelu=True,
+                                                             save_preact=True, act=act)
+        _close_rel(got, want, what=f"{act} fwd")
+        _close_rel(pre, want_pre, what=f"{act} preact")
+        _close_rel(vb.gemm_bias_act_residual(a, w, dgelu_of=aux, act=act),
+                   vb.gemm_bias_act_residual_reference(a, w, dgelu_of=aux, act=act),
+                   what=f"{act}'")
+        _close_rel(vb.gemm_bias_act_residual(a, w, bias, gelu=True, act=act),
+                   want, what=f"{act} without a1")
+    f32 = vb.gemm_bias_act_residual(a, w, out_dtype=torch.float32)
+    _close_rel(f32, vb.gemm_bias_act_residual_reference(a, w, out_dtype=torch.float32),
+               what="f32 out")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s", [(2, 729), (1, 64)])
+def test_mlp_frozen_at_siglip_widths(cuda_device, b, s):
+    """K6 at D = 1152, MLP 4304 with tanh-GELU: the forward with a1, dx
+    (tanh-GELU' and K = 4304 into f32, the LayerNorm tail at 1152)."""
+    from dclip_tpu_torch.kernels import mlp_frozen as mf
+
+    rng = np.random.RandomState(b * 31 + s)
+    lay = _layer(rng, cuda_device, d=1152, mlp=4304)
+    p = mf.pack_frozen_mlp(lay["ln2_scale"], lay["ln2_bias"], lay["fc1_w"].t(), lay["fc1_b"],
+                           lay["fc2_w"].t(), lay["fc2_b"], torch.bfloat16)
+    x = _bf16(rng, cuda_device, b, s, 1152)
+    g = _bf16(rng, cuda_device, b, s, 1152)
+    act = "gelu_pytorch_tanh"
+    y, a1 = mf.mlp_frozen_fwd(x, p, 1e-6, act)
+    y_ref, a1_ref = mf.mlp_frozen_fwd_reference(x, p, 1e-6, act)
+    _close_rel(y, y_ref, what="y")
+    _close_rel(a1, a1_ref, what="a1")
+    _close_rel(y, vb.mlp_block_fused(x, p, 1e-6, act), tol=0.0, what="y vs the no-grad block")
+    dx = mf.mlp_frozen_bwd(x, g, a1, p, 1e-6, act)
+    _close_rel(dx, mf.mlp_frozen_bwd_reference(x, g, a1_ref, p, 1e-6, act), tol=2.0**-5,
+               what="dx")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b", [256, 1024, 7])
+def test_distill_loss_at_1152(cuda_device, b):
+    """K11 at SigLIP's pooled width D = 1152 (its tile kernel's strips past
+    48 KB of shared memory), B = 256 a card and 1,024 gathered over four."""
+    from dclip_tpu_torch.kernels import distill_loss as dl
+
+    d = 1152
+    rng = np.random.RandomState(b + d)
+    si, st = _bf16(rng, cuda_device, b, d), _bf16(rng, cuda_device, b, d)
+    ti, tt = (x.float() + 0.5 * torch.from_numpy(
+        rng.standard_normal((b, d)).astype(np.float32)).to(cuda_device) for x in (si, st))
+    torch.testing.assert_close(dl.distill_loss_fwd(si, st, ti, tt),
+                               dl.distill_loss_fwd_reference(si, st, ti, tt), rtol=1e-5, atol=0)
+    cts = torch.tensor([0.7, 1.3, 0.9], device=cuda_device)
+    for got, want in zip(dl.distill_loss_bwd(si, st, ti, tt, cts),
+                         dl.distill_loss_bwd_reference(si, st, ti, tt, cts)):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0**-7 * want.float().abs().max().item(), err
