@@ -659,36 +659,11 @@ __global__ void __launch_bounds__(kTnThreads, 2)
   }
 }
 
-// cuTensorMapEncodeTiled is a driver-API function; it is reached through
-// the runtime's entry-point query, so the library links without -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // A row-major [rows, cols] matrix, bf16 or (f32) f32, read or written in
 // [box_rows][128 bytes] boxes with 128-byte swizzle.
 bool encode(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
             bool f32 = false) {
-  EncodeTiledFn fn = encode_fn();
+  dclip::sm90::EncodeTiledFn fn = dclip::sm90::encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * (f32 ? 4 : 2)};

@@ -13,7 +13,10 @@
 // the 128-byte rows; SBO = 1,024 bytes between 8-row groups, one k16 step
 // = +32 bytes) or MN-major (the output dimension along the rows; SBO =
 // 1,024 bytes between 8-row groups of K, LBO = the bytes between 64-wide
-// column blocks, one k16 step = +2,048 bytes).
+// column blocks, one k16 step = +2,048 bytes). A narrow tile of 16 bf16
+// columns (32-byte rows, CU_TENSOR_MAP_SWIZZLE_32B) has 256-byte atoms:
+// SBO = 256 bytes either way, one k16 step = the whole row K-major, +512
+// bytes MN-major.
 #pragma once
 
 #include <cuda.h>
@@ -124,7 +127,39 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// An arrival on `bar` once every cp.async this thread has issued has landed
+// (the barrier's expected count includes it: noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // -- TMA -------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled is a driver-API function; it is reached through
+// the runtime's entry-point query, so the library links without -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
 
 // One 2-D box of `map` at (c0 innermost, c1) into shared memory; completion
 // is counted in bytes on `bar`. Elements outside the tensor arrive as zero.
@@ -134,6 +169,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same for a 4-D map, at (c0 innermost, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -193,15 +239,27 @@ __device__ __forceinline__ void st_shared_v2f32(uint32_t addr, float a, float b)
 
 // -- wgmma -----------------------------------------------------------------------
 
-// Descriptor of a 128-byte-swizzled shared-memory operand (layout type 1).
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo_bytes,
-                                               uint32_t sbo_bytes) {
+// Descriptor of a swizzled shared-memory operand: layout type 1 (128-byte
+// swizzle) or 3 (32-byte).
+template <int kLayout>
+__device__ __forceinline__ uint64_t desc_swizzled(const void* tile, uint32_t lbo_bytes,
+                                                  uint32_t sbo_bytes) {
   uint64_t d = 0;
   d |= static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
+  d |= static_cast<uint64_t>(kLayout) << 62;
   return d;
+}
+
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return desc_swizzled<1>(tile, lbo_bytes, sbo_bytes);
+}
+
+__device__ __forceinline__ uint64_t desc_sw32(const void* tile, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  return desc_swizzled<3>(tile, lbo_bytes, sbo_bytes);
 }
 
 // A descriptor moved by `bytes` inside its tile (the k16 steps).
@@ -358,6 +416,44 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// The narrow form (N = 16) with A from registers.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t* a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// The N = 72 form with A from registers (a head of 72 as the output
+// dimension): d[4 g + e] as in the m64n64 accumulator, g = 0-8.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n72k16_rs(float (&d)[36], const uint32_t* a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, %42;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
         "n"(kTransB));
 }

@@ -555,35 +555,10 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   }
 }
 
-// cuTensorMapEncodeTiled is a driver-API function; it is reached through
-// the runtime's entry-point query, so the library links without -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // A row-major f32 [rows, cols] matrix read in [box_rows][32] boxes (one
 // 128-byte row each) with 128-byte swizzle; outside it, zeros.
 bool encode_f32(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  EncodeTiledFn fn = encode_fn();
+  dclip::sm90::EncodeTiledFn fn = dclip::sm90::encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};

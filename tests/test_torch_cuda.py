@@ -349,8 +349,9 @@ def test_gemm_runs_as_the_first_cuda_work_of_a_thread(cuda_device):
 
 @pytest.mark.requires_cuda
 def test_kernels_are_deterministic(cuda_device):
-    """Two launches of each GEMM mode and of the attention forward give the
-    same bits (no atomics; fit / resume rely on it)."""
+    """Two launches of each GEMM mode, of the attention forward and of K5 at
+    head_dim 64 and 72 give the same bits (no atomics; fit / resume rely on
+    it)."""
     from dclip_tpu_torch.kernels import trainable_ops as to
     from dclip_tpu_torch.kernels import vit_attention as va
 
@@ -358,12 +359,21 @@ def test_kernels_are_deterministic(cuda_device):
     a, w = _bf16(rng, cuda_device, 1000, 768), _bf16(rng, cuda_device, 768, 2304)
     bias = torch.from_numpy(rng.standard_normal(2304).astype(np.float32)).to(cuda_device)
     y = _bf16(rng, cuda_device, 1000, 2304)
+    q64, k64, v64 = y[..., :2304].reshape(8, 125, 2304).split(768, -1)
+    g64 = _bf16(rng, cuda_device, 8, 125, 768)
+    o64, m64, r64 = va.self_attention_fwd_stats(q64, k64, v64, 12, causal=True)
+    q72, k72, v72 = _bf16(rng, cuda_device, 4, 300, 3 * 576).split(576, -1)
+    g72 = _bf16(rng, cuda_device, 4, 300, 576)
+    o72, m72, r72, lo72 = va.self_attention_fwd_stats(q72, k72, v72, 8, residual=True)
     calls = {
         "nn": lambda: vb.gemm_bias_act_residual(a, w, bias, gelu=True, save_preact=True),
         "nt": lambda: to.gemm_nt(a, w.t().contiguous(), bias, residual=y),
         "tn": lambda: to.gemm_tn(a, y),
-        "attention": lambda: va.self_attention_fwd_stats(
-            *y[..., :2304].reshape(8, 125, 2304).split(768, -1), 12, causal=True),
+        "attention": lambda: va.self_attention_fwd_stats(q64, k64, v64, 12, causal=True),
+        "attention_bwd_64": lambda: va.self_attention_bwd_stats(
+            q64, k64, v64, g64, o64, m64, r64, 12, causal=True),
+        "attention_bwd_72": lambda: va.self_attention_bwd_stats(
+            q72, k72, v72, g72, o72, m72, r72, 8, o_lo=lo72),
     }
     for name, call in calls.items():
         first, second = call(), call()
@@ -1541,6 +1551,35 @@ def test_attention_head_dim_72_matches_twins(cuda_device, b, s, d, heads, masks)
     want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, o_lo=o_lo, **kw)
     for name, got_t, want_t in zip(("dq", "dk", "dv"), with_lo, want):
         _close_rel(got_t, want_t, tol=2.0**-5, what=name + " with o_lo")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("masks", ["none", "causal_pad", "segments", "causal_segments"])
+@pytest.mark.parametrize("s", [255, 257, 513, 729])
+def test_attention_backward_head_dim_72_ring_edges(cuda_device, s, masks):
+    """K5 at head_dim 72 (csrc/attention_bwd.cu's warp-specialised kernels)
+    where its 4-slot ring wraps (4 x 64 +- 1 keys or queries: 4 and 5
+    tiles; 8 x 64 + 1: 9) and at SigLIP's S = 729, with each mask, from the
+    forward's o and o_lo, against the f32 twin within 2^-5; 24 batch rows of
+    2 heads make more work items than a card has SMs, so blocks take two and
+    three items in turn (both resident buffers, the ring across items). Two
+    calls on the same inputs give the same bits."""
+    from dclip_tpu_torch.kernels import vit_attention as va
+
+    b, d, heads = 24, 144, 2
+    rng = np.random.RandomState(7200 + s)
+    q, k, v = _bf16(rng, cuda_device, b, s, 3 * d).split(d, -1)
+    g = _bf16(rng, cuda_device, b, s, d)
+    kw = _edge_masks(b, s, masks, cuda_device)
+    o, m, r, o_lo = va.self_attention_fwd_stats(q, k, v, heads, residual=True, **kw)
+    o_ref, m_ref, r_ref = va.attention_reference(q, k, v, heads, stats=True, **kw)
+    grads = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, o_lo=o_lo, **kw)
+    want = va.attention_bwd_reference(q, k, v, g, o_ref, m_ref, r_ref, heads, o_lo=o_lo, **kw)
+    for name, got_t, want_t in zip(("dq", "dk", "dv"), grads, want):
+        _close_rel(got_t, want_t, tol=2.0**-5, what=name)
+    again = va.self_attention_bwd_stats(q, k, v, g, o, m, r, heads, o_lo=o_lo, **kw)
+    for name, x1, x2 in zip(("dq", "dk", "dv"), grads, again):
+        assert torch.equal(x1, x2), name
 
 
 @pytest.mark.requires_cuda

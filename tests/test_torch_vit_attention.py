@@ -6,6 +6,9 @@ On CPU tensors the wrappers run their plain f32 twins, so these tests pin
 the twins' algebra (log2-domain stats, masks, the stats-reusing backward)
 to the TPU kernels at f32. The CUDA kernels are held against the twins on
 the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -206,3 +209,23 @@ def test_bwd_stats_match_pallas_at_tile_edges(mask, s):
                                      heads, **_torch_kw(kw))
     for name, w, t in zip(("dq", "dk", "dv"), want, got):
         np.testing.assert_allclose(t.numpy(), np.asarray(w), err_msg=name, **TOL)
+
+
+def test_attention_bwd_kernels_are_counted_by_the_benchmark():
+    """Every `__global__` kernel of csrc/attention_bwd.cu (K5) has a name
+    holding one of the two attention-backward names by which the SigLIP
+    benchmark sums K5's device time (`KERNEL_FAMILIES`), and each of the two
+    is there: a kernel renamed outside them would leave its time uncounted
+    and the attention roofline reading high."""
+    from benchmark.drivers.siglip_distill_step import KERNEL_FAMILIES
+    from dclip_tpu_torch.kernels import _build
+
+    with open(os.path.join(_build.CSRC_DIR, "attention_bwd.cu")) as f:
+        src = f.read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    families = (KERNEL_FAMILIES["attention_dq"], KERNEL_FAMILIES["attention_dkdv"])
+    assert len(names) >= 2, names
+    for name in names:
+        assert any(family in name for family in families), name
+    for family in families:
+        assert any(family in name for name in names), family
